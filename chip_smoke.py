@@ -16,9 +16,25 @@ Phases, in order; any failure raises and the script exits nonzero:
    N = 16384, seed 0, Hermite-6, shared Aarseth step (eta = 0.02) to
    t = 0.0625 at fp32, and a shorter mixed-precision run; the kernels'
    launch counts are zeroed just before each run and read just after;
-5. CUDA-event timings of each kernel at N = 16384 and 65536 beside its
-   plain version and its bound, printed as one ``kernels`` JSON line;
-6. ``{"ok": true, "device": {...}}`` as the last line.
+5. CUDA-event timings of K1 and K2 at N = 16384 and 65536 and of the
+   flash-attention kernel K3 at the prefill shape (B = 4, S = 2048,
+   H = 16, KV = 8, D = 128, causal, bf16), each beside its plain version
+   and its bound, K3 also beside ``scaled_dot_product_attention``;
+6. K3 held against its plain version on the card: the prefill shape in
+   bf16 and fp32, a non-causal rectangle, an MHA case, Sq < 512, and the
+   rows-sum-to-one property; bf16 element by element, and against the
+   plain version at the kernel's own key tile;
+7. the serve path at full width: qwen3-0.6b (28 layers, d_model 1024, 16
+   query and 8 kv heads, head_dim 128, vocab 151936) with seeded random
+   weights, ``Engine.generate`` on 4 prompts of 2048 tokens for 32 tokens
+   with ``attn_impl="flash"``, after one ``Engine.generate`` for a single
+   token; every launch count is zeroed just before each and read just
+   after, and the two totals show K3 launching once per layer in the
+   prefill and never in decode; the flash route's prefill and first decode
+   logits are held against the plain route (``attn_impl="xla"``) on the
+   same weights;
+then one ``kernels`` JSON line and ``{"ok": true, "device": {...}}`` as the
+last line.
 
 It imports torch, numpy, the standard library and ``repro_torch`` only, and
 exits nonzero without a card.
@@ -26,6 +42,7 @@ exits nonzero without a card.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -41,7 +58,12 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.core import hermite, nbody  # noqa: E402
 from repro_torch.core.evaluate import make_evaluator  # noqa: E402
 from repro_torch.kernels import _build, nbody_force, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.launch import nbody_run  # noqa: E402
+from repro_torch.models import config as lm_config  # noqa: E402
+from repro_torch.models import model as lm_model  # noqa: E402
+from repro_torch.models import params as lm_params  # noqa: E402
+from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 
 N_MAIN = 16384
 N_LARGE = 65536
@@ -76,8 +98,50 @@ FLOPS_PER_PAIR = {("acc_jerk_pot", "fp32"): 43, ("acc_jerk_pot", "mixed"): 85,
 REPLACES = {
     "acc_jerk_pot": "src/repro/kernels/nbody_force.py:146",
     "snap": "src/repro/kernels/nbody_force.py:189",
+    "flash_attention": "src/repro/kernels/flash_attention.py:36",
 }
 SOURCE = "src/repro_torch/csrc/nbody_force.cu"
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+
+#: the serve path: qwen3-0.6b at full width, 4 prompts of 2048 tokens, 32
+#: generated tokens; K3's prefill shape follows from it
+LM_ARCH = "qwen3-0.6b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
+#: K3 vs its plain version on the same inputs.  fp32: max |kernel - plain|
+#: / max |plain| <= 2e-5, the JAX package's flash tolerance
+#: (tests/test_flash_attention.py): the same fp32 products summed in other
+#: orders and tile sizes.  bf16, element by element, against the plain
+#: version in the reference's (block_q, block_k) order:
+#:     |kernel - plain| <= 2**-7 (|plain| + A),  A = sum_i p_i |v_i| / l,
+#: the attention of |v| (fp32 plain version).  Both sides round each p to
+#: bf16, against running maxima of other tile sizes (the kernel's 64 keys,
+#: the reference's 512) and from scores summed in other orders, so the two
+#: roundings of one p differ by at most one bf16 ulp, 2**-7 of p; over the
+#: row that moves the output by at most 2**-7 A.  Each side then rounds
+#: the output to bf16, at most one ulp apart, 2**-7 |plain|.  A short row
+#: can reach several ulps of a small output this way (one flipped p of
+#: five keys); a long row's limit is near 2**-7 E|v|, 0.006 for v ~ N(0, 1).
+FLASH_TOL = {"fp32": 2e-5, "bf16": 2.0 ** -7}
+#: bf16 against the plain version at the kernel's own key tile
+#: (``kBf16Keys`` in csrc/flash_attention.cu): the same running maxima, so
+#: the same p up to a flip from the scores' summation order.  At most this
+#: share of the outputs may differ.  flash_mutants.py on an H100 80GB HBM3
+#: (700 W) read 0.10% to 0.40% for the kernel, 1.4% to 2.9% with l summed
+#: from the rounded p and about 60% with p rounded toward zero.
+KERNEL_KEY_TILE = 64
+TILE_SHARE_TOL = 8e-3
+#: rows sum to one (v = 1): fp32 up to rounding; bf16 within the bf16
+#: rounding of p (2**-9) plus that of the output near one (2**-8)
+ROWS_TOL = {"fp32": 1e-5, "bf16": 2.0 ** -7}
+#: flash route vs plain route (attn_impl="xla", ``layers._attn_full``) at
+#: full width, as max |flash - xla| / max |xla| over the logits.  Both run
+#: bf16 activations through 28 layers, but the xla route rounds its scores
+#: to bf16 before the softmax and the flash route keeps them in fp32, so
+#: each layer's attention differs by a few bf16 ulps (2**-8); a 28-layer
+#: narrow model with the same heads showed 1.0e-2 to 1.2e-2 on the CPU.
+SERVE_TOL = 5e-2
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
+PEAK_BF16_FLOPS = 989e12
 
 
 def check(ok: bool, msg: str):
@@ -185,6 +249,239 @@ def bound_ms(name, dtype, n_t_active, n_t, n_s):
                                        else "bytes")
 
 
+def flash_bound_ms(b, s, h, kv, d, dtype):
+    """Least time of one causal K3 launch: 4 B H D S (S + 1) / 2 operations
+    (q K^T and P V over the live score pairs, two per multiply-add) over the
+    tensor-core bf16 peak or the fp32 peak, or q, k, v read once and the
+    output written once over HBM bandwidth, whichever is larger."""
+    flops = 4 * b * h * d * (s * (s + 1) // 2)
+    size = 2 if dtype == torch.bfloat16 else 4
+    nbytes = size * (2 * b * s * h * d + 2 * b * s * kv * d)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def sdpa_call(q, k, v):
+    """One PyTorch call computing K3's function on the same q, k, v, as a
+    yardstick only (the port never calls it): ``enable_gqa=True`` where this
+    torch has it, else k and v repeated G-fold outside the timed call."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    d, g = q.shape[-1], q.shape[2] // k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    try:
+        sdpa(qt[:, :, :1], kt[:, :, :1], vt[:, :, :1], is_causal=True,
+             scale=d ** -0.5, enable_gqa=True)
+    except TypeError:
+        kt, vt = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
+        return (lambda: sdpa(qt, kt, vt, is_causal=True, scale=d ** -0.5)), \
+            "k and v repeated G-fold"
+    return (lambda: sdpa(qt, kt, vt, is_causal=True, scale=d ** -0.5,
+                         enable_gqa=True)), "enable_gqa=True"
+
+
+def flash_operands(b, sq, sk, h, kv, d, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                 for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+
+
+def flash_cases(prefill):
+    """Phase 6's K3 cases: label, (b, sq, sk, h, kv, d), dtype, causal,
+    (block_q, block_k)."""
+    return [
+        ("prefill", prefill, torch.bfloat16, True, (512, 512)),
+        ("prefill", prefill, torch.float32, True, (512, 512)),
+        ("rectangle", (2, 256, 1024, 16, 8, 128), torch.bfloat16, False, (256, 512)),
+        ("rectangle", (2, 256, 1024, 16, 8, 128), torch.float32, False, (256, 512)),
+        ("mha g=1", (2, 1024, 1024, 8, 8, 128), torch.bfloat16, True, (512, 512)),
+        ("sq<512", (4, 384, 384, 16, 8, 128), torch.bfloat16, True, (384, 384)),
+    ]
+
+
+def flash_readings(q, k, v, causal, block_q, block_k):
+    """K3 on (q, k, v) against its plain version on the same inputs: the
+    normalised and absolute error; for bf16 also the largest share of the
+    element-wise limit used, and the share of outputs that differ from the
+    plain version at the kernel's own key tile."""
+    got = fa.flash_attention(q, k, v, causal=causal, block_q=block_q,
+                             block_k=block_k)
+    want = fa._flash_plain(q, k, v, causal=causal, block_q=block_q,
+                           block_k=block_k)
+    torch.cuda.synchronize()
+    check(got.dtype == q.dtype and got.shape == q.shape
+          and bool(torch.isfinite(got).all()), "flash: bad output")
+    d = (got.float() - want.float()).abs()
+    r = {"abs_err": float(d.max()),
+         "norm_err": float(d.max()) / float(want.float().abs().max())}
+    if q.dtype == torch.bfloat16:
+        mean_abs_v = fa._flash_plain(q.float(), k.float(), v.float().abs(),
+                                     causal=causal, block_q=block_q,
+                                     block_k=block_k)
+        lim = FLASH_TOL["bf16"] * (want.float().abs() + mean_abs_v)
+        r["elem"] = float((d / lim).max())
+        tile = fa._flash_plain(q, k, v, causal=causal, block_q=block_q,
+                               block_k=min(KERNEL_KEY_TILE, k.shape[1]))
+        r["tile_share"] = float((got != tile).float().mean())
+    return r
+
+
+def flash_failures(r, tag):
+    """The checks a K3 reading fails (empty if it passes them all)."""
+    if tag == "fp32":
+        return ([f"normalised error {r['norm_err']:.3e} > {FLASH_TOL['fp32']}"]
+                if r["norm_err"] > FLASH_TOL["fp32"] else [])
+    out = []
+    if r["elem"] > 1:
+        out.append(f"|kernel - plain| reaches {r['elem']:.3f} of 2**-7 "
+                   f"(|plain| + A)")
+    if r["tile_share"] > TILE_SHARE_TOL:
+        out.append(f"{100 * r['tile_share']:.4f}% of outputs (tol "
+                   f"{100 * TILE_SHARE_TOL:g}%) differ from the plain version "
+                   f"at the kernel's key tile")
+    return out
+
+
+def device_profile(prof, wall_ms):
+    """Kernel time, launch count and the three costliest kernels of a
+    ``torch.profiler`` window, and the device's busy share of ``wall_ms``
+    (one stream, so kernels do not overlap).  None if it saw no device
+    activity."""
+    by_name = {}
+    n = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+            n += 1
+    if not n:
+        return None  # the profiler saw no device activity
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return {"device_ms": device_ms, "kernels": n, "busy": device_ms / wall_ms,
+            "top": top}
+
+
+def serve_path(cfg, dev, all_kernels):
+    """Phase 7: qwen3-0.6b at full width through ``Engine.generate`` with the
+    flash kernel, after holding the flash route's logits against the plain
+    route's on the same weights.  Returns the launch counts and timings."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg_flash = dataclasses.replace(cfg, attn_impl="flash")
+    params = lm_params.init_params(
+        cfg_flash, torch.Generator(device=dev).manual_seed(0), device=dev)
+    n_params = lm_params.count_params(cfg)
+    engine = Engine(cfg_flash, params, ServeConfig(max_len=LM_PROMPT + LM_GEN))
+    del params
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    print(f"{cfg.name}: {n_params} parameters ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size} padded to "
+          f"{cfg.padded_vocab}), {cfg.dtype} weights and activations; "
+          f"{LM_BATCH} prompts of {LM_PROMPT} tokens, {LM_GEN} generated",
+          flush=True)
+
+    # flash route vs plain route: a prefill and one decode step of each
+    logits, routes = {}, {}
+    lf, cache = lm_model.prefill(cfg_flash, engine.params, batch,
+                                 max_len=LM_PROMPT + LM_GEN)
+    first = torch.argmax(lf, dim=-1)[:, None]
+    df, _ = lm_model.decode_step(cfg_flash, engine.params, cache, first)
+    torch.cuda.synchronize()
+    logits["flash"] = (lf.float(), df.float())
+    del cache
+    # plain route: the same weights, attention by layers._attn_full
+    cfg_xla = dataclasses.replace(cfg, attn_impl="xla")
+    lx, cache = lm_model.prefill(cfg_xla, engine.params, batch,
+                                 max_len=LM_PROMPT + LM_GEN)
+    dx, _ = lm_model.decode_step(cfg_xla, engine.params, cache, first)
+    torch.cuda.synchronize()
+    logits["xla"] = (lx.float(), dx.float())
+    del cache
+    for i, stage in enumerate(("prefill", "first decode")):
+        a, b = logits["flash"][i], logits["xla"][i]
+        check(a.shape == (LM_BATCH, cfg.padded_vocab)
+              and bool(torch.isfinite(a).all()), f"{stage} logits: bad output")
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        same = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        routes[stage] = err
+        print(f"{stage} logits, flash route vs plain route (attn_impl=xla): "
+              f"max normalised err {err:.3e} (tol {SERVE_TOL:.0e}), max "
+              f"|logit| {float(b.abs().max()):.4f}, same argmax in "
+              f"{100 * same:.0f}% of rows", flush=True)
+        check(err <= SERVE_TOL, f"{stage} logits: flash vs plain route "
+                                f"{err:.3e} > {SERVE_TOL}")
+    del logits
+
+    # the main path: Engine.generate for one token, then for LM_GEN, every
+    # launch count zeroed just before each; the two totals give K3's
+    # launches per prefill and per decode step
+    totals = {}
+    for n_tokens in (1, LM_GEN):
+        for k in all_kernels.values():
+            k.launches = 0
+        out, stats = engine.generate({"tokens": prompts}, n_tokens)
+        counts = {name: k.launches for name, k in all_kernels.items()}
+        totals[n_tokens] = counts["flash_attention"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_decode = (totals[LM_GEN] - totals[1]) / (LM_GEN - 1)
+    n_prefill = totals[1] - n_decode
+    print(f"flash kernel launches in Engine.generate: {totals[1]} for 1 "
+          f"token, {totals[LM_GEN]} for {LM_GEN}: {n_prefill:g} per prefill "
+          f"(expected {cfg.n_layers}), {n_decode:g} per decode step "
+          f"(expected 0)", flush=True)
+    check(n_prefill == cfg.n_layers, f"flash kernel launched {n_prefill:g} "
+                                     f"times in a {cfg.n_layers}-layer prefill")
+    check(n_decode == 0, f"flash kernel launched {n_decode:g} times per "
+                         f"decode step")
+    print(f"serve main path: Engine.generate launches={counts} "
+          f"prefill {1e3 * stats['prefill_s']:.3f} ms, decode "
+          f"{1e3 * stats['decode_s']:.3f} ms ({1e3 * stats['decode_s'] / LM_GEN:.3f}"
+          f" ms per token step), {stats['tok_per_s']:.1f} tok/s, "
+          f"max_memory_allocated {peak / 2 ** 30:.3f} GiB", flush=True)
+    check(counts["flash_attention"] == cfg.n_layers,
+          f"serve main path: flash kernel launched "
+          f"{counts['flash_attention']} times, expected {cfg.n_layers}")
+    check(counts["acc_jerk_pot"] == 0 and counts["snap"] == 0,
+          "serve main path: N-body kernels ran")
+    check(tuple(out.shape) == (LM_BATCH, LM_GEN) and not out.is_floating_point()
+          and bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
+          f"serve main path: tokens {tuple(out.shape)} {out.dtype}")
+    print(f"  seq 0: {out[0, :16].tolist()} ...", flush=True)
+
+    # where the time goes: one prefill and one decode step under the profiler
+    profile = {}
+    cache = None
+    for stage in ("prefill", "decode step"):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if cache is None:
+                _, cache = lm_model.prefill(cfg_flash, engine.params, batch,
+                                            max_len=LM_PROMPT + LM_GEN)
+            else:
+                lm_model.decode_step(cfg_flash, engine.params, cache, first)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        profile[stage] = p = device_profile(prof, wall)
+        if p is None:
+            print(f"profile {stage}: wall {wall:.3f} ms; torch.profiler "
+                  f"recorded no device time", flush=True)
+            continue
+        top = ", ".join(f"{name[:48]} {ms:.3f} ms" for name, ms in p["top"])
+        print(f"profile {stage}: wall {wall:.3f} ms, device kernels "
+              f"{p['device_ms']:.3f} ms in {p['kernels']} launches (busy "
+              f"{100 * p['busy']:.1f}%, idle {100 * (1 - p['busy']):.1f}%); "
+              f"top: {top}", flush=True)
+    del cache
+    return {"launches": counts["flash_attention"],
+            "launches_prefill": int(n_prefill), "launches_decode": int(n_decode),
+            "stats": stats, "peak": peak, "routes": routes, "profile": profile}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no card, "
@@ -198,6 +495,7 @@ def main() -> int:
                "snap": nbody_force.snap_packed}
     plains = {"acc_jerk_pot": nbody_force._acc_jerk_plain,
               "snap": nbody_force._snap_plain}
+    all_kernels = dict(kernels, flash_attention=fa.flash_attention)
     bi, bj = nbody_force.DEFAULT_BLOCK_I, nbody_force.DEFAULT_BLOCK_J
 
     phase("1. card")
@@ -268,11 +566,13 @@ def main() -> int:
 
     launches, step_ms = {}, {}
     for dtype, t_end in (("fp32", T_END), ("mixed", T_END_MIXED)):
-        for k in kernels.values():
+        for k in all_kernels.values():
             k.launches = 0
         r = nbody_run.run(n=N_MAIN, t_end=t_end, eta=ETA, seed=0, dtype=dtype,
                           device=dev)
         counts = {name: k.launches for name, k in kernels.items()}
+        check(fa.flash_attention.launches == 0,
+              f"main path {dtype}: the flash kernel ran on the N-body path")
         launches[dtype] = counts
         step_ms[dtype] = 1e3 * r["wall_s"] / max(r["steps"], 1)
         out = r["state"]
@@ -326,6 +626,59 @@ def main() -> int:
               f"the rest is float64 predict/correct, packing and the host",
               flush=True)
 
+    cfg = lm_config.get(LM_ARCH)
+    lm_shape = (LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    prefill = (LM_BATCH, LM_PROMPT, LM_PROMPT) + lm_shape[2:]  # b sq sk h kv d
+    flash_t = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = flash_operands(*prefill, dtype, dev)
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 10)
+        pms = cuda_ms(lambda: fa._flash_plain(q, k, v, causal=True,
+                                              block_q=512, block_k=512),
+                      3, warmup=1)
+        lib, how = sdpa_call(q, k, v)
+        lms = cuda_ms(lib, 10)
+        bms, by = flash_bound_ms(*lm_shape, dtype)
+        flash_t[dtype] = (ms, pms, lms, bms, by)
+        print(f"flash_attention {str(dtype)[6:]:<8} B={LM_BATCH} S={LM_PROMPT} "
+              f"H={cfg.n_heads} KV={cfg.n_kv_heads} D={cfg.head_dim} causal: "
+              f"kernel {ms:.4f} ms  plain {pms:.4f} ms  sdpa {lms:.4f} ms "
+              f"({how})  bound {bms:.4f} ms ({by})  bound/kernel "
+              f"{bms / ms:.3f}", flush=True)
+        del q, k, v
+
+    phase("6. flash attention (K3) vs its plain version on the card")
+    flash_errs = {}
+    for label, (b, sq, sk, h, kvh, d), dtype, causal, (bq, bk) in flash_cases(
+            prefill):
+        q, k, v = flash_operands(b, sq, sk, h, kvh, d, dtype, dev, seed=sq + sk)
+        tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+        r = flash_readings(q, k, v, causal, bq, bk)
+        flash_errs[(label, tag)] = r
+        more = "" if tag == "fp32" else (
+            f"  element-wise {r['elem']:.3f} of the limit  vs the kernel's "
+            f"{KERNEL_KEY_TILE}-key tile: {100 * r['tile_share']:.4f}% differ "
+            f"(tol {100 * TILE_SHARE_TOL:g}%)")
+        print(f"flash {label:<10} {tag} B={b} Sq={sq} Sk={sk} H={h} KV={kvh} "
+              f"D={d} causal={causal}: max normalised err {r['norm_err']:.3e}"
+              f"  max abs err {r['abs_err']:.3e}{more}", flush=True)
+        failed = flash_failures(r, tag)
+        check(not failed, f"flash {label} {tag}: {'; '.join(failed)}")
+        del q, k, v
+    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        q, k, _ = flash_operands(*prefill, dtype, dev, seed=5)
+        out = fa.flash_attention(q, k, torch.ones_like(k), causal=True)
+        torch.cuda.synchronize()
+        err = float((out.float() - 1.0).abs().max())
+        print(f"flash rows sum to one {tag} (v = 1, prefill shape): max "
+              f"|out - 1| {err:.3e} (tol {ROWS_TOL[tag]:.1e})", flush=True)
+        check(err <= ROWS_TOL[tag], f"flash rows-sum-to-one {tag}: {err:.3e}")
+        del q, k, out
+
+    phase("7. serve path: qwen3-0.6b at full width")
+    serve = serve_path(cfg, dev, all_kernels)
+
+
     rows = []
     for name in kernels:
         ms, pms, bms, by = timings[(name, "fp32", N_MAIN)]
@@ -344,7 +697,30 @@ def main() -> int:
             "ms_mixed": ms_m, "plain_ms_mixed": pms_m, "bound_ms_mixed": bms_m,
             "ms_n65536": ms_l, "plain_ms_n65536": pms_l,
             "bound_ms_n65536": bms_l,
+            "ms_mixed_n65536": timings[(name, "mixed", N_LARGE)][0],
+            "bound_ms_mixed_n65536": timings[(name, "mixed", N_LARGE)][2],
         })
+    ms, pms, lms, bms, by = flash_t[torch.bfloat16]
+    ms32, pms32, lms32, bms32, _ = flash_t[torch.float32]
+    rows.append({
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": REPLACES["flash_attention"],
+        "launches": serve["launches"],
+        "max_abs_err": flash_errs[("prefill", "bf16")]["abs_err"],
+        "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+        "library_ms": lms,
+        "shape": dict(zip("b s h kv d".split(), lm_shape)), "causal": True,
+        "dtype": "bf16", "max_norm_err": flash_errs[("prefill", "bf16")]["norm_err"],
+        "elem_limit_used": flash_errs[("prefill", "bf16")]["elem"],
+        "tol": "|kernel - plain| <= 2**-7 (|plain| + A) element-wise",
+        "tile_share": flash_errs[("prefill", "bf16")]["tile_share"],
+        "tile_share_tol": TILE_SHARE_TOL,
+        "launches_prefill": serve["launches_prefill"],
+        "launches_decode": serve["launches_decode"],
+        "ms_fp32": ms32, "plain_ms_fp32": pms32, "library_ms_fp32": lms32,
+        "bound_ms_fp32": bms32,
+        "max_norm_err_fp32": flash_errs[("prefill", "fp32")]["norm_err"],
+    })
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

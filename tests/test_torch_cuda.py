@@ -8,14 +8,16 @@ with a card (and without JAX, which ``tests/conftest.py`` imports):
 
 The shapes are small and ragged on purpose: targets that do not fill a
 thread block, sources that do not fill a shared-memory tile, a batch of
-three, a partial mask.  ``chip_smoke.py`` holds the kernels at the main
-path's full shape.
+three, a partial mask; for the flash kernel, lengths that do not fill its
+query or key tiles and group sizes that do not divide its rows.
+``chip_smoke.py`` holds the kernels at the main paths' full shapes.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import nbody_force, ops
 
 pytestmark = pytest.mark.cuda
@@ -116,3 +118,115 @@ def test_refused_launch_raises(cuda):
     with pytest.raises(RuntimeError, match="launch failed"):
         nbody_force.acc_jerk_pot_packed(tgt, src, block_i=8, block_j=8)
     assert nbody_force.acc_jerk_pot_packed.launches == before
+
+
+#: flash kernel vs its plain version (see chip_smoke.py FLASH_TOL).  fp32:
+#: max |kernel - plain| / max |plain|, the JAX package's own flash
+#: tolerance (tests/test_flash_attention.py): the same fp32 products summed
+#: in other orders and tile sizes.  bf16, element by element: |kernel -
+#: plain| <= 2**-7 (|plain| + A), with A the attention of |v|: the two
+#: roundings of each p to bf16 differ by at most one ulp (2**-7 of p), and
+#: the two rounded outputs by at most one ulp (2**-7 |plain|).
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -7}
+#: bf16 against the plain version at the kernel's own 64-key tile: the same
+#: running maxima, so the same p up to a flip from the scores' summation
+#: order; at most this share of the outputs may differ
+KERNEL_KEY_TILE = 64
+TILE_SHARE_TOL = 8e-3
+
+
+def _assert_flash_close(got, want, q, k, v, causal, bq, bk):
+    assert got.dtype == q.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    d = (got.float() - want.float()).abs()
+    if q.dtype == torch.float32:
+        assert float(d.max()) <= FLASH_TOL[q.dtype] * float(want.abs().max())
+    else:
+        mean_abs_v = fa._flash_plain(q.float(), k.float(), v.float().abs(),
+                                     causal=causal, block_q=bq, block_k=bk)
+        lim = FLASH_TOL[q.dtype] * (want.float().abs() + mean_abs_v)
+        assert bool((d <= lim).all()), float((d / lim).max())
+
+
+def _flash_operands(dev, b, sq, sk, h, kv, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                                 device=dev)
+                 for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d)))
+
+
+FLASH_SHAPES = [  # b, sq, sk, h, kv, d, block_q, block_k, causal
+    (2, 256, 256, 8, 2, 64, 128, 128, True),
+    (2, 256, 256, 8, 2, 64, 128, 128, False),
+    (1, 512, 512, 4, 4, 64, 256, 128, True),     # MHA (g=1)
+    (2, 128, 512, 8, 1, 32, 64, 256, False),     # MQA, rectangular
+    (1, 256, 256, 16, 2, 128, 128, 64, True),    # wide heads
+    (1, 48, 48, 6, 2, 16, 48, 48, True),         # g=3: rows left idle
+    (1, 200, 200, 4, 1, 96, 200, 40, True),      # ragged tiles, d=96
+    (1, 1024, 1024, 16, 8, 128, 512, 512, True),  # the model's heads
+]
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("fp32", "bf16"))
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,bq,bk,causal", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda, b, sq, sk, h, kv, d, bq, bk,
+                                    causal, dtype):
+    q, k, v = _flash_operands(cuda, b, sq, sk, h, kv, d, dtype,
+                              seed=sq + h + d)
+    got = fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    want = fa._flash_plain(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    torch.cuda.synchronize()
+    _assert_flash_close(got, want, q, k, v, causal, bq, bk)
+
+
+@pytest.mark.parametrize(
+    "b,sq,sk,h,kv,d,bq,bk,causal",
+    [s for s in FLASH_SHAPES
+     if s[2] < KERNEL_KEY_TILE or s[2] % KERNEL_KEY_TILE == 0])
+def test_flash_kernel_rounds_p_as_plain_at_its_tile(cuda, b, sq, sk, h, kv,
+                                                    d, bq, bk, causal):
+    """bf16: against the plain version at the kernel's own key tile, p is
+    rounded against the same running max, so all but a few outputs (fp32
+    summation order) are equal bit for bit."""
+    q, k, v = _flash_operands(cuda, b, sq, sk, h, kv, d, torch.bfloat16,
+                              seed=sq + h + d)
+    got = fa.flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    bk = min(KERNEL_KEY_TILE, sk)
+    want = fa._flash_plain(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    torch.cuda.synchronize()
+    _assert_flash_close(got, want, q, k, v, causal, bq, bk)
+    assert float((got != want).float().mean()) <= TILE_SHARE_TOL
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2.0 ** -7)],
+                         ids=("fp32", "bf16"))
+def test_flash_kernel_rows_sum_to_one(cuda, dtype, tol):
+    """With v = 1 each output is sum(p) / l.  fp32: exactly one up to
+    rounding.  bf16: p enters the PV product rounded to bf16 while l sums
+    it unrounded, and the output is rounded to bf16, so a row lands within
+    a bf16 ulp or two of one."""
+    q, k, _ = _flash_operands(cuda, 2, 256, 256, 4, 2, 64, dtype, seed=5)
+    v = torch.ones_like(k)
+    out = fa.flash_attention(q, k, v, causal=True, block_q=128, block_k=128)
+    torch.cuda.synchronize()
+    assert float((out.float() - 1.0).abs().max()) <= tol
+
+
+def test_flash_kernel_counts_its_launches(cuda):
+    q, k, v = _flash_operands(cuda, 1, 64, 64, 4, 2, 32, torch.bfloat16)
+    before = fa.flash_attention.launches
+    fa.flash_attention(q, k, v, block_q=64, block_k=64)
+    fa._flash_plain(q, k, v, causal=True, block_q=64, block_k=64)
+    assert fa.flash_attention.launches == before + 1
+
+
+def test_flash_refused_launch_raises(cuda):
+    """A head dimension the kernel has no instantiation for is refused by
+    the launcher and reported by the wrapper, not dropped."""
+    q, k, v = _flash_operands(cuda, 1, 64, 64, 2, 1, 256, torch.bfloat16)
+    before = fa.flash_attention.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.flash_attention(q, k, v, block_q=64, block_k=64)
+    assert fa.flash_attention.launches == before

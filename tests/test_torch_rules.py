@@ -12,12 +12,14 @@ import pytest
 import torch
 
 from repro_torch.core import evaluate, nbody
-from repro_torch.kernels import _build, nbody_force, ops
-from repro_torch.launch import nbody_run
+from repro_torch.kernels import _build, flash_attention, nbody_force, ops
+from repro_torch.launch import nbody_run, serve_lm
+from repro_torch.models import config as lm_config
+from repro_torch.models import layers, model, params
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "flash_mutants.py"]
 
 
 def _imported_modules(path):
@@ -67,6 +69,27 @@ def test_evaluator_and_wrappers_take_no_device():
         assert "device" not in inspect.signature(fn).parameters, fn.__name__
 
 
+def test_lm_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
+    cfg = lm_config.get("qwen3-0.6b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params.init_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_lm.main(["--scale", "0.04"])
+    assert serve_lm.main(["--scale", "0.04", "--device", "cpu",
+                          "--batch", "2", "--prompt-len", "16",
+                          "--gen", "2"]) == 0
+
+
+def test_flash_wrapper_and_model_functions_take_no_device():
+    """Below the LM entry points the tensors' device decides."""
+    for fn in (flash_attention.flash_attention, layers.attention,
+               layers._attn_dispatch, model.forward, model.prefill,
+               model.decode_step):
+        assert "device" not in inspect.signature(fn).parameters, fn.__name__
+
+
 @pytest.fixture
 def counts():
     before = (nbody_force.acc_jerk_pot_packed.launches,
@@ -104,7 +127,8 @@ def test_build_command_targets_sm_90a():
     assert cmd[cmd.index("arch=compute_90a,code=sm_90a") - 1] == "-gencode"
     for flag in ("-shared", "-O3", "-std=c++17", "-fPIC"):
         assert flag in cmd
-    assert (_build.CSRC / "nbody_force.cu").exists()
+    for name in ("nbody_force", "flash_attention"):
+        assert (_build.CSRC / f"{name}.cu").exists()
     assert _build.BUILD_ROOT == ROOT / "build" / "repro_torch"
 
 
