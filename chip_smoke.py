@@ -19,7 +19,9 @@ Phases, in order; any failure raises and the script exits nonzero:
 5. CUDA-event timings of K1 and K2 at N = 16384 and 65536 and of the
    flash-attention kernel K3 at the prefill shape (B = 4, S = 2048,
    H = 16, KV = 8, D = 128, causal, bf16), each beside its plain version
-   and its bound, K3 also beside ``scaled_dot_product_attention``;
+   and its bound, K3 also beside ``scaled_dot_product_attention`` under
+   each backend that takes the shape (flash, efficient, cuDNN), the
+   fastest of which is K3's library time;
 6. K3 held against its plain version on the card: the prefill shape in
    bf16 and fp32, a non-causal rectangle, an MHA case, Sq < 512, and the
    rows-sum-to-one property; bf16 element by element, and against the
@@ -94,7 +96,7 @@ PEAK_HBM_BYTES = 3.35e12
 #: operations per pair, counted from src/repro_torch/csrc/nbody_force.cu
 #: (FMA = 2, rsqrtf = 1); mixed replaces each accumulate-add by a two-sum
 FLOPS_PER_PAIR = {("acc_jerk_pot", "fp32"): 43, ("acc_jerk_pot", "mixed"): 85,
-                  ("snap", "fp32"): 72, ("snap", "mixed"): 90}
+                  ("snap", "fp32"): 62, ("snap", "mixed"): 80}
 REPLACES = {
     "acc_jerk_pot": "src/repro/kernels/nbody_force.py:146",
     "snap": "src/repro/kernels/nbody_force.py:189",
@@ -123,11 +125,12 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 #: five keys); a long row's limit is near 2**-7 E|v|, 0.006 for v ~ N(0, 1).
 FLASH_TOL = {"fp32": 2e-5, "bf16": 2.0 ** -7}
 #: bf16 against the plain version at the kernel's own key tile
-#: (``kBf16Keys`` in csrc/flash_attention.cu): the same running maxima, so
-#: the same p up to a flip from the scores' summation order.  At most this
-#: share of the outputs may differ.  flash_mutants.py on an H100 80GB HBM3
-#: (700 W) read 0.10% to 0.40% for the kernel, 1.4% to 2.9% with l summed
-#: from the rounded p and about 60% with p rounded toward zero.
+#: (``kBf16Keys`` in csrc/flash_attention.cu; tests/test_torch_rules.py
+#: holds this copy to it): the same running maxima, so the same p up to a
+#: flip from the scores' summation order.  At most this share of the
+#: outputs may differ.  flash_mutants.py on an H100 80GB HBM3 (700 W) read
+#: 0.10% to 0.40% for the mma.sync kernel, 1.4% to 2.9% with l summed from
+#: the rounded p and about 60% with p rounded toward zero.
 KERNEL_KEY_TILE = 64
 TILE_SHARE_TOL = 8e-3
 #: rows sum to one (v = 1): fp32 up to rounding; bf16 within the bf16
@@ -263,22 +266,46 @@ def flash_bound_ms(b, s, h, kv, d, dtype):
                                        else "bytes")
 
 
-def sdpa_call(q, k, v):
+def sdpa_calls(q, k, v):
     """One PyTorch call computing K3's function on the same q, k, v, as a
     yardstick only (the port never calls it): ``enable_gqa=True`` where this
-    torch has it, else k and v repeated G-fold outside the timed call."""
+    torch takes it, else k and v repeated G-fold outside the timed call."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     d, g = q.shape[-1], q.shape[2] // k.shape[2]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    try:
-        sdpa(qt[:, :, :1], kt[:, :, :1], vt[:, :, :1], is_causal=True,
-             scale=d ** -0.5, enable_gqa=True)
-    except TypeError:
-        kt, vt = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
-        return (lambda: sdpa(qt, kt, vt, is_causal=True, scale=d ** -0.5)), \
-            "k and v repeated G-fold"
-    return (lambda: sdpa(qt, kt, vt, is_causal=True, scale=d ** -0.5,
-                         enable_gqa=True)), "enable_gqa=True"
+    kr, vr = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
+    return [("enable_gqa=True",
+             lambda: sdpa(qt, kt, vt, is_causal=True, scale=d ** -0.5,
+                          enable_gqa=True)),
+            ("k and v repeated G-fold",
+             lambda: sdpa(qt, kr, vr, is_causal=True, scale=d ** -0.5))]
+
+
+def sdpa_backends(q, k, v, reps=10):
+    """SDPA's time under each backend that accepts these inputs (flash,
+    efficient, cuDNN, each pinned with ``sdpa_kernel``): name -> (ms, how),
+    or (None, why) for a backend that refuses them."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            out[name] = (None, "not in this torch")
+            continue
+        why = "refused"
+        with sdpa_kernel(backend):
+            for how, call in sdpa_calls(q, k, v):
+                try:
+                    call()
+                    torch.cuda.synchronize()
+                except (RuntimeError, TypeError) as e:
+                    why = f"refused: {str(e).splitlines()[0][:80]}"
+                    continue
+                out[name] = (cuda_ms(call, reps), how)
+                break
+            else:
+                out[name] = (None, why)
+    return out
 
 
 def flash_operands(b, sq, sk, h, kv, d, dtype, dev, seed=0):
@@ -358,8 +385,9 @@ def device_profile(prof, wall_ms):
         return None  # the profiler saw no device activity
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    flash_ms = sum(ms for name, ms in by_name.items() if "flash_bf16_kernel" in name)
     return {"device_ms": device_ms, "kernels": n, "busy": device_ms / wall_ms,
-            "top": top}
+            "top": top, "flash_ms": flash_ms}
 
 
 def serve_path(cfg, dev, all_kernels):
@@ -475,7 +503,9 @@ def serve_path(cfg, dev, all_kernels):
         print(f"profile {stage}: wall {wall:.3f} ms, device kernels "
               f"{p['device_ms']:.3f} ms in {p['kernels']} launches (busy "
               f"{100 * p['busy']:.1f}%, idle {100 * (1 - p['busy']):.1f}%); "
-              f"top: {top}", flush=True)
+              f"K3 {p['flash_ms']:.3f} ms "
+              f"({100 * p['flash_ms'] / p['device_ms']:.1f}% of the kernels' "
+              f"time); top: {top}", flush=True)
     del cache
     return {"launches": counts["flash_attention"],
             "launches_prefill": int(n_prefill), "launches_decode": int(n_decode),
@@ -636,15 +666,22 @@ def main() -> int:
         pms = cuda_ms(lambda: fa._flash_plain(q, k, v, causal=True,
                                               block_q=512, block_k=512),
                       3, warmup=1)
-        lib, how = sdpa_call(q, k, v)
-        lms = cuda_ms(lib, 10)
+        backends = sdpa_backends(q, k, v)
+        for name, (bms_, how) in backends.items():
+            print(f"  sdpa {str(dtype)[6:]} backend {name}: "
+                  + (f"{bms_:.4f} ms ({how})" if bms_ is not None else how),
+                  flush=True)
+        timed = {n: r for n, r in backends.items() if r[0] is not None}
+        check(bool(timed), f"no SDPA backend accepts the {dtype} prefill")
+        lname = min(timed, key=lambda n: timed[n][0])
+        lms = timed[lname][0]
         bms, by = flash_bound_ms(*lm_shape, dtype)
-        flash_t[dtype] = (ms, pms, lms, bms, by)
+        flash_t[dtype] = (ms, pms, lms, bms, by, lname)
         print(f"flash_attention {str(dtype)[6:]:<8} B={LM_BATCH} S={LM_PROMPT} "
               f"H={cfg.n_heads} KV={cfg.n_kv_heads} D={cfg.head_dim} causal: "
               f"kernel {ms:.4f} ms  plain {pms:.4f} ms  sdpa {lms:.4f} ms "
-              f"({how})  bound {bms:.4f} ms ({by})  bound/kernel "
-              f"{bms / ms:.3f}", flush=True)
+              f"(fastest backend {lname})  bound {bms:.4f} ms ({by})  "
+              f"bound/kernel {bms / ms:.3f}", flush=True)
         del q, k, v
 
     phase("6. flash attention (K3) vs its plain version on the card")
@@ -700,15 +737,15 @@ def main() -> int:
             "ms_mixed_n65536": timings[(name, "mixed", N_LARGE)][0],
             "bound_ms_mixed_n65536": timings[(name, "mixed", N_LARGE)][2],
         })
-    ms, pms, lms, bms, by = flash_t[torch.bfloat16]
-    ms32, pms32, lms32, bms32, _ = flash_t[torch.float32]
+    ms, pms, lms, bms, by, lname = flash_t[torch.bfloat16]
+    ms32, pms32, lms32, bms32, _, lname32 = flash_t[torch.float32]
     rows.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": REPLACES["flash_attention"],
         "launches": serve["launches"],
         "max_abs_err": flash_errs[("prefill", "bf16")]["abs_err"],
         "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-        "library_ms": lms,
+        "library_ms": lms, "library": f"sdpa {lname}",
         "shape": dict(zip("b s h kv d".split(), lm_shape)), "causal": True,
         "dtype": "bf16", "max_norm_err": flash_errs[("prefill", "bf16")]["norm_err"],
         "elem_limit_used": flash_errs[("prefill", "bf16")]["elem"],
@@ -718,6 +755,7 @@ def main() -> int:
         "launches_prefill": serve["launches_prefill"],
         "launches_decode": serve["launches_decode"],
         "ms_fp32": ms32, "plain_ms_fp32": pms32, "library_ms_fp32": lms32,
+        "library_fp32": f"sdpa {lname32}",
         "bound_ms_fp32": bms32,
         "max_norm_err_fp32": flash_errs[("prefill", "fp32")]["norm_err"],
     })

@@ -46,9 +46,9 @@ FAULTS = {
     "l sums the rounded p": ((
         ("ls[0] += p0 + p1;\n      ls[1] += p2 + p3;",
          "ls[0] += __bfloat162float(__float2bfloat16(p0)) +\n"
-         "             __bfloat162float(__float2bfloat16(p1));\n"
+         "               __bfloat162float(__float2bfloat16(p1));\n"
          "      ls[1] += __bfloat162float(__float2bfloat16(p2)) +\n"
-         "             __bfloat162float(__float2bfloat16(p3));"),), True),
+         "               __bfloat162float(__float2bfloat16(p3));"),), True),
     "p rounded toward zero": ((
         ("const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);",
          "const __nv_bfloat162 v = __halves2bfloat162(\n"
@@ -56,12 +56,23 @@ FAULTS = {
     "l not rescaled by alpha": ((
         ("l[i] = l[i] * alpha[i] + ls[i];", "l[i] = l[i] + ls[i];"),), True),
     "second row rescaled by the first row's alpha": ((
-        ("acc[j][2] *= alpha[1];\n      acc[j][3] *= alpha[1];",
-         "acc[j][2] *= alpha[0];\n      acc[j][3] *= alpha[0];"),), True),
+        ("o[4 * j + 2] *= alpha[1];\n          o[4 * j + 3] *= alpha[1];",
+         "o[4 * j + 2] *= alpha[0];\n          o[4 * j + 3] *= alpha[0];"),),
+        True),
     "diagonal tile dropped past the first tile": ((
-        ("if (!warp_any || (causal && t0 > warp_last)) continue;",
-         "if (!warp_any || (causal && t0 > 0 && t0 + kBf16Keys > warp_last))"
-         " continue;"),), True),
+        ("causal ? min(n_tiles, wg_last / kBf16Keys + 1)",
+         "causal ? min(n_tiles, max(1, (wg_last + 1) / kBf16Keys))"),),
+        True),
+    # the pipeline: each tile is read from the previous stage's K/V buffer,
+    # which holds the last tile or is being refilled with a later one
+    "stage reads the previous stage's K/V buffer": ((
+        ("const uint32_t ks = base + stage * 2 * L::kTileBytes;",
+         "const uint32_t ks =\n"
+         "        base + (stage + kStages - 1) % kStages * 2 * L::kTileBytes;"),
+        ("const uint32_t vs = base + (t % kStages) * 2 * L::kTileBytes + L::kTileBytes;",
+         "const uint32_t vs =\n"
+         "        base + (t + kStages - 1) % kStages * 2 * L::kTileBytes + L::kTileBytes;"),),
+        True),
 }
 
 

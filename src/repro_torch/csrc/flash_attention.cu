@@ -23,19 +23,34 @@
 // What the design does about it: one block per (kv slab, query tile).  The
 // G query heads of a kv head are folded into the block's rows, so every
 // K/V tile staged in shared memory serves all G heads of all the tile's
-// queries.  The block keeps its q rows and their (m, l, acc) state in
-// registers and streams K/V tiles through shared memory up to the diagonal;
-// tiles wholly above a warp's diagonal are skipped (an exact no-op: their
-// p is exp(-1e30 - m) = 0).
-//   * bf16: 4 warps x 16 rows; q K^T and P V run as mma.sync m16n8k16 with
-//     bf16 inputs and fp32 accumulation, the same kind of product as the
-//     reference's dot_general(preferred_element_type=f32).  The S fragments
-//     of q K^T become the A fragments of P V in registers, rounded to bf16
-//     on the way; l is summed from the fp32 p before that rounding.
+// queries.  Tiles wholly above a warpgroup's diagonal are skipped (an
+// exact no-op: their p is exp(-1e30 - m) = 0).
+//   * bf16: 128 rows in two consumer warpgroups of 64 and one producer
+//     warpgroup, which gives most of its registers to the consumers
+//     (setmaxnreg).  The producer streams 64-key K and V tiles with
+//     cp.async into a ring of kStages stages in shared memory, stored in
+//     the swizzled layout wgmma reads, and signals each stage's `full`
+//     mbarrier; the consumers release a stage through its `empty` mbarrier,
+//     so the next tiles land while this one is computed.  q K^T and P V are
+//     wgmma.mma_async m64nNk16 with bf16 inputs and fp32 accumulation (the
+//     reference's dot_general(preferred_element_type=f32)): q (staged once
+//     in shared memory) and K are the K-major A and B operands, P the A
+//     operand from registers and V the MN-major B operand (transpose bit).
+//     The loop is software-pipelined: P V of tile t and q K^T of tile t + 1
+//     run on the tensor cores while the softmax of tile t + 1 runs.  p is
+//     computed in fp32, added to the row's l, then rounded to bf16 as P's A
+//     fragment.  p = e^(scale (s - m)) is taken as 2^(s scale log2(e) -
+//     m scale log2(e)), one FFMA and one ex2.approx per score, with m the
+//     running max of the raw scores.  Against expf(s scale - m), the
+//     reference's form, this did not raise the share of outputs whose bf16
+//     rounding differs from the plain version at the kernel's key tile, so
+//     it was kept (chip_smoke.py phase 6 reads that share).  Branches are
+//     taken on values the compiler can see to be warp-uniform (the warp
+//     index comes through a shuffle), or ptxas serializes the wgmma
+//     products.  The query tiles of a causal launch run heaviest first (the
+//     grid's slow axis walks them backwards).
 //   * fp32: 32 rows, four threads per row, each holding a quarter of the
 //     head dimension; scalar FMA with a 4-lane shuffle for each dot product.
-// Simple first: no TMA, no wgmma, no software pipelining of the tile loads;
-// those are for a later change.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,18 +63,294 @@ constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync tensor-core kernel
+// bf16: warpgroup (wgmma) kernel with a pipelined K/V ring
 // ---------------------------------------------------------------------------
-constexpr int kBf16Rows = 16 * (kThreads / 32);  // (query, head) rows per block
-constexpr int kBf16Keys = 64;                    // keys per shared-memory tile
+constexpr int kBf16Rows = 128;      // (query, head) rows: 2 warpgroups of 64
+constexpr int kBf16Keys = 64;       // keys per K/V tile
+constexpr int kStages = 3;          // K/V tiles in flight in shared memory
+constexpr int kConsumers = 256;     // the two warpgroups that compute
+constexpr int kProducers = 128;     // the warpgroup that streams K and V
+constexpr int kBf16Threads = kConsumers + kProducers;
+// registers per thread: the producers give theirs up to the consumers
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+static_assert(kProducers * kProducerRegs + kConsumers * kConsumerRegs <= 65536,
+              "the register file holds one block");
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr long long kSpinLimit = 1ll << 28;    // mbarrier polls before a trap
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Shared-memory geometry of one K or V tile for head dimension D.  A row of
+// the tile is one key; its D values are cut into column blocks of kCols
+// bf16 (kRowBytes = 2 kCols bytes: the swizzle width, 128, 64 or 32), and
+// block c of every key lies at c * kBlockBytes.  Inside a block the 16-byte
+// chunk j of key n sits at chunk j ^ ((n * kRowBytes >> 7) & (kRowBytes/16
+// - 1)): the 128B/64B/32B swizzle that wgmma reads from a 1024-byte-aligned
+// base.  K is then wgmma's K-major B operand (keys x D, D contiguous) and V
+// its MN-major B operand (keys x D read through the transpose bit).
+template <int D>
+struct Smem {
+  static constexpr int kCols = D % 64 == 0 ? 64 : (D % 32 == 0 ? 32 : 16);
+  static constexpr int kRowBytes = 2 * kCols;
+  static constexpr int kBlockBytes = kBf16Keys * kRowBytes;
+  static constexpr int kTileBytes = kBf16Keys * D * 2;
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : (kRowBytes == 64 ? 2 : 3);
+  // the block's q rows, stored as a K tile of kBf16Rows rows
+  static constexpr int kQBlockBytes = kBf16Rows * kRowBytes;
+  static constexpr int kQBytes = kBf16Rows * D * 2;
+  // K and V of each stage, q, then the stages' full and empty barriers;
+  // plus slack to align the base to 1024 bytes
+  static constexpr int kBytes =
+      2 * kStages * kTileBytes + kQBytes + 2 * kStages * 8 + 1024;
+  static_assert(kTileBytes % 1024 == 0, "stages stay 1024-byte aligned");
+};
+
+// d += a . B for a 64 x 16 bf16 A in registers and a 16 x N B read by
+// descriptor through the transpose bit (an MN-major B): o += P V
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<96> {
+  static __device__ __forceinline__ void run(float (&d)[48], const uint32_t (&a)[4],
+                                             uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47"
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+  }
+};
+
+// d = A . B with A (64 x 16 bf16) and B (16 x 64) both read by descriptor:
+// S = q K^T of one 64-key tile
+static_assert(kBf16Keys == 64, "wgmma_ss_n64 is the q K^T product");
+
+// The first product of a tile writes d (its old values are not read: no
+// instruction has to move them into place while products are in flight);
+// the others accumulate into it.
+template <bool kFirst>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b) {
+  if constexpr (kFirst) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(kFirst ? 0 : 1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(kFirst ? 0 : 1));
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (all in 16-byte units) and the swizzle mode in bits 62-63
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// waits until at most N committed groups of products are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Waits until the barrier's phase of parity `parity` has completed.  A
+// barrier that never completes traps (the launch then fails) instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (long long spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (spin > kSpinLimit) __trap();
+  }
+}
+
+// 16 bytes global -> shared, zero-filled when `bytes` is 0
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+// the barrier's arrival once this thread's earlier cp.async have landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               ::"r"(bar) : "memory");
+}
+
+// 2^x on the special-function unit; results below 2^-126 flush to zero
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -67,39 +358,94 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// Fragment layout of mma.m16n8k16 (lane = 4 * gid + tig):
-//   A (16 x 16, row): a0 (gid, 2tig..+1), a1 (gid+8, 2tig..+1),
-//                     a2 (gid, 2tig+8..+9), a3 (gid+8, 2tig+8..+9);
-//   B (16 x 8, col):  b0 (k 2tig..+1, n gid), b1 (k 2tig+8..+9, n gid);
-//   C (16 x 8):       c0 c1 (gid, 2tig..+1), c2 c3 (gid+8, 2tig..+1).
+// Register fragments (lane = 4 * gid + tig, warp w of a warpgroup owning its
+// rows 16w .. 16w + 15), the same per warp as mma.m16n8k16's:
+//   A (16 rows x 16, bf16 pairs): a0 (gid, 2tig..+1), a1 (gid+8, 2tig..+1),
+//                                 a2 (gid, 2tig+8..+9), a3 (gid+8, 2tig+8..+9);
+//   D (16 rows x N, fp32): d[4j] d[4j+1] (gid, 8j+2tig..+1),
+//                          d[4j+2] d[4j+3] (gid+8, 8j+2tig..+1).
+// So the S accumulator of 16 keys becomes the A fragment of P V in place.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBf16Threads, 1)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ out, int sq, int sk, int kvh,
                   int g, float scale, int causal) {
-  constexpr int kStride = D + 8;  // bf16 elements; the pad spreads the banks
-  constexpr int kVec = D / 8;     // 16-byte vectors per row
-  __shared__ __align__(16) __nv_bfloat16 ks[kBf16Keys * kStride];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBf16Keys * kStride];
+  using L = Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t qs = base + 2 * kStages * L::kTileBytes;   // q rows
+  const uint32_t full = qs + L::kQBytes;                     // kStages barriers
+  const uint32_t empty = full + kStages * 8;                 // kStages barriers
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gid = lane >> 2, tig = lane & 3;
+  // the warp index through a shuffle: the compiler then knows it, and every
+  // branch taken on it, to be uniform across the warp, so the wgmma
+  // products in those branches are not serialized
+  const int warp = __shfl_sync(kFull, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
   const int qb = kBf16Rows / g;  // queries per block
-  const int b = blockIdx.y / kvh, kvi = blockIdx.y % kvh;
+  const int b = blockIdx.x / kvh, kvi = blockIdx.x % kvh;
   const int h = kvh * g;
-  const int q0 = blockIdx.x * qb;
+  // heaviest causal tiles first: the last query tile is launched first
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * qb;
   const int q_last = min(q0 + qb, sq) - 1;
   const int k_end = causal ? min(sk, q_last + 1) : sk;
+  const int n_tiles = (k_end + kBf16Keys - 1) / kBf16Keys;
+  const long long key_stride = static_cast<long long>(kvh) * D;
+  const __nv_bfloat16* kbase = k + (static_cast<long long>(b) * sk * kvh + kvi) * D;
+  const __nv_bfloat16* vbase = v + (static_cast<long long>(b) * sk * kvh + kvi) * D;
 
-  // this thread's two rows: gid and gid + 8 of the warp's 16
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, kProducers);        // one per producer thread
+      mbar_init(empty + 8 * s, kConsumers / 32);  // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    // producer: stream tile t into stage t % kStages once the consumers have
+    // released that stage's previous tile
+    // thread pt copies 16-byte chunk cc of rows r0, r0 + kRowStep, ... of
+    // every tile (threads past kRowStep rows only arrive)
+    constexpr int kChunks = D / 8, kRowStep = kProducers / kChunks;
+    const int pt = threadIdx.x - kConsumers;
+    const int cc = pt % kChunks, r0 = pt / kChunks;
+    const int c = cc / (L::kCols / 8), j = cc % (L::kCols / 8);
+    const long long step = kRowStep * key_stride;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      if (t >= kStages) mbar_wait(empty + 8 * s, (t / kStages - 1) & 1);
+      const uint32_t ks = base + s * 2 * L::kTileBytes, vs = ks + L::kTileBytes;
+      const long long off0 = (t * kBf16Keys + r0) * key_stride + cc * 8;
+#pragma unroll
+      for (int i = 0; i < (kBf16Keys + kRowStep - 1) / kRowStep; ++i) {
+        const int r = r0 + i * kRowStep;
+        if (r0 < kRowStep && r < kBf16Keys) {
+          const bool in = t * kBf16Keys + r < sk;  // past Sk: zero K and V rows
+          const long long off = in ? off0 + i * step : 0;
+          const uint32_t dst =
+              c * L::kBlockBytes + r * L::kRowBytes +
+              16 * (j ^ ((r * L::kRowBytes >> 7) & (L::kRowBytes / 16 - 1)));
+          cp_async16(ks + dst, kbase + off, in ? 16 : 0);
+          cp_async16(vs + dst, vbase + off, in ? 16 : 0);
+        }
+      }
+      cp_async_arrive(full + 8 * s);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63; this thread
+  // rows gid and gid + 8 of its warp's 16
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int gid = lane >> 2, tig = lane & 3;
+  const int wg = warp / 4;
   int qpos[2];
   bool live[2];
   long long row_off[2];
@@ -111,64 +457,97 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     row_off[i] = ((static_cast<long long>(b) * sq + qpos[i]) * h + kvi * g +
                   r % g) * D;
   }
-  const int warp_row_end = min(warp * 16 + 16, qb * g);  // live rows: below
-  const bool warp_any = warp * 16 < qb * g && q0 + (warp * 16) / g < sq;
-  const int warp_last = min(q0 + (warp_row_end - 1) / g, sq - 1);
+  const int wg_row_end = min(wg * 64 + 64, qb * g);
+  const bool wg_any = wg * 64 < qb * g && q0 + (wg * 64) / g < sq;
+  const int wg_first = q0 + (wg * 64) / g;
+  const int wg_last = min(q0 + (wg_row_end - 1) / g, sq - 1);
+  // the tiles this warpgroup computes: a tile wholly above its last query
+  // is an exact no-op, so it computes tiles 0 .. n_mine - 1 only
+  const int n_mine = !wg_any ? 0
+                     : causal ? min(n_tiles, wg_last / kBf16Keys + 1)
+                              : n_tiles;
 
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const __nv_bfloat16* p = q + row_off[i] + kk * 16 + tig * 2;
-      qf[kk][i] = live[i] ? *reinterpret_cast<const uint32_t*>(p) : 0u;
-      qf[kk][i + 2] = live[i] ? *reinterpret_cast<const uint32_t*>(p + 8) : 0u;
-    }
+  // the warpgroup's 64 q rows into shared memory, swizzled as a K tile:
+  // wgmma's K-major A operand
+  for (int idx = threadIdx.x % 128; idx < 64 * D / 8; idx += 128) {
+    const int rr = idx / (D / 8), cc = idx % (D / 8);
+    const int r = wg * 64 + rr;
+    const int c = cc / (L::kCols / 8), j = cc % (L::kCols / 8);
+    const int qp = q0 + r / g;
+    uint4 x = make_uint4(0, 0, 0, 0);
+    if (r < qb * g && qp < sq)
+      x = *reinterpret_cast<const uint4*>(
+          q + ((static_cast<long long>(b) * sq + qp) * h + kvi * g + r % g) * D +
+          cc * 8);
+    const uint32_t dst =
+        qs + c * L::kQBlockBytes + r * L::kRowBytes +
+        16 * (j ^ ((r * L::kRowBytes >> 7) & (L::kRowBytes / 16 - 1)));
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+                 ::"r"(dst), "r"(x.x), "r"(x.y), "r"(x.z), "r"(x.w) : "memory");
   }
+  // written through the generic proxy, read by wgmma through the async
+  // proxy, by the whole warpgroup (named barrier 1 + wg)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 
+  // m is the running max of the raw scores s = q.k; p = e^(scale (s - m))
+  // is taken as 2^(s scale2 - m scale2), one FFMA and one ex2 per score
+  const float scale2 = scale * kLog2e;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  float o[D / 2], s[kBf16Keys / 2];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+  // P of two consecutive tiles: one feeds the running P V product while
+  // the softmax of the next fills the other
+  uint32_t pa[kBf16Keys / 16][4], pb[kBf16Keys / 16][4];
+
+  const uint64_t qdesc = smem_desc(qs + wg * 64 * L::kRowBytes, 16,
+                                  8 * L::kRowBytes, L::kLayout);
+
+  // S = q K^T of tile t, over D / 16 steps of 16; one commit group
+  auto issue_qk = [&](int t) {
+    const int stage = t % kStages;
+    mbar_wait(full + 8 * stage, (t / kStages) & 1);
+    // cp.async wrote the tile through the generic proxy; wgmma reads it
+    // through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    const uint32_t ks = base + stage * 2 * L::kTileBytes;
+    // each k-step's descriptors are the first one's plus a constant
+    const uint64_t kdesc = smem_desc(ks, 16, 8 * L::kRowBytes, L::kLayout);
+    wgmma_fence();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  const long long key_stride = static_cast<long long>(kvh) * D;
-  const __nv_bfloat16* kbase = k + (static_cast<long long>(b) * sk * kvh + kvi) * D;
-  const __nv_bfloat16* vbase = v + (static_cast<long long>(b) * sk * kvh + kvi) * D;
-
-  for (int t0 = 0; t0 < k_end; t0 += kBf16Keys) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int idx = threadIdx.x; idx < kBf16Keys * kVec; idx += kThreads) {
-      const int r = idx / kVec, c = idx % kVec;
-      const int key = t0 + r;
-      uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
-      if (key < sk) {
-        kx = *reinterpret_cast<const uint4*>(kbase + key * key_stride + c * 8);
-        vx = *reinterpret_cast<const uint4*>(vbase + key * key_stride + c * 8);
-      }
-      *reinterpret_cast<uint4*>(ks + r * kStride + c * 8) = kx;
-      *reinterpret_cast<uint4*>(vs + r * kStride + c * 8) = vx;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int blk = kk * 16 / L::kCols, col = (kk * 16 % L::kCols) * 2;
+      const uint64_t da = qdesc + ((blk * L::kQBlockBytes + col) >> 4);
+      const uint64_t db = kdesc + ((blk * L::kBlockBytes + col) >> 4);
+      if (kk == 0)
+        wgmma_ss_n64<true>(s, da, db);
+      else
+        wgmma_ss_n64<false>(s, da, db);
     }
-    __syncthreads();
-    if (!warp_any || (causal && t0 > warp_last)) continue;
+    wgmma_commit();
+  };
 
-    // S = q K^T for 8 n-tiles of 8 keys
-    float s[kBf16Keys / 8][4];
+  // o += P V of tile t, over kBf16Keys / 16 steps of 16 keys; one group
+  auto issue_pv = [&](int t, const uint32_t (&pf)[kBf16Keys / 16][4]) {
+    const uint32_t vs = base + (t % kStages) * 2 * L::kTileBytes + L::kTileBytes;
+    const uint64_t vdesc =
+        smem_desc(vs, L::kBlockBytes, 8 * L::kRowBytes, L::kLayout);
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < kBf16Keys / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-      const __nv_bfloat16* kp = ks + (nt * 8 + gid) * kStride + tig * 2;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kp + kk * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kp + kk * 16 + 8);
-        mma_bf16(s[nt], qf[kk], b0, b1);
-      }
-    }
+    for (int kt = 0; kt < kBf16Keys / 16; ++kt)
+      Wgmma<D>::run(o, pf[kt], vdesc + ((kt * 16 * L::kRowBytes) >> 4), 1);
+    wgmma_commit();
+  };
 
-    // scale, mask, running max
+  // the online softmax of tile t from its scores s: p in fp32 for l, then
+  // rounded to bf16 as the A fragments of P V; returns the rows' alpha
+  auto softmax = [&](int t, uint32_t (&pf)[kBf16Keys / 16][4],
+                     float (&alpha)[2]) {
+    const int t0 = t * kBf16Keys;
+    // only a tile that reaches past Sk or the warpgroup's first query has
+    // masked keys
+    const bool edge = t0 + kBf16Keys > sk || (causal && t0 + kBf16Keys - 1 > wg_first);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int nt = 0; nt < kBf16Keys / 8; ++nt) {
@@ -176,28 +555,26 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1;
         const int key = t0 + nt * 8 + tig * 2 + (e & 1);
-        float x = s[nt][e] * scale;
-        if (key >= sk || (causal && key > qpos[i])) x = kNegInf;
-        s[nt][e] = x;
-        mx[i] = fmaxf(mx[i], x);
+        if (edge && (key >= sk || (causal && key > qpos[i]))) s[4 * nt + e] = kNegInf;
+        mx[i] = fmaxf(mx[i], s[4 * nt + e]);
       }
     }
-    float alpha[2];
+    float nms[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
-      alpha[i] = expf(m[i] - mx[i]);
+      alpha[i] = ex2((m[i] - mx[i]) * scale2);  // exactly 1 for an unchanged max
       m[i] = mx[i];
+      nms[i] = -m[i] * scale2;
     }
-
-    // p in fp32 for l; rounded to bf16 as the A fragments of P V
-    uint32_t pf[kBf16Keys / 16][4];
     float ls[2] = {0.f, 0.f};
 #pragma unroll
     for (int nt = 0; nt < kBf16Keys / 8; ++nt) {
-      const float p0 = expf(s[nt][0] - m[0]), p1 = expf(s[nt][1] - m[0]);
-      const float p2 = expf(s[nt][2] - m[1]), p3 = expf(s[nt][3] - m[1]);
+      const float p0 = ex2(fmaf(s[4 * nt], scale2, nms[0]));
+      const float p1 = ex2(fmaf(s[4 * nt + 1], scale2, nms[0]));
+      const float p2 = ex2(fmaf(s[4 * nt + 2], scale2, nms[1]));
+      const float p3 = ex2(fmaf(s[4 * nt + 3], scale2, nms[1]));
       ls[0] += p0 + p1;
       ls[1] += p2 + p3;
       pf[nt / 2][2 * (nt % 2)] = pack_bf16(p0, p1);
@@ -205,26 +582,58 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + ls[i];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
+  };
 
-    // acc += P V: k = key, n = head-dim column
+  auto release = [&](int t) {  // this warp is done with tile t's stage
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (t % kStages));
+  };
+
+  // Tile t, whose P is in pf: its P V product runs on the tensor cores
+  // together with q K^T of tile t + 1 and then beside that tile's softmax,
+  // which fills pn; o takes tile t + 1's rescaling once P V is done.
+  auto step = [&](int t, const uint32_t (&pf)[kBf16Keys / 16][4],
+                  uint32_t (&pn)[kBf16Keys / 16][4]) {
+    if (t + 1 < n_mine) {
+      issue_qk(t + 1);
+      issue_pv(t, pf);
+      wgmma_wait<1>();  // q K^T of tile t + 1 is done
+      float alpha[2];
+      softmax(t + 1, pn, alpha);
+      wgmma_wait<0>();  // P V of tile t is done
+      release(t);
+      // rescaling by alpha = 1 (no row of the warp found a new max) is
+      // the identity, so the warp skips it
+      if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
 #pragma unroll
-    for (int kt = 0; kt < kBf16Keys / 16; ++kt) {
-      const __nv_bfloat16* vp = vs + (kt * 16 + tig * 2) * kStride + gid;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const __nv_bfloat16* c = vp + j * 8;
-        const uint32_t b0 = pack_bf16(c[0], c[kStride]);
-        const uint32_t b1 = pack_bf16(c[8 * kStride], c[9 * kStride]);
-        mma_bf16(acc[j], pf[kt], b0, b1);
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j] *= alpha[0];
+          o[4 * j + 1] *= alpha[0];
+          o[4 * j + 2] *= alpha[1];
+          o[4 * j + 3] *= alpha[1];
+        }
       }
+    } else {
+      issue_pv(t, pf);
+      wgmma_wait<0>();
+      release(t);
     }
+  };
+
+  if (n_mine > 0) {
+    float alpha[2];  // o is still zero: nothing to rescale
+    issue_qk(0);
+    wgmma_wait<0>();
+    softmax(0, pa, alpha);
+  }
+  for (int t = 0; t < n_mine; t += 2) {
+    step(t, pa, pb);
+    if (t + 1 < n_mine) step(t + 1, pb, pa);
+  }
+  // the tiles above this warpgroup's diagonal: released unread
+  for (int t = n_mine; t < n_tiles; ++t) {
+    mbar_wait(full + 8 * (t % kStages), (t / kStages) & 1);
+    release(t);
   }
 
   // each row's l is spread over the four lanes of its quad
@@ -234,11 +643,11 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     l[i] += __shfl_xor_sync(kFull, l[i], 2);
     if (!live[i]) continue;
     const float lsum = fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* o = out + row_off[i] + tig * 2;
+    __nv_bfloat16* dst = out + row_off[i] + tig * 2;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(o + j * 8) = __floats2bfloat162_rn(
-          acc[j][2 * i] / lsum, acc[j][2 * i + 1] / lsum);
+      *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) = __floats2bfloat162_rn(
+          o[4 * j + 2 * i] / lsum, o[4 * j + 2 * i + 1] / lsum);
   }
 }
 
@@ -371,17 +780,24 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   const int rows = bf16 ? kBf16Rows : kF32Rows;
   if (g > rows) return static_cast<int>(cudaErrorInvalidValue);
   const int qb = rows / g;
-  const dim3 grid((sq + qb - 1) / qb, batch * kvh);
-  if (bf16)
-    flash_bf16_kernel<D><<<grid, kThreads, 0, stream>>>(
+  const int n_qt = (sq + qb - 1) / qb;
+  if (bf16) {
+    // above 48 KB, dynamic shared memory has to be asked for
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Smem<D>::kBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_bf16_kernel<D><<<dim3(batch * kvh, n_qt), kBf16Threads,
+                           Smem<D>::kBytes, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
         sq, sk, kvh, g, scale, causal);
-  else
-    flash_f32_kernel<D><<<grid, kThreads, 0, stream>>>(
+  } else {
+    flash_f32_kernel<D><<<dim3(n_qt, batch * kvh), kThreads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), sq, sk, kvh,
         g, scale, causal);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

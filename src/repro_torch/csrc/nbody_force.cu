@@ -18,27 +18,39 @@
 //   acc/jerk/pot, fp32: 6 differences, r^2 5, softening 1, rsqrtf 1,
 //     1/d^2 and 1/d^3 2, t 1, r.v 5, q 2, acc 6, jerk 12, pot 2  = 43;
 //   snap, fp32: 9 differences, r^2 5, softening 1, rsqrtf 1, 1/d^2 and 1/d^3
-//     2, t 1, alpha 6, beta 14, -3alpha -3beta 6alpha 3, P 3, J 9, S 15,
-//     accumulate 3  = 72;
+//     2, t 1, alpha 6, beta 14, c1 = -6 alpha 1, c2 = 18 alpha^2 - 3 beta 4,
+//     t (da + c1 v + c2 r) 15, accumulate 3  = 62;
 //   mixed mode adds a bf16 round trip per term (conversions, no flops) and
-//     replaces each accumulate-add with a 7-flop two-sum: 85 and 90.
+//     replaces each accumulate-add with a 7-flop two-sum: 85 and 80.
 // The bound is ops * N_t * N_s / 67 TFLOP/s (fp32, non-tensor): 0.172 ms
-// (K1) and 0.289 ms (K2) at N_t = N_s = 16384.  The bytes moved (each
+// (K1) and 0.248 ms (K2) at N_t = N_s = 16384.  The bytes moved (each
 // operand read once, each output written once) are ~1.6 MB at that size,
 // under 1 us at 3.35 TB/s.  rsqrtf issues on the SFU at an eighth of the
 // FMA rate, so the practical ceiling sits a little under the flop bound.
 //
-// What the design does about it: one thread per target row keeps its seven
-// (or ten) sums in registers; the sources stream through shared memory one
-// tile of kTile at a time, loaded with coalesced row reads of the (8, N_s)
+// What the design does about it: the sources stream through shared memory
+// one tile at a time, loaded with coalesced row reads of the (8, N_s)
 // layout and read back as broadcasts, so the inner loop is pure register
-// arithmetic with no global traffic.  A block whose targets are all inactive
-// skips its source loop (__syncthreads_or), the analogue of the reference's
-// pl.when.  In fp32 mode each tile is summed into a tile partial that is
-// then added to the running sum (the reference sums within a j-block and
-// accumulates across blocks the same way).  Simple first: at N = 16384 the
-// grid holds only N/32 warps, about four per SM, which later work can raise
-// by splitting the source axis across threads.
+// arithmetic with no global traffic.  A block whose targets are all
+// inactive skips its source loop (__syncthreads_or), the analogue of the
+// reference's pl.when.
+//   * K1: one thread per target row keeps its seven (or ten) sums in
+//     registers, 128 targets per block.  In fp32 mode each tile is summed
+//     into a tile partial that is then added to the running sum (the
+//     reference sums within a j-block and accumulates across blocks the
+//     same way).  At N = 16384 the grid holds only N/32 warps, about four
+//     per SM, too few to hide the dependent rsqrtf/FMA chain of a pair.
+//   * K2: the source axis is split across threads.  kSnapSlices lanes share
+//     a group of kSnapPer targets, each lane taking an interleave of every
+//     staged tile, so each shared-memory read of a source serves kSnapPer
+//     pairs and the grid holds kSnapSlices / kSnapPer = 4 times K1's
+//     threads: at N = 16384, 128 blocks of 16 warps, one per SM.  The
+//     lanes' partial sums meet in a shuffle butterfly in a fixed order, with
+//     no atomics: plain adds in fp32, and in mixed mode a two-sum of the
+//     sums and a sum of the compensations, which fold in at the end,
+//     outside the gate.  Each pair's three terms are gathered per component
+//     into t (da + c1 v + c2 r), 62 operations where the reference's
+//     t da - 6 alpha J - 3 beta P takes 72.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -148,8 +160,38 @@ acc_jerk_pot_kernel(const float* __restrict__ tgt,
   }
 }
 
+// K2's own decomposition (redesigned): a block holds kSnapTargets targets,
+// each thread kSnapPer of them, and the kSnapSlices lanes of a target group
+// split every staged source tile between them, lane s taking sources s,
+// s + kSnapSlices, ...  The lanes' partial sums meet in a butterfly of
+// shuffles in a fixed order, so two launches on the same inputs agree bit
+// for bit.
+constexpr int kSnapThreads = 512;
+constexpr int kSnapSlices = 16;  // lanes per target group, dividing 32
+constexpr int kSnapPer = 4;      // targets per thread
+constexpr int kSnapTargets = kSnapThreads / kSnapSlices * kSnapPer;
+constexpr int kSnapTile = kSnapThreads;  // sources staged per tile
+static_assert(32 % kSnapSlices == 0, "a target group lies inside one warp");
+
+// (s, c) += the partner lane's (s, c): a two-sum of the sums and a sum of
+// the compensations.  Both partners compute the same bits (the adds are
+// commutative and the two-sum's error is exact), so after the butterfly
+// every lane of the group holds the same total.
 template <bool kMixed>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void combine(float& s, float& c, int offset) {
+  const float so = __shfl_xor_sync(0xffffffffu, s, offset);
+  if constexpr (kMixed) {
+    const float co = __shfl_xor_sync(0xffffffffu, c, offset);
+    float e = 0.f;
+    two_sum_add(s, e, so);
+    c = (c + co) + e;
+  } else {
+    s += so;
+  }
+}
+
+template <bool kMixed>
+__global__ void __launch_bounds__(kSnapThreads)
 snap_kernel(const float* __restrict__ tgt, const float* __restrict__ src,
             const float* __restrict__ tacc, const float* __restrict__ sacc,
             float* __restrict__ out, int n_t, int n_s, float eps2) {
@@ -159,26 +201,38 @@ snap_kernel(const float* __restrict__ tgt, const float* __restrict__ src,
   src += b * 8 * n_s;
   sacc += b * 8 * n_s;
   out += b * n_t * 8;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool row = i < n_t;
+  const int slice = threadIdx.x % kSnapSlices;
+  const int first = blockIdx.x * kSnapTargets + threadIdx.x / kSnapSlices * kSnapPer;
 
-  float xi = 0.f, yi = 0.f, zi = 0.f, act = 0.f;
-  float vxi = 0.f, vyi = 0.f, vzi = 0.f, axi = 0.f, ayi = 0.f, azi = 0.f;
-  if (row) {
-    const float* t = tgt + static_cast<size_t>(i) * 8;
-    xi = t[0]; yi = t[1]; zi = t[2]; act = t[3];
-    vxi = t[4]; vyi = t[5]; vzi = t[6];
-    const float* a = tacc + static_cast<size_t>(i) * 8;
-    axi = a[0]; ayi = a[1]; azi = a[2];
+  float xi[kSnapPer], yi[kSnapPer], zi[kSnapPer], act[kSnapPer];
+  float vxi[kSnapPer], vyi[kSnapPer], vzi[kSnapPer];
+  float axi[kSnapPer], ayi[kSnapPer], azi[kSnapPer];
+  bool any = false;
+#pragma unroll
+  for (int p = 0; p < kSnapPer; ++p) {
+    xi[p] = yi[p] = zi[p] = act[p] = vxi[p] = vyi[p] = vzi[p] = 0.f;
+    axi[p] = ayi[p] = azi[p] = 0.f;
+    const int i = first + p;
+    if (i < n_t) {
+      const float* t = tgt + static_cast<size_t>(i) * 8;
+      xi[p] = t[0]; yi[p] = t[1]; zi[p] = t[2]; act[p] = t[3];
+      vxi[p] = t[4]; vyi[p] = t[5]; vzi[p] = t[6];
+      const float* a = tacc + static_cast<size_t>(i) * 8;
+      axi[p] = a[0]; ayi[p] = a[1]; azi[p] = a[2];
+      any |= act[p] != 0.f;
+    }
   }
 
-  __shared__ float sh[10][kTile];  // x y z m vx vy vz ax ay az
-  float sum[3] = {0.f, 0.f, 0.f};
-  float comp[3] = {0.f, 0.f, 0.f};
+  __shared__ float sh[10][kSnapTile];  // x y z m vx vy vz ax ay az
+  float sum[kSnapPer][3], comp[kSnapPer][3];
+#pragma unroll
+  for (int p = 0; p < kSnapPer; ++p)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) sum[p][k] = comp[p][k] = 0.f;
 
-  if (__syncthreads_or(act != 0.f)) {
-    for (int j0 = 0; j0 < n_s; j0 += kTile) {
-      const int nj = min(kTile, n_s - j0);
+  if (__syncthreads_or(any)) {  // uniform over the block: barriers stay legal
+    for (int j0 = 0; j0 < n_s; j0 += kSnapTile) {
+      const int nj = min(kSnapTile, n_s - j0);
       if (threadIdx.x < nj) {
         const size_t j = j0 + threadIdx.x;
 #pragma unroll
@@ -187,48 +241,78 @@ snap_kernel(const float* __restrict__ tgt, const float* __restrict__ src,
         for (int r = 0; r < 3; ++r) sh[7 + r][threadIdx.x] = sacc[r * n_s + j];
       }
       __syncthreads();
-      float part[3] = {0.f, 0.f, 0.f};
-#pragma unroll 4
-      for (int j = 0; j < nj; ++j) {
-        const float dx = sh[0][j] - xi;
-        const float dy = sh[1][j] - yi;
-        const float dz = sh[2][j] - zi;
-        const float mj = sh[3][j];
-        const float dvx = sh[4][j] - vxi;
-        const float dvy = sh[5][j] - vyi;
-        const float dvz = sh[6][j] - vzi;
-        const float dax = sh[7][j] - axi;
-        const float day = sh[8][j] - ayi;
-        const float daz = sh[9][j] - azi;
-        const float r2 = dx * dx + dy * dy + dz * dz;
-        const float inv_r = r2 > 0.f ? rsqrtf(r2 + eps2) : 0.f;
-        const float inv_r2 = inv_r * inv_r;
-        const float t = mj * (inv_r2 * inv_r);
-        const float alpha = (dx * dvx + dy * dvy + dz * dvz) * inv_r2;
-        const float beta = (dvx * dvx + dvy * dvy + dvz * dvz
-                            + dx * dax + dy * day + dz * daz) * inv_r2
-                           + alpha * alpha;
-        const float a3 = -3.f * alpha, b3 = -3.f * beta, a6 = 6.f * alpha;
-        const float px = t * dx, py = t * dy, pz = t * dz;       // A0
-        const float jx = t * dvx + a3 * px;                      // A1
-        const float jy = t * dvy + a3 * py;
-        const float jz = t * dvz + a3 * pz;
-        accumulate<kMixed>(part[0], sum[0], comp[0], t * dax - a6 * jx + b3 * px);
-        accumulate<kMixed>(part[1], sum[1], comp[1], t * day - a6 * jy + b3 * py);
-        accumulate<kMixed>(part[2], sum[2], comp[2], t * daz - a6 * jz + b3 * pz);
+      float part[kSnapPer][3];
+#pragma unroll
+      for (int p = 0; p < kSnapPer; ++p)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) part[p][k] = 0.f;
+#pragma unroll 2
+      for (int j = slice; j < nj; j += kSnapSlices) {
+        const float sx = sh[0][j], sy = sh[1][j], sz = sh[2][j], mj = sh[3][j];
+        const float svx = sh[4][j], svy = sh[5][j], svz = sh[6][j];
+        const float sax = sh[7][j], say = sh[8][j], saz = sh[9][j];
+#pragma unroll
+        for (int p = 0; p < kSnapPer; ++p) {
+          const float dx = sx - xi[p];
+          const float dy = sy - yi[p];
+          const float dz = sz - zi[p];
+          const float dvx = svx - vxi[p];
+          const float dvy = svy - vyi[p];
+          const float dvz = svz - vzi[p];
+          const float dax = sax - axi[p];
+          const float day = say - ayi[p];
+          const float daz = saz - azi[p];
+          const float r2 = dx * dx + dy * dy + dz * dz;
+          const float inv_r = r2 > 0.f ? rsqrtf(r2 + eps2) : 0.f;
+          const float inv_r2 = inv_r * inv_r;
+          const float t = mj * (inv_r2 * inv_r);
+          const float alpha = (dx * dvx + dy * dvy + dz * dvz) * inv_r2;
+          const float beta = (dvx * dvx + dvy * dvy + dvz * dvz
+                              + dx * dax + dy * day + dz * daz) * inv_r2
+                             + alpha * alpha;
+          // t da - 6 alpha J - 3 beta P with P = t r and J = t v - 3 alpha P
+          // (A0, A1), gathered as t (da + c1 v + c2 r)
+          const float c1 = -6.f * alpha;
+          const float c2 = fmaf(18.f * alpha, alpha, -3.f * beta);
+          accumulate<kMixed>(part[p][0], sum[p][0], comp[p][0],
+                             t * fmaf(c2, dx, fmaf(c1, dvx, dax)));
+          accumulate<kMixed>(part[p][1], sum[p][1], comp[p][1],
+                             t * fmaf(c2, dy, fmaf(c1, dvy, day)));
+          accumulate<kMixed>(part[p][2], sum[p][2], comp[p][2],
+                             t * fmaf(c2, dz, fmaf(c1, dvz, daz)));
+        }
       }
       if constexpr (!kMixed) {
 #pragma unroll
-        for (int k = 0; k < 3; ++k) sum[k] += part[k];
+        for (int p = 0; p < kSnapPer; ++p)
+#pragma unroll
+          for (int k = 0; k < 3; ++k) sum[p][k] += part[p][k];
       }
-      __syncthreads();
+      __syncthreads();  // the tile is consumed before the next one lands
     }
   }
 
-  if (row) {
-    float* o = out + static_cast<size_t>(i) * 8;
+  // the slices' partials meet in a fixed butterfly; the compensation folds
+  // in after it, outside the activity gate
 #pragma unroll
-    for (int k = 0; k < 3; ++k) o[k] = act * (sum[k] + comp[k]);
+  for (int offset = 1; offset < kSnapSlices; offset *= 2)
+#pragma unroll
+    for (int p = 0; p < kSnapPer; ++p)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) combine<kMixed>(sum[p][k], comp[p][k], offset);
+  if (slice < kSnapPer && first + slice < n_t) {
+    // lane `slice` of the group writes the group's target `slice`
+    float s[3] = {0.f, 0.f, 0.f}, a = 0.f;
+#pragma unroll
+    for (int p = 0; p < kSnapPer; ++p) {
+      if (p != slice) continue;
+      a = act[p];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) s[k] = sum[p][k] + comp[p][k];
+    }
+    float* o = out + static_cast<size_t>(first + slice) * 8;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) o[k] = a * s[k];
 #pragma unroll
     for (int k = 3; k < 8; ++k) o[k] = 0.f;
   }
@@ -267,9 +351,10 @@ extern "C" int nbody_snap(const void* tgt, const void* src, const void* tacc,
   const auto* ta = static_cast<const float*>(tacc);
   const auto* sa = static_cast<const float*>(sacc);
   auto* o = static_cast<float*>(out);
+  const dim3 grid((n_t + kSnapTargets - 1) / kSnapTargets, batch);
   if (mixed)
-    snap_kernel<true><<<grid_for(batch, n_t), kThreads, 0, s>>>(t, x, ta, sa, o, n_t, n_s, eps2);
+    snap_kernel<true><<<grid, kSnapThreads, 0, s>>>(t, x, ta, sa, o, n_t, n_s, eps2);
   else
-    snap_kernel<false><<<grid_for(batch, n_t), kThreads, 0, s>>>(t, x, ta, sa, o, n_t, n_s, eps2);
+    snap_kernel<false><<<grid, kSnapThreads, 0, s>>>(t, x, ta, sa, o, n_t, n_s, eps2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -97,6 +97,57 @@ def test_kernels_match_plain(cuda, batch, n_t, n_s, block_i, block_j,
     _assert_close(got, want, tgt, ((0, 3),), TOL[compute_dtype])
 
 
+#: the snap kernel's split of the source axis (``kSnapSlices`` lanes per
+#: target group and ``kSnapTargets`` targets per block in
+#: csrc/nbody_force.cu); the cases below are cut against them
+SNAP_SLICES = 16
+SNAP_TARGETS = 128
+
+
+def _snap_case(dev, batch, n_t, n_s, block, seed, zero_slice=None,
+               inactive=0):
+    """Snap operands whose sources in lane ``zero_slice``'s interleave
+    (every SNAP_SLICES-th source) have zero mass and whose first
+    ``inactive`` targets are inactive."""
+    tgt, src, tacc, sacc = _operands(dev, batch, n_t, n_s, block, block, seed)
+    if zero_slice is not None:
+        src[..., 3, zero_slice::SNAP_SLICES] = 0.0
+    tgt[..., :inactive, 3] = 0.0
+    return tgt, src, tacc, sacc
+
+
+@pytest.mark.parametrize("compute_dtype", (None, "bfloat16"))
+@pytest.mark.parametrize("batch,n_t,n_s,block,zero_slice,inactive", [
+    (0, 200, 200, 8, None, 0),         # N_s not a multiple of the slices
+    (0, 96, 264, 8, 5, 0),             # one lane's sources all massless
+    (0, 400, 128, 8, None, 2 * SNAP_TARGETS),  # whole blocks inactive
+    (3, 200, 136, 8, 3, SNAP_TARGETS),  # batch of three
+])
+def test_snap_kernel_split_matches_plain(cuda, batch, n_t, n_s, block,
+                                         zero_slice, inactive, compute_dtype):
+    ops_ = _snap_case(cuda, batch, n_t, n_s, block, seed=n_t * n_s,
+                      zero_slice=zero_slice, inactive=inactive)
+    kw = dict(block_i=block, block_j=block, compute_dtype=compute_dtype)
+    got = nbody_force.snap_packed(*ops_, **kw)
+    want = _plain(nbody_force._snap_plain, ops_, **kw)
+    torch.cuda.synchronize()
+    _assert_close(got, want, ops_[0], ((0, 3),), TOL[compute_dtype])
+    if inactive:
+        assert (got[..., :inactive, :] == 0).all()
+
+
+@pytest.mark.parametrize("compute_dtype", (None, "bfloat16"))
+def test_snap_kernel_is_deterministic(cuda, compute_dtype):
+    """The slices' partials meet in a fixed order and no atomics: two
+    launches on the same inputs give the same bits."""
+    ops_ = _snap_case(cuda, 0, 1000, 4096, 8, seed=3)
+    kw = dict(block_i=8, block_j=8, compute_dtype=compute_dtype)
+    first = nbody_force.snap_packed(*ops_, **kw)
+    second = nbody_force.snap_packed(*ops_, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_wrappers_count_their_launches(cuda):
     tgt, src, tacc, sacc = _operands(cuda, 0, 64, 64, 32, 32, seed=1)
     a0, s0 = (nbody_force.acc_jerk_pot_packed.launches,
@@ -128,9 +179,10 @@ def test_refused_launch_raises(cuda):
 #: roundings of each p to bf16 differ by at most one ulp (2**-7 of p), and
 #: the two rounded outputs by at most one ulp (2**-7 |plain|).
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2.0 ** -7}
-#: bf16 against the plain version at the kernel's own 64-key tile: the same
-#: running maxima, so the same p up to a flip from the scores' summation
-#: order; at most this share of the outputs may differ
+#: bf16 against the plain version at the kernel's own key tile
+#: (``kBf16Keys`` in csrc/flash_attention.cu): the same running maxima, so
+#: the same p up to a flip from the scores' summation order; at most this
+#: share of the outputs may differ
 KERNEL_KEY_TILE = 64
 TILE_SHARE_TOL = 8e-3
 

@@ -2,8 +2,10 @@
 caller, and it never hides which path ran."""
 
 import ast
+import importlib.util
 import inspect
 import os
+import re
 import shutil
 from pathlib import Path
 
@@ -153,3 +155,55 @@ def test_library_path_follows_the_sources(monkeypatch, tmp_path):
     assert _build._library_path("k") != first
     assert first.name == "libk.so" and os.fspath(first).startswith(
         os.fspath(_build.BUILD_ROOT))
+
+
+def _assigned_constant(path, name):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == name for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise AssertionError(f"{path.name} assigns no {name}")
+
+
+def test_tile_share_checks_follow_the_kernels_key_tile():
+    """The bf16 tile-share check runs the plain version at the kernel's own
+    key tile; both copies of that constant must be the kernel's."""
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    found = re.findall(r"constexpr int kBf16Keys = (\d+);", src)
+    assert len(found) == 1, found
+    for path in (ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"):
+        assert _assigned_constant(path, "KERNEL_KEY_TILE") == int(found[0]), path
+
+
+def test_flash_mutants_plant_every_fault_in_the_kernel():
+    """Each planted fault of flash_mutants.py edits the bf16 kernel as it
+    stands, once per edit, and leaves the fp32 kernel as it is."""
+    spec = importlib.util.spec_from_file_location(
+        "flash_mutants", ROOT / "flash_mutants.py")
+    mutants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mutants)
+    text = (_build.CSRC / "flash_attention.cu").read_text()
+    cut = text.index("// fp32: scalar FMA kernel")
+    assert sum(must for _, must in mutants.FAULTS.values()) == 6
+    for name, (edits, _) in mutants.FAULTS.items():
+        out = mutants.mutant_source(text, edits)
+        assert (out == text) == (not edits), name
+        assert out.endswith(text[cut:]), name
+
+
+def test_snap_cases_follow_the_kernels_split():
+    """The on-card snap cases are cut against the kernel's source split:
+    both constants of tests/test_torch_cuda.py must be the kernel's."""
+    src = (_build.CSRC / "nbody_force.cu").read_text()
+
+    def const(name):
+        found = re.findall(rf"constexpr int {name} = (\d+);", src)
+        assert len(found) == 1, (name, found)
+        return int(found[0])
+
+    slices = const("kSnapSlices")
+    targets = const("kSnapThreads") // slices * const("kSnapPer")
+    path = ROOT / "tests" / "test_torch_cuda.py"
+    assert _assigned_constant(path, "SNAP_SLICES") == slices
+    assert _assigned_constant(path, "SNAP_TARGETS") == targets
