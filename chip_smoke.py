@@ -10,7 +10,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 3. each kernel held against its plain PyTorch version on the card, at the
    main path's shape (N_t = N_s = 16384, fp32 and mixed), on a rectangle
    with a partial target mask that includes a fully inactive block, and on
-   a batch of two systems;
+   a batch of two systems; then two launches of each kernel at the main
+   path's shape, fp32 and mixed, must give the same bits;
 4. the committed golden trajectories replayed through the kernels, then the
    main path through ``repro_torch.launch.nbody_run.run``: Plummer
    N = 16384, seed 0, Hermite-6, shared Aarseth step (eta = 0.02) to
@@ -18,10 +19,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    launch counts are zeroed just before each run and read just after;
 5. CUDA-event timings of K1 and K2 at N = 16384 and 65536 and of the
    flash-attention kernel K3 at the prefill shape (B = 4, S = 2048,
-   H = 16, KV = 8, D = 128, causal, bf16), each beside its plain version
-   and its bound, K3 also beside ``scaled_dot_product_attention`` under
-   each backend that takes the shape (flash, efficient, cuDNN), the
-   fastest of which is K3's library time;
+   H = 16, KV = 8, D = 128, causal) in bf16 and fp32, each beside its
+   plain version and its bound, K3 also beside
+   ``scaled_dot_product_attention`` under each backend that takes the
+   shape (flash, efficient, cuDNN), the fastest of which is K3's library
+   time;
 6. K3 held against its plain version on the card: the prefill shape in
    bf16 and fp32, a non-causal rectangle, an MHA case, Sq < 512, and the
    rows-sum-to-one property; bf16 element by element, and against the
@@ -75,8 +77,9 @@ ETA = 0.02
 
 #: Kernel vs plain version, as max |kernel - plain| over a column group
 #: divided by max |plain| over that group.  fp32: both sum the same float32
-#: terms in other orders (the kernel per 128-source tile, the plain version
-#: per 512-source block) and the kernel uses rsqrtf and FMA contraction;
+#: terms in other orders (the kernel per lane over every 16th source of a
+#: 512-source tile, then across lanes; the plain version per 512-source
+#: block) and the kernel uses rsqrtf and FMA contraction;
 #: rounding of a 16384-term sum stays near sqrt(16384) * 2**-24 ~ 8e-6 of
 #: the partial-sum scale at worst, so 1e-5 of the group's largest value
 #: holds.  mixed: a term that lands on the other side of a bfloat16 rounding
@@ -111,9 +114,11 @@ LM_ARCH = "qwen3-0.6b"
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 #: K3 vs its plain version on the same inputs.  fp32: max |kernel - plain|
 #: / max |plain| <= 2e-5, the JAX package's flash tolerance
-#: (tests/test_flash_attention.py): the same fp32 products summed in other
-#: orders and tile sizes.  bf16, element by element, against the plain
-#: version in the reference's (block_q, block_k) order:
+#: (tests/test_flash_attention.py): the products summed in other orders and
+#: tile sizes, the kernel's as 3xTF32 (about 21 of fp32's 24 bits; with
+#: the lo terms dropped, 11 bits, it fails this limit: flash_mutants.py).
+#: bf16, element by element, against the plain version in the reference's
+#: (block_q, block_k) order:
 #:     |kernel - plain| <= 2**-7 (|plain| + A),  A = sum_i p_i |v_i| / l,
 #: the attention of |v| (fp32 plain version).  Both sides round each p to
 #: bf16, against running maxima of other tile sizes (the kernel's 64 keys,
@@ -143,8 +148,9 @@ ROWS_TOL = {"fp32": 1e-5, "bf16": 2.0 ** -7}
 #: each layer's attention differs by a few bf16 ulps (2**-8); a 28-layer
 #: narrow model with the same heads showed 1.0e-2 to 1.2e-2 on the CPU.
 SERVE_TOL = 5e-2
-#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
+#: H100 SXM dense bf16 and TF32 tensor-core peaks (NVIDIA data sheet, 700 W)
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 
 
 def check(ok: bool, msg: str):
@@ -252,15 +258,22 @@ def bound_ms(name, dtype, n_t_active, n_t, n_s):
                                        else "bytes")
 
 
-def flash_bound_ms(b, s, h, kv, d, dtype):
+def flash_bound_ms(b, s, h, kv, d, dtype, exact_fp32=False):
     """Least time of one causal K3 launch: 4 B H D S (S + 1) / 2 operations
     (q K^T and P V over the live score pairs, two per multiply-add) over the
-    tensor-core bf16 peak or the fp32 peak, or q, k, v read once and the
-    output written once over HBM bandwidth, whichever is larger."""
+    tensor-core bf16 peak, or for fp32 three times as many (3xTF32: three
+    TF32 products per product) over the TF32 peak, or with ``exact_fp32``
+    the operations as fp32 FMAs over the fp32 peak; or q, k, v read once
+    and the output written once over HBM bandwidth, whichever is larger."""
     flops = 4 * b * h * d * (s * (s + 1) // 2)
     size = 2 if dtype == torch.bfloat16 else 4
     nbytes = size * (2 * b * s * h * d + 2 * b * s * kv * d)
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    if dtype == torch.bfloat16:
+        peak = PEAK_BF16_FLOPS
+    elif exact_fp32:
+        peak = PEAK_FP32_FLOPS
+    else:
+        flops, peak = 3 * flops, PEAK_TF32_FLOPS
     t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -574,6 +587,19 @@ def main() -> int:
     batch_ops = [torch.stack(xs) for xs in zip(*pairs)]
     for name, k in (("acc_jerk_pot", 2), ("snap", 4)):
         hold("batch B=2 plummer 2048", name, batch_ops[:k], "fp32")
+    # the lanes' partials meet in a fixed order, with no atomics
+    for dtype in ("fp32", "mixed"):
+        cdt = ops.compute_dtype_for(dtype)
+        for name in kernels:
+            first = kernels[name](*main_ops[name], block_i=bi, block_j=bj,
+                                  compute_dtype=cdt)
+            second = kernels[name](*main_ops[name], block_i=bi, block_j=bj,
+                                   compute_dtype=cdt)
+            torch.cuda.synchronize()
+            same = torch.equal(first, second)
+            print(f"plummer {N_MAIN} {name:<13} {dtype:<6} two launches "
+                  f"give the same bits: {same}", flush=True)
+            check(same, f"{name} {dtype}: two launches differ")
 
     phase("4. golden replays and the main path")
     for fname in ("two_body.json", "plummer16.json"):
@@ -676,12 +702,16 @@ def main() -> int:
         lname = min(timed, key=lambda n: timed[n][0])
         lms = timed[lname][0]
         bms, by = flash_bound_ms(*lm_shape, dtype)
+        fma = ""
+        if dtype == torch.float32:
+            fma_ms = flash_bound_ms(*lm_shape, dtype, exact_fp32=True)[0]
+            fma = f" (as fp32 FMAs {fma_ms:.4f} ms, bound/kernel {fma_ms / ms:.3f})"
         flash_t[dtype] = (ms, pms, lms, bms, by, lname)
         print(f"flash_attention {str(dtype)[6:]:<8} B={LM_BATCH} S={LM_PROMPT} "
               f"H={cfg.n_heads} KV={cfg.n_kv_heads} D={cfg.head_dim} causal: "
               f"kernel {ms:.4f} ms  plain {pms:.4f} ms  sdpa {lms:.4f} ms "
               f"(fastest backend {lname})  bound {bms:.4f} ms ({by})  "
-              f"bound/kernel {bms / ms:.3f}", flush=True)
+              f"bound/kernel {bms / ms:.3f}{fma}", flush=True)
         del q, k, v
 
     phase("6. flash attention (K3) vs its plain version on the card")
@@ -757,6 +787,7 @@ def main() -> int:
         "ms_fp32": ms32, "plain_ms_fp32": pms32, "library_ms_fp32": lms32,
         "library_fp32": f"sdpa {lname32}",
         "bound_ms_fp32": bms32,
+        "bound_ms_fp32_as_fma": fma_ms,
         "max_norm_err_fp32": flash_errs[("prefill", "fp32")]["norm_err"],
     })
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Planted faults in the bf16 flash-attention kernel (K3), held to the
-checks that ``chip_smoke.py`` phase 6 holds the kernel to.
+"""Planted faults in the flash-attention kernels (K3, bf16 and fp32), held
+to the checks that ``chip_smoke.py`` phase 6 holds the kernels to.
 
     python3 flash_mutants.py
 
-Needs a card and ``nvcc``.  Each fault is a textual edit of the bf16
-kernel in ``src/repro_torch/csrc/flash_attention.cu``, written to a
-temporary directory and built there, one ``nvcc`` per fault, all started
-together; the unedited source is built the same way.  For every build and
-every bf16 case of phase 6 it prints the readings of
-``chip_smoke.flash_readings``, the checks they fail, and whether the
-former limit (max |kernel - plain| <= 3e-2 max |plain|) fails them too.
+Needs a card and ``nvcc``.  Each fault is a textual edit of one kernel in
+``src/repro_torch/csrc/flash_attention.cu`` (the bf16 kernel above the
+``FP32_BANNER`` comment, the fp32 kernel and the launcher below it),
+written to a temporary directory and built there, one ``nvcc`` per fault,
+all started together; the unedited source is built the same way.  A fault
+runs the phase-6 cases of its own kernel's type, the unedited source all of
+them.  For every build and case it prints the readings of
+``chip_smoke.flash_readings``, the checks they fail, and, for bf16, whether
+the former limit (max |kernel - plain| <= 3e-2 max |plain|) fails them too.
 The last line is one JSON object with all readings.  Exits nonzero if the
 unedited kernel fails a check or a fault marked ``must_fail`` passes them
 all.
@@ -40,32 +42,35 @@ _LOAD_LIBRARY = fa._library.__wrapped__
 #: the former bf16 limit of phase 6, as max |kernel - plain| / max |plain|
 OLD_TOL = 3e-2
 
-#: name -> (edits of the bf16 kernel as (old, new) pairs, must_fail)
+#: where the fp32 kernel's section of the source begins
+FP32_BANNER = "// fp32: 3xTF32 tensor-core kernel"
+
+#: name -> (section, edits of that kernel as (old, new) pairs, must_fail)
 FAULTS = {
-    "unedited": ((), False),
-    "l sums the rounded p": ((
+    "unedited": ("bf16", (), False),
+    "l sums the rounded p": ("bf16", (
         ("ls[0] += p0 + p1;\n      ls[1] += p2 + p3;",
          "ls[0] += __bfloat162float(__float2bfloat16(p0)) +\n"
          "               __bfloat162float(__float2bfloat16(p1));\n"
          "      ls[1] += __bfloat162float(__float2bfloat16(p2)) +\n"
          "               __bfloat162float(__float2bfloat16(p3));"),), True),
-    "p rounded toward zero": ((
+    "p rounded toward zero": ("bf16", (
         ("const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);",
          "const __nv_bfloat162 v = __halves2bfloat162(\n"
          "      __float2bfloat16_rz(lo), __float2bfloat16_rz(hi));"),), True),
-    "l not rescaled by alpha": ((
+    "l not rescaled by alpha": ("bf16", (
         ("l[i] = l[i] * alpha[i] + ls[i];", "l[i] = l[i] + ls[i];"),), True),
-    "second row rescaled by the first row's alpha": ((
+    "second row rescaled by the first row's alpha": ("bf16", (
         ("o[4 * j + 2] *= alpha[1];\n          o[4 * j + 3] *= alpha[1];",
          "o[4 * j + 2] *= alpha[0];\n          o[4 * j + 3] *= alpha[0];"),),
         True),
-    "diagonal tile dropped past the first tile": ((
+    "diagonal tile dropped past the first tile": ("bf16", (
         ("causal ? min(n_tiles, wg_last / kBf16Keys + 1)",
          "causal ? min(n_tiles, max(1, (wg_last + 1) / kBf16Keys))"),),
         True),
     # the pipeline: each tile is read from the previous stage's K/V buffer,
     # which holds the last tile or is being refilled with a later one
-    "stage reads the previous stage's K/V buffer": ((
+    "stage reads the previous stage's K/V buffer": ("bf16", (
         ("const uint32_t ks = base + stage * 2 * L::kTileBytes;",
          "const uint32_t ks =\n"
          "        base + (stage + kStages - 1) % kStages * 2 * L::kTileBytes;"),
@@ -73,27 +78,51 @@ FAULTS = {
          "const uint32_t vs =\n"
          "        base + (t + kStages - 1) % kStages * 2 * L::kTileBytes + L::kTileBytes;"),),
         True),
+    # fp32: every product taken as hi.hi alone (1xTF32, 11 bits of 24)
+    "1xTF32: the lo terms dropped": ("fp32", (
+        ("  mma_tf32(d, al, bh0, bh1);\n  mma_tf32(d, ah, bl0, bl1);\n", ""),),
+        True),
+    # fp32: l sums the tf32-rounded p that P V's hi terms use
+    "l sums p's rounded hi part": ("fp32", (
+        ("      ls[0] += p0 + p1;\n      ls[1] += p2 + p3;\n"
+         "      uint32_t ph[4], pl[4];\n      split(p0, ph[0], pl[0]);\n"
+         "      split(p2, ph[1], pl[1]);\n      split(p1, ph[2], pl[2]);\n"
+         "      split(p3, ph[3], pl[3]);\n",
+         "      uint32_t ph[4], pl[4];\n      split(p0, ph[0], pl[0]);\n"
+         "      split(p2, ph[1], pl[1]);\n      split(p1, ph[2], pl[2]);\n"
+         "      split(p3, ph[3], pl[3]);\n"
+         "      ls[0] += __uint_as_float(ph[0]) + __uint_as_float(ph[2]);\n"
+         "      ls[1] += __uint_as_float(ph[1]) + __uint_as_float(ph[3]);\n"),),
+        True),
+    # fp32's double buffer: each tile is read from the other buffer, which
+    # holds the tile before it or is being filled with the next one
+    "tile read from the other buffer": ("fp32", (
+        ("compute(t, kbuf + (t & 1) * L::kTile, vbuf + (t & 1) * L::kTile);",
+         "compute(t, kbuf + ((t + 1) & 1) * L::kTile,\n"
+         "                          vbuf + ((t + 1) & 1) * L::kTile);"),),
+        True),
 }
 
 
-def mutant_source(text: str, edits) -> str:
-    """``text`` with each edit applied once inside the bf16 kernel."""
-    cut = text.index("// fp32: scalar FMA kernel")
-    bf16, rest = text[:cut], text[cut:]
+def mutant_source(text: str, section: str, edits) -> str:
+    """``text`` with each edit applied once inside the ``section`` kernel
+    ("bf16" or "fp32")."""
+    cut = text.index(FP32_BANNER)
+    parts = {"bf16": text[:cut], "fp32": text[cut:]}
     for old, new in edits:
-        if bf16.count(old) != 1:
+        if parts[section].count(old) != 1:
             raise RuntimeError(f"edit target not found once: {old!r}")
-        bf16 = bf16.replace(old, new)
-    return bf16 + rest
+        parts[section] = parts[section].replace(old, new)
+    return parts["bf16"] + parts["fp32"]
 
 
 def build_all(workdir: Path) -> dict[str, Path]:
     text = (_build.CSRC / "flash_attention.cu").read_text()
     nvcc = _build.nvcc_path()
     procs = {}
-    for i, (name, (edits, _)) in enumerate(FAULTS.items()):
+    for i, (name, (section, edits, _)) in enumerate(FAULTS.items()):
         src = workdir / f"fault{i}.cu"
-        src.write_text(mutant_source(text, edits))
+        src.write_text(mutant_source(text, section, edits))
         lib = workdir / f"libfault{i}.so"
         procs[name] = (subprocess.Popen(
             _build.nvcc_command(src, lib, nvcc), stdout=subprocess.PIPE,
@@ -132,16 +161,19 @@ def main() -> int:
     cfg = cs.lm_config.get(cs.LM_ARCH)
     prefill = (cs.LM_BATCH, cs.LM_PROMPT, cs.LM_PROMPT, cfg.n_heads,
                cfg.n_kv_heads, cfg.head_dim)
-    cases = [c for c in cs.flash_cases(prefill) if c[2] == torch.bfloat16]
+    cases = cs.flash_cases(prefill)
     bad = []
     results = {}
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_all(Path(tmp))
         for name, lib in libs.items():
             use(lib)
-            must_fail = FAULTS[name][1]
+            section, edits, must_fail = FAULTS[name]
             caught, caught_old = [], False
             for label, (b, sq, sk, h, kvh, d), dtype, causal, (bq, bk) in cases:
+                tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+                if edits and tag != section:
+                    continue
                 q, k, v = cs.flash_operands(b, sq, sk, h, kvh, d, dtype, dev,
                                             seed=sq + sk)
                 try:
@@ -150,18 +182,20 @@ def main() -> int:
                     r, failed = {"error": str(e)}, [str(e)]
                     old = True
                 else:
-                    failed = cs.flash_failures(r, "bf16")
+                    failed = cs.flash_failures(r, tag)
                     old = r["norm_err"] > OLD_TOL
-                results[f"{name} | {label}"] = dict(r, failed=failed,
-                                                    old_limit_fails=old)
+                results[f"{name} | {label} {tag}"] = dict(
+                    r, failed=failed, old_limit_fails=old)
                 caught += failed
                 caught_old |= old
-                print(f"{name:<46} {label:<10} {json.dumps(r)} "
-                      f"fails: {failed or 'none'}; former limit "
-                      f"{'fails' if old else 'passes'}", flush=True)
+                print(f"{name:<46} {label:<10} {tag} {json.dumps(r)} "
+                      f"fails: {failed or 'none'}"
+                      + (f"; former limit {'fails' if old else 'passes'}"
+                         if tag == "bf16" else ""), flush=True)
+                del q, k, v
             print(f"-> {name}: {'CAUGHT' if caught else 'passes every check'}"
-                  f" (former limit: {'caught' if caught_old else 'missed'})",
-                  flush=True)
+                  + (f" (former limit: {'caught' if caught_old else 'missed'})"
+                     if section == "bf16" else ""), flush=True)
             if name == "unedited" and caught:
                 bad.append("the unedited kernel fails a check")
             if must_fail and not caught:

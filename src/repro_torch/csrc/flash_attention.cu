@@ -13,12 +13,13 @@
 // (B, Sk, KV, D), all contiguous.  Head h belongs to kv head h / G.
 //
 // What bounds it on this card: at the prefill shape (B = 4, S = 2048,
-// H = 16, KV = 8, D = 128, causal, bf16) the work is 4 B H D S (S + 1) / 2
-// = 6.9e10 operations on the tensor cores, 0.070 ms at 989 TFLOP/s, while
-// the bytes (q, k, v read once, out written once: 100.7 MB) take 0.030 ms at
-// 3.35 TB/s.  So bf16 is bound by tensor-core operations.  fp32 has no
-// tensor-core path that keeps full fp32 products; it is bound by fp32 FMA
-// work against 67 TFLOP/s.
+// H = 16, KV = 8, D = 128, causal) the work is 4 B H D S (S + 1) / 2
+// = 6.9e10 operations.  bf16 runs them on the tensor cores, 0.070 ms at
+// 989 TFLOP/s, while the bytes (q, k, v read once, out written once: 100.7
+// MB) take 0.030 ms at 3.35 TB/s, so bf16 is bound by tensor-core
+// operations.  fp32 runs them as 3xTF32 on the tensor cores: three TF32
+// products per product, 0.417 ms at 495 TFLOP/s (the bytes, 201 MB, take
+// 0.060 ms); as exact fp32 FMAs they would take 1.026 ms at 67 TFLOP/s.
 //
 // What the design does about it: one block per (kv slab, query tile).  The
 // G query heads of a kv head are folded into the block's rows, so every
@@ -49,8 +50,24 @@
 //     index comes through a shuffle), or ptxas serializes the wgmma
 //     products.  The query tiles of a causal launch run heaviest first (the
 //     grid's slow axis walks them backwards).
-//   * fp32: 32 rows, four threads per row, each holding a quarter of the
-//     head dimension; scalar FMA with a 4-lane shuffle for each dot product.
+//   * fp32: 128 rows in eight warps of 16, all computing; every thread
+//     also streams K and V with cp.async into two buffers of 32 keys (tile
+//     t + 1 lands while tile t is computed), padded so the fragment reads
+//     are free of bank conflicts.  q K^T and P V are mma.sync m16n8k8 with
+//     tf32 inputs and fp32 accumulation, as 3xTF32: each fp32 operand x is
+//     split into hi = cvt.rna.tf32(x) and lo = x - hi (the tensor core
+//     truncates lo to tf32), and each product is taken as lo.hi + hi.lo +
+//     hi.hi, small terms first, so a product keeps about 21 of fp32's 24
+//     bits.  q is split once, into shared memory in the order each warp
+//     reads its A fragments; K and V are split as their fragments are
+//     read; p is split after it is added to l, which sums the unrounded p.
+//     The online softmax is the bf16 kernel's (raw-score maxima, one FFMA
+//     and one ex2 per score).  What bounds it now: the splits' ALU work
+//     beside 3 mma.sync per product with eight warps per SM to hide their
+//     latency (the kernel holds 184 registers a thread, one block per SM).
+//     q in registers, split per tile, spilled at D = 128 and took 1.5x
+//     as long or more.  wgmma's tf32 form takes only K-major B operands, and V as it
+//     lies is MN-major, so this kernel stays on mma.sync.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,7 +76,6 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
@@ -652,125 +668,340 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: scalar FMA kernel
+// fp32: 3xTF32 tensor-core kernel (mma.sync) with a double-buffered K/V stream
 // ---------------------------------------------------------------------------
-constexpr int kLanes = 4;                       // threads per (query, head) row
-constexpr int kF32Rows = kThreads / kLanes;     // rows per block
-constexpr int kF32Keys = 32;                    // keys per shared-memory tile
+constexpr int kF32Rows = 128;     // (query, head) rows: 8 warps of 16
+constexpr int kF32Keys = 32;      // keys per K/V tile
+constexpr int kF32Threads = 256;
+constexpr int kF32Pad = 4;        // floats of padding after each staged key
 
+// Shared memory of the fp32 kernel: K and V tiles of kF32Keys keys, two
+// buffers each, a key every D + kF32Pad floats (a row stride of 4 mod 32
+// words keeps the fragment reads below free of bank conflicts); then q's
+// A fragments, split once into hi and lo parts, eight words per lane and
+// k-step, in the order each warp reads them.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct F32Smem {
+  static constexpr int kRow = D + kF32Pad;
+  static constexpr int kTile = kF32Keys * kRow;   // floats per K or V tile
+  static constexpr int kQ = kF32Rows * D * 2;     // floats of split q
+  static constexpr int kBytes = (2 * 2 * kTile + kQ) * 4;
+};
+
+// x rounded to tf32 (10 mantissa bits), to nearest, ties away from zero
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// x = hi + lo to about 21 bits: hi = tf32(x), rounded to nearest, and
+// lo = x - hi as fp32 bits, whose low 13 bits the tensor core ignores, so
+// lo enters the product truncated to tf32 (CUTLASS's FastF32, which
+// PyTorch's memory-efficient attention runs for fp32, truncates its small
+// part too).  Rounding lo with a second cvt.rna read the same error at
+// the prefill shape and took 11% longer.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a . b for one m16n8k8 tile, tf32 inputs, fp32 accumulation
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b in 3xTF32 for b = (x0, x1) split here: a_lo b_hi and a_hi b_lo,
+// the small terms, first, then a_hi b_hi; a_lo b_lo (about 2^-22 of the
+// product) is dropped
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float x0,
+                                           float x1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split(x0, bh0, bl0);
+  split(x1, bh1, bl1);
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// n consecutive floats of shared memory (n = 2 or 4, 8 or 16 bytes aligned)
+template <int N>
+__device__ __forceinline__ void lds(float (&x)[N], const float* p) {
+  if constexpr (N == 4) {
+    const float4 y = *reinterpret_cast<const float4*>(p);
+    x[0] = y.x, x[1] = y.y, x[2] = y.z, x[3] = y.w;
+  } else {
+    const float2 y = *reinterpret_cast<const float2*>(p);
+    x[0] = y.x, x[1] = y.y;
+  }
+}
+
+__device__ __forceinline__ uint4 as_u4(float4 x) {
+  return make_uint4(__float_as_uint(x.x), __float_as_uint(x.y),
+                    __float_as_uint(x.z), __float_as_uint(x.w));
+}
+
+// Fragments of mma.m16n8k8.tf32 (lane = 4 gid + tig):
+//   A (16 x 8): a0 (gid, tig), a1 (gid + 8, tig), a2 (gid, tig + 4),
+//               a3 (gid + 8, tig + 4);
+//   B (8 x 8):  b0 (tig, gid), b1 (tig + 4, gid);
+//   D (16 x 8): d0 d1 (gid, 2 tig .. + 1), d2 d3 (gid + 8, 2 tig .. + 1).
+// The order of the k axis inside a product is free, so each product maps
+// its k positions to the operand's columns in the order that lets a thread
+// read them as vectors:
+//   * q K^T, over chunks of KC = 8 KS values of d (KS = 4, or 2 for
+//     D = 16): in k-step ks of a chunk, position tig is column 2 KS tig + ks
+//     and position tig + 4 column 2 KS tig + KS + ks, so a thread reads its
+//     2 KS columns of a key as float4s once per chunk and key.
+//   * P V, over the 8 keys of an n-tile of S: position tig is key 2 tig and
+//     position tig + 4 key 2 tig + 1, so P's A fragment is S's accumulator
+//     fragment in place (a0 = d0, a1 = d2, a2 = d1, a3 = d3).  V's columns
+//     go to output tiles in groups of NG = KS: n-tile NG jj + e, position
+//     gid holds column 8 NG jj + NG gid + e, so a thread reads NG
+//     consecutive columns of a key for NG output tiles at once, and writes
+//     NG consecutive outputs at the end.
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, int sq,
                  int sk, int kvh, int g, float scale, int causal) {
-  constexpr int kChunks = D / (4 * kLanes);  // float4 chunks per thread
-  __shared__ __align__(16) float ks[kF32Keys * D];
-  __shared__ __align__(16) float vs[kF32Keys * D];
+  using L = F32Smem<D>;
+  constexpr int KS = D % 32 == 0 ? 4 : 2;  // k-steps of 8 per chunk of d
+  constexpr int KC = 8 * KS;               // d values per chunk
+  constexpr int NG = KS;                   // output n-tiles per V read
+  constexpr int kNT = kF32Keys / 8;        // n-tiles of S per K/V tile
+  constexpr int kDT = D / 8;               // k-steps of q K^T
+  static_assert(D % KC == 0, "the head dimension is whole chunks");
+  extern __shared__ __align__(16) float smem_f32[];
+  float* const kbuf = smem_f32;                  // 2 K tiles
+  float* const vbuf = smem_f32 + 2 * L::kTile;   // 2 V tiles
+  float4* const qsplit = reinterpret_cast<float4*>(smem_f32 + 4 * L::kTile);
 
-  const int r = threadIdx.x / kLanes, part = threadIdx.x % kLanes;
-  const int warp = threadIdx.x / 32;
-  const int qb = kF32Rows / g;
-  const int b = blockIdx.y / kvh, kvi = blockIdx.y % kvh;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int qb = kF32Rows / g;  // queries per block
+  const int b = blockIdx.x / kvh, kvi = blockIdx.x % kvh;
   const int h = kvh * g;
-  const int q0 = blockIdx.x * qb;
+  // heaviest causal tiles first: the last query tile is launched first
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * qb;
   const int q_last = min(q0 + qb, sq) - 1;
   const int k_end = causal ? min(sk, q_last + 1) : sk;
-  const int qpos = q0 + r / g;
-  const bool live = r < qb * g && qpos < sq;
-  const long long row_off =
-      ((static_cast<long long>(b) * sq + qpos) * h + kvi * g + r % g) * D;
-  constexpr int kWarpRows = 32 / kLanes;
-  const int warp_row_end = min(warp * kWarpRows + kWarpRows, qb * g);
-  const bool warp_any = warp * kWarpRows < qb * g &&
-                        q0 + (warp * kWarpRows) / g < sq;
-  const int warp_last = min(q0 + (warp_row_end - 1) / g, sq - 1);
-
-  // thread `part` holds columns 4 (part + kLanes c) .. +3 for each chunk c
-  float qr[kChunks][4], acc[kChunks][4];
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const float4 x = live ? *reinterpret_cast<const float4*>(
-                                q + row_off + 4 * (part + kLanes * c))
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
-    qr[c][0] = x.x, qr[c][1] = x.y, qr[c][2] = x.z, qr[c][3] = x.w;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
-  }
-  float m = kNegInf, l = 0.f;
-
+  const int n_tiles = (k_end + kF32Keys - 1) / kF32Keys;
   const long long key_stride = static_cast<long long>(kvh) * D;
   const float* kbase = k + (static_cast<long long>(b) * sk * kvh + kvi) * D;
   const float* vbase = v + (static_cast<long long>(b) * sk * kvh + kvi) * D;
 
-  for (int t0 = 0; t0 < k_end; t0 += kF32Keys) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kF32Keys * D / 4; idx += kThreads) {
-      const int kr = idx / (D / 4), c = idx % (D / 4);
-      const int key = t0 + kr;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
-      if (key < sk) {
-        kx = *reinterpret_cast<const float4*>(kbase + key * key_stride + 4 * c);
-        vx = *reinterpret_cast<const float4*>(vbase + key * key_stride + 4 * c);
-      }
-      *reinterpret_cast<float4*>(ks + kr * D + 4 * c) = kx;
-      *reinterpret_cast<float4*>(vs + kr * D + 4 * c) = vx;
-    }
-    __syncthreads();
-    if (!warp_any || (causal && t0 > warp_last)) continue;
+  // this thread's rows: gid and gid + 8 of its warp's 16
+  int qpos[2];
+  bool live[2];
+  long long row_off[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = warp * 16 + gid + 8 * i;
+    qpos[i] = q0 + r / g;
+    live[i] = r < qb * g && qpos[i] < sq;
+    row_off[i] = ((static_cast<long long>(b) * sq + qpos[i]) * h + kvi * g +
+                  r % g) * D;
+  }
+  const int w_row_end = min(warp * 16 + 16, qb * g);
+  const bool w_any = warp * 16 < qb * g && q0 + (warp * 16) / g < sq;
+  const int w_first = q0 + (warp * 16) / g;
+  const int w_last = min(q0 + (w_row_end - 1) / g, sq - 1);
+  // a tile wholly above the warp's last query is an exact no-op, so the
+  // warp computes tiles 0 .. n_mine - 1 only
+  const int n_mine = !w_any ? 0
+                     : causal ? min(n_tiles, w_last / kF32Keys + 1)
+                              : n_tiles;
 
-    float s[kF32Keys];
-    float mx = m;
+  // q's A fragments, split once: (hi a0..a3, lo a0..a3) of k-step kk of
+  // this warp at qsplit[2 ((warp kDT + kk) 32 + lane)]; each lane writes and
+  // later reads only its own
+  const float4* qf = qsplit + 2 * (warp * kDT * 32 + lane);
+  for (int c = 0; c < D / KC; ++c)
 #pragma unroll
-    for (int j = 0; j < kF32Keys; ++j) {
-      float dot = 0.f;
+    for (int ks = 0; ks < KS; ++ks) {
+      float x[4];
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 x =
-            *reinterpret_cast<const float4*>(ks + j * D + 4 * (part + kLanes * c));
-        dot = fmaf(qr[c][0], x.x, dot);
-        dot = fmaf(qr[c][1], x.y, dot);
-        dot = fmaf(qr[c][2], x.z, dot);
-        dot = fmaf(qr[c][3], x.w, dot);
-      }
-      dot += __shfl_xor_sync(kFull, dot, 1);
-      dot += __shfl_xor_sync(kFull, dot, 2);
-      const int key = t0 + j;
-      float x = dot * scale;
-      if (key >= sk || (causal && key > qpos)) x = kNegInf;
-      s[j] = x;
-      mx = fmaxf(mx, x);
+      for (int e = 0; e < 4; ++e)
+        x[e] = live[e & 1] ? q[row_off[e & 1] + c * KC + 2 * KS * tig +
+                                (e >> 1) * KS + ks]
+                           : 0.f;
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split(x[e], hi[e], lo[e]);
+      float4* dst = qsplit + 2 * ((warp * kDT + c * KS + ks) * 32 + lane);
+      dst[0] = make_float4(__uint_as_float(hi[0]), __uint_as_float(hi[1]),
+                           __uint_as_float(hi[2]), __uint_as_float(hi[3]));
+      dst[1] = make_float4(__uint_as_float(lo[0]), __uint_as_float(lo[1]),
+                           __uint_as_float(lo[2]), __uint_as_float(lo[3]));
     }
-    const float alpha = expf(m - mx);
-    m = mx;
-    float ls = 0.f;
+
+  // tile t of K and V into buffer `buf`, keys past Sk zero-filled; one
+  // cp.async group per tile
+  auto load_tile = [&](int t, int buf) {
+    constexpr int kChunks = D / 4;  // 16-byte chunks per key
+    float* ks = kbuf + buf * L::kTile;
+    float* vs = vbuf + buf * L::kTile;
+    for (int idx = threadIdx.x; idx < kF32Keys * kChunks; idx += kF32Threads) {
+      const int r = idx / kChunks, c = idx % kChunks;
+      const int key = t * kF32Keys + r;
+      const bool in = key < sk;
+      const long long off = in ? key * key_stride + 4 * c : 0;
+      cp_async16(smem_addr(ks + r * L::kRow + 4 * c), kbase + off, in ? 16 : 0);
+      cp_async16(smem_addr(vs + r * L::kRow + 4 * c), vbase + off, in ? 16 : 0);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  // m is the running max of the raw scores s = q.k; p = e^(scale (s - m))
+  // is taken as 2^(s scale2 - m scale2), one FFMA and one ex2 per score
+  const float scale2 = scale * kLog2e;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[D / 8][4];
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c)
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  // one tile of the online softmax from the K and V tiles at ks, vs
+  auto compute = [&](int t, const float* ks, const float* vs) {
+    // S = q K^T
+    float s[kNT][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c][e] *= alpha;
+    for (int nt = 0; nt < kNT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kF32Keys; ++j) {
-      const float p = expf(s[j] - m);  // v is fp32: the rounding is exact
-      ls += p;
+    for (int c = 0; c < D / KC; ++c) {
+      uint32_t ah[KS][4], al[KS][4];
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const float4 x =
-            *reinterpret_cast<const float4*>(vs + j * D + 4 * (part + kLanes * c));
-        acc[c][0] = fmaf(p, x.x, acc[c][0]);
-        acc[c][1] = fmaf(p, x.y, acc[c][1]);
-        acc[c][2] = fmaf(p, x.z, acc[c][2]);
-        acc[c][3] = fmaf(p, x.w, acc[c][3]);
+      for (int kk = 0; kk < KS; ++kk) {
+        const uint4 xh = as_u4(qf[2 * 32 * (c * KS + kk)]);
+        const uint4 xl = as_u4(qf[2 * 32 * (c * KS + kk) + 1]);
+        ah[kk][0] = xh.x, ah[kk][1] = xh.y, ah[kk][2] = xh.z, ah[kk][3] = xh.w;
+        al[kk][0] = xl.x, al[kk][1] = xl.y, al[kk][2] = xl.z, al[kk][3] = xl.w;
+      }
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        float kx[2 * KS];
+        const float* kr = ks + (nt * 8 + gid) * L::kRow + c * KC + 2 * KS * tig;
+#pragma unroll
+        for (int e = 0; e < 2 * KS; e += 4) {
+          const float4 y = *reinterpret_cast<const float4*>(kr + e);
+          kx[e] = y.x, kx[e + 1] = y.y, kx[e + 2] = y.z, kx[e + 3] = y.w;
+        }
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          mma_3xtf32(s[nt], ah[kk], al[kk], kx[kk], kx[KS + kk]);
       }
     }
-    l = l * alpha + ls;
+
+    // only a tile that reaches past Sk or the warp's first query has
+    // masked keys
+    const int t0 = t * kF32Keys;
+    const bool edge = t0 + kF32Keys > sk || (causal && t0 + kF32Keys - 1 > w_first);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int key = t0 + nt * 8 + tig * 2 + (e & 1);
+        if (edge && (key >= sk || (causal && key > qpos[i]))) s[nt][e] = kNegInf;
+        mx[i] = fmaxf(mx[i], s[nt][e]);
+      }
+    }
+    float alpha[2], nms[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+      alpha[i] = ex2((m[i] - mx[i]) * scale2);  // exactly 1 for an unchanged max
+      m[i] = mx[i];
+      nms[i] = -m[i] * scale2;
+    }
+    // rescaling by alpha = 1 (no row of the warp found a new max) is the
+    // identity, so the warp skips it
+    if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[j][0] *= alpha[0];
+        o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1];
+        o[j][3] *= alpha[1];
+      }
+    }
+
+    // o += P V, one k-step per n-tile of S; l sums the unrounded p
+    float ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const float p0 = ex2(fmaf(s[nt][0], scale2, nms[0]));
+      const float p1 = ex2(fmaf(s[nt][1], scale2, nms[0]));
+      const float p2 = ex2(fmaf(s[nt][2], scale2, nms[1]));
+      const float p3 = ex2(fmaf(s[nt][3], scale2, nms[1]));
+      ls[0] += p0 + p1;
+      ls[1] += p2 + p3;
+      uint32_t ph[4], pl[4];
+      split(p0, ph[0], pl[0]);
+      split(p2, ph[1], pl[1]);
+      split(p1, ph[2], pl[2]);
+      split(p3, ph[3], pl[3]);
+      const float* v0 = vs + (nt * 8 + 2 * tig) * L::kRow + NG * gid;
+#pragma unroll
+      for (int jj = 0; jj < D / (8 * NG); ++jj) {
+        float x0[NG], x1[NG];
+        lds<NG>(x0, v0 + 8 * NG * jj);
+        lds<NG>(x1, v0 + L::kRow + 8 * NG * jj);
+#pragma unroll
+        for (int e = 0; e < NG; ++e)
+          mma_3xtf32(o[NG * jj + e], ph, pl, x0[e], x1[e]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + ls[i];
+  };
+
+  // the K/V stream: tile t + 1 lands in the other buffer while tile t is
+  // computed; a buffer is refilled only after every warp is done with it
+  if (n_tiles > 0) load_tile(0, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      load_tile(t + 1, (t + 1) & 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (t < n_mine) compute(t, kbuf + (t & 1) * L::kTile, vbuf + (t & 1) * L::kTile);
+    __syncthreads();
   }
 
-  if (!live) return;
-  const float lsum = fmaxf(l, 1e-30f);
+  // each row's l is spread over the four lanes of its quad
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c)
-    *reinterpret_cast<float4*>(out + row_off + 4 * (part + kLanes * c)) =
-        make_float4(acc[c][0] / lsum, acc[c][1] / lsum, acc[c][2] / lsum,
-                    acc[c][3] / lsum);
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(kFull, l[i], 1);
+    l[i] += __shfl_xor_sync(kFull, l[i], 2);
+    if (!live[i]) continue;
+    const float lsum = fmaxf(l[i], 1e-30f);
+    float* dst = out + row_off[i];
+#pragma unroll
+    for (int jj = 0; jj < D / (8 * NG); ++jj)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        // position 2 tig + half of n-tiles NG jj .. NG jj + NG - 1
+        float x[NG];
+#pragma unroll
+        for (int e = 0; e < NG; ++e) x[e] = o[NG * jj + e][2 * i + half] / lsum;
+        float* d = dst + 8 * NG * jj + NG * (2 * tig + half);
+        if constexpr (NG == 4)
+          *reinterpret_cast<float4*>(d) = make_float4(x[0], x[1], x[2], x[3]);
+        else
+          *reinterpret_cast<float2*>(d) = make_float2(x[0], x[1]);
+      }
+  }
 }
 
 template <int D>
@@ -793,7 +1024,12 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
         static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
         sq, sk, kvh, g, scale, causal);
   } else {
-    flash_f32_kernel<D><<<dim3(n_qt, batch * kvh), kThreads, 0, stream>>>(
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        F32Smem<D>::kBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_f32_kernel<D><<<dim3(batch * kvh, n_qt), kF32Threads,
+                          F32Smem<D>::kBytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), sq, sk, kvh,
         g, scale, causal);

@@ -33,23 +33,26 @@
 // layout and read back as broadcasts, so the inner loop is pure register
 // arithmetic with no global traffic.  A block whose targets are all
 // inactive skips its source loop (__syncthreads_or), the analogue of the
-// reference's pl.when.
-//   * K1: one thread per target row keeps its seven (or ten) sums in
-//     registers, 128 targets per block.  In fp32 mode each tile is summed
-//     into a tile partial that is then added to the running sum (the
-//     reference sums within a j-block and accumulates across blocks the
-//     same way).  At N = 16384 the grid holds only N/32 warps, about four
-//     per SM, too few to hide the dependent rsqrtf/FMA chain of a pair.
-//   * K2: the source axis is split across threads.  kSnapSlices lanes share
-//     a group of kSnapPer targets, each lane taking an interleave of every
-//     staged tile, so each shared-memory read of a source serves kSnapPer
-//     pairs and the grid holds kSnapSlices / kSnapPer = 4 times K1's
-//     threads: at N = 16384, 128 blocks of 16 warps, one per SM.  The
-//     lanes' partial sums meet in a shuffle butterfly in a fixed order, with
-//     no atomics: plain adds in fp32, and in mixed mode a two-sum of the
-//     sums and a sum of the compensations, which fold in at the end,
-//     outside the gate.  Each pair's three terms are gathered per component
-//     into t (da + c1 v + c2 r), 62 operations where the reference's
+// reference's pl.when.  Both kernels split the source axis across threads
+// (one thread per target, 128 a block, gave the grid only N/32 warps at
+// N = 16384, about four per SM, too few to hide the dependent rsqrtf/FMA
+// chain of a pair): k*Slices = 16 lanes share a group of k*Per = 4 targets, each lane taking
+// an interleave of every staged 512-source tile, so each shared-memory
+// read of a source serves four pairs and the grid holds 16 / 4 = 4 times
+// the old one's threads: at N = 16384, 128 blocks of 16 warps, one per SM.
+// The lanes' partial sums meet in a shuffle butterfly in a fixed order,
+// with no atomics: plain adds in fp32, and in mixed mode a two-sum of the
+// sums and a sum of the compensations, which fold in at the end, outside
+// the gate.  In fp32 mode each lane sums its share of a tile into a tile
+// partial that is then added to its running sum (the reference sums within
+// a j-block and accumulates across blocks the same way).
+//   * K1 keeps 7 sums per target, 28 per thread, beside 28 tile partials
+//     (fp32) or 28 compensations (mixed) and 24 target coordinates; the
+//     activity column is read again at the end instead of held.  512
+//     threads cap a thread at 128 registers.
+//   * K2 keeps 3 sums per target and also the targets' accelerations.
+//     Each pair's three terms are gathered per component into
+//     t (da + c1 v + c2 r), 62 operations where the reference's
 //     t da - 6 alpha J - 3 beta P takes 72.
 
 #include <cuda_bf16.h>
@@ -57,8 +60,27 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // targets per block, one thread each
-constexpr int kTile = kThreads;  // sources staged per shared-memory tile
+// Both kernels share one decomposition: a block holds k*Targets targets,
+// each thread k*Per of them, and the k*Slices lanes of a target group split
+// every staged source tile between them, lane s taking sources s,
+// s + k*Slices, ...  The lanes' partial sums meet in a butterfly of
+// shuffles in a fixed order, so two launches on the same inputs agree bit
+// for bit.
+constexpr int kAccThreads = 512;
+constexpr int kAccSlices = 16;  // lanes per target group, dividing 32
+constexpr int kAccPer = 4;      // targets per thread
+constexpr int kAccTargets = kAccThreads / kAccSlices * kAccPer;
+constexpr int kAccTile = kAccThreads;  // sources staged per tile
+static_assert(32 % kAccSlices == 0, "a target group lies inside one warp");
+static_assert(kAccPer <= kAccSlices, "each target has a lane to write it");
+
+constexpr int kSnapThreads = 512;
+constexpr int kSnapSlices = 16;  // lanes per target group, dividing 32
+constexpr int kSnapPer = 4;      // targets per thread
+constexpr int kSnapTargets = kSnapThreads / kSnapSlices * kSnapPer;
+constexpr int kSnapTile = kSnapThreads;  // sources staged per tile
+static_assert(32 % kSnapSlices == 0, "a target group lies inside one warp");
+static_assert(kSnapPer <= kSnapSlices, "each target has a lane to write it");
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -85,94 +107,6 @@ __device__ __forceinline__ void accumulate(float& part, float& sum,
   }
 }
 
-template <bool kMixed>
-__global__ void __launch_bounds__(kThreads)
-acc_jerk_pot_kernel(const float* __restrict__ tgt,
-                    const float* __restrict__ src, float* __restrict__ out,
-                    int n_t, int n_s, float eps2) {
-  const size_t b = blockIdx.y;
-  tgt += b * n_t * 8;
-  src += b * 8 * n_s;
-  out += b * n_t * 8;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool row = i < n_t;
-
-  float xi = 0.f, yi = 0.f, zi = 0.f, act = 0.f;
-  float vxi = 0.f, vyi = 0.f, vzi = 0.f;
-  if (row) {
-    const float* t = tgt + static_cast<size_t>(i) * 8;
-    xi = t[0]; yi = t[1]; zi = t[2]; act = t[3];
-    vxi = t[4]; vyi = t[5]; vzi = t[6];
-  }
-
-  __shared__ float sh[7][kTile];  // x y z m vx vy vz of one source tile
-  float sum[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float comp[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-
-  if (__syncthreads_or(act != 0.f)) {
-    for (int j0 = 0; j0 < n_s; j0 += kTile) {
-      const int nj = min(kTile, n_s - j0);
-      if (threadIdx.x < nj) {
-#pragma unroll
-        for (int r = 0; r < 7; ++r)
-          sh[r][threadIdx.x] = src[static_cast<size_t>(r) * n_s + j0 + threadIdx.x];
-      }
-      __syncthreads();
-      float part[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-      for (int j = 0; j < nj; ++j) {
-        const float dx = sh[0][j] - xi;
-        const float dy = sh[1][j] - yi;
-        const float dz = sh[2][j] - zi;
-        const float mj = sh[3][j];
-        const float dvx = sh[4][j] - vxi;
-        const float dvy = sh[5][j] - vyi;
-        const float dvz = sh[6][j] - vzi;
-        const float r2 = dx * dx + dy * dy + dz * dz;
-        // a self-pair (r2 == 0) contributes exactly zero, the potential too
-        const float inv_r = r2 > 0.f ? rsqrtf(r2 + eps2) : 0.f;
-        const float inv_r2 = inv_r * inv_r;
-        const float t = mj * (inv_r2 * inv_r);
-        const float q = -3.f * (dx * dvx + dy * dvy + dz * dvz) * inv_r2;
-        accumulate<kMixed>(part[0], sum[0], comp[0], t * dx);
-        accumulate<kMixed>(part[1], sum[1], comp[1], t * dy);
-        accumulate<kMixed>(part[2], sum[2], comp[2], t * dz);
-        accumulate<kMixed>(part[3], sum[3], comp[3], t * (dvx + q * dx));
-        accumulate<kMixed>(part[4], sum[4], comp[4], t * (dvy + q * dy));
-        accumulate<kMixed>(part[5], sum[5], comp[5], t * (dvz + q * dz));
-        accumulate<kMixed>(part[6], sum[6], comp[6], mj * inv_r);
-      }
-      if constexpr (!kMixed) {
-#pragma unroll
-        for (int k = 0; k < 7; ++k) sum[k] += part[k];
-      }
-      __syncthreads();  // the tile is consumed before the next one lands
-    }
-  }
-
-  // the compensation folds in here, outside the activity gate
-  if (row) {
-    float* o = out + static_cast<size_t>(i) * 8;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) o[k] = act * (sum[k] + comp[k]);
-    o[6] = -(act * (sum[6] + comp[6]));
-    o[7] = 0.f;
-  }
-}
-
-// K2's own decomposition (redesigned): a block holds kSnapTargets targets,
-// each thread kSnapPer of them, and the kSnapSlices lanes of a target group
-// split every staged source tile between them, lane s taking sources s,
-// s + kSnapSlices, ...  The lanes' partial sums meet in a butterfly of
-// shuffles in a fixed order, so two launches on the same inputs agree bit
-// for bit.
-constexpr int kSnapThreads = 512;
-constexpr int kSnapSlices = 16;  // lanes per target group, dividing 32
-constexpr int kSnapPer = 4;      // targets per thread
-constexpr int kSnapTargets = kSnapThreads / kSnapSlices * kSnapPer;
-constexpr int kSnapTile = kSnapThreads;  // sources staged per tile
-static_assert(32 % kSnapSlices == 0, "a target group lies inside one warp");
-
 // (s, c) += the partner lane's (s, c): a two-sum of the sums and a sum of
 // the compensations.  Both partners compute the same bits (the adds are
 // commutative and the two-sum's error is exact), so after the butterfly
@@ -187,6 +121,118 @@ __device__ __forceinline__ void combine(float& s, float& c, int offset) {
     c = (c + co) + e;
   } else {
     s += so;
+  }
+}
+
+template <bool kMixed>
+__global__ void __launch_bounds__(kAccThreads)
+acc_jerk_pot_kernel(const float* __restrict__ tgt,
+                    const float* __restrict__ src, float* __restrict__ out,
+                    int n_t, int n_s, float eps2) {
+  const size_t b = blockIdx.y;
+  tgt += b * n_t * 8;
+  src += b * 8 * n_s;
+  out += b * n_t * 8;
+  const int slice = threadIdx.x % kAccSlices;
+  const int first = blockIdx.x * kAccTargets + threadIdx.x / kAccSlices * kAccPer;
+
+  float xi[kAccPer], yi[kAccPer], zi[kAccPer];
+  float vxi[kAccPer], vyi[kAccPer], vzi[kAccPer];
+  bool any = false;
+#pragma unroll
+  for (int p = 0; p < kAccPer; ++p) {
+    xi[p] = yi[p] = zi[p] = vxi[p] = vyi[p] = vzi[p] = 0.f;
+    const int i = first + p;
+    if (i < n_t) {
+      const float* t = tgt + static_cast<size_t>(i) * 8;
+      xi[p] = t[0]; yi[p] = t[1]; zi[p] = t[2];
+      vxi[p] = t[4]; vyi[p] = t[5]; vzi[p] = t[6];
+      any |= t[3] != 0.f;
+    }
+  }
+
+  __shared__ float sh[7][kAccTile];  // x y z m vx vy vz of one source tile
+  float sum[kAccPer][7], comp[kAccPer][7];
+#pragma unroll
+  for (int p = 0; p < kAccPer; ++p)
+#pragma unroll
+    for (int k = 0; k < 7; ++k) sum[p][k] = comp[p][k] = 0.f;
+
+  if (__syncthreads_or(any)) {  // uniform over the block: barriers stay legal
+    for (int j0 = 0; j0 < n_s; j0 += kAccTile) {
+      const int nj = min(kAccTile, n_s - j0);
+      if (threadIdx.x < nj) {
+#pragma unroll
+        for (int r = 0; r < 7; ++r)
+          sh[r][threadIdx.x] = src[static_cast<size_t>(r) * n_s + j0 + threadIdx.x];
+      }
+      __syncthreads();
+      float part[kAccPer][7];
+#pragma unroll
+      for (int p = 0; p < kAccPer; ++p)
+#pragma unroll
+        for (int k = 0; k < 7; ++k) part[p][k] = 0.f;
+#pragma unroll 2
+      for (int j = slice; j < nj; j += kAccSlices) {
+        const float sx = sh[0][j], sy = sh[1][j], sz = sh[2][j], mj = sh[3][j];
+        const float svx = sh[4][j], svy = sh[5][j], svz = sh[6][j];
+#pragma unroll
+        for (int p = 0; p < kAccPer; ++p) {
+          const float dx = sx - xi[p];
+          const float dy = sy - yi[p];
+          const float dz = sz - zi[p];
+          const float dvx = svx - vxi[p];
+          const float dvy = svy - vyi[p];
+          const float dvz = svz - vzi[p];
+          const float r2 = dx * dx + dy * dy + dz * dz;
+          // a self-pair (r2 == 0) contributes exactly zero, the potential too
+          const float inv_r = r2 > 0.f ? rsqrtf(r2 + eps2) : 0.f;
+          const float inv_r2 = inv_r * inv_r;
+          const float t = mj * (inv_r2 * inv_r);
+          const float q = -3.f * (dx * dvx + dy * dvy + dz * dvz) * inv_r2;
+          accumulate<kMixed>(part[p][0], sum[p][0], comp[p][0], t * dx);
+          accumulate<kMixed>(part[p][1], sum[p][1], comp[p][1], t * dy);
+          accumulate<kMixed>(part[p][2], sum[p][2], comp[p][2], t * dz);
+          accumulate<kMixed>(part[p][3], sum[p][3], comp[p][3], t * (dvx + q * dx));
+          accumulate<kMixed>(part[p][4], sum[p][4], comp[p][4], t * (dvy + q * dy));
+          accumulate<kMixed>(part[p][5], sum[p][5], comp[p][5], t * (dvz + q * dz));
+          accumulate<kMixed>(part[p][6], sum[p][6], comp[p][6], mj * inv_r);
+        }
+      }
+      if constexpr (!kMixed) {
+#pragma unroll
+        for (int p = 0; p < kAccPer; ++p)
+#pragma unroll
+          for (int k = 0; k < 7; ++k) sum[p][k] += part[p][k];
+      }
+      __syncthreads();  // the tile is consumed before the next one lands
+    }
+  }
+
+  // the slices' partials meet in a fixed butterfly; the compensation folds
+  // in after it, outside the activity gate
+#pragma unroll
+  for (int offset = 1; offset < kAccSlices; offset *= 2)
+#pragma unroll
+    for (int p = 0; p < kAccPer; ++p)
+#pragma unroll
+      for (int k = 0; k < 7; ++k) combine<kMixed>(sum[p][k], comp[p][k], offset);
+  if (slice < kAccPer && first + slice < n_t) {
+    // lane `slice` of the group writes the group's target `slice`
+    float s[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int p = 0; p < kAccPer; ++p) {
+      if (p != slice) continue;
+#pragma unroll
+      for (int k = 0; k < 7; ++k) s[k] = sum[p][k] + comp[p][k];
+    }
+    const size_t i = first + slice;
+    const float a = tgt[i * 8 + 3];
+    float* o = out + i * 8;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) o[k] = a * s[k];
+    o[6] = -(a * s[6]);
+    o[7] = 0.f;
   }
 }
 
@@ -318,10 +364,6 @@ snap_kernel(const float* __restrict__ tgt, const float* __restrict__ src,
   }
 }
 
-dim3 grid_for(int batch, int n_t) {
-  return dim3((n_t + kThreads - 1) / kThreads, batch);
-}
-
 }  // namespace
 
 // Each launcher enqueues one kernel on `stream` and returns
@@ -334,10 +376,11 @@ extern "C" int nbody_acc_jerk_pot(const void* tgt, const void* src, void* out,
   const auto* t = static_cast<const float*>(tgt);
   const auto* x = static_cast<const float*>(src);
   auto* o = static_cast<float*>(out);
+  const dim3 grid((n_t + kAccTargets - 1) / kAccTargets, batch);
   if (mixed)
-    acc_jerk_pot_kernel<true><<<grid_for(batch, n_t), kThreads, 0, s>>>(t, x, o, n_t, n_s, eps2);
+    acc_jerk_pot_kernel<true><<<grid, kAccThreads, 0, s>>>(t, x, o, n_t, n_s, eps2);
   else
-    acc_jerk_pot_kernel<false><<<grid_for(batch, n_t), kThreads, 0, s>>>(t, x, o, n_t, n_s, eps2);
+    acc_jerk_pot_kernel<false><<<grid, kAccThreads, 0, s>>>(t, x, o, n_t, n_s, eps2);
   return static_cast<int>(cudaGetLastError());
 }
 

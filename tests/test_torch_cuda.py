@@ -97,23 +97,62 @@ def test_kernels_match_plain(cuda, batch, n_t, n_s, block_i, block_j,
     _assert_close(got, want, tgt, ((0, 3),), TOL[compute_dtype])
 
 
-#: the snap kernel's split of the source axis (``kSnapSlices`` lanes per
-#: target group and ``kSnapTargets`` targets per block in
-#: csrc/nbody_force.cu); the cases below are cut against them
+#: the kernels' split of the source axis (``k*Slices`` lanes per target
+#: group and ``k*Targets`` targets per block in csrc/nbody_force.cu, for
+#: K1 ``kAcc*`` and for K2 ``kSnap*``); the cases below are cut against them
+ACC_SLICES = 16
+ACC_TARGETS = 128
 SNAP_SLICES = 16
 SNAP_TARGETS = 128
 
 
-def _snap_case(dev, batch, n_t, n_s, block, seed, zero_slice=None,
-               inactive=0):
-    """Snap operands whose sources in lane ``zero_slice``'s interleave
-    (every SNAP_SLICES-th source) have zero mass and whose first
-    ``inactive`` targets are inactive."""
+def _split_case(dev, batch, n_t, n_s, block, seed, slices, zero_slice=None,
+                inactive=0):
+    """Operands whose sources in lane ``zero_slice``'s interleave (every
+    ``slices``-th source) have zero mass and whose first ``inactive``
+    targets are inactive."""
     tgt, src, tacc, sacc = _operands(dev, batch, n_t, n_s, block, block, seed)
     if zero_slice is not None:
-        src[..., 3, zero_slice::SNAP_SLICES] = 0.0
+        src[..., 3, zero_slice::slices] = 0.0
     tgt[..., :inactive, 3] = 0.0
     return tgt, src, tacc, sacc
+
+
+@pytest.mark.parametrize("compute_dtype", (None, "bfloat16"))
+@pytest.mark.parametrize("batch,n_t,n_s,block,zero_slice,inactive", [
+    (0, 200, 200, 8, None, 0),         # N_s not a multiple of the slices
+    (0, 300, 1100, 4, None, 0),        # two full source tiles and a ragged one
+    (0, 96, 264, 8, 5, 0),             # one lane's sources all massless
+    (0, 400, 128, 8, None, 2 * ACC_TARGETS),  # whole blocks inactive
+    (3, 200, 136, 8, 3, ACC_TARGETS),  # batch of three
+])
+def test_acc_jerk_kernel_split_matches_plain(cuda, batch, n_t, n_s, block,
+                                             zero_slice, inactive,
+                                             compute_dtype):
+    ops_ = _split_case(cuda, batch, n_t, n_s, block, seed=n_t * n_s,
+                       slices=ACC_SLICES, zero_slice=zero_slice,
+                       inactive=inactive)[:2]
+    kw = dict(block_i=block, block_j=block, compute_dtype=compute_dtype)
+    got = nbody_force.acc_jerk_pot_packed(*ops_, **kw)
+    want = _plain(nbody_force._acc_jerk_plain, ops_, **kw)
+    torch.cuda.synchronize()
+    _assert_close(got, want, ops_[0], ((0, 3), (3, 6), (6, 7)),
+                  TOL[compute_dtype])
+    if inactive:
+        assert (got[..., :inactive, :] == 0).all()
+
+
+@pytest.mark.parametrize("compute_dtype", (None, "bfloat16"))
+def test_acc_jerk_kernel_is_deterministic(cuda, compute_dtype):
+    """The slices' partials meet in a fixed order and no atomics: two
+    launches on the same inputs give the same bits."""
+    ops_ = _split_case(cuda, 0, 1000, 4096, 8, seed=3,
+                       slices=ACC_SLICES)[:2]
+    kw = dict(block_i=8, block_j=8, compute_dtype=compute_dtype)
+    first = nbody_force.acc_jerk_pot_packed(*ops_, **kw)
+    second = nbody_force.acc_jerk_pot_packed(*ops_, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("compute_dtype", (None, "bfloat16"))
@@ -125,8 +164,9 @@ def _snap_case(dev, batch, n_t, n_s, block, seed, zero_slice=None,
 ])
 def test_snap_kernel_split_matches_plain(cuda, batch, n_t, n_s, block,
                                          zero_slice, inactive, compute_dtype):
-    ops_ = _snap_case(cuda, batch, n_t, n_s, block, seed=n_t * n_s,
-                      zero_slice=zero_slice, inactive=inactive)
+    ops_ = _split_case(cuda, batch, n_t, n_s, block, seed=n_t * n_s,
+                       slices=SNAP_SLICES, zero_slice=zero_slice,
+                       inactive=inactive)
     kw = dict(block_i=block, block_j=block, compute_dtype=compute_dtype)
     got = nbody_force.snap_packed(*ops_, **kw)
     want = _plain(nbody_force._snap_plain, ops_, **kw)
@@ -140,7 +180,7 @@ def test_snap_kernel_split_matches_plain(cuda, batch, n_t, n_s, block,
 def test_snap_kernel_is_deterministic(cuda, compute_dtype):
     """The slices' partials meet in a fixed order and no atomics: two
     launches on the same inputs give the same bits."""
-    ops_ = _snap_case(cuda, 0, 1000, 4096, 8, seed=3)
+    ops_ = _split_case(cuda, 0, 1000, 4096, 8, seed=3, slices=SNAP_SLICES)
     kw = dict(block_i=8, block_j=8, compute_dtype=compute_dtype)
     first = nbody_force.snap_packed(*ops_, **kw)
     second = nbody_force.snap_packed(*ops_, **kw)

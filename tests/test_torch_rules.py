@@ -177,33 +177,53 @@ def test_tile_share_checks_follow_the_kernels_key_tile():
 
 
 def test_flash_mutants_plant_every_fault_in_the_kernel():
-    """Each planted fault of flash_mutants.py edits the bf16 kernel as it
-    stands, once per edit, and leaves the fp32 kernel as it is."""
+    """Each planted fault of flash_mutants.py edits its own kernel (bf16 or
+    fp32) as it stands, once per edit, and leaves the other kernel as it
+    is."""
     spec = importlib.util.spec_from_file_location(
         "flash_mutants", ROOT / "flash_mutants.py")
     mutants = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mutants)
     text = (_build.CSRC / "flash_attention.cu").read_text()
-    cut = text.index("// fp32: scalar FMA kernel")
-    assert sum(must for _, must in mutants.FAULTS.values()) == 6
-    for name, (edits, _) in mutants.FAULTS.items():
-        out = mutants.mutant_source(text, edits)
+    cut = text.index(mutants.FP32_BANNER)
+    assert text.count(mutants.FP32_BANNER) == 1
+    musts = {"bf16": 0, "fp32": 0}
+    for name, (section, edits, must) in mutants.FAULTS.items():
+        out = mutants.mutant_source(text, section, edits)
         assert (out == text) == (not edits), name
-        assert out.endswith(text[cut:]), name
+        if section == "bf16":
+            assert out.endswith(text[cut:]), name
+        else:
+            assert out.startswith(text[:cut]), name
+        musts[section] += must
+    assert musts == {"bf16": 6, "fp32": 3}
+
+
+def _split_constants(prefix):
+    src = (_build.CSRC / "nbody_force.cu").read_text()
+
+    def const(name):
+        found = re.findall(rf"constexpr int {prefix}{name} = (\d+);", src)
+        assert len(found) == 1, (prefix + name, found)
+        return int(found[0])
+
+    slices = const("Slices")
+    return slices, const("Threads") // slices * const("Per")
 
 
 def test_snap_cases_follow_the_kernels_split():
     """The on-card snap cases are cut against the kernel's source split:
     both constants of tests/test_torch_cuda.py must be the kernel's."""
-    src = (_build.CSRC / "nbody_force.cu").read_text()
-
-    def const(name):
-        found = re.findall(rf"constexpr int {name} = (\d+);", src)
-        assert len(found) == 1, (name, found)
-        return int(found[0])
-
-    slices = const("kSnapSlices")
-    targets = const("kSnapThreads") // slices * const("kSnapPer")
+    slices, targets = _split_constants("kSnap")
     path = ROOT / "tests" / "test_torch_cuda.py"
     assert _assigned_constant(path, "SNAP_SLICES") == slices
     assert _assigned_constant(path, "SNAP_TARGETS") == targets
+
+
+def test_acc_jerk_cases_follow_the_kernels_split():
+    """The on-card K1 cases are cut against the kernel's source split:
+    both constants of tests/test_torch_cuda.py must be the kernel's."""
+    slices, targets = _split_constants("kAcc")
+    path = ROOT / "tests" / "test_torch_cuda.py"
+    assert _assigned_constant(path, "ACC_SLICES") == slices
+    assert _assigned_constant(path, "ACC_TARGETS") == targets
