@@ -17,7 +17,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    N = 16384, seed 0, Hermite-6, shared Aarseth step (eta = 0.02) to
    t = 0.0625 at fp32, and a shorter mixed-precision run; the kernels'
    launch counts are zeroed just before each run and read just after;
-5. CUDA-event timings of K1 and K2 at N = 16384 and 65536 and of the
+5. CUDA-event timings of K1 and K2 at N = 16384 and 65536, at the block
+   path's shapes (phase 8), and of the
    flash-attention kernel K3 at the prefill shape (B = 4, S = 2048,
    H = 16, KV = 8, D = 128, causal) in bf16 and fp32, each beside its
    plain version and its bound, K3 also beside
@@ -25,9 +26,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    shape (flash, efficient, cuDNN), the fastest of which is K3's library
    time;
 6. K3 held against its plain version on the card: the prefill shape in
-   bf16 and fp32, a non-causal rectangle, an MHA case, Sq < 512, and the
-   rows-sum-to-one property; bf16 element by element, and against the
-   plain version at the kernel's own key tile;
+   bf16 and fp32, a non-causal rectangle, an MHA case, Sq < 512, fp32
+   rows of 8192 and 32768 keys, and the rows-sum-to-one property in both
+   types at the prefill shape and at those two lengths; bf16 element by
+   element, and against the plain version at the kernel's own key tile;
 7. the serve path at full width: qwen3-0.6b (28 layers, d_model 1024, 16
    query and 8 kv heads, head_dim 128, vocab 151936) with seeded random
    weights, ``Engine.generate`` on 4 prompts of 2048 tokens for 32 tokens
@@ -37,6 +39,22 @@ Phases, in order; any failure raises and the script exits nonzero:
    prefill and never in decode; the flash route's prefill and first decode
    logits are held against the plain route (``attn_impl="xla"``) on the
    same weights;
+8. block ensembles (``repro_torch.sim``): K1 and K2 held against their
+   plain versions at the block path's shapes (gathered targets, caps
+   below 128 and off it, B = 3 and 4, against 16384 sources);
+   binary_plummer N = 16384 fp32 through the block stepper to t = 1/16,
+   once with ``compaction="none"`` and once with ``"gather"``: equal
+   events and pairs, bitwise equal final states, fewer tiles, |dE/E| in
+   its tier, one K1 and one K2 launch per event, the host reads per
+   event, the blocks of each K1 launch as its launcher reports them, and
+   a profiled window over the first 128 events of each; the same
+   bitwise check in mixed mode at N = 4096; a padded batch king:4096
+   merger:8192 plummer:16384 in member bucket groups, each member bitwise
+   equal to its own B = 1 run, padding rows frozen, one launch per pass
+   per group; fixed-dt and adaptive ensembles of four Plummer N = 16384
+   members, one launch per pass for the batch, |dE/E| per member; and
+   ``benchmarks/bench_ci.py``'s block_compaction recipe at N = 256 with
+   gather compaction, recorded beside the reference's row;
 then one ``kernels`` JSON line and ``{"ok": true, "device": {...}}`` as the
 last line.
 
@@ -47,11 +65,13 @@ exits nonzero without a card.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -68,6 +88,8 @@ from repro_torch.models import config as lm_config  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.models import params as lm_params  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
+from repro_torch.sim import ensemble as ens  # noqa: E402
+from repro_torch.sim import scenarios  # noqa: E402
 
 N_MAIN = 16384
 N_LARGE = 65536
@@ -152,14 +174,46 @@ SERVE_TOL = 5e-2
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 
+#: the block path (phase 8): binary_plummer at the main path's width, one
+#: macro-step of dt_max split into 2**(n_levels-1) ticks.  10 levels, not
+#: 8: at 8 the finest step (dt_max/128) is far coarser than the one the
+#: core's closest pairs want, and |dE/E| leaves the fp32 tier (PERF.md
+#: gives the readings at 8, 9 and 11 levels)
+BLOCK_SCENARIO = "binary_plummer"
+BLOCK_KW = dict(t_end=0.0625, dt_max=0.0625, n_levels=10, eta=0.02)
+#: events in the profiled window of each block mode
+BLOCK_PROFILE_EVENTS = 128
+N_BLOCK_MIXED = 4096
+#: the padded mixed batch (B = 3, n_max 16384)
+PADDED_MIX = (("king", 4096), ("merger", 8192), ("plummer", 16384))
+#: fixed and adaptive ensembles: B members of Plummer N_MAIN
+ENSEMBLE_B, FIXED_STEPS, FIXED_DT = 4, 16, 2.0 ** -16
+ADAPTIVE_T_END, ADAPTIVE_STEPS = 2.0 ** -11, 64
+#: benchmarks/bench_ci.py's block_compaction recipe and the reference's
+#: row for seed 0 (BENCH_ci.json): events, tiles none, tiles gather
+BENCH_CI_KW = dict(t_end=0.25, eta=0.01, dt_max=0.0625, n_levels=12,
+                   block_i=32, block_j=256)
+BENCH_CI_N, BENCH_CI_REF = 256, (4685, 74960, 13466)
+#: K1 and K2 at the block path's shapes against N_s = N_MAIN sources:
+#: label, batch (0 = unbatched), gathered targets N_t, block_i.  The caps
+#: of 32 and 224 (block_i 32) are below and off the kernels' 128-target
+#: block; a gathered buffer's last eighth is inactive fill
+BLOCK_SHAPES = [("cap 32", 0, 32, 32), ("cap 224", 0, 224, 32),
+                ("cap 256", 0, 256, 256), ("cap 2048", 0, 2048, 256),
+                ("B=3 cap 4096", 3, 4096, 256),
+                ("B=4 N_t 16384", 4, N_MAIN, 256)]
+
 
 def check(ok: bool, msg: str):
     if not ok:
         raise RuntimeError(f"chip_smoke: FAILED: {msg}")
 
 
+T_START = time.perf_counter()
+
+
 def phase(title: str):
-    print(f"== {title}", flush=True)
+    print(f"== {title} (at {time.perf_counter() - T_START:.1f} s)", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -204,6 +258,24 @@ def rect_operands(n_t, n_s, dev, block_i, block_j, seed=7):
             ops.pack_acc_targets(acc_t, nt), ops.pack_acc_sources(acc_s, ns))
 
 
+def block_operands(systems, batch, n_t, block_i):
+    """K1 and K2 operands at a block event's shapes: the first ``n_t`` rows
+    of Plummer systems of N_MAIN (``systems[seed]``, from
+    :func:`plummer_operands`) as the gathered targets (the last eighth
+    inactive fill), each whole system as sources; ``batch`` systems (seeds
+    0, 1, ...) stacked, or one unbatched for ``batch`` 0."""
+    out = []
+    for seed in range(max(batch, 1)):
+        tgt, src, tacc, sacc = systems[seed]
+        nt = -(-n_t // block_i) * block_i
+        tgt, tacc = tgt[:nt].clone(), tacc[:nt].clone()
+        tgt[n_t - n_t // 8:, 3] = 0.0
+        out.append((tgt, src, tacc, sacc))
+    if not batch:
+        return out[0]
+    return tuple(torch.stack(xs) for xs in zip(*out))
+
+
 # --------------------------------------------------------------------------
 # comparisons and timings
 # --------------------------------------------------------------------------
@@ -246,13 +318,13 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(name, dtype, n_t_active, n_t, n_s):
-    """Least time for the work: flops of the active pairs over the fp32
-    peak, or each operand read once and the output written once over HBM
-    bandwidth, whichever is larger."""
+def bound_ms(name, dtype, n_t_active, n_t, n_s, batch=1):
+    """Least time for the work: flops of the active pairs (``n_t_active``
+    over all members) over the fp32 peak, or each operand read once and
+    the output written once over HBM bandwidth, whichever is larger."""
     flops = FLOPS_PER_PAIR[(name, dtype)] * n_t_active * n_s
     operands = 2 if name == "acc_jerk_pot" else 4
-    nbytes = 4 * 8 * (n_t + n_s) * (operands // 2) + 4 * 8 * n_t
+    nbytes = batch * (4 * 8 * (n_t + n_s) * (operands // 2) + 4 * 8 * n_t)
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -337,6 +409,8 @@ def flash_cases(prefill):
         ("rectangle", (2, 256, 1024, 16, 8, 128), torch.float32, False, (256, 512)),
         ("mha g=1", (2, 1024, 1024, 8, 8, 128), torch.bfloat16, True, (512, 512)),
         ("sq<512", (4, 384, 384, 16, 8, 128), torch.bfloat16, True, (384, 384)),
+        ("long 8k", (1, 8192, 8192, 16, 8, 128), torch.float32, True, (512, 512)),
+        ("long 32k", (1, 32768, 32768, 16, 8, 128), torch.float32, True, (512, 512)),
     ]
 
 
@@ -401,6 +475,319 @@ def device_profile(prof, wall_ms):
     flash_ms = sum(ms for name, ms in by_name.items() if "flash_bf16_kernel" in name)
     return {"device_ms": device_ms, "kernels": n, "busy": device_ms / wall_ms,
             "top": top, "flash_ms": flash_ms}
+
+
+def counted(fn, all_kernels):
+    """``fn()`` with every launch count, K1's and K2's grid sizes and the
+    block path's host-read count set to 0 just before and read just after;
+    returns ``(result, launches by kernel, host reads, wall seconds)``; the
+    grid sizes stay in each wrapper's ``blocks``."""
+    for k in all_kernels.values():
+        k.launches = 0
+        if hasattr(k, "blocks"):
+            k.blocks = {}
+    ens.ensemble_run_block.host_syncs = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (out, {name: k.launches for name, k in all_kernels.items()},
+            ens.ensemble_run_block.host_syncs, wall)
+
+
+def member(batched, i):
+    """Member ``i`` of a batched state as a B = 1 batch."""
+    return nbody.ParticleState(**{f: getattr(batched, f)[i:i + 1]
+                                  for f in nbody.FIELDS})
+
+
+def bitwise_same(a, b, fields=("pos", "vel", "acc", "jerk", "snap")):
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+
+
+def de_rel(e0, e1):
+    return [abs(float(x)) for x in (e1 - e0) / e0]
+
+
+def kernel_profile(fn):
+    """Device time of a ``torch.profiler`` window over ``fn()``: total,
+    K1 + K2's share and the busy share of the wall, and the host syncs
+    that CUDA's sync debug mode reports in it (every read to the host and
+    every copy that waits for the device); None if the profiler saw no
+    device activity."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    syncs = sum("synchronizing" in str(w.message) for w in caught)
+    total, nbody_ms, n = 0.0, 0.0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms = e.device_time_total / 1e3
+            total += ms
+            n += 1
+            if "acc_jerk_pot_kernel" in e.name or "snap_kernel" in e.name:
+                nbody_ms += ms
+    if not n:
+        return None
+    return {"wall_ms": wall, "device_ms": total, "kernels": n,
+            "nbody_ms": nbody_ms, "busy": total / wall, "syncs": syncs}
+
+
+def block_phase(dev, kernels, plains, block_ops, all_kernels):
+    """Phase 8: the block-timestep ensembles on the card.  Returns the
+    readings the JSON line and PERF.md report."""
+    bi, bj = nbody_force.DEFAULT_BLOCK_I, nbody_force.DEFAULT_BLOCK_J
+    out = {"holds": {}}
+
+    # K1 and K2 at the block path's shapes against their plain versions
+    for label, batch, n_t, _ in BLOCK_SHAPES:
+        x4, bi_s = block_ops[label]
+        for name in kernels:
+            x = x4[:2] if name == "acc_jerk_pot" else x4
+            for dtype in ("fp32", "mixed"):
+                cdt = ops.compute_dtype_for(dtype)
+                got = kernels[name](*x, block_i=bi_s, block_j=bj,
+                                    compute_dtype=cdt)
+                want = nbody_force._plain(plains[name], x, batch, eps=1e-7,
+                                          block_i=bi_s, block_j=bj,
+                                          compute_dtype=cdt)
+                torch.cuda.synchronize()
+                norm_err, abs_err = compare(name, got, want, x[0], TOL[dtype])
+                out["holds"][(label, name, dtype)] = (norm_err, abs_err)
+                print(f"block {label:<14} {name:<13} {dtype:<6} max "
+                      f"normalised err {norm_err:.3e} (tol "
+                      f"{TOL[dtype]:.0e})  max abs err {abs_err:.3e}",
+                      flush=True)
+
+    # the full-width block run, gather and none, fp32
+    st = scenarios.make(BLOCK_SCENARIO, N_MAIN, seed=0, device=dev,
+                        validate=False)
+    init = ens.ensemble_initialize(ens.stack_states([st]))
+    e0 = ens.batched_total_energy(init)
+    runs = {}
+    for compaction in ("gather", "none"):
+        # none reads nothing per event, so it runs exactly the gather
+        # run's event count in one chunk
+        n_ev = 256 if compaction == "gather" else \
+            int(runs["gather"]["carry"].n_events.max())
+        (s, carry), counts, syncs, wall = counted(
+            lambda: ens.evolve_ensemble_block(
+                init, initialized=True, compaction=compaction, n_events=n_ev,
+                **BLOCK_KW), all_kernels)
+        events = int(carry.n_events[0])
+        r = runs[compaction] = {
+            "state": s, "carry": carry, "counts": counts, "wall": wall,
+            "events": events, "reads": syncs,
+            "tiles": float(carry.n_tiles[0]),
+            "pairs": float(carry.n_pairs[0]),
+            "de": de_rel(e0, ens.batched_total_energy(s))[0],
+            # the grid sizes K1's launcher reported in this run
+            "blocks": dict(sorted(kernels["acc_jerk_pot"].blocks.items()))}
+        print(f"block {BLOCK_SCENARIO} N={N_MAIN} fp32 {compaction:<6}: "
+              f"events={events} wall={wall:.3f} s "
+              f"({1e3 * wall / events:.4f} ms/event) host reads "
+              f"{r['reads']} ({r['reads'] / events:.3f}/event) "
+              f"launches={counts} tiles={r['tiles']:.0f} "
+              f"pairs={r['pairs']:.0f} |dE/E|={r['de']:.3e} (tier "
+              f"{DE_TIERS['fp32']:.0e}) K1 blocks per launch: "
+              f"{r['blocks']}", flush=True)
+        for name in kernels:
+            check(counts[name] == events, f"block {compaction}: {name} "
+                  f"launched {counts[name]} times for {events} events")
+        check(r["de"] <= DE_TIERS["fp32"],
+              f"block {compaction}: |dE/E| {r['de']:.3e}")
+        check(abs(float(s.time[0]) - BLOCK_KW["t_end"]) < 1e-12,
+              f"block {compaction} stopped at t={float(s.time[0])}")
+    g, nn = runs["gather"], runs["none"]
+    same = bitwise_same(g["state"], nn["state"])
+    print(f"block gather vs none: events {g['events']} / {nn['events']}, "
+          f"pairs equal {g['pairs'] == nn['pairs']}, final pos vel acc "
+          f"jerk snap bitwise equal {same}, tiles {g['tiles']:.0f} vs "
+          f"{nn['tiles']:.0f} ({nn['tiles'] / g['tiles']:.2f}x fewer), wall "
+          f"per event {nn['wall'] / g['wall'] * g['events'] / nn['events']:.2f}x"
+          f" lower", flush=True)
+    check(g["events"] == nn["events"] and g["pairs"] == nn["pairs"],
+          "block gather vs none: events or pairs differ")
+    check(same, "block gather vs none: final state not bitwise equal")
+    check(g["tiles"] < nn["tiles"], "block gather: no fewer tiles")
+    check(len(nn["blocks"]) == 1 and max(g["blocks"]) <= max(nn["blocks"]),
+          f"block: K1 grids {g['blocks']} (gather) vs {nn['blocks']} (none)")
+    out["runs"] = {k: {x: v[x] for x in ("events", "wall", "reads", "tiles",
+                                         "de", "blocks", "counts")}
+                   for k, v in runs.items()}
+    # where an event's time goes: a profiled window over the first
+    # BLOCK_PROFILE_EVENTS events of each mode
+    prof = {}
+    n_prof = BLOCK_PROFILE_EVENTS
+    for compaction in ("gather", "none"):
+        p = kernel_profile(lambda: ens.ensemble_run_block(
+            init, compaction=compaction, n_events=n_prof, **BLOCK_KW))
+        prof[compaction] = p
+        if p is None:
+            print(f"profile block {compaction}: torch.profiler recorded no "
+                  f"device time", flush=True)
+            continue
+        print(f"profile block {compaction} ({n_prof} events): wall "
+              f"{p['wall_ms']:.3f} ms, device {p['device_ms']:.3f} ms in "
+              f"{p['kernels']} launches ({p['kernels'] / n_prof:.1f} per "
+              f"event, busy {100 * p['busy']:.1f}%), K1 + K2 "
+              f"{p['nbody_ms']:.3f} ms ({100 * p['nbody_ms'] / p['wall_ms']:.1f}"
+              f"% of the wall, {p['nbody_ms'] / n_prof:.4f} ms per event), "
+              f"host syncs (sync debug mode) {p['syncs']} "
+              f"({p['syncs'] / n_prof:.3f} per event)", flush=True)
+    out["profile"] = prof
+    del init, runs, g, nn
+
+    # mixed mode at N_BLOCK_MIXED: the same bitwise contract
+    st = scenarios.make(BLOCK_SCENARIO, N_BLOCK_MIXED, seed=0, device=dev)
+    init = ens.ensemble_initialize(ens.stack_states([st]), dtype="mixed")
+    e0 = ens.batched_total_energy(init)
+    mixed = {}
+    for compaction in ("gather", "none"):
+        n_ev = 256 if compaction == "gather" else mixed["gather"][1]
+        s, carry = ens.evolve_ensemble_block(
+            init, initialized=True, compaction=compaction, n_events=n_ev,
+            dtype="mixed", **BLOCK_KW)
+        mixed[compaction] = (s, int(carry.n_events[0]),
+                             float(carry.n_tiles[0]), float(carry.n_pairs[0]),
+                             de_rel(e0, ens.batched_total_energy(s))[0])
+    (sg, eg, tg, pg, dg), (sn, en, tn, pn, dn) = mixed["gather"], mixed["none"]
+    same = bitwise_same(sg, sn)
+    print(f"block {BLOCK_SCENARIO} N={N_BLOCK_MIXED} mixed: events {eg} / "
+          f"{en}, pairs equal {pg == pn}, bitwise equal {same}, tiles "
+          f"{tg:.0f} vs {tn:.0f}, |dE/E| {dg:.3e} / {dn:.3e} (tier "
+          f"{DE_TIERS['mixed']:.0e})", flush=True)
+    check(eg == en and pg == pn and same and tg < tn,
+          "block mixed: gather vs none differ")
+    check(max(dg, dn) <= DE_TIERS["mixed"], f"block mixed: |dE/E| {dg:.3e}")
+    out["mixed"] = {"events": eg, "tiles_gather": tg, "tiles_none": tn,
+                    "de": dg}
+    del init, mixed, sg, sn
+
+    # the padded mixed batch, member bucket groups
+    specs = scenarios.make_mix(PADDED_MIX, seed=0)
+    batched, n_active = scenarios.build_padded(specs, device=dev,
+                                               validate=False)
+    n_max = batched.pos.shape[1]
+    e0 = ens.batched_total_energy(ens.ensemble_initialize(
+        batched, n_active=n_active))
+    groups = ens._bucket_groups(n_max, n_active.tolist(), bi, bj, "gather",
+                                "member")
+    kw = dict(compaction="gather", bucket_mode="member", **BLOCK_KW)
+    (res, carry), counts, syncs, wall = counted(
+        lambda: ens.evolve_ensemble_block(batched, n_active=n_active, **kw),
+        all_kernels)
+    events = carry.n_events.tolist()
+    iters = max(events)
+    de = de_rel(e0, ens.batched_total_energy(res))
+    print(f"padded B={len(specs)} {[f'{s.name}:{s.n}' for s in specs]} "
+          f"n_max={n_max}: {len(groups)} bucket groups of "
+          f"{[n_caps for _, n_caps in groups]} caps, events per member "
+          f"{events}, wall {wall:.3f} s, "
+          f"launches={counts} (bootstrap 1 + {iters} event rounds x "
+          f"{len(groups)} groups), host reads {syncs}, |dE/E| "
+          f"{[f'{x:.3e}' for x in de]}", flush=True)
+    for name in kernels:
+        check(counts[name] == 1 + iters * len(groups),
+              f"padded: {name} launched {counts[name]} times, expected one "
+              f"per pass per bucket group ({1 + iters * len(groups)})")
+    check(max(de) <= DE_TIERS["fp32"], f"padded: |dE/E| {max(de):.3e}")
+    for i, n in enumerate(n_active.tolist()):
+        frozen = all(not getattr(res, f)[i, n:].any()
+                     for f in ("pos", "vel", "acc", "jerk", "snap", "pot"))
+        solo, c_solo = ens.evolve_ensemble_block(
+            member(batched, i), n_active=n_active[i:i + 1], **kw)
+        same = bitwise_same(member(res, i), solo)
+        print(f"  member {i} {specs[i].name}:{n}: padding rows frozen "
+              f"{frozen}, bitwise equal to its B=1 run {same} (events "
+              f"{events[i]} / {int(c_solo.n_events[0])})", flush=True)
+        check(frozen, f"padded member {i}: padding rows moved")
+        check(same and events[i] == int(c_solo.n_events[0]),
+              f"padded member {i}: differs from its B=1 run")
+    out["padded"] = {"groups": len(groups), "events": events,
+                     "counts": counts, "wall": wall, "de": de}
+    del batched, res
+
+    # fixed and adaptive ensembles of ENSEMBLE_B Plummer members
+    batched, _ = scenarios.build_padded(
+        scenarios.make_mix([("plummer", N_MAIN)], seed=0,
+                           repeat=ENSEMBLE_B), device=dev, validate=False)
+    init = ens.ensemble_initialize(batched)
+    e0 = ens.batched_total_energy(init)
+    res, counts, _, wall = counted(
+        lambda: ens.evolve_ensemble(batched, n_steps=FIXED_STEPS,
+                                    dt=FIXED_DT), all_kernels)
+    de = de_rel(e0, ens.batched_total_energy(res))
+    print(f"fixed ensemble B={ENSEMBLE_B} plummer N={N_MAIN} fp32: "
+          f"{FIXED_STEPS} steps of {FIXED_DT:g}, wall {wall:.3f} s "
+          f"({1e3 * wall / (FIXED_STEPS + 1):.4f} ms per batched step), "
+          f"launches={counts}, |dE/E| {[f'{x:.3e}' for x in de]}",
+          flush=True)
+    for name in kernels:
+        check(counts[name] == FIXED_STEPS + 1, f"fixed ensemble: {name} "
+              f"launched {counts[name]} times for {FIXED_STEPS} steps and "
+              f"the bootstrap")
+    check(max(de) <= DE_TIERS["fp32"], f"fixed ensemble: |dE/E| {max(de):.3e}")
+    out["fixed"] = {"counts": counts, "wall": wall, "de": de}
+    (res, h, taken), counts, _, wall = counted(
+        lambda: ens.ensemble_run_adaptive(init, t_end=ADAPTIVE_T_END,
+                                          n_steps=ADAPTIVE_STEPS),
+        all_kernels)
+    de = de_rel(e0, ens.batched_total_energy(res))
+    print(f"adaptive ensemble B={ENSEMBLE_B} to t={ADAPTIVE_T_END:g}: "
+          f"steps per member {taken.tolist()} in {ADAPTIVE_STEPS} batched "
+          f"steps, wall {wall:.3f} s, launches={counts}, |dE/E| "
+          f"{[f'{x:.3e}' for x in de]}", flush=True)
+    for name in kernels:
+        check(counts[name] == ADAPTIVE_STEPS, f"adaptive ensemble: {name} "
+              f"launched {counts[name]} times for {ADAPTIVE_STEPS} steps")
+    check(bool((res.time == ADAPTIVE_T_END).all()),
+          f"adaptive ensemble: members stopped at {res.time.tolist()}")
+    check(len(set(taken.tolist())) > 1 or ENSEMBLE_B == 1,
+          "adaptive ensemble: every member took the same steps")
+    check(max(de) <= DE_TIERS["fp32"],
+          f"adaptive ensemble: |dE/E| {max(de):.3e}")
+    out["adaptive"] = {"counts": counts, "wall": wall, "de": de,
+                       "taken": taken.tolist()}
+    del batched, init, res
+
+    # benchmarks/bench_ci.py's block_compaction recipe: recorded, not gated.
+    # Only the gather run: an uncompacted event enqueues the plan's dense
+    # tiles, so the uncompacted run's tiles are its events times those
+    st = scenarios.make(BLOCK_SCENARIO, BENCH_CI_N, seed=0, device=dev)
+    init = ens.ensemble_initialize(ens.stack_states([st]))
+    (_, carry), _, _, wg = counted(
+        lambda: ens.evolve_ensemble_block(
+            init, initialized=True, compaction="gather", **BENCH_CI_KW),
+        all_kernels)
+    eg, tg = int(carry.n_events[0]), float(carry.n_tiles[0])
+    bi_ci, bj_ci = BENCH_CI_KW["block_i"], BENCH_CI_KW["block_j"]
+    tn = eg * ops.CapacityPlan(
+        n_targets=-(-BENCH_CI_N // bi_ci) * bi_ci,
+        n_sources=-(-BENCH_CI_N // bj_ci) * bj_ci, block_i=bi_ci,
+        block_j=bj_ci).dense_tiles
+    ref_e, ref_tn, ref_tg = BENCH_CI_REF
+    print(f"bench_ci block_compaction {BLOCK_SCENARIO} N={BENCH_CI_N} seed 0 "
+          f"{BENCH_CI_KW}: events {eg} (reference {ref_e}), tiles_gather "
+          f"{tg:.0f} (reference {ref_tg}), tiles_none (events x dense tiles "
+          f"per event) {tn} (reference {ref_tn}), tiles ratio {tn / tg:.2f} "
+          f"(reference {ref_tn / ref_tg:.2f}); wall per gather event "
+          f"{1e3 * wg / eg:.4f} ms (recorded, not gated)", flush=True)
+    out["bench_ci"] = {"events": eg, "tiles_none": tn, "tiles_gather": tg,
+                       "ms_per_event_gather": 1e3 * wg / eg}
+    return out
 
 
 def serve_path(cfg, dev, all_kernels):
@@ -668,12 +1055,50 @@ def main() -> int:
                 kr = 10 if n == N_MAIN else 3
                 ms = cuda_ms(k_call, kr)
                 pms = cuda_ms(p_call, 3 if n == N_MAIN else 1, warmup=1)
-                bms, by = bound_ms(name, dtype, int((x[0][:, 3] != 0).sum()), x[0].shape[0],
-                                   x[1].shape[1])
+                bms, by = bound_ms(name, dtype, int((x[0][..., 3] != 0).sum()),
+                                   x[0].shape[0], x[1].shape[1])
                 timings[(name, dtype, n)] = (ms, pms, bms, by)
                 print(f"{name:<13} {dtype:<6} N={n:<6} kernel {ms:.4f} ms  "
                       f"plain {pms:.4f} ms  bound {bms:.4f} ms ({by})  "
                       f"bound/kernel {bms / ms:.3f}", flush=True)
+
+    # the block path's shapes: gathered targets against N_MAIN sources
+    systems = {0: main_ops["snap"]}
+    for seed in range(1, ENSEMBLE_B):
+        systems[seed] = plummer_operands(N_MAIN, seed, dev, bi, bj)
+    block_ops = {label: (block_operands(systems, batch, n_t, bi_s), bi_s)
+                 for label, batch, n_t, bi_s in BLOCK_SHAPES}
+    for label, batch, n_t, _ in BLOCK_SHAPES:
+        x4, bi_s = block_ops[label]
+        for name in kernels:
+            x = x4[:2] if name == "acc_jerk_pot" else x4
+            for dtype in ("fp32", "mixed"):
+                cdt = ops.compute_dtype_for(dtype)
+
+                def k_call():
+                    return kernels[name](*x, block_i=bi_s, block_j=bj,
+                                         compute_dtype=cdt)
+
+                def p_call():
+                    return nbody_force._plain(
+                        plains[name], x, batch, eps=1e-7, block_i=bi_s,
+                        block_j=bj, compute_dtype=cdt)
+
+                kernels[name].blocks = {}
+                ms = cuda_ms(k_call, 20)
+                grids = kernels[name].blocks  # as the launcher reports
+                check(len(grids) == 1, f"{name} {label}: grids {grids}")
+                blocks = next(iter(grids))
+                pms = cuda_ms(p_call, 1, warmup=1)
+                bms, by = bound_ms(name, dtype, int((x[0][..., 3] != 0).sum()),
+                                   x[0].shape[-2], x[1].shape[-1],
+                                   batch=max(batch, 1))
+                timings[(name, dtype, label)] = (ms, pms, bms, by, blocks)
+                print(f"{name:<13} {dtype:<6} block {label:<14} N_t="
+                      f"{x[0].shape[-2]:<5} N_s={N_MAIN} blocks {blocks:<3} "
+                      f"kernel {ms:.4f} ms  plain {pms:.4f} ms  bound "
+                      f"{bms:.4f} ms ({by})  bound/kernel {bms / ms:.3f}",
+                      flush=True)
 
     for dtype in ("fp32", "mixed"):
         k_ms = sum(timings[(name, dtype, N_MAIN)][0] for name in kernels)
@@ -732,19 +1157,29 @@ def main() -> int:
         failed = flash_failures(r, tag)
         check(not failed, f"flash {label} {tag}: {'; '.join(failed)}")
         del q, k, v
-    for dtype, tag in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
-        q, k, _ = flash_operands(*prefill, dtype, dev, seed=5)
+    rows_sum = {}
+    long_rows = {"long 8k": (1, 8192, 8192, 16, 8, 128),
+                 "long 32k": (1, 32768, 32768, 16, 8, 128)}
+    for (label, shape), (dtype, tag) in itertools.product(
+            {"prefill": prefill, **long_rows}.items(),
+            ((torch.float32, "fp32"), (torch.bfloat16, "bf16"))):
+        q, k, _ = flash_operands(*shape, dtype, dev, seed=5)
         out = fa.flash_attention(q, k, torch.ones_like(k), causal=True)
         torch.cuda.synchronize()
         err = float((out.float() - 1.0).abs().max())
-        print(f"flash rows sum to one {tag} (v = 1, prefill shape): max "
-              f"|out - 1| {err:.3e} (tol {ROWS_TOL[tag]:.1e})", flush=True)
-        check(err <= ROWS_TOL[tag], f"flash rows-sum-to-one {tag}: {err:.3e}")
+        rows_sum[(label, tag)] = err
+        print(f"flash rows sum to one {tag} (v = 1, {label} shape, Sk="
+              f"{shape[2]}): max |out - 1| {err:.3e} (tol "
+              f"{ROWS_TOL[tag]:.1e})", flush=True)
+        check(err <= ROWS_TOL[tag],
+              f"flash rows-sum-to-one {tag} {label}: {err:.3e}")
         del q, k, out
 
     phase("7. serve path: qwen3-0.6b at full width")
     serve = serve_path(cfg, dev, all_kernels)
 
+    phase("8. block ensembles on the card")
+    block = block_phase(dev, kernels, plains, block_ops, all_kernels)
 
     rows = []
     for name in kernels:
@@ -766,6 +1201,23 @@ def main() -> int:
             "bound_ms_n65536": bms_l,
             "ms_mixed_n65536": timings[(name, "mixed", N_LARGE)][0],
             "bound_ms_mixed_n65536": timings[(name, "mixed", N_LARGE)][2],
+            "launches_block_gather": block["runs"]["gather"]["counts"][name],
+            "launches_block_none": block["runs"]["none"]["counts"][name],
+            "launches_block_padded": block["padded"]["counts"][name],
+            "launches_fixed_ensemble": block["fixed"]["counts"][name],
+            "launches_adaptive_ensemble": block["adaptive"]["counts"][name],
+            "blocks_per_launch_block_gather":
+                block["runs"]["gather"]["blocks"],
+            "block_shapes": {
+                f"{label} {dtype}": {
+                    "ms": timings[(name, dtype, label)][0],
+                    "plain_ms": timings[(name, dtype, label)][1],
+                    "bound_ms": timings[(name, dtype, label)][2],
+                    "bound_by": timings[(name, dtype, label)][3],
+                    "blocks": timings[(name, dtype, label)][4],
+                    "max_norm_err": block["holds"][(label, name, dtype)][0]}
+                for label, *_ in BLOCK_SHAPES
+                for dtype in ("fp32", "mixed")},
         })
     ms, pms, lms, bms, by, lname = flash_t[torch.bfloat16]
     ms32, pms32, lms32, bms32, _, lname32 = flash_t[torch.float32]
@@ -789,6 +1241,13 @@ def main() -> int:
         "bound_ms_fp32": bms32,
         "bound_ms_fp32_as_fma": fma_ms,
         "max_norm_err_fp32": flash_errs[("prefill", "fp32")]["norm_err"],
+        "max_norm_err_fp32_sk8192": flash_errs[("long 8k", "fp32")]["norm_err"],
+        "max_norm_err_fp32_sk32768":
+            flash_errs[("long 32k", "fp32")]["norm_err"],
+        "rows_sum_err_fp32": {label: err for (label, tag), err
+                              in rows_sum.items() if tag == "fp32"},
+        "rows_sum_err_bf16": {label: err for (label, tag), err
+                              in rows_sum.items() if tag == "bf16"},
     })
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -61,8 +61,8 @@ FAULTS = {
     "l not rescaled by alpha": ("bf16", (
         ("l[i] = l[i] * alpha[i] + ls[i];", "l[i] = l[i] + ls[i];"),), True),
     "second row rescaled by the first row's alpha": ("bf16", (
-        ("o[4 * j + 2] *= alpha[1];\n          o[4 * j + 3] *= alpha[1];",
-         "o[4 * j + 2] *= alpha[0];\n          o[4 * j + 3] *= alpha[0];"),),
+        ("pv[4 * j + 2] *= alpha[1];\n          pv[4 * j + 3] *= alpha[1];",
+         "pv[4 * j + 2] *= alpha[0];\n          pv[4 * j + 3] *= alpha[0];"),),
         True),
     "diagonal tile dropped past the first tile": ("bf16", (
         ("causal ? min(n_tiles, wg_last / kBf16Keys + 1)",
@@ -85,14 +85,18 @@ FAULTS = {
     # fp32: l sums the tf32-rounded p that P V's hi terms use
     "l sums p's rounded hi part": ("fp32", (
         ("      ls[0] += p0 + p1;\n      ls[1] += p2 + p3;\n"
-         "      uint32_t ph[4], pl[4];\n      split(p0, ph[0], pl[0]);\n"
-         "      split(p2, ph[1], pl[1]);\n      split(p1, ph[2], pl[2]);\n"
-         "      split(p3, ph[3], pl[3]);\n",
-         "      uint32_t ph[4], pl[4];\n      split(p0, ph[0], pl[0]);\n"
-         "      split(p2, ph[1], pl[1]);\n      split(p1, ph[2], pl[2]);\n"
-         "      split(p3, ph[3], pl[3]);\n"
-         "      ls[0] += __uint_as_float(ph[0]) + __uint_as_float(ph[2]);\n"
-         "      ls[1] += __uint_as_float(ph[1]) + __uint_as_float(ph[3]);\n"),),
+         "      split(p0, ph[nt][0], pl[nt][0]);\n"
+         "      split(p2, ph[nt][1], pl[nt][1]);\n"
+         "      split(p1, ph[nt][2], pl[nt][2]);\n"
+         "      split(p3, ph[nt][3], pl[nt][3]);\n",
+         "      split(p0, ph[nt][0], pl[nt][0]);\n"
+         "      split(p2, ph[nt][1], pl[nt][1]);\n"
+         "      split(p1, ph[nt][2], pl[nt][2]);\n"
+         "      split(p3, ph[nt][3], pl[nt][3]);\n"
+         "      ls[0] += __uint_as_float(ph[nt][0]) + "
+         "__uint_as_float(ph[nt][2]);\n"
+         "      ls[1] += __uint_as_float(ph[nt][1]) + "
+         "__uint_as_float(ph[nt][3]);\n"),),
         True),
     # fp32's double buffer: each tile is read from the other buffer, which
     # holds the tile before it or is being filled with the next one

@@ -1,14 +1,22 @@
 """Evaluator factories: the force-evaluation stage of the Hermite loop.
 
-Port of the main-path part of ``repro/core/evaluate.py``.
-``make_block_evaluator`` is the single implementation body: an
-active-target evaluator (per-target activity mask, sources stay full).
+Port of ``repro/core/evaluate.py`` (the neighbor-window evaluator is not
+ported yet).  ``make_block_evaluator`` is the single implementation body:
+an active-target evaluator (per-target activity mask, sources stay full)
+with an optional compaction layer that gathers the active targets into a
+dense, block-aligned buffer before launching the kernels.
 ``make_evaluator``, the lockstep evaluator of the paper's one-chip
-configuration, is its all-ones-mask case.  Active-target compaction
-(``compaction="gather"``) comes with the block-stepper slice.
+configuration, is its all-ones-mask case.
+
+Every evaluator takes one system (``(N, 3)`` leaves) or a batch of them
+(``(B, N, 3)``); a batch goes through one launch per pass.  The reference
+lifts its evaluator over members with ``jax.vmap``, which cannot lift a
+hand-written kernel, so the batch axis is written out here.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -17,6 +25,32 @@ from repro_torch.kernels import nbody_force, ops, ref
 
 #: compaction modes of the block evaluator
 COMPACTIONS = ("none", "gather")
+
+
+def _per_member(fn, *args):
+    """``fn`` on one system, or on each member of a batch (the oracle has
+    no batch axis; its members go one by one)."""
+    if args[0].dim() == 2:
+        return fn(*args)
+    outs = [fn(*(a[b] for a in args)) for b in range(args[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+    return torch.stack(outs)
+
+
+def shared_cap_index(plan: ops.CapacityPlan, bounds) -> torch.Tensor:
+    """Capacity-bucket index shared by a group of members.
+
+    One launch serves a whole bucket group, so its capacity must hold every
+    member's active count: the bucket of the max of ``bounds`` (any shape),
+    clamped to the plan's widest bucket.  Sound because gathered window
+    rows past a member's active set are mask-zeroed by the kernels, so the
+    scattered result is bit for bit the per-member bucket's; only the
+    launch widens.  Returns a 0-d tensor on ``bounds``'s device: the caller
+    reads it on the host to size the launch.
+    """
+    bound = torch.as_tensor(bounds).reshape(-1).max()
+    return plan.bucket(torch.clamp(bound, max=plan.caps[-1]))
 
 
 def _rect_passes(*, eps, block_i, block_j, dtype):
@@ -33,14 +67,20 @@ def _rect_passes(*, eps, block_i, block_j, dtype):
         def cast(x):
             return x
 
-        def rect1(pt, vt, ps, vs, m, mask_c):
+        def one1(pt, vt, ps, vs, m, mask_c):
             acc, jerk, pot = ref.acc_jerk_pot_rect(pt, vt, ps, vs, m, eps=eps)
             return ops._mask_rows(mask_c, acc, jerk, pot)
 
-        def rect2(pt, vt, at, ps, vs, as_, m, mask_c):
+        def one2(pt, vt, at, ps, vs, as_, m, mask_c):
             (snp,) = ops._mask_rows(
                 mask_c, ref.snap_rect(pt, vt, at, ps, vs, as_, m, eps=eps))
             return snp
+
+        def rect1(pt, vt, ps, vs, m, mask_c):
+            return _per_member(one1, pt, vt, ps, vs, m, mask_c)
+
+        def rect2(pt, vt, at, ps, vs, as_, m, mask_c):
+            return _per_member(one2, pt, vt, at, ps, vs, as_, m, mask_c)
 
         return cast, rect1, rect2
 
@@ -65,42 +105,86 @@ def make_block_evaluator(
     block_i: int = nbody_force.DEFAULT_BLOCK_I,
     block_j: int = nbody_force.DEFAULT_BLOCK_J,
     compaction: str = "none",
+    n_caps: Optional[int] = None,
     dtype: str = "fp32",
 ):
     """Active-target evaluator for the hierarchical block-timestep scheme.
 
-    ``evaluate(pos, vel, acc_pred, mass, mask_t)``: pass 1 computes
-    acc/jerk/potential on the active targets only (sources stay full).  The
-    snap pass needs the acceleration of every source; inactive sources were
-    not evaluated, so their Taylor-predicted ``acc_pred`` substitutes.  With
-    an all-ones mask this is the lockstep evaluator.
+    Pass 1 computes acc/jerk/potential on the active targets only (sources
+    stay full).  The snap pass needs the acceleration of every source;
+    inactive sources were not evaluated, so their Taylor-predicted
+    ``acc_pred`` substitutes.  With an all-ones mask this is the lockstep
+    evaluator.
+
+    Signatures by ``compaction``:
+
+    * ``"none"``: ``evaluate(pos, vel, acc_pred, mass, mask_t)``, the dense
+      masked launch (blocks with no active target skip their work, but the
+      grid covers every target).
+    * ``"gather"``: ``evaluate(pos, vel, acc_pred, mass, mask_t, perm,
+      cap_idx)``.  ``perm`` orders active targets first (a stable argsort
+      of the inactive flag), ``cap_idx`` is a Python int selecting the
+      capacity bucket (``ops.capacity_buckets(n, block_i)``), which must
+      hold every member's active count.  The kernels launch on the bucket's
+      target extent; the output is bit for bit the ``"none"`` result, since
+      each target row is a row-local sum over the same sources in the same
+      order whatever block it sits in.
+
+    ``n_caps`` (gather only) truncates the schedule to its first ``n_caps``
+    buckets, the bucket group of members whose active count never exceeds
+    ``caps[n_caps - 1]`` (``ops.CapacityPlan.restrict``); ``cap_idx`` then
+    indexes the truncated schedule.
 
     ``dtype``: ``"fp32"`` the float32 kernels, ``"mixed"`` bfloat16
     per-pair arithmetic with compensated float32 accumulation, ``"fp64"``
     the golden-reference oracle (``kernels.ref`` at the inputs' precision,
-    no kernel).  The evaluator runs on the device of its input tensors.
+    no kernel), through the same gather/scatter path.  The evaluator runs
+    on the device of its input tensors.
     """
     if compaction not in COMPACTIONS:
         raise ValueError(
             f"compaction must be one of {COMPACTIONS}; got {compaction!r}")
-    if compaction == "gather":
-        raise NotImplementedError(
-            "compaction='gather' is not ported yet: ROADMAP.md queue 1 "
-            "item 5 (block stepper with compaction)")
     cast, rect1, rect2 = _rect_passes(eps=eps, block_i=block_i,
                                       block_j=block_j, dtype=dtype)
 
-    def evaluate(pos, vel, acc_pred, mass, mask_t) -> Evaluation:
-        p, v, m = cast(pos), cast(vel), cast(mass)
-        acc, jerk, pot = rect1(p, v, p, v, m, mask_t)
+    if compaction == "none":
+
+        def evaluate(pos, vel, acc_pred, mass, mask_t) -> Evaluation:
+            p, v, m = cast(pos), cast(vel), cast(mass)
+            acc, jerk, pot = rect1(p, v, p, v, m, mask_t)
+            if order >= 6:
+                acc_s = torch.where(mask_t[..., None], acc, cast(acc_pred))
+                snp = rect2(p, v, acc, p, v, acc_s, m, mask_t)
+            else:
+                snp = torch.zeros_like(acc)
+            return Evaluation(acc=acc, jerk=jerk, snap=snp, pot=pot)
+
+        return evaluate
+
+    def evaluate_gather(pos, vel, acc_pred, mass, mask_t, perm,
+                        cap_idx: int) -> Evaluation:
+        n = pos.shape[-2]
+        caps = ops.capacity_buckets(n, block_i)
+        if n_caps is not None:
+            caps = caps[: min(n_caps, len(caps))]
+        cap = caps[cap_idx]
+        p, v, m, ap = cast(pos), cast(vel), cast(mass), cast(acc_pred)
+        p_c, v_c, mask_c = ops.compact_targets(perm, cap, p, v, mask_t)
+        acc_c, jerk_c, pot_c = rect1(p_c, v_c, p, v, m, mask_c)
+        acc, jerk, pot = ops.scatter_outputs(perm, cap, n, acc_c, jerk_c,
+                                             pot_c)
         if order >= 6:
-            acc_s = torch.where(mask_t[:, None], acc, cast(acc_pred))
-            snp = rect2(p, v, acc, p, v, acc_s, m, mask_t)
+            # source-side compaction: the fresh rows scattered straight
+            # into the predicted-acc operand, bit for bit
+            # where(mask, acc, ap) without the dense blend
+            acc_s = ops.scatter_sources(perm, cap, ap, acc_c, mask_c)
+            snp_c = rect2(p_c, v_c, acc_c, p, v, acc_s, m, mask_c)
+            (snp,) = ops.scatter_outputs(perm, cap, n, snp_c)
         else:
             snp = torch.zeros_like(acc)
         return Evaluation(acc=acc, jerk=jerk, snap=snp, pot=pot)
 
-    return evaluate
+    return evaluate_gather
 
 
 def make_evaluator(
@@ -119,7 +203,7 @@ def make_evaluator(
         eps=eps, order=order, block_i=block_i, block_j=block_j, dtype=dtype)
 
     def evaluate(pos, vel, mass) -> Evaluation:
-        mask = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
+        mask = torch.ones(pos.shape[:-1], dtype=torch.bool, device=pos.device)
         return block_eval(pos, vel, torch.zeros_like(pos), mass, mask)
 
     return evaluate

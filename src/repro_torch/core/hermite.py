@@ -129,26 +129,30 @@ def aarseth_dt_particles(state: ParticleState, *, eta: float = 0.02,
                          dt_max=0.0625, use_crackle: bool = False):
     """Per-particle Aarseth timestep criterion: the ``(N,)`` vector.
 
+    A batched state (``(B, N, 3)`` leaves) gives ``(B, N)``; ``dt_max`` is
+    then a scalar or a ``(B, 1)`` column of per-member limits.
+
     ``use_crackle=False`` (default) drops the 5th-derivative term: the
     crackle is reconstructed from differences of float32 accelerations
     divided by h^3, so at small h it is noise-dominated.  Particles with
     zero derivatives (``num == 0``, e.g. zero-mass padding rows) take
     ``dt_max``, so they never tighten a shared step nor deepen a level.
     """
-    tiny = torch.tensor(1e-30, dtype=state.dtype, device=state.device)
-
     def norm(x):
-        return torch.sqrt(torch.sum(x * x, dim=1))
+        return torch.sqrt(torch.sum(x * x, dim=-1))
 
     a, j, s = norm(state.acc), norm(state.jerk), norm(state.snap)
     num = a * s + j * j
     den = s * s
     if use_crackle:
         den = den + j * norm(state.crackle)
-    dt_i = eta * torch.sqrt(num / torch.maximum(den, tiny))
-    dt_max_t = torch.tensor(dt_max, dtype=state.dtype, device=state.device)
-    dt_i = torch.where(num > 0, dt_i, dt_max_t)
-    return torch.minimum(dt_i, dt_max_t)
+    # Python numbers enter as scalars: a tensor made from one on the card
+    # is a host-to-device copy, which waits for the device
+    dt_i = eta * torch.sqrt(num / torch.clamp(den, min=1e-30))
+    if isinstance(dt_max, torch.Tensor):
+        dt_max = dt_max.to(state.dtype)
+        return torch.minimum(torch.where(num > 0, dt_i, dt_max), dt_max)
+    return torch.clamp(torch.where(num > 0, dt_i, float(dt_max)), max=dt_max)
 
 
 def aarseth_dt(state: ParticleState, *, eta: float = 0.02, dt_max=0.0625,
@@ -173,11 +177,21 @@ def quantize_block_levels(dt_i, *, dt_max, n_levels: int):
 def block_level_dt(levels, dt_max, dtype=None):
     """The step size ``dt_max / 2**level`` of each particle's block level.
 
-    The result dtype is ``dt_max``'s (a tensor's own, a Python float's
-    torch default) or an explicit ``dtype``.
+    The result dtype is an explicit ``dtype``, else float64 for a Python
+    number (the host precision, as the reference's default float under
+    ``jax_enable_x64``, never torch's float32 default: float32 level steps
+    on a float64 state would disagree with the engine's own
+    ``state.dtype`` arithmetic), else ``dt_max``'s own (a tensor's, a
+    numpy scalar's).
     """
+    if dtype is None and isinstance(dt_max, (int, float)):
+        dtype = torch.float64
     dt_max = torch.as_tensor(dt_max, dtype=dtype, device=levels.device)
-    return dt_max * torch.exp2(-levels.to(dt_max.dtype))
+    # 2**level as an exact integer: torch's exp2 of a negative integer is
+    # not always the exact power of two the reference gets
+    scale = torch.bitwise_left_shift(torch.ones_like(levels, dtype=torch.int64),
+                                     levels.to(torch.int64))
+    return dt_max / scale.to(dt_max.dtype)
 
 
 def block_level_occupancy(levels, *, n_levels: int, mask=None):

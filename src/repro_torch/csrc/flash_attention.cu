@@ -37,6 +37,10 @@
 //     reference's dot_general(preferred_element_type=f32)): q (staged once
 //     in shared memory) and K are the K-major A and B operands, P the A
 //     operand from registers and V the MN-major B operand (transpose bit).
+//     P V sums at most kFoldTiles key tiles on the tensor core; each thread
+//     then folds them into its outputs in shared memory by fp32 FMAs.  The
+//     tensor core's accumulation truncates: carried over rows of 32768
+//     keys it leaned toward zero (`flash_long_rows.py`).
 //     The loop is software-pipelined: P V of tile t and q K^T of tile t + 1
 //     run on the tensor cores while the softmax of tile t + 1 runs.  p is
 //     computed in fp32, added to the row's l, then rounded to bf16 as P's A
@@ -61,6 +65,9 @@
 //     bits.  q is split once, into shared memory in the order each warp
 //     reads its A fragments; K and V are split as their fragments are
 //     read; p is split after it is added to l, which sums the unrounded p.
+//     The tensor core's fp32 accumulation truncates, so P V is summed per
+//     key tile in a fresh accumulator and added to o by a rounded FMA;
+//     carried over a whole row of 32768 keys it drifted to 1.7e-4.
 //     The online softmax is the bf16 kernel's (raw-score maxima, one FFMA
 //     and one ex2 per score).  What bounds it now: the splits' ALU work
 //     beside 3 mma.sync per product with eight warps per SM to hide their
@@ -84,6 +91,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBf16Rows = 128;      // (query, head) rows: 2 warpgroups of 64
 constexpr int kBf16Keys = 64;       // keys per K/V tile
 constexpr int kStages = 3;          // K/V tiles in flight in shared memory
+constexpr int kFoldTiles = 8;       // key tiles P V sums on the tensor core
 constexpr int kConsumers = 256;     // the two warpgroups that compute
 constexpr int kProducers = 128;     // the warpgroup that streams K and V
 constexpr int kBf16Threads = kConsumers + kProducers;
@@ -112,10 +120,14 @@ struct Smem {
   // the block's q rows, stored as a K tile of kBf16Rows rows
   static constexpr int kQBlockBytes = kBf16Rows * kRowBytes;
   static constexpr int kQBytes = kBf16Rows * D * 2;
+  // each consumer thread's D / 2 folded outputs, as float4 j of thread x
+  // at (j * kConsumers + x) * 16, then the running max (of its two rows)
+  // that they are scaled to, at kConsumers * D * 2 + x * 8
+  static constexpr int kFoldBytes = kConsumers * (D / 2 + 2) * 4;
   // K and V of each stage, q, then the stages' full and empty barriers;
   // plus slack to align the base to 1024 bytes
   static constexpr int kBytes =
-      2 * kStages * kTileBytes + kQBytes + 2 * kStages * 8 + 1024;
+      2 * kStages * kTileBytes + kQBytes + 2 * kStages * 8 + kFoldBytes + 1024;
   static_assert(kTileBytes % 1024 == 0, "stages stay 1024-byte aligned");
 };
 
@@ -394,6 +406,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const uint32_t qs = base + 2 * kStages * L::kTileBytes;   // q rows
   const uint32_t full = qs + L::kQBytes;                     // kStages barriers
   const uint32_t empty = full + kStages * 8;                 // kStages barriers
+  const uint32_t folded = empty + kStages * 8;               // see fold below
 
   // the warp index through a shuffle: the compiler then knows it, and every
   // branch taken on it, to be uniform across the warp, so the wgmma
@@ -463,16 +476,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int gid = lane >> 2, tig = lane & 3;
   const int wg = warp / 4;
   int qpos[2];
-  bool live[2];
-  long long row_off[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = warp * 16 + gid + 8 * i;
-    qpos[i] = q0 + r / g;
-    live[i] = r < qb * g && qpos[i] < sq;
-    row_off[i] = ((static_cast<long long>(b) * sq + qpos[i]) * h + kvi * g +
-                  r % g) * D;
-  }
+  for (int i = 0; i < 2; ++i) qpos[i] = q0 + (warp * 16 + gid + 8 * i) / g;
   const int wg_row_end = min(wg * 64 + 64, qb * g);
   const bool wg_any = wg * 64 < qb * g && q0 + (wg * 64) / g < sq;
   const int wg_first = q0 + (wg * 64) / g;
@@ -510,9 +515,23 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   // is taken as 2^(s scale2 - m scale2), one FFMA and one ex2 per score
   const float scale2 = scale * kLog2e;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[D / 2], s[kBf16Keys / 2];
+  // The output is pv plus this thread's folded values (shared memory),
+  // rescaled from the max they were folded at: pv sums P V of up to
+  // kFoldTiles key tiles on the tensor core, folded the tiles before them.
+  // The tensor core's fp32 accumulation truncates, so a sum it carried
+  // over a whole row would lean toward zero with the key count; the fold
+  // adds pv in rounded fp32 FMAs.
+  float pv[D / 2], s[kBf16Keys / 2];
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) o[j] = 0.f;
+  for (int j = 0; j < D / 2; ++j) pv[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+    asm volatile("st.shared.v4.f32 [%0], {%1, %1, %1, %1};\n"
+                 ::"r"(folded + (j * kConsumers + threadIdx.x) * 16), "f"(0.f)
+                 : "memory");
+  asm volatile("st.shared.v2.f32 [%0], {%1, %1};\n"
+               ::"r"(folded + kConsumers * D * 2 + threadIdx.x * 8), "f"(kNegInf)
+               : "memory");
   // P of two consecutive tiles: one feeds the running P V product while
   // the softmax of the next fills the other
   uint32_t pa[kBf16Keys / 16][4], pb[kBf16Keys / 16][4];
@@ -544,16 +563,48 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_commit();
   };
 
-  // o += P V of tile t, over kBf16Keys / 16 steps of 16 keys; one group
+  // pv (+)= P V of tile t, over kBf16Keys / 16 steps of 16 keys; one
+  // group.  The first tile after a fold starts pv afresh.
   auto issue_pv = [&](int t, const uint32_t (&pf)[kBf16Keys / 16][4]) {
     const uint32_t vs = base + (t % kStages) * 2 * L::kTileBytes + L::kTileBytes;
     const uint64_t vdesc =
         smem_desc(vs, L::kBlockBytes, 8 * L::kRowBytes, L::kLayout);
+    const int fresh = t % kFoldTiles == 0;
     wgmma_fence();
 #pragma unroll
     for (int kt = 0; kt < kBf16Keys / 16; ++kt)
-      Wgmma<D>::run(o, pf[kt], vdesc + ((kt * 16 * L::kRowBytes) >> 4), 1);
+      Wgmma<D>::run(pv, pf[kt], vdesc + ((kt * 16 * L::kRowBytes) >> 4),
+                    kt > 0 || !fresh);
     wgmma_commit();
+  };
+
+  // pv = folded 2^((m_f - m) scale2) + alpha pv, with m_f the max folded
+  // was scaled to and m the running max; unless last, folded = pv and
+  // m_f = m
+  auto fold = [&](const float (&alpha)[2], bool last) {
+    const uint32_t mf = folded + kConsumers * D * 2 + threadIdx.x * 8;
+    float f0, f1;
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                 : "=f"(f0), "=f"(f1) : "r"(mf));
+    const float b0 = ex2((f0 - m[0]) * scale2), b1 = ex2((f1 - m[1]) * scale2);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const uint32_t a = folded + (j * kConsumers + threadIdx.x) * 16;
+      float x0, x1, x2, x3;
+      asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=f"(x0), "=f"(x1), "=f"(x2), "=f"(x3) : "r"(a));
+      pv[4 * j] = fmaf(x0, b0, pv[4 * j] * alpha[0]);
+      pv[4 * j + 1] = fmaf(x1, b0, pv[4 * j + 1] * alpha[0]);
+      pv[4 * j + 2] = fmaf(x2, b1, pv[4 * j + 2] * alpha[1]);
+      pv[4 * j + 3] = fmaf(x3, b1, pv[4 * j + 3] * alpha[1]);
+      if (!last)
+        asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n"
+                     ::"r"(a), "f"(pv[4 * j]), "f"(pv[4 * j + 1]),
+                     "f"(pv[4 * j + 2]), "f"(pv[4 * j + 3]) : "memory");
+    }
+    if (!last)
+      asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n"
+                   ::"r"(mf), "f"(m[0]), "f"(m[1]) : "memory");
   };
 
   // the online softmax of tile t from its scores s: p in fp32 for l, then
@@ -607,7 +658,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   // Tile t, whose P is in pf: its P V product runs on the tensor cores
   // together with q K^T of tile t + 1 and then beside that tile's softmax,
-  // which fills pn; o takes tile t + 1's rescaling once P V is done.
+  // which fills pn; once P V is done, pv is folded if tile t + 1 starts it
+  // afresh, and the output takes tile t + 1's rescaling.
   auto step = [&](int t, const uint32_t (&pf)[kBf16Keys / 16][4],
                   uint32_t (&pn)[kBf16Keys / 16][4]) {
     if (t + 1 < n_mine) {
@@ -618,15 +670,17 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       softmax(t + 1, pn, alpha);
       wgmma_wait<0>();  // P V of tile t is done
       release(t);
-      // rescaling by alpha = 1 (no row of the warp found a new max) is
-      // the identity, so the warp skips it
-      if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
+      if ((t + 1) % kFoldTiles == 0) {
+        fold(alpha, false);  // tile t + 1 starts pv afresh
+      } else if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
+        // rescaling by alpha = 1 (no row of the warp found a new max) is
+        // the identity, so the warp skips it
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
-          o[4 * j] *= alpha[0];
-          o[4 * j + 1] *= alpha[0];
-          o[4 * j + 2] *= alpha[1];
-          o[4 * j + 3] *= alpha[1];
+          pv[4 * j] *= alpha[0];
+          pv[4 * j + 1] *= alpha[0];
+          pv[4 * j + 2] *= alpha[1];
+          pv[4 * j + 3] *= alpha[1];
         }
       }
     } else {
@@ -637,7 +691,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   };
 
   if (n_mine > 0) {
-    float alpha[2];  // o is still zero: nothing to rescale
+    float alpha[2];  // nothing summed yet: nothing to rescale
     issue_qk(0);
     wgmma_wait<0>();
     softmax(0, pa, alpha);
@@ -646,6 +700,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     step(t, pa, pb);
     if (t + 1 < n_mine) step(t + 1, pb, pa);
   }
+  const float one[2] = {1.f, 1.f};
+  fold(one, true);  // pv = the whole output
   // the tiles above this warpgroup's diagonal: released unread
   for (int t = n_mine; t < n_tiles; ++t) {
     mbar_wait(full + 8 * (t % kStages), (t / kStages) & 1);
@@ -657,13 +713,16 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(kFull, l[i], 1);
     l[i] += __shfl_xor_sync(kFull, l[i], 2);
-    if (!live[i]) continue;
+    const int r = warp * 16 + gid + 8 * i;
+    if (r >= qb * g || qpos[i] >= sq) continue;  // not a live row
     const float lsum = fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* dst = out + row_off[i] + tig * 2;
+    __nv_bfloat16* dst =
+        out + ((static_cast<long long>(b) * sq + qpos[i]) * h + kvi * g + r % g) * D +
+        tig * 2;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) = __floats2bfloat162_rn(
-          o[4 * j + 2 * i] / lsum, o[4 * j + 2 * i + 1] / lsum);
+          pv[4 * j + 2 * i] / lsum, pv[4 * j + 2 * i + 1] / lsum);
   }
 }
 
@@ -922,20 +981,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       m[i] = mx[i];
       nms[i] = -m[i] * scale2;
     }
-    // rescaling by alpha = 1 (no row of the warp found a new max) is the
-    // identity, so the warp skips it
-    if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[j][0] *= alpha[0];
-        o[j][1] *= alpha[0];
-        o[j][2] *= alpha[1];
-        o[j][3] *= alpha[1];
-      }
-    }
 
-    // o += P V, one k-step per n-tile of S; l sums the unrounded p
+    // P, split for 3xTF32, as P V's A fragment (one k-step per n-tile of
+    // S); l sums the unrounded p
     float ls[2] = {0.f, 0.f};
+    uint32_t ph[kNT][4], pl[kNT][4];
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
       const float p0 = ex2(fmaf(s[nt][0], scale2, nms[0]));
@@ -944,20 +994,39 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float p3 = ex2(fmaf(s[nt][3], scale2, nms[1]));
       ls[0] += p0 + p1;
       ls[1] += p2 + p3;
-      uint32_t ph[4], pl[4];
-      split(p0, ph[0], pl[0]);
-      split(p2, ph[1], pl[1]);
-      split(p1, ph[2], pl[2]);
-      split(p3, ph[3], pl[3]);
-      const float* v0 = vs + (nt * 8 + 2 * tig) * L::kRow + NG * gid;
+      split(p0, ph[nt][0], pl[nt][0]);
+      split(p2, ph[nt][1], pl[nt][1]);
+      split(p1, ph[nt][2], pl[nt][2]);
+      split(p3, ph[nt][3], pl[nt][3]);
+    }
+
+    // o = alpha o + P V.  The tensor core's fp32 accumulation truncates,
+    // so a sum it carries over the whole row drifts low with the key count
+    // (rows of 32768 keys summed to one within only 1.7e-4).  Each output
+    // tile's share of this key tile is summed instead in a fresh
+    // accumulator, 3 kNT products deep, and added to o in one rounded FMA,
+    // which also applies the rescale.
 #pragma unroll
-      for (int jj = 0; jj < D / (8 * NG); ++jj) {
+    for (int jj = 0; jj < D / (8 * NG); ++jj) {
+      float pv[NG][4];
+#pragma unroll
+      for (int e = 0; e < NG; ++e) pv[e][0] = pv[e][1] = pv[e][2] = pv[e][3] = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const float* v0 = vs + (nt * 8 + 2 * tig) * L::kRow + NG * gid + 8 * NG * jj;
         float x0[NG], x1[NG];
-        lds<NG>(x0, v0 + 8 * NG * jj);
-        lds<NG>(x1, v0 + L::kRow + 8 * NG * jj);
+        lds<NG>(x0, v0);
+        lds<NG>(x1, v0 + L::kRow);
 #pragma unroll
-        for (int e = 0; e < NG; ++e)
-          mma_3xtf32(o[NG * jj + e], ph, pl, x0[e], x1[e]);
+        for (int e = 0; e < NG; ++e) mma_3xtf32(pv[e], ph[nt], pl[nt], x0[e], x1[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < NG; ++e) {
+        float* oj = o[NG * jj + e];
+        oj[0] = fmaf(oj[0], alpha[0], pv[e][0]);
+        oj[1] = fmaf(oj[1], alpha[0], pv[e][1]);
+        oj[2] = fmaf(oj[2], alpha[1], pv[e][2]);
+        oj[3] = fmaf(oj[3], alpha[1], pv[e][3]);
       }
     }
 #pragma unroll

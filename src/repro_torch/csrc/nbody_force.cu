@@ -366,17 +366,19 @@ snap_kernel(const float* __restrict__ tgt, const float* __restrict__ src,
 
 }  // namespace
 
-// Each launcher enqueues one kernel on `stream` and returns
-// cudaGetLastError(): nonzero when the launch was refused.
+// Each launcher enqueues one kernel on `stream`, writes the number of
+// blocks of its grid to `*blocks` and returns cudaGetLastError(): nonzero
+// when the launch was refused.
 extern "C" int nbody_acc_jerk_pot(const void* tgt, const void* src, void* out,
                                   int batch, int n_t, int n_s, float eps,
-                                  int mixed, void* stream) {
+                                  int mixed, void* stream, int* blocks) {
   const float eps2 = eps * eps;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* t = static_cast<const float*>(tgt);
   const auto* x = static_cast<const float*>(src);
   auto* o = static_cast<float*>(out);
   const dim3 grid((n_t + kAccTargets - 1) / kAccTargets, batch);
+  *blocks = static_cast<int>(grid.x * grid.y);
   if (mixed)
     acc_jerk_pot_kernel<true><<<grid, kAccThreads, 0, s>>>(t, x, o, n_t, n_s, eps2);
   else
@@ -386,7 +388,8 @@ extern "C" int nbody_acc_jerk_pot(const void* tgt, const void* src, void* out,
 
 extern "C" int nbody_snap(const void* tgt, const void* src, const void* tacc,
                           const void* sacc, void* out, int batch, int n_t,
-                          int n_s, float eps, int mixed, void* stream) {
+                          int n_s, float eps, int mixed, void* stream,
+                          int* blocks) {
   const float eps2 = eps * eps;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* t = static_cast<const float*>(tgt);
@@ -395,6 +398,7 @@ extern "C" int nbody_snap(const void* tgt, const void* src, const void* tacc,
   const auto* sa = static_cast<const float*>(sacc);
   auto* o = static_cast<float*>(out);
   const dim3 grid((n_t + kSnapTargets - 1) / kSnapTargets, batch);
+  *blocks = static_cast<int>(grid.x * grid.y);
   if (mixed)
     snap_kernel<true><<<grid, kSnapThreads, 0, s>>>(t, x, ta, sa, o, n_t, n_s, eps2);
   else

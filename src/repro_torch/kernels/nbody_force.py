@@ -21,7 +21,8 @@ raises; a CPU tensor runs the plain PyTorch version beside it
 function: per (i-block, j-block) tile a float32 sum over the block's
 sources, accumulated across j-blocks, with a two-sum compensation in mixed
 mode folded in at the end.  Each wrapper counts its kernel launches in its
-``launches`` attribute.
+``launches`` attribute, and in ``blocks`` (``{CUDA blocks of the grid:
+launches}``) the grid size that the kernel's launcher reports.
 """
 
 from __future__ import annotations
@@ -184,11 +185,12 @@ def _snap_plain(tgt, src, tgt_acc, src_acc, *, eps, block_j, block_i,
 def _library():
     lib = _build.load("nbody_force")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    blocks = ctypes.POINTER(ctypes.c_int)
     lib.nbody_acc_jerk_pot.argtypes = [ptr, ptr, ptr, i32, i32, i32, f32,
-                                       i32, ptr]
+                                       i32, ptr, blocks]
     lib.nbody_acc_jerk_pot.restype = ctypes.c_int
     lib.nbody_snap.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32,
-                               i32, ptr]
+                               i32, ptr, blocks]
     lib.nbody_snap.restype = ctypes.c_int
     return lib
 
@@ -241,6 +243,12 @@ def _raise_on(rc: int, name: str):
                            f"cudaError {rc}")
 
 
+def _count(wrapper, blocks: ctypes.c_int):
+    """One launch of ``wrapper``'s kernel, on a grid of ``blocks``."""
+    wrapper.launches += 1
+    wrapper.blocks[blocks.value] = wrapper.blocks.get(blocks.value, 0) + 1
+
+
 def acc_jerk_pot_packed(
     tgt,
     src,
@@ -264,17 +272,20 @@ def acc_jerk_pot_packed(
                       block_i=block_i, block_j=block_j,
                       compute_dtype=compute_dtype)
     out = torch.empty_like(tgt)
+    blocks = ctypes.c_int(0)
     with torch.cuda.device(tgt.device):
         stream = torch.cuda.current_stream(tgt.device).cuda_stream
         rc = _library().nbody_acc_jerk_pot(
             tgt.data_ptr(), src.data_ptr(), out.data_ptr(), max(batch, 1),
-            n_t, n_s, eps, int(compute_dtype is not None), stream)
+            n_t, n_s, eps, int(compute_dtype is not None), stream,
+            ctypes.byref(blocks))
     _raise_on(rc, "nbody_acc_jerk_pot")
-    acc_jerk_pot_packed.launches += 1
+    _count(acc_jerk_pot_packed, blocks)
     return out
 
 
 acc_jerk_pot_packed.launches = 0
+acc_jerk_pot_packed.blocks = {}
 
 
 def snap_packed(
@@ -296,15 +307,17 @@ def snap_packed(
                       eps=eps, block_i=block_i, block_j=block_j,
                       compute_dtype=compute_dtype)
     out = torch.empty_like(tgt)
+    blocks = ctypes.c_int(0)
     with torch.cuda.device(tgt.device):
         stream = torch.cuda.current_stream(tgt.device).cuda_stream
         rc = _library().nbody_snap(
             tgt.data_ptr(), src.data_ptr(), tgt_acc.data_ptr(),
             src_acc.data_ptr(), out.data_ptr(), max(batch, 1), n_t, n_s,
-            eps, int(compute_dtype is not None), stream)
+            eps, int(compute_dtype is not None), stream, ctypes.byref(blocks))
     _raise_on(rc, "nbody_snap")
-    snap_packed.launches += 1
+    _count(snap_packed, blocks)
     return out
 
 
 snap_packed.launches = 0
+snap_packed.blocks = {}

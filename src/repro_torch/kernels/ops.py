@@ -1,6 +1,7 @@
 """Packing wrappers around the N-body force kernels.
 
-Port of the main-path part of ``repro/kernels/ops.py``.  These functions own
+Port of ``repro/kernels/ops.py`` (the TPU-specific VMEM accounting, the
+sharded and neighbor-window plans are not ported).  These functions own
 the (un)packing between the physics-facing layout (pos/vel/mass tensors,
 any N, any float dtype) and the kernels' packed, block-padded float32
 layout, then call ``nbody_force``'s packed wrappers, which launch the CUDA
@@ -16,6 +17,10 @@ skips its work.
 
 from __future__ import annotations
 
+import bisect
+import dataclasses
+import functools
+
 import torch
 
 from repro_torch.kernels import nbody_force
@@ -27,6 +32,7 @@ _PAD_COLS = 8
 # per-pair terms and compensated float32 accumulation.
 DTYPES = ("fp64", "fp32", "mixed")
 _COMPUTE_DTYPE = {"fp32": None, "mixed": "bfloat16"}
+_IO_BYTES = {"fp64": 8, "fp32": 4, "mixed": 4}
 
 
 def compute_dtype_for(dtype: str):
@@ -50,56 +56,243 @@ def _round_up(n: int, m: int) -> int:
 
 
 def _pad_rows(x, n_pad):
-    return torch.nn.functional.pad(x, (0, 0, 0, n_pad - x.shape[0]))
+    """Zero rows appended along the row axis (-2) up to ``n_pad``."""
+    return torch.nn.functional.pad(x, (0, 0, 0, n_pad - x.shape[-2]))
 
 
 def pack_targets(pos, vel, n_pad: int, mask=None):
-    """(N,3)x2 -> (n_pad, 8) target block [x y z act vx vy vz 0].
+    """(B?, N, 3) x 2 -> (B?, n_pad, 8) target block [x y z act vx vy vz 0].
 
     Column 3 carries the target activity mask: 1.0 = evaluate this row,
     0.0 = skip.  ``mask=None`` means all targets active; alignment padding
-    rows are always inactive.
+    rows are always inactive.  An optional leading batch axis carries
+    through.
     """
-    n = pos.shape[0]
     f32 = torch.float32
-    act = (torch.ones(n, dtype=f32, device=pos.device) if mask is None
+    lead = pos.shape[:-1]
+    act = (torch.ones(lead, dtype=f32, device=pos.device) if mask is None
            else mask.to(f32))
-    zero = torch.zeros(n, dtype=f32, device=pos.device)
-    cols = [pos[:, 0], pos[:, 1], pos[:, 2], act,
-            vel[:, 0], vel[:, 1], vel[:, 2], zero]
-    tgt = torch.stack([c.to(f32) for c in cols], dim=1)
+    zero = torch.zeros(lead, dtype=f32, device=pos.device)
+    cols = [pos[..., 0], pos[..., 1], pos[..., 2], act,
+            vel[..., 0], vel[..., 1], vel[..., 2], zero]
+    tgt = torch.stack([c.to(f32) for c in cols], dim=-1)
     return _pad_rows(tgt, n_pad)
 
 
 def pack_sources(pos, vel, mass, n_pad: int):
-    """(N,3)x2 + (N,) -> (8, n_pad) source block [x y z m vx vy vz 0] rows."""
-    n = pos.shape[0]
+    """(B?, N, 3) x 2 + (B?, N) -> (B?, 8, n_pad) source block, rows
+    [x y z m vx vy vz 0]."""
     f32 = torch.float32
-    zero = torch.zeros(n, dtype=f32, device=pos.device)
-    rows = [pos[:, 0], pos[:, 1], pos[:, 2], mass,
-            vel[:, 0], vel[:, 1], vel[:, 2], zero]
-    src = torch.stack([r.to(f32) for r in rows], dim=0)
-    return torch.nn.functional.pad(src, (0, n_pad - n))
+    zero = torch.zeros(pos.shape[:-1], dtype=f32, device=pos.device)
+    rows = [pos[..., 0], pos[..., 1], pos[..., 2], mass,
+            vel[..., 0], vel[..., 1], vel[..., 2], zero]
+    src = torch.stack([r.to(f32) for r in rows], dim=-2)
+    return torch.nn.functional.pad(src, (0, n_pad - pos.shape[-2]))
 
 
 def pack_acc_targets(acc, n_pad: int):
-    """(N,3) -> (n_pad, 8) [ax ay az 0...] snap-pass target operand."""
+    """(B?, N, 3) -> (B?, n_pad, 8) [ax ay az 0...] snap-pass target
+    operand."""
     a = torch.nn.functional.pad(acc.to(torch.float32),
                                 (0, _PAD_COLS - 3))
     return _pad_rows(a, n_pad)
 
 
 def pack_acc_sources(acc, n_pad: int):
-    """(N,3) -> (8, n_pad) rows [ax ay az 0...] snap-pass source operand."""
-    a = torch.nn.functional.pad(acc.to(torch.float32).T,
-                                (0, n_pad - acc.shape[0], 0, _PAD_COLS - 3))
+    """(B?, N, 3) -> (B?, 8, n_pad) rows [ax ay az 0...] snap-pass source
+    operand."""
+    a = torch.nn.functional.pad(acc.to(torch.float32).transpose(-1, -2),
+                                (0, n_pad - acc.shape[-2], 0, _PAD_COLS - 3))
     return a.contiguous()
 
 
 def _mask_rows(mask_t, *arrays):
-    """Zero the rows of each array where the target mask is inactive."""
+    """Zero the rows of each array where the target mask is inactive
+    (``mask_t`` is ``(B?, N)``; an array is ``(B?, N)`` or ``(B?, N, k)``)."""
     m = mask_t.to(arrays[0].dtype)
-    return tuple(a * (m[:, None] if a.dim() == 2 else m) for a in arrays)
+    return tuple(a * (m[..., None] if a.dim() > m.dim() else m)
+                 for a in arrays)
+
+
+# --------------------------------------------------------------------------
+# active-target compaction (gather/scatter around the rect kernels)
+# --------------------------------------------------------------------------
+# The activity mask lets the kernels skip blocks whose targets are all
+# inactive, but the grid still covers the full target extent.  Compaction
+# gathers the active targets into a dense, block-aligned buffer of one of a
+# few capacities, runs the rect kernels on a ceil(cap/BI) x N/BJ grid
+# (sources stay full, so the physics is unchanged) and scatters the outputs
+# back to their particle slots.  Each output row is a row-local sum over
+# the same sources in the same order, so the compacted result is bit for
+# bit the masked dense one.  The reference picks the capacity on the device
+# with ``lax.switch``; a CUDA launch needs its extent on the host, so here
+# the capacity is a Python int.
+
+
+def capacity_buckets(n: int, block_i: int) -> tuple:
+    """Capacity schedule for ``n`` targets: block-aligned powers of two
+    ``(BI, 2*BI, 4*BI, ..., ceil(n/BI)*BI)``."""
+    n_pad = _round_up(n, block_i)
+    caps = []
+    c = block_i
+    while c < n_pad:
+        caps.append(c)
+        c *= 2
+    caps.append(n_pad)
+    return tuple(caps)
+
+
+@functools.lru_cache(maxsize=64)
+def _caps_tensor(caps: tuple, device) -> torch.Tensor:
+    """``caps`` as an int64 tensor on ``device``, made once: a tensor made
+    from host data on the card is a copy that waits for the device."""
+    return torch.tensor(caps, dtype=torch.int64, device=device)
+
+
+def bucket_index(n_active, caps):
+    """Index of the smallest capacity bucket with ``caps[i] >= n_active``
+    (``n_active`` an int or an integer tensor; the last bucket is ``>= n``,
+    so the result is always in range)."""
+    if not isinstance(n_active, torch.Tensor):
+        n_active = torch.tensor(n_active)
+    return torch.searchsorted(_caps_tensor(tuple(caps), n_active.device),
+                              n_active.to(torch.int64), side="left")
+
+
+@dataclasses.dataclass(frozen=True)
+class CapacityPlan:
+    """Capacity-bucket plan for one compacted launch extent.
+
+    The dense target extent being compacted, the source extent every
+    launch sweeps, the tile shape and the pass count travel together, so
+    evaluators, engines and telemetry agree on what one bucket costs.
+    ``caps`` defaults to :func:`capacity_buckets` over ``n_targets``;
+    :meth:`restrict` truncates it for a bucket group whose members never
+    exceed a known active count.  Tiles are counted in the reference's
+    logical (BI, BJ) units, so they compare with the reference's counts.
+    """
+
+    n_targets: int
+    n_sources: int
+    block_i: int
+    block_j: int
+    n_passes: int = 2
+    caps: tuple = ()
+    dtype: str = "fp32"
+
+    def __post_init__(self):
+        if self.dtype not in DTYPES:
+            raise ValueError(
+                f"plan dtype must be one of {DTYPES}, got {self.dtype!r}")
+        if not self.caps:
+            object.__setattr__(
+                self, "caps", capacity_buckets(self.n_targets, self.block_i))
+
+    @property
+    def io_bytes_per_element(self) -> int:
+        """Bytes per staged element at this plan's dtype (``mixed`` stages
+        float32; only the per-pair arithmetic narrows)."""
+        return _IO_BYTES[self.dtype]
+
+    @property
+    def tile_io_bytes(self) -> int:
+        """Bytes one (i, j) tile stages: the (BI, 8) target block and the
+        (8, BJ) source block in, the (BI, 8) output block out."""
+        return ((2 * self.block_i * 8 + 8 * self.block_j)
+                * self.io_bytes_per_element)
+
+    @property
+    def tiles_by_cap(self) -> tuple:
+        """Grid tiles one event enqueues at each capacity (all passes)."""
+        j_tiles = -(-self.n_sources // self.block_j)
+        return tuple((c // self.block_i) * j_tiles * self.n_passes
+                     for c in self.caps)
+
+    @property
+    def dense_tiles(self) -> int:
+        """Tiles of the masked full-extent launch (``compaction="none"``)."""
+        return (nbody_force.grid_tiles(self.n_targets, self.n_sources,
+                                       self.block_i, self.block_j)
+                * self.n_passes)
+
+    def bucket(self, n_active):
+        """Index of the smallest bucket holding ``n_active``."""
+        return bucket_index(n_active, self.caps)
+
+    def tiles(self, idx: int) -> int:
+        """Tiles one event enqueues at bucket ``idx``."""
+        return self.tiles_by_cap[idx]
+
+    def restrict(self, ceiling: int) -> "CapacityPlan":
+        """Plan truncated to the buckets a member with at most ``ceiling``
+        active targets can ever select: its bucket group's schedule.
+        ``ceiling`` must lie in ``(0, caps[-1]]``."""
+        ceiling = int(ceiling)
+        if not 0 < ceiling <= self.caps[-1]:
+            raise ValueError(
+                f"ceiling={ceiling} outside this plan's capacity range "
+                f"(0, {self.caps[-1]}]")
+        idx = bisect.bisect_left(self.caps, ceiling)
+        return dataclasses.replace(self, caps=self.caps[: idx + 1])
+
+
+def _window(perm, cap: int):
+    """The first ``cap`` entries of each row of ``perm`` (all of them when
+    ``cap`` exceeds the row count)."""
+    return perm[..., : min(cap, perm.shape[-1])]
+
+
+def _rows_index(idx, x):
+    """``idx`` (B?, k) shaped to index the row axis of ``x`` (B?, N, ...)."""
+    return idx.reshape(idx.shape + (1,) * (x.dim() - idx.dim())).expand(
+        idx.shape + x.shape[idx.dim():])
+
+
+def compact_targets(perm, cap: int, *rows):
+    """Gather the first ``cap`` permuted rows of each per-target array.
+
+    ``perm`` (``(B?, N)``) puts active rows first (a stable argsort of the
+    inactive flag), so with ``cap >= n_active`` the gathered buffer holds
+    every active target followed by inactive fill rows, whose outputs the
+    activity mask zeroes.
+    """
+    idx = _window(perm, cap)
+    dim = idx.dim() - 1
+    return tuple(torch.gather(r, dim, _rows_index(idx, r)) for r in rows)
+
+
+def scatter_outputs(perm, cap: int, n: int, *outs):
+    """Scatter compacted kernel outputs back to their particle slots.
+
+    Rows outside the gathered set are exactly zero, as the masked dense
+    evaluation leaves inactive targets, so this after
+    :func:`compact_targets` is the identity on active rows and zero
+    elsewhere.  Each output is a fresh tensor.
+    """
+    idx = _window(perm, cap)
+    dim = idx.dim() - 1
+    return tuple(
+        o.new_zeros(o.shape[:dim] + (n,) + o.shape[dim + 1:]).scatter(
+            dim, _rows_index(idx, o), o)
+        for o in outs)
+
+
+def scatter_sources(perm, cap: int, base, upd, mask_c):
+    """Blend compacted pass-1 outputs into a predicted source operand.
+
+    The snap pass needs every source's acceleration at the event time:
+    fresh values for the targets the event evaluated, the predicted
+    ``base`` rows for everyone else.  Scattering the compacted fresh rows
+    (where their compacted mask is set) into a copy of ``base`` gives
+    exactly ``where(mask, scatter_outputs(upd), base)``, bit for bit,
+    without the dense intermediate.  ``base`` itself is not written.
+    """
+    idx = _window(perm, cap)
+    dim = idx.dim() - 1
+    ridx = _rows_index(idx, base)
+    m = mask_c[..., None] if upd.dim() > mask_c.dim() else mask_c
+    rows = torch.where(m, upd.to(base.dtype), torch.gather(base, dim, ridx))
+    return base.scatter(dim, ridx, rows)
 
 
 def acc_jerk_pot_rect(
@@ -116,16 +309,18 @@ def acc_jerk_pot_rect(
     ``mask_t`` (optional ``(N_t,)`` activity mask) restricts evaluation to
     the active targets; sources stay full and inactive rows return zeros.
     ``dtype="mixed"`` narrows the per-pair arithmetic (see
-    :func:`compute_dtype_for`).
+    :func:`compute_dtype_for`).  Every operand may carry a leading batch
+    axis B (``(B, N_t, 3)`` targets against ``(B, N_s, 3)`` sources): the B
+    systems then go through one launch per pass.
     """
     compute_dtype = compute_dtype_for(dtype)
-    n_t, n_s = pos_t.shape[0], pos_s.shape[0]
+    n_t, n_s = pos_t.shape[-2], pos_s.shape[-2]
     tgt = pack_targets(pos_t, vel_t, _round_up(n_t, block_i), mask_t)
     src = pack_sources(pos_s, vel_s, mass_s, _round_up(n_s, block_j))
     out = nbody_force.acc_jerk_pot_packed(
         tgt, src, eps=eps, block_i=block_i, block_j=block_j,
-        compute_dtype=compute_dtype)[:n_t]
-    return out[:, 0:3], out[:, 3:6], out[:, 6]
+        compute_dtype=compute_dtype)[..., :n_t, :]
+    return out[..., 0:3], out[..., 3:6], out[..., 6]
 
 
 def snap_rect(
@@ -142,10 +337,11 @@ def snap_rect(
     ``mask_t`` restricts the pass to active targets (see
     :func:`acc_jerk_pot_rect`); ``acc_s`` must then hold the *predicted*
     acceleration of inactive sources (the caller blends evaluated and
-    predicted).
+    predicted).  A leading batch axis goes through as in
+    :func:`acc_jerk_pot_rect`.
     """
     compute_dtype = compute_dtype_for(dtype)
-    n_t, n_s = pos_t.shape[0], pos_s.shape[0]
+    n_t, n_s = pos_t.shape[-2], pos_s.shape[-2]
     nt_pad = _round_up(n_t, block_i)
     ns_pad = _round_up(n_s, block_j)
     out = nbody_force.snap_packed(
@@ -155,7 +351,7 @@ def snap_rect(
         pack_acc_sources(acc_s, ns_pad),
         eps=eps, block_i=block_i, block_j=block_j,
         compute_dtype=compute_dtype)
-    return out[:n_t, 0:3]
+    return out[..., :n_t, 0:3]
 
 
 def acc_jerk_pot(pos, vel, mass, **kw):

@@ -1,0 +1,705 @@
+"""Batched ensemble engine: B independent simulations advanced together.
+
+Port of ``repro/sim/ensemble.py`` on one card.  Independent runs are
+stacked on a leading batch axis of every ``ParticleState`` leaf and
+advanced in lockstep.  The reference lifts the Hermite step over members
+with ``jax.vmap``; ``torch.vmap`` cannot lift a hand-written kernel, so the
+batch axis is written out here and reaches the kernels as their own
+leading axis (``gridDim.y``): one launch per pass for the whole batch, or
+per bucket group under compaction, never one per member.  The reference's
+``lax.scan`` loops are Python loops.
+
+**Steppers.** Fixed dt (:func:`ensemble_run`), per-member shared-adaptive
+Aarseth lockstep (:func:`ensemble_run_adaptive`, each member with its own
+step and no host read inside the step loop) and hierarchical block
+timesteps (:func:`ensemble_run_block`): per-particle power-of-two levels
+inside each member, only the active block evaluated at each event.  The
+block stepper's ``compaction="gather"`` gathers each event's active
+targets into a dense buffer of one of a few capacities, so the kernels
+launch on the bucket's target extent instead of masking the full one:
+bit-for-bit the same physics, fewer tiles.  A CUDA launch needs its
+extent on the host, so each gather event reads every bucket group's
+capacity index (and whether any member is still live) in one
+device-to-host copy; ``compaction="none"`` reads nothing per event.
+``ensemble_run_block.host_syncs`` counts the block path's reads.
+
+**Masking (ragged batches).** Heterogeneous mixes are packed by
+``repro_torch.sim.scenarios.build_padded`` into a ``(B, N_max, ...)``
+batch plus a per-run ``n_active`` vector.  Rows ``>= n_active[b]`` are
+padding: zero mass makes them invisible as sources (a kernel invariant),
+and the engine's per-member mask zeroes their evaluated derivatives so
+they stay frozen as targets and never tighten a timestep.
+
+Not ported yet: multi-device batches and meshes (``devices=``, ``mesh=``,
+strategy labels other than ``"single"``; ROADMAP.md queue 1 item 7), the
+Ahmad-Cohen neighbor scheme (``sources="neighbor"``, item 8), admission
+into a running block batch (item 9) and the metrics registry (items 6 and
+10).  The tensors' device picks the kernels or their plain versions, so
+there is no ``impl``/``kernel`` switch: ``dtype="fp64"`` is the oracle.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, NamedTuple, Optional, Sequence
+
+import torch
+
+from repro_torch.core import hermite
+from repro_torch.core.evaluate import (COMPACTIONS, make_block_evaluator,
+                                       make_evaluator, shared_cap_index)
+from repro_torch.core.hermite import Evaluation
+from repro_torch.core.nbody import FIELDS, ParticleState
+from repro_torch.kernels import nbody_force, ops
+
+#: the source axis: every launch over all sources, or the Ahmad-Cohen
+#: neighbor windows (not ported yet)
+SOURCES = ("full", "neighbor")
+#: per-member capacity-bucket dispatch modes of the block engine
+BUCKET_MODES = ("member", "shared")
+#: strategy labels: on one card every label of the reference computes the
+#: same thing, but only the single-card one is ported
+STRATEGY_LABELS = ("single", "replicated", "two_level", "mesh_sharded",
+                   "ring")
+
+
+def _single_card(*, devices=None, mesh=None, strategy: str = "single",
+                 sources: str = "full"):
+    """Refuse what this slice does not run: several cards, a mesh, a
+    distributed strategy label or the neighbor scheme."""
+    if strategy not in STRATEGY_LABELS:
+        raise ValueError(f"unknown strategy {strategy!r}; one of "
+                         f"{STRATEGY_LABELS}")
+    if devices is not None or mesh is not None or strategy != "single":
+        raise NotImplementedError(
+            "multi-device ensembles (devices=, mesh=, strategy labels other "
+            "than 'single') are not ported yet: ROADMAP.md queue 1 item 7")
+    if sources not in SOURCES:
+        raise ValueError(
+            f"sources must be one of {SOURCES}; got {sources!r}")
+    if sources != "full":
+        raise NotImplementedError(
+            "sources='neighbor' (the Ahmad-Cohen scheme) is not ported yet: "
+            "ROADMAP.md queue 1 item 8")
+
+
+# --------------------------------------------------------------------------
+# batch packing
+# --------------------------------------------------------------------------
+def stack_states(states: Sequence[ParticleState]) -> ParticleState:
+    """Pack independent runs (same N) into one leading-batch-axis state."""
+    if not states:
+        raise ValueError("need at least one state")
+    ns = {s.pos.shape[0] for s in states}
+    if len(ns) != 1:
+        raise ValueError(f"all ensemble members must share N; got {ns}")
+    return ParticleState(**{
+        f: torch.stack([getattr(s, f) for s in states]) for f in FIELDS})
+
+
+def unstack_states(batched: ParticleState) -> List[ParticleState]:
+    return [ParticleState(**{f: getattr(batched, f)[i] for f in FIELDS})
+            for i in range(batch_size(batched))]
+
+
+def batch_size(batched: ParticleState) -> int:
+    return batched.pos.shape[0]
+
+
+def _kinetic(batched: ParticleState) -> torch.Tensor:
+    return 0.5 * torch.sum(batched.mass * torch.sum(batched.vel ** 2, dim=-1),
+                           dim=-1)
+
+
+def _potential(batched: ParticleState) -> torch.Tensor:
+    return 0.5 * torch.sum(batched.mass * batched.pot, dim=-1)
+
+
+def batched_total_energy(batched: ParticleState) -> torch.Tensor:
+    """(B,) total energy per member; mass-weighted, so zero-mass padding
+    rows contribute nothing."""
+    return _kinetic(batched) + _potential(batched)
+
+
+def batched_virial_ratio(batched: ParticleState) -> torch.Tensor:
+    """(B,) virial ratio T/|U| per member (mass-weighted: padding-blind)."""
+    t, u = _kinetic(batched), _potential(batched)
+    tiny = torch.finfo(t.dtype).tiny
+    return t / torch.clamp(torch.abs(u), min=tiny)
+
+
+def _select(live, new: ParticleState, old: ParticleState) -> ParticleState:
+    """Per member: ``new`` where ``live``, else ``old`` (a frozen member)."""
+
+    def one(a, b):
+        return torch.where(live.reshape(live.shape + (1,) * (a.dim() - 1)),
+                           a, b)
+
+    return ParticleState(**{f: one(getattr(new, f), getattr(old, f))
+                            for f in FIELDS})
+
+
+# --------------------------------------------------------------------------
+# fixed and adaptive lockstep
+# --------------------------------------------------------------------------
+def _mask_evaluator(ev, n_active):
+    """Zero the evaluated derivatives of padding rows (>= ``n_active``).
+
+    Sources with m = 0 already contribute zero force (kernel invariant);
+    masking the outputs also freezes padding rows as targets.  With
+    ``n_active == N`` the mask is all ones and the multiply is exact.
+    """
+
+    def evaluate(pos, vel, mass) -> Evaluation:
+        out = ev(pos, vel, mass)
+        active = (torch.arange(pos.shape[-2], device=pos.device)
+                  < n_active[..., None])
+        m3 = active.to(out.acc.dtype)[..., None]
+        return Evaluation(acc=out.acc * m3, jerk=out.jerk * m3,
+                          snap=out.snap * m3,
+                          pot=out.pot * active.to(out.pot.dtype))
+
+    return evaluate
+
+
+def _as_n_active(batched: ParticleState, n_active) -> torch.Tensor:
+    """``n_active`` as a (B,) int32 tensor on the batch's device (default:
+    every row active)."""
+    b, n = batched.pos.shape[0], batched.pos.shape[1]
+    if n_active is None:
+        return torch.full((b,), n, dtype=torch.int32, device=batched.device)
+    n_active = torch.as_tensor(n_active, dtype=torch.int32,
+                               device=batched.device)
+    if tuple(n_active.shape) != (b,):
+        raise ValueError(
+            f"n_active must have shape ({b},) for a B={b} batch; "
+            f"got {tuple(n_active.shape)}")
+    return n_active
+
+
+def _as_t_end(batched: ParticleState, t_end) -> torch.Tensor:
+    """``t_end`` as a (B,) tensor in the state dtype: a scalar broadcasts
+    to every member, a vector gives each member its own deadline."""
+    b = batch_size(batched)
+    t = torch.as_tensor(t_end, dtype=batched.dtype, device=batched.device)
+    if t.dim() == 0:
+        return t.expand(b).clone()
+    if tuple(t.shape) != (b,):
+        raise ValueError(
+            f"t_end must be a scalar or shape ({b},) for a B={b} batch; "
+            f"got {tuple(t.shape)}")
+    return t
+
+
+def _lockstep_evaluator(n_active, *, order, eps, dtype):
+    return _mask_evaluator(make_evaluator(order=order, eps=eps, dtype=dtype),
+                           n_active)
+
+
+def ensemble_initialize(
+    batched: ParticleState,
+    *,
+    n_active=None,
+    order: int = 6,
+    eps: float = 1e-7,
+    dtype: str = "fp32",
+    devices=None,
+    mesh=None,
+) -> ParticleState:
+    """Bootstrap derivatives for every member (one batched t=0 pass)."""
+    _single_card(devices=devices, mesh=mesh)
+    na = _as_n_active(batched, n_active)
+    ev = _lockstep_evaluator(na, order=order, eps=eps, dtype=dtype)
+    return hermite.initialize(batched, ev)
+
+
+def ensemble_run(
+    batched: ParticleState,
+    *,
+    n_steps: int,
+    dt: float,
+    n_active=None,
+    order: int = 6,
+    eps: float = 1e-7,
+    dtype: str = "fp32",
+    devices=None,
+) -> ParticleState:
+    """Advance an initialized batch by ``n_steps`` fixed-dt steps: the
+    arithmetic of ``hermite.evolve_scan`` on every member at once."""
+    _single_card(devices=devices)
+    na = _as_n_active(batched, n_active)
+    ev = _lockstep_evaluator(na, order=order, eps=eps, dtype=dtype)
+    for _ in range(n_steps):
+        batched = hermite.step(batched, dt, ev, order=order)
+    return batched
+
+
+def _step_members(s: ParticleState, h, ev, order: int) -> ParticleState:
+    """One P-E-C step with a per-member step ``h`` of shape (B,)."""
+    h3 = h[:, None, None]
+    xp, vp = hermite.predict(s, h3)
+    out = ev(xp, vp, s.mass)
+    x1, v1, crackle = hermite.correct(s, out, h3, order=order)
+    return ParticleState(
+        pos=x1, vel=v1, acc=out.acc.to(s.dtype), jerk=out.jerk.to(s.dtype),
+        snap=out.snap.to(s.dtype), crackle=crackle, mass=s.mass,
+        pot=out.pot.to(s.mass.dtype), time=s.time + h)
+
+
+def ensemble_run_adaptive(
+    batched: ParticleState,
+    *,
+    t_end,
+    n_steps: int,
+    h_prev: Optional[torch.Tensor] = None,
+    n_taken: Optional[torch.Tensor] = None,
+    n_active=None,
+    eta: float = 0.02,
+    dt_max: float = 0.0625,
+    order: int = 6,
+    eps: float = 1e-7,
+    dtype: str = "fp32",
+    devices=None,
+):
+    """Advance an initialized batch by up to ``n_steps`` adaptive steps each.
+
+    Each member carries its own step: the Aarseth criterion over its own
+    particles, rate-limited against its previous step (``h_prev <= 0``
+    marks the first), clamped to its remaining time.  Members past
+    ``t_end`` keep stepping in lockstep but their state is frozen by a
+    per-member select.  Nothing is read back to the host inside the loop.
+
+    Returns ``(batched, h_prev, n_taken)``; call again with the returned
+    carries until ``batched.time.min() >= t_end``.  ``n_taken`` counts the
+    productive steps per member.  ``t_end`` is a scalar or a (B,) vector.
+    """
+    _single_card(devices=devices)
+    na = _as_n_active(batched, n_active)
+    ev = _lockstep_evaluator(na, order=order, eps=eps, dtype=dtype)
+    b = batch_size(batched)
+    if h_prev is None:
+        h_prev = torch.zeros(b, dtype=batched.dtype, device=batched.device)
+    if n_taken is None:
+        n_taken = torch.zeros(b, dtype=torch.int32, device=batched.device)
+    t_end_ = _as_t_end(batched, t_end)
+    s, hp, cnt = batched, h_prev, n_taken
+    for _ in range(n_steps):
+        remaining = t_end_ - s.time
+        active = remaining > 0.0
+        # padding rows carry zero derivatives, so they fall into
+        # aarseth_dt's num > 0 guard and never tighten the step
+        h = hermite.aarseth_dt_particles(s, eta=eta, dt_max=dt_max).amin(-1)
+        h = torch.where(hp > 0.0,
+                        torch.minimum(torch.maximum(h, 0.5 * hp), 2.0 * hp),
+                        h)
+        h = torch.minimum(h, torch.clamp(remaining, min=1e-12))
+        h_safe = torch.where(active, h, torch.ones_like(h))  # corrector / h^3
+        s = _select(active, _step_members(s, h_safe, ev, order), s)
+        hp = torch.where(active, h, hp)
+        cnt = cnt + active.to(cnt.dtype)
+    return s, hp, cnt
+
+
+def evolve_ensemble(
+    states,
+    *,
+    n_steps: int,
+    dt: float,
+    n_active=None,
+    order: int = 6,
+    eps: float = 1e-7,
+    dtype: str = "fp32",
+    devices=None,
+    strategy: str = "single",
+) -> ParticleState:
+    """One-shot convenience: stack (if needed), initialize, evolve."""
+    _single_card(devices=devices, strategy=strategy)
+    batched = states if isinstance(states, ParticleState) else \
+        stack_states(list(states))
+    kw = dict(n_active=n_active, order=order, eps=eps, dtype=dtype)
+    batched = ensemble_initialize(batched, **kw)
+    return ensemble_run(batched, n_steps=n_steps, dt=dt, **kw)
+
+
+# --------------------------------------------------------------------------
+# hierarchical block-timestep engine (per-particle power-of-two levels)
+# --------------------------------------------------------------------------
+class BlockCarry(NamedTuple):
+    """Per-batch carry of the block engine (pass back unchanged).
+
+    ``t_last``/``levels`` are ``(B, N)`` int32 ticks / block levels,
+    ``dt_macro`` the ``(B,)`` current macro length, ``n_pairs`` the ``(B,)``
+    accumulated pairwise force evaluations (per Hermite pass), ``n_events``
+    the ``(B,)`` int32 productive event count, ``n_tiles`` the ``(B,)``
+    kernel grid tiles launched (both passes, in the reference's logical
+    (BI, BJ) tiles): the count compaction shrinks while ``n_pairs`` stays.
+    ``bucket_hits`` is ``(B, n_caps)``: how often each member's event
+    dispatched each bucket of the full capacity schedule (all zeros
+    without compaction).  The float counters are float64, as the
+    reference keeps them under x64: exact integer adds far past float32's
+    2**24.
+    """
+
+    t_last: torch.Tensor
+    levels: torch.Tensor
+    dt_macro: torch.Tensor
+    n_pairs: torch.Tensor
+    n_events: torch.Tensor
+    n_tiles: torch.Tensor
+    bucket_hits: torch.Tensor
+
+
+def _macro_levels(s, dt_macro, *, eta, n_levels: int):
+    """Fresh levels for members synchronized at their macro start
+    (``dt_macro`` is (B,))."""
+    col = dt_macro[:, None]
+    dt_i = hermite.aarseth_dt_particles(s, eta=eta, dt_max=col)
+    return hermite.quantize_block_levels(dt_i, dt_max=col, n_levels=n_levels)
+
+
+def _macro_length(remaining, dt_max):
+    return torch.minimum(torch.full_like(remaining, dt_max),
+                         torch.clamp(remaining, min=1e-12))
+
+
+def _event_init(s, t_end, *, eta, dt_max, n_levels: int):
+    dt_macro = _macro_length(t_end - s.time, dt_max)
+    levels = _macro_levels(s, dt_macro, eta=eta, n_levels=n_levels)
+    t_last = torch.zeros(s.pos.shape[:-1], dtype=torch.int32,
+                         device=s.device)
+    return t_last, levels, dt_macro
+
+
+def _period(levels, n_sub: int):
+    return torch.bitwise_right_shift(n_sub, levels)
+
+
+# One event is split in two stages around the force evaluation, so the
+# compaction layer can pick its capacity buckets between them.
+def _event_pre(s, t_last, levels, dt_macro, na, t_end, *, n_sub: int):
+    live = (t_end - s.time) > 0.0
+    real = (torch.arange(s.pos.shape[-2], device=s.device)[None, :]
+            < na[:, None])
+    cand = t_last + _period(levels, n_sub)
+    t_next = torch.where(real, cand, n_sub).amin(dim=-1)
+    active = real & (cand == t_next[:, None])
+    dt_fine = dt_macro / n_sub
+    h = ((t_next[:, None] - t_last).to(s.dtype) * dt_fine[:, None])[..., None]
+    xp, vp = hermite.predict(s, h)
+    ap = hermite.predict_acc(s, h)
+    return live, t_next, active, h, xp, vp, ap
+
+
+def _event_post(s, ev, live, t_next, active, h, t_last, levels, dt_macro,
+                na, t_end, *, n_sub: int, eta, dt_max, n_levels: int,
+                order: int):
+    dtype = s.dtype
+    period = _period(levels, n_sub)
+    # an active particle last corrected exactly its own step ago, so the
+    # prediction horizon is the corrector interval
+    x1, v1, crk = hermite.correct(s, ev, h, order=order)
+    m3 = active[..., None]
+    st1 = ParticleState(
+        pos=torch.where(m3, x1, s.pos),
+        vel=torch.where(m3, v1, s.vel),
+        acc=torch.where(m3, ev.acc.to(dtype), s.acc),
+        jerk=torch.where(m3, ev.jerk.to(dtype), s.jerk),
+        snap=torch.where(m3, ev.snap.to(dtype), s.snap),
+        crackle=torch.where(m3, crk, s.crackle),
+        mass=s.mass,
+        pot=torch.where(active, ev.pot.to(s.mass.dtype), s.pot),
+        time=s.time,
+    )
+    t_last1 = torch.where(active, t_next[:, None], t_last)
+
+    # level update from the freshly corrected derivatives: finer at will
+    # (always commensurate), coarser one level at doubled-period ticks
+    col = dt_macro[:, None]
+    dt_i = hermite.aarseth_dt_particles(st1, eta=eta, dt_max=col)
+    want = hermite.quantize_block_levels(dt_i, dt_max=col, n_levels=n_levels)
+    can_coarsen = (t_next[:, None] % (period << 1)) == 0
+    lev1 = torch.where(active & (want > levels), want,
+                       torch.where(active & (want < levels) & can_coarsen,
+                                   levels - 1, levels))
+
+    # macro boundary: advance member time, requantize, reset the grid
+    sync = t_next == n_sub
+    time1 = torch.where(sync, s.time + dt_macro, s.time)
+    st1 = dataclasses.replace(st1, time=time1)
+    dt_macro1 = torch.where(sync, _macro_length(t_end - time1, dt_max),
+                            dt_macro)
+    lev1 = torch.where(sync[:, None],
+                       _macro_levels(st1, dt_macro1, eta=eta,
+                                     n_levels=n_levels), lev1)
+    t_last1 = torch.where(sync[:, None], 0, t_last1)
+
+    # members past t_end freeze whole (the batch stays rectangular)
+    st1 = _select(live, st1, s)
+    t_last1 = torch.where(live[:, None], t_last1, t_last)
+    lev1 = torch.where(live[:, None], lev1, levels)
+    dt_macro1 = torch.where(live, dt_macro1, dt_macro)
+    dp = torch.where(live, active.sum(-1).to(dtype) * na, 0.0)
+    return st1, t_last1, lev1, dt_macro1, dp
+
+
+def _bucket_groups(n: int, n_active: Sequence[int], block_i: int,
+                   block_j: int, compaction: str, bucket_mode: str) -> tuple:
+    """Bucket groups of a (possibly mixed) batch.
+
+    Members are grouped by the ceiling bucket of their ``n_active``, the
+    bucket a member's per-event active count can never exceed; each group
+    launches once per pass per event over a capacity schedule truncated at
+    that ceiling (``ops.CapacityPlan.restrict``), so a small member in a
+    mixed batch never launches the widest member's buckets.  Returns
+    ``(member_indices, n_caps)`` pairs partitioning ``range(B)``; with
+    ``bucket_mode="shared"`` (or without compaction) the whole batch is
+    one group over the full schedule.
+    """
+    if bucket_mode not in BUCKET_MODES:
+        raise ValueError(
+            f"bucket_mode must be one of {BUCKET_MODES}; got {bucket_mode!r}")
+    plan = ops.CapacityPlan(n, n, block_i, block_j)
+    if compaction != "gather" or bucket_mode == "shared":
+        return ((tuple(range(len(n_active))), len(plan.caps)),)
+    by: dict = {}
+    for member, a in enumerate(n_active):
+        by.setdefault(len(plan.restrict(int(a)).caps), []).append(member)
+    return tuple(sorted((tuple(ms), n_caps) for n_caps, ms in by.items()))
+
+
+class _BlockEngine:
+    """The block-timestep event loop for one configuration.
+
+    Time runs in macro-steps of ``dt_macro = min(dt_max, remaining)``, each
+    an integer grid of ``2**(n_levels-1)`` fine ticks; a particle at level
+    ``l`` steps every ``2**(n_levels-1-l)`` ticks.  Each event jumps to
+    the next occupied tick, predicts everyone there, evaluates the active
+    block (sources full, inactive sources' accelerations predicted) and
+    corrects it; after correction a particle may move to a finer level at
+    once or one level coarser at a doubled-period tick.  The macro boundary
+    synchronizes every particle and requantizes the levels.
+    """
+
+    def __init__(self, *, order, eps, eta, dt_max, n_levels, compaction,
+                 block_i, block_j, groups, dtype, n, device):
+        self.order, self.eta, self.dt_max = order, eta, dt_max
+        self.n_levels, self.n_sub = n_levels, 2 ** (n_levels - 1)
+        self.compaction = compaction
+        n_passes = 2 if order >= 6 else 1
+        kw = dict(order=order, eps=eps, block_i=block_i, block_j=block_j,
+                  dtype=dtype)
+        plan = ops.CapacityPlan(n, n, block_i, block_j, n_passes=n_passes,
+                                dtype=dtype)
+        self.n_caps = len(plan.caps)
+        if compaction == "gather":
+            self.groups = []
+            for members, n_caps in groups:
+                gplan = plan.restrict(plan.caps[min(n_caps, self.n_caps) - 1])
+                idx = torch.tensor(members, dtype=torch.int64, device=device)
+                self.groups.append((
+                    None if len(groups) == 1 else idx, gplan,
+                    make_block_evaluator(compaction="gather",
+                                         n_caps=n_caps, **kw)))
+            order_ = torch.cat([torch.tensor(m) for m, _ in groups])
+            self.inv = torch.argsort(order_).to(device)
+            self.tiles_table = torch.tensor(plan.tiles_by_cap,
+                                            dtype=torch.float64,
+                                            device=device)
+            self.cap_range = torch.arange(self.n_caps, device=device)
+        else:
+            self.bev = make_block_evaluator(**kw)
+            # the masked dense launch covers the full grid, however many
+            # blocks skip their work
+            self.full_tiles = plan.dense_tiles
+
+    def init(self, batched, t_end) -> BlockCarry:
+        t_last, levels, dt_macro = _event_init(
+            batched, t_end, eta=self.eta, dt_max=self.dt_max,
+            n_levels=self.n_levels)
+        b = batched.pos.shape[0]
+        f64 = dict(dtype=torch.float64, device=batched.device)
+        return BlockCarry(
+            t_last=t_last, levels=levels, dt_macro=dt_macro,
+            n_pairs=torch.zeros(b, **f64),
+            n_events=torch.zeros(b, dtype=torch.int32,
+                                 device=batched.device),
+            n_tiles=torch.zeros(b, **f64),
+            bucket_hits=torch.zeros((b, self.n_caps), **f64))
+
+    def _gather_eval(self, xp, vp, ap, mass, act, live):
+        """The gathered evaluation of one event, one launch per pass per
+        bucket group; returns ``(ev, tiles, hits)``, or None when no
+        member is live.  The one host read of the event is here."""
+        bound = torch.where(live, act.sum(-1), 0)
+        idx = [shared_cap_index(gplan, bound if sel is None else bound[sel])
+               for sel, gplan, _ in self.groups]
+        on_dev = torch.stack(idx + [live.any().to(idx[0].dtype)])
+        host = on_dev.tolist()
+        ensemble_run_block.host_syncs += 1
+        if not host[-1]:
+            return None
+        perm = torch.argsort((~act).to(torch.int32), dim=-1, stable=True)
+        evs, caps = [], []
+        for (sel, _, gbev), ci, ci_dev in zip(self.groups, host, idx):
+            ops_ = (xp, vp, ap, mass, act, perm)
+            if sel is not None:
+                ops_ = tuple(x[sel] for x in ops_)
+            evs.append(gbev(*ops_, ci))
+            n_members = xp.shape[0] if sel is None else sel.shape[0]
+            caps.append(ci_dev.expand(n_members))
+        cap_idx = torch.cat(caps)
+        if len(evs) == 1:
+            ev = evs[0]
+        else:
+            ev = Evaluation(*(torch.cat(parts)[self.inv]
+                              for parts in zip(*evs)))
+            cap_idx = cap_idx[self.inv]
+        hits = cap_idx[:, None] == self.cap_range
+        return ev, self.tiles_table[cap_idx], hits.to(torch.float64)
+
+    def run(self, s, c: BlockCarry, na, t_end, n_events: int):
+        for _ in range(n_events):
+            live, t_next, active, h, xp, vp, ap = _event_pre(
+                s, c.t_last, c.levels, c.dt_macro, na, t_end,
+                n_sub=self.n_sub)
+            # a finished member's outputs are discarded, so its targets go
+            # to the kernels inactive and their blocks skip their work
+            act = active & live[:, None]
+            hits = None
+            if self.compaction == "gather":
+                out = self._gather_eval(xp, vp, ap, s.mass, act, live)
+                if out is None:
+                    break  # every member is past t_end
+                ev, tiles, hits = out
+            else:
+                ev = self.bev(xp, vp, ap, s.mass, act)
+                tiles = torch.full_like(c.n_tiles, self.full_tiles)
+            s1, t_last, levels, dt_macro, dp = _event_post(
+                s, ev, live, t_next, active, h, c.t_last, c.levels,
+                c.dt_macro, na, t_end, n_sub=self.n_sub, eta=self.eta,
+                dt_max=self.dt_max, n_levels=self.n_levels,
+                order=self.order)
+            c = BlockCarry(
+                t_last=t_last, levels=levels, dt_macro=dt_macro,
+                n_pairs=c.n_pairs + dp,
+                n_events=c.n_events + live.to(torch.int32),
+                n_tiles=c.n_tiles + torch.where(live, tiles, 0.0),
+                bucket_hits=c.bucket_hits if hits is None else
+                c.bucket_hits + torch.where(live[:, None], hits, 0.0))
+            s = s1
+        return s, c
+
+
+def ensemble_run_block(
+    batched: ParticleState,
+    *,
+    t_end,
+    n_events: int = 64,
+    dt_max: float = 0.0625,
+    n_levels: int = 8,
+    carry: Optional[BlockCarry] = None,
+    n_active=None,
+    eta: float = 0.02,
+    order: int = 6,
+    eps: float = 1e-7,
+    dtype: str = "fp32",
+    compaction: str = "none",
+    bucket_mode: str = "member",
+    block_i: Optional[int] = None,
+    block_j: Optional[int] = None,
+    sources: str = "full",
+    devices=None,
+    mesh=None,
+):
+    """Advance an initialized batch by up to ``n_events`` block events each.
+
+    Returns ``(batched, carry)``; call again with the returned carry until
+    ``batched.time.min() >= t_end`` (a member's time advances at its macro
+    boundaries).  ``t_end`` is a scalar or a (B,) vector; a member past its
+    deadline freezes whole while its batch-mates go on.  The carry counts
+    pairs, events, tiles and bucket hits per member (:class:`BlockCarry`).
+
+    ``compaction="gather"`` launches the kernels on the event's capacity
+    bucket (bit for bit the ``"none"`` result, fewer tiles).
+    ``bucket_mode="member"`` groups members by their ``n_active`` ceiling
+    (:func:`_bucket_groups`), ``"shared"`` puts the whole batch in one
+    group; both give the same physics.  ``block_i``/``block_j`` set the
+    logical tile (default the kernels'): the capacity schedule's step and
+    the unit of the tile counts.  A gather run stops early once no member
+    is live; a ``"none"`` run always does its ``n_events`` iterations.
+    """
+    if n_levels < 1:
+        raise ValueError(f"n_levels={n_levels} must be >= 1")
+    if compaction not in COMPACTIONS:
+        raise ValueError(
+            f"compaction must be one of {COMPACTIONS}; got {compaction!r}")
+    _single_card(devices=devices, mesh=mesh, sources=sources)
+    na = _as_n_active(batched, n_active)
+    t_end_ = _as_t_end(batched, t_end)
+    bi = block_i or nbody_force.DEFAULT_BLOCK_I
+    bj = block_j or nbody_force.DEFAULT_BLOCK_J
+    n = batched.pos.shape[1]
+    if compaction == "gather" and bucket_mode == "member":
+        counts = na.tolist()
+        ensemble_run_block.host_syncs += 1
+    else:
+        counts = [n] * batch_size(batched)
+    groups = _bucket_groups(n, counts, bi, bj, compaction, bucket_mode)
+    engine = _BlockEngine(order=order, eps=eps, eta=eta, dt_max=dt_max,
+                          n_levels=n_levels, compaction=compaction,
+                          block_i=bi, block_j=bj, groups=groups, dtype=dtype,
+                          n=n, device=batched.device)
+    if carry is None:
+        carry = engine.init(batched, t_end_)
+    return engine.run(batched, carry, na, t_end_, n_events)
+
+
+#: device-to-host reads made by the block path (per gather event, per
+#: chunk for the bucket groups and the end-of-chunk time check)
+ensemble_run_block.host_syncs = 0
+
+
+def evolve_ensemble_block(
+    states,
+    *,
+    t_end: float,
+    dt_max: float = 0.0625,
+    n_levels: int = 8,
+    n_active=None,
+    eta: float = 0.02,
+    order: int = 6,
+    eps: float = 1e-7,
+    dtype: str = "fp32",
+    compaction: str = "none",
+    bucket_mode: str = "member",
+    block_i: Optional[int] = None,
+    block_j: Optional[int] = None,
+    sources: str = "full",
+    devices=None,
+    mesh=None,
+    n_events: int = 256,
+    max_chunks: int = 100_000,
+    initialized: bool = False,
+):
+    """One-shot block-timestep convenience: stack, initialize, evolve to
+    ``t_end`` in chunks of ``n_events``.  Returns ``(batched, carry)``
+    (see :func:`ensemble_run_block`).  ``initialized=True`` takes
+    ``states`` as a batch that :func:`ensemble_initialize` has already
+    bootstrapped and runs no bootstrap evaluation."""
+    _single_card(devices=devices, mesh=mesh, sources=sources)
+    batched = states if isinstance(states, ParticleState) else \
+        stack_states(list(states))
+    kw = dict(n_active=n_active, order=order, eps=eps, dtype=dtype)
+    if not initialized:
+        batched = ensemble_initialize(batched, **kw)
+    carry = None
+    for _ in range(max_chunks):
+        batched, carry = ensemble_run_block(
+            batched, t_end=t_end, n_events=n_events, dt_max=dt_max,
+            n_levels=n_levels, carry=carry, eta=eta, compaction=compaction,
+            bucket_mode=bucket_mode, block_i=block_i, block_j=block_j, **kw)
+        done = float(torch.min(batched.time)) >= t_end
+        ensemble_run_block.host_syncs += 1
+        if done:
+            break
+    return batched, carry

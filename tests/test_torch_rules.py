@@ -15,13 +15,15 @@ import torch
 
 from repro_torch.core import evaluate, nbody
 from repro_torch.kernels import _build, flash_attention, nbody_force, ops
-from repro_torch.launch import nbody_run, serve_lm
+from repro_torch.launch import nbody_run, quickstart, serve_lm
 from repro_torch.models import config as lm_config
 from repro_torch.models import layers, model, params
+from repro_torch.sim import ensemble, scenarios
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "flash_mutants.py"]
+    ROOT / "chip_smoke.py", ROOT / "flash_mutants.py",
+    ROOT / "flash_long_rows.py"]
 
 
 def _imported_modules(path):
@@ -60,6 +62,37 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
         nbody_run.main(["--n", "16", "--t-end", "0.001"])
     assert nbody_run.main(["--n", "16", "--t-end", "0.001",
                            "--device", "cpu"]) == 0
+
+
+def test_sim_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
+    spec = scenarios.Scenario(name="plummer", n=16)
+    for call in (lambda: scenarios.make("plummer", 16),
+                 lambda: scenarios.build(spec),
+                 spec.build,
+                 lambda: scenarios.build_padded([spec]),
+                 lambda: scenarios.ScenarioSpec.parse("king:16").build(),
+                 lambda: quickstart.main([]),
+                 lambda: quickstart.run(n=16)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert scenarios.make("plummer", 16, device="cpu").device.type == "cpu"
+
+
+def test_ensemble_functions_take_no_device_and_refuse_what_is_not_ported():
+    """Below the scenario entry points the batch's device decides; the
+    neighbor scheme and multi-device layouts raise, naming their ROADMAP
+    items."""
+    for fn in (ensemble.ensemble_initialize, ensemble.ensemble_run,
+               ensemble.ensemble_run_adaptive, ensemble.evolve_ensemble,
+               ensemble.ensemble_run_block, ensemble.evolve_ensemble_block):
+        assert "device" not in inspect.signature(fn).parameters, fn.__name__
+    state = scenarios.make("plummer", 16, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        ensemble.evolve_ensemble_block([state], t_end=0.01,
+                                       sources="neighbor")
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        ensemble.evolve_ensemble([state], n_steps=1, dt=0.01,
+                                 strategy="mesh_sharded")
 
 
 def test_evaluator_and_wrappers_take_no_device():
@@ -172,7 +205,8 @@ def test_tile_share_checks_follow_the_kernels_key_tile():
     src = (_build.CSRC / "flash_attention.cu").read_text()
     found = re.findall(r"constexpr int kBf16Keys = (\d+);", src)
     assert len(found) == 1, found
-    for path in (ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"):
+    for path in (ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+                 ROOT / "flash_long_rows.py"):
         assert _assigned_constant(path, "KERNEL_KEY_TILE") == int(found[0]), path
 
 
@@ -227,3 +261,16 @@ def test_acc_jerk_cases_follow_the_kernels_split():
     path = ROOT / "tests" / "test_torch_cuda.py"
     assert _assigned_constant(path, "ACC_SLICES") == slices
     assert _assigned_constant(path, "ACC_TARGETS") == targets
+
+
+def test_nbody_launchers_report_the_grid_they_launch():
+    """The grid sizes the wrappers record (``blocks``) are the launchers'
+    own: each launcher writes the blocks of the grid it launches, and no
+    other."""
+    src = (_build.CSRC / "nbody_force.cu").read_text()
+    bodies = re.findall(r'extern "C" int (\w+)\(.*?\n}\n', src, re.S)
+    assert bodies == ["nbody_acc_jerk_pot", "nbody_snap"]
+    for body in re.findall(r'extern "C" int \w+\((.*?)\n}\n', src, re.S):
+        assert body.count("*blocks = static_cast<int>(grid.x * grid.y);") == 1
+        assert body.count("dim3 grid(") == 1
+        assert body.count("<<<grid,") == 2  # the fp32 and the mixed kernel

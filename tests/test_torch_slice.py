@@ -4,6 +4,7 @@ its committed goldens, on the CPU (the packed wrappers run their plain
 versions there).
 """
 
+import inspect
 import json
 import os
 
@@ -133,8 +134,10 @@ def test_lockstep_evaluator_is_all_ones_block_evaluator():
 
 
 def test_evaluator_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        make_block_evaluator(compaction="gather")
+    # compaction="gather" is ported now (tests/test_torch_compaction.py)
+    gather = make_block_evaluator(compaction="gather")
+    assert list(inspect.signature(gather).parameters)[-2:] == [
+        "perm", "cap_idx"]
     with pytest.raises(ValueError):
         make_block_evaluator(compaction="scatter")
     with pytest.raises(ValueError):
