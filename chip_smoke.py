@@ -5,7 +5,8 @@
 
 Phases, in order; any failure raises and the script exits nonzero:
 
-1. the card's name and power limit (``nvidia-smi``);
+1. the card's name and power limit (``nvidia-smi``), and its idle power
+   draw read through NVML before anything runs on it;
 2. build of every CUDA kernel from ``src/repro_torch/csrc`` with ``nvcc``;
 3. each kernel held against its plain PyTorch version on the card, at the
    main path's shape (N_t = N_s = 16384, fp32 and mixed), on a rectangle
@@ -55,6 +56,17 @@ Phases, in order; any failure raises and the script exits nonzero:
    members, one launch per pass for the batch, |dE/E| per member; and
    ``benchmarks/bench_ci.py``'s block_compaction recipe at N = 256 with
    gather compaction, recorded beside the reference's row;
+9. the simulation API and CLI (``repro_torch.launch.sim_run``,
+   ``repro_torch.sim.api``) at the main path's width: the single runner
+   on Plummer N = 16384 to t = 1/16 (CLI, and build/step/collect on the
+   same config) bit for bit against ``hermite.evolve`` on the same state;
+   the block runner on phase 8's binary_plummer gather run (events, tiles
+   and final bits equal to phase 8's, one engine build at most, the tile
+   chain launched <= bound <= dense, host reads per event, a trace that
+   loads); the mixed runner on phase 8's padded batch (each member's
+   events, tiles and bits equal to phase 8's); the card's energy counter
+   (NVML) read around the single and block CLI runs beside the report's
+   modeled energy;
 then one ``kernels`` JSON line and ``{"ok": true, "device": {...}}`` as the
 last line.
 
@@ -64,12 +76,15 @@ exits nonzero without a card.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -83,11 +98,14 @@ from repro_torch.core import hermite, nbody  # noqa: E402
 from repro_torch.core.evaluate import make_evaluator  # noqa: E402
 from repro_torch.kernels import _build, nbody_force, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.launch import nbody_run  # noqa: E402
+from repro_torch.launch import nbody_run, sim_run  # noqa: E402
 from repro_torch.models import config as lm_config  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.models import params as lm_params  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
+from repro_torch.obs import energy  # noqa: E402
+from repro_torch.obs import metrics as obs_metrics  # noqa: E402
+from repro_torch.sim import api  # noqa: E402
 from repro_torch.sim import ensemble as ens  # noqa: E402
 from repro_torch.sim import scenarios  # noqa: E402
 
@@ -202,6 +220,26 @@ BLOCK_SHAPES = [("cap 32", 0, 32, 32), ("cap 224", 0, 224, 32),
                 ("cap 256", 0, 256, 256), ("cap 2048", 0, 2048, 256),
                 ("B=3 cap 4096", 3, 4096, 256),
                 ("B=4 N_t 16384", 4, N_MAIN, 256)]
+
+
+#: phase 9: the CLI's flags for the single, block and mixed runners, at the
+#: main path's width and on phase 4's and phase 8's configurations.
+#: ``--no-validate`` skips the construction-time diagnostics (a numpy
+#: O(N^2) potential on the host), which check the initial state and leave
+#: it as it is; phase 8 skips them too
+API_SINGLE_ARGS = ["--scenario", "plummer", "--n", str(N_MAIN), "--t-end",
+                   str(T_END), "--dtype", "fp32", "--no-validate"]
+API_BLOCK_ARGS = ["--scenario", BLOCK_SCENARIO, "--n", str(N_MAIN),
+                  "--stepper", "block",
+                  "--levels", str(BLOCK_KW["n_levels"]),
+                  "--compaction", "gather",
+                  "--t-end", str(BLOCK_KW["t_end"]),
+                  "--dt-max", str(BLOCK_KW["dt_max"]),
+                  "--eta", str(BLOCK_KW["eta"]), "--no-validate"]
+API_MIXED_ARGS = (["--scenario"] + [f"{name}:{n}" for name, n in PADDED_MIX]
+                  + ["--pad", "auto"] + API_BLOCK_ARGS[4:])
+#: idle power: NVML readings averaged before anything runs on the card
+IDLE_READINGS, IDLE_INTERVAL_S = 50, 0.1
 
 
 def check(ok: bool, msg: str):
@@ -627,6 +665,7 @@ def block_phase(dev, kernels, plains, block_ops, all_kernels):
     out["runs"] = {k: {x: v[x] for x in ("events", "wall", "reads", "tiles",
                                          "de", "blocks", "counts")}
                    for k, v in runs.items()}
+    out["gather_state"] = g["state"]  # phase 9 holds the API's run to it
     # where an event's time goes: a profiled window over the first
     # BLOCK_PROFILE_EVENTS events of each mode
     prof = {}
@@ -717,7 +756,9 @@ def block_phase(dev, kernels, plains, block_ops, all_kernels):
         check(same and events[i] == int(c_solo.n_events[0]),
               f"padded member {i}: differs from its B=1 run")
     out["padded"] = {"groups": len(groups), "events": events,
+                     "tiles": carry.n_tiles.tolist(),
                      "counts": counts, "wall": wall, "de": de}
+    out["padded_state"] = res
     del batched, res
 
     # fixed and adaptive ensembles of ENSEMBLE_B Plummer members
@@ -787,6 +828,285 @@ def block_phase(dev, kernels, plains, block_ops, all_kernels):
           f"{1e3 * wg / eg:.4f} ms (recorded, not gated)", flush=True)
     out["bench_ci"] = {"events": eg, "tiles_none": tn, "tiles_gather": tg,
                        "ms_per_event_gather": 1e3 * wg / eg}
+    return out
+
+
+class Nvml:
+    """The card's name, power limit, power draw and energy counter through
+    NVML, the driver's library (``libnvidia-ml.so.1``, loaded with
+    ``ctypes``).  Raises if it cannot be loaded or a query fails."""
+
+    def __init__(self, index: int = 0):
+        self.lib = ctypes.CDLL("libnvidia-ml.so.1")
+        self._call("nvmlInit_v2")
+        self.handle = ctypes.c_void_p()
+        self._call("nvmlDeviceGetHandleByIndex_v2", ctypes.c_uint(index),
+                   ctypes.byref(self.handle))
+
+    def _call(self, fn: str, *args):
+        rc = getattr(self.lib, fn)(*args)
+        check(rc == 0, f"NVML {fn} returned {rc}")
+
+    def name(self) -> str:
+        buf = ctypes.create_string_buffer(96)
+        self._call("nvmlDeviceGetName", self.handle, buf, ctypes.c_uint(96))
+        return buf.value.decode()
+
+    def power_limit_w(self) -> float:
+        mw = ctypes.c_uint()
+        self._call("nvmlDeviceGetPowerManagementLimit", self.handle,
+                   ctypes.byref(mw))
+        return mw.value / 1e3
+
+    def power_w(self) -> float:
+        mw = ctypes.c_uint()
+        self._call("nvmlDeviceGetPowerUsage", self.handle, ctypes.byref(mw))
+        return mw.value / 1e3
+
+    def energy_j(self) -> float:
+        """The card's energy counter since the driver loaded."""
+        mj = ctypes.c_ulonglong()
+        self._call("nvmlDeviceGetTotalEnergyConsumption", self.handle,
+                   ctypes.byref(mj))
+        return mj.value / 1e3
+
+
+def measured(nvml, fn, all_kernels):
+    """``counted(fn)`` with the card's energy counter read around it;
+    returns ``(result, launches, host reads, wall s, joules)``."""
+    torch.cuda.synchronize()
+    e0 = nvml.energy_j()
+    out, counts, syncs, wall = counted(fn, all_kernels)
+    return out, counts, syncs, wall, nvml.energy_j() - e0
+
+
+def drive(cfg):
+    """``api`` build/step/collect on ``cfg`` in a registry of its own;
+    returns ``(handle, report)``."""
+    with obs_metrics.use():
+        runner = api.get_runner(api.resolve_kind(cfg))
+        h = runner.build(cfg)
+        while not runner.step(h):
+            pass
+        return h, runner.collect(h)
+
+
+def energy_line(label, nvml, joules, wall, report):
+    """Measured energy over a CLI call beside the report's modeled energy;
+    returns the readings."""
+    mean_w = joules / wall
+    model = report["modeled"]
+    chip_w = energy.P_CHIP * (energy.IDLE_FRAC + (1 - energy.IDLE_FRAC)
+                              * model["util"])
+    r = {"measured_J": joules, "call_wall_s": wall, "mean_W": mean_w,
+         "report_wall_s": report["wall_s"],
+         "measured_J_over_report_wall": mean_w * report["wall_s"],
+         "modeled_J": model["energy_J"], "modeled_W": model["peak_W"],
+         "modeled_chip_W": chip_w,
+         "ratio": mean_w * report["wall_s"] / model["energy_J"],
+         "ratio_chip": mean_w / chip_w}
+    print(f"energy {label}: NVML measured {joules:.3f} J over the CLI call "
+          f"({wall:.3f} s, mean {mean_w:.2f} W; "
+          f"{r['measured_J_over_report_wall']:.3f} J over the report's wall_s {report['wall_s']:.3f} s) vs modeled "
+          f"{model['energy_J']:.3f} J ({model['peak_W']:.2f} W = host "
+          f"{energy.P_HOST:.0f} W + card {chip_w:.2f} W at util "
+          f"{model['util']}): measured/modeled {r['ratio']:.4f}, card "
+          f"measured/modeled {r['ratio_chip']:.4f}; {nvml.name()}, "
+          f"limit {nvml.power_limit_w():.2f} W", flush=True)
+    return r
+
+
+def api_phase(dev, all_kernels, block, main_run, nvml):
+    """Phase 9: the simulation API and CLI on the card.  Returns the
+    readings the JSON line and PERF.md report."""
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_api_")
+    try:
+        # (a) the single runner: CLI, build/step/collect, hermite.evolve
+        path = os.path.join(tmp, "single.json")
+        rc, counts, _, wall, joules = measured(
+            nvml, lambda: sim_run.main(API_SINGLE_ARGS + ["--out", path]),
+            all_kernels)
+        with open(path) as f:
+            rep = json.load(f)
+        check(rc == 0, f"api single: sim_run exited {rc}")
+        steps = rep["steps"]
+        cfg = api.SimConfig(scenario="plummer", n=N_MAIN, t_end=T_END,
+                            dtype="fp32", validate_ic=False)
+        (h, rep_b), counts_b, _, _ = counted(lambda: drive(cfg), all_kernels)
+        st = scenarios.make("plummer", N_MAIN, seed=0, device=dev,
+                            validate=False)
+        ev = make_evaluator(order=6, eps=1e-7, dtype="fp32")
+        e0 = float(nbody.total_energy(hermite.initialize(st, ev)))
+        ref, counts_ev, _, wall_ev = counted(
+            lambda: hermite.evolve(st, ev, t_end=T_END, eta=ETA),
+            all_kernels)
+        e1 = float(nbody.total_energy(ref))
+        de = abs((e1 - e0) / e0)
+        same = bitwise_same(h.state, ref, nbody.FIELDS)
+        # phase 4's main path again, in this process state: the control for
+        # the step walls above
+        ctrl = nbody_run.run(n=N_MAIN, t_end=T_END, eta=ETA, seed=0,
+                             dtype="fp32", device=dev)
+        ctrl_ms = 1e3 * ctrl["wall_s"] / ctrl["steps"]
+        step_ms = 1e3 * rep["step_wall_s"]["median"]
+        print(f"api single plummer N={N_MAIN} fp32 (CLI): steps {steps} "
+              f"(phase 4's nbody.plummer state: {main_run['steps']}), "
+              f"|dE/E| {rep['de_rel']:.3e}, launches {counts}, wall "
+              f"{wall:.3f} s, report wall_s {rep['wall_s']:.3f} s, step wall "
+              f"median {step_ms:.4f} ms (phase 4 {main_run['step_ms']:.4f} "
+              f"ms/step), metrics {rep['metrics']['counters']}", flush=True)
+        print(f"api single build/step/collect: steps {h.steps}, |dE/E| "
+              f"{rep_b['de_rel']:.3e}, launches {counts_b}; hermite.evolve "
+              f"on scenarios.make('plummer', {N_MAIN}, seed=0): steps "
+              f"{counts_ev['acc_jerk_pot'] - 1}, |dE/E| {de:.3e}, wall "
+              f"{wall_ev:.3f} s ({1e3 * wall_ev / steps:.4f} ms/step); final "
+              f"state bitwise equal {same}; phase 4's main path rerun here: "
+              f"{ctrl['steps']} steps, {ctrl_ms:.4f} ms/step", flush=True)
+        for name in ("acc_jerk_pot", "snap"):
+            for c in (counts, counts_b, counts_ev):
+                check(c[name] == steps + 1, f"api single: {name} launched "
+                      f"{c[name]} times for {steps} steps and the bootstrap")
+        check(counts["flash_attention"] == 0,
+              "api single: the flash kernel ran on the N-body path")
+        check(h.steps == steps and rep_b["steps"] == steps,
+              "api single: CLI and build/step/collect took other steps")
+        check(same, "api single: final state differs from hermite.evolve")
+        check(rep["de_rel"] == de and rep_b["de_rel"] == de,
+              f"api single: |dE/E| {rep['de_rel']} / {rep_b['de_rel']} vs "
+              f"hermite.evolve {de}")
+        check(rep["de_rel"] <= DE_TIERS["fp32"],
+              f"api single: |dE/E| {rep['de_rel']:.3e}")
+        check(abs(rep["t_final"] - T_END) < 1e-12,
+              f"api single stopped at t={rep['t_final']}")
+        out["single"] = {"steps": steps, "counts": counts, "wall": wall,
+                         "report_wall": rep["wall_s"],
+                         "step_ms_median": step_ms,
+                         "step_ms_mean": 1e3 * rep["step_wall_s"]["mean"],
+                         "evolve_ms": 1e3 * wall_ev / steps,
+                         "main_path_rerun_ms": ctrl_ms,
+                         "de": rep["de_rel"],
+                         "energy": energy_line("api single", nvml, joules,
+                                               wall, rep)}
+        del h, ref, st
+
+        # (b) the block runner on phase 8's gather run, traced; the host
+        # syncs are counted on the build/step/collect run of the same
+        # config, since CUDA's sync debug mode slows each one it reports
+        path = os.path.join(tmp, "block.json")
+        trace_path = os.path.join(tmp, "block_trace.json")
+        g8 = block["runs"]["gather"]
+        rc, counts, reads, wall, joules = measured(
+            nvml, lambda: sim_run.main(API_BLOCK_ARGS + [
+                "--out", path, "--trace", trace_path]), all_kernels)
+        with open(path) as f:
+            rep = json.load(f)
+        with open(trace_path) as f:
+            doc = json.load(f)
+        check(rc == 0, f"api block: sim_run exited {rc}")
+        events, tiles = rep["steps"], rep["grid_tiles_total"]
+        cnt, gauges = rep["metrics"]["counters"], rep["metrics"]["gauges"]
+        launched = cnt["sim.tiles_launched"]["value"]
+        bound = gauges["sim.tiles_occupancy_bound"]["value"]
+        dense = cnt["sim.tiles_dense_baseline"]["value"]
+        builds = cnt.get("engine.cache_miss.block", {"value": 0.0})["value"]
+        macro = [e for e in doc["traceEvents"] if e["name"] == "macro-step"]
+        macro_s = sum(e["dur"] for e in macro) / 1e6
+        cfg = api.SimConfig(scenario=BLOCK_SCENARIO, n=N_MAIN,
+                            stepper="block", compaction="gather",
+                            validate_ic=False, **BLOCK_KW)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                h, _ = drive(cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("synchronizing" in str(w.message) for w in caught)
+        prof = block["profile"].get("gather")
+        same = bitwise_same(h.batched, block["gather_state"], nbody.FIELDS)
+        chunks = -(-events // cfg.diag_every)
+        print(f"api block {BLOCK_SCENARIO} N={N_MAIN} gather (CLI): events "
+              f"{events} (phase 8 {g8['events']}), grid_tiles_total "
+              f"{tiles:.0f} (phase 8 {g8['tiles']:.0f}), launches {counts}, "
+              f"wall {wall:.3f} s ({1e3 * rep['wall_s'] / events:.4f} ms per "
+              f"event over the report's wall_s; phase 8 "
+              f"{1e3 * g8['wall'] / g8['events']:.4f}), engine.cache_miss."
+              f"block {builds:g}, tiles launched {launched:.0f} <= bound "
+              f"{bound:.0f} <= dense {dense:.0f}; final state bitwise equal "
+              f"to phase 8's {same} (build/step/collect)", flush=True)
+        print(f"api block host reads: engine {reads} ({reads / events:.3f} "
+              f"per event; phase 8 {g8['reads'] / g8['events']:.3f}), all "
+              f"syncs (sync debug mode) {syncs} ({syncs / events:.3f} per "
+              f"event; phase 8's profiled window "
+              + (f"{prof['syncs'] / BLOCK_PROFILE_EVENTS:.3f}"
+                 if prof else "not measured")
+              + f"), so the API adds {syncs - reads} over {chunks} chunks of "
+              f"{cfg.diag_every} events ({(syncs - reads) / chunks:.2f} per "
+              f"chunk; syncs counted on the build/step/collect run); trace "
+              f"{len(doc['traceEvents'])} events, "
+              f"{len(macro)} macro-step spans summing to {macro_s:.3f} s of "
+              f"wall_s {rep['wall_s']:.3f} s", flush=True)
+        check(events == g8["events"] and tiles == g8["tiles"],
+              "api block: events or tiles differ from phase 8's")
+        check(same, "api block: final state differs from phase 8's")
+        check(builds <= 1, f"api block: {builds:g} block engine builds")
+        check(0 < launched <= bound <= dense,
+              f"api block: tiles {launched} / {bound} / {dense}")
+        check(launched == tiles, "api block: sim.tiles_launched != tiles")
+        for name in ("acc_jerk_pot", "snap"):
+            check(counts[name] == events + 1, f"api block: {name} launched "
+                  f"{counts[name]} times for {events} events and the "
+                  "bootstrap")
+        check(counts["flash_attention"] == 0,
+              "api block: the flash kernel ran on the N-body path")
+        check(macro and macro_s <= rep["wall_s"],
+              f"api block: macro-step spans {macro_s} s vs wall_s "
+              f"{rep['wall_s']} s")
+        check(doc["otherData"]["producer"] == "repro_torch.obs.trace",
+              "api block: trace producer")
+        out["block"] = {"events": events, "tiles": tiles, "counts": counts,
+                        "wall": wall, "report_wall": rep["wall_s"],
+                        "reads": reads, "syncs": syncs, "chunks": chunks,
+                        "builds": builds, "bound": bound, "dense": dense,
+                        "macro_s": macro_s,
+                        "energy": energy_line("api block", nvml, joules,
+                                              wall, rep)}
+        del h
+
+        # (c) the mixed runner on phase 8's padded batch
+        path = os.path.join(tmp, "mixed.json")
+        rc, counts, _, wall = counted(
+            lambda: sim_run.main(API_MIXED_ARGS + ["--out", path]),
+            all_kernels)
+        with open(path) as f:
+            rep = json.load(f)
+        check(rc == 0, f"api mixed: sim_run exited {rc}")
+        p8 = block["padded"]
+        events = [r["steps"] for r in rep["runs"]]
+        tiles = [r["grid_tiles"] for r in rep["runs"]]
+        cfg = api.SimConfig(
+            mix=PADDED_MIX, scenario="mixed", stepper="block",
+            compaction="gather", validate_ic=False, **BLOCK_KW)
+        h, _ = drive(cfg)
+        same = bitwise_same(h.batched, block["padded_state"], nbody.FIELDS)
+        print(f"api mixed {[f'{n}:{k}' for n, k in PADDED_MIX]} (CLI): events "
+              f"per member {events} (phase 8 {p8['events']}), tiles per "
+              f"member {tiles} (phase 8 {p8['tiles']}), launches {counts}, "
+              f"wall {wall:.3f} s, |dE/E| {rep['de_rel']:.3e}; final state "
+              f"bitwise equal to phase 8's {same} (build/step/collect)",
+              flush=True)
+        check(events == p8["events"] and tiles == p8["tiles"],
+              "api mixed: events or tiles differ from phase 8's")
+        check(same, "api mixed: final state differs from phase 8's")
+        check(counts["flash_attention"] == 0,
+              "api mixed: the flash kernel ran on the N-body path")
+        for name in ("acc_jerk_pot", "snap"):
+            check(counts[name] > 0, f"api mixed: {name} never launched")
+        out["mixed"] = {"events": events, "tiles": tiles, "counts": counts,
+                        "wall": wall, "de": rep["de_rel"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -936,6 +1256,19 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+    nvml = Nvml()
+    idle = []
+    for _ in range(IDLE_READINGS):
+        idle.append(nvml.power_w())
+        time.sleep(IDLE_INTERVAL_S)
+    idle_w = sum(idle) / len(idle)
+    limit_w = nvml.power_limit_w()
+    print(f"idle power (NVML, nothing run on the card yet): mean "
+          f"{idle_w:.3f} W over {IDLE_READINGS} readings {IDLE_INTERVAL_S} s "
+          f"apart (min {min(idle):.3f}, max {max(idle):.3f}), "
+          f"{idle_w / limit_w:.4f} of the {limit_w:.2f} W limit "
+          f"({nvml.name()}); the energy model's IDLE_FRAC is "
+          f"{energy.IDLE_FRAC}", flush=True)
 
     phase("2. build")
     t0 = time.perf_counter()
@@ -1007,7 +1340,7 @@ def main() -> int:
             check(max(dev_pos, dev_vel) <= GOLDEN_TOL[dtype],
                   f"golden {fname} {dtype} off by {max(dev_pos, dev_vel):.3e}")
 
-    launches, step_ms = {}, {}
+    launches, step_ms, main_steps = {}, {}, {}
     for dtype, t_end in (("fp32", T_END), ("mixed", T_END_MIXED)):
         for k in all_kernels.values():
             k.launches = 0
@@ -1018,6 +1351,7 @@ def main() -> int:
               f"main path {dtype}: the flash kernel ran on the N-body path")
         launches[dtype] = counts
         step_ms[dtype] = 1e3 * r["wall_s"] / max(r["steps"], 1)
+        main_steps[dtype] = r["steps"]
         out = r["state"]
         print(f"main path {dtype}: N={N_MAIN} t={r['t']:.6f} steps={r['steps']} "
               f"evaluations={r['evals']} launches={counts} "
@@ -1181,6 +1515,10 @@ def main() -> int:
     phase("8. block ensembles on the card")
     block = block_phase(dev, kernels, plains, block_ops, all_kernels)
 
+    phase("9. the simulation API and CLI on the card")
+    api_r = api_phase(dev, all_kernels, block, {
+        "steps": main_steps["fp32"], "step_ms": step_ms["fp32"]}, nvml)
+
     rows = []
     for name in kernels:
         ms, pms, bms, by = timings[(name, "fp32", N_MAIN)]
@@ -1206,6 +1544,9 @@ def main() -> int:
             "launches_block_padded": block["padded"]["counts"][name],
             "launches_fixed_ensemble": block["fixed"]["counts"][name],
             "launches_adaptive_ensemble": block["adaptive"]["counts"][name],
+            "launches_api_single": api_r["single"]["counts"][name],
+            "launches_api_block": api_r["block"]["counts"][name],
+            "launches_api_mixed": api_r["mixed"]["counts"][name],
             "blocks_per_launch_block_gather":
                 block["runs"]["gather"]["blocks"],
             "block_shapes": {

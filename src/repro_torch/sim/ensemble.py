@@ -23,6 +23,14 @@ capacity index (and whether any member is still live) in one
 device-to-host copy; ``compaction="none"`` reads nothing per event.
 ``ensemble_run_block.host_syncs`` counts the block path's reads.
 
+**Engines.** Each stepper's engine (its evaluators, and for the block
+stepper the bucket groups' device tables) is built once per configuration,
+bucket groups and device and cached, as the reference caches its jitted
+engines; every build ticks ``engine.cache_miss`` (and
+``engine.cache_miss.{fixed,adaptive,block}``) in the current metrics
+registry (``repro_torch.obs.metrics``), a gather build also
+``engine.bucket_branches``.
+
 **Masking (ragged batches).** Heterogeneous mixes are packed by
 ``repro_torch.sim.scenarios.build_padded`` into a ``(B, N_max, ...)``
 batch plus a per-run ``n_active`` vector.  Rows ``>= n_active[b]`` are
@@ -32,15 +40,18 @@ they stay frozen as targets and never tighten a timestep.
 
 Not ported yet: multi-device batches and meshes (``devices=``, ``mesh=``,
 strategy labels other than ``"single"``; ROADMAP.md queue 1 item 7), the
-Ahmad-Cohen neighbor scheme (``sources="neighbor"``, item 8), admission
-into a running block batch (item 9) and the metrics registry (items 6 and
-10).  The tensors' device picks the kernels or their plain versions, so
-there is no ``impl``/``kernel`` switch: ``dtype="fp64"`` is the oracle.
+Ahmad-Cohen neighbor scheme (``sources="neighbor"``, item 8) and admission
+into a running block batch (item 9).  The tensors' device picks the
+kernels or their plain versions, so the engines take no ``impl``:
+``dtype="fp64"`` is the oracle.  The reference's ``impl``/``kernel``
+labels are resolved for the API by :func:`resolve_eval_impl` and checked
+against the device by :func:`check_impl`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, NamedTuple, Optional, Sequence
 
 import torch
@@ -51,6 +62,7 @@ from repro_torch.core.evaluate import (COMPACTIONS, make_block_evaluator,
 from repro_torch.core.hermite import Evaluation
 from repro_torch.core.nbody import FIELDS, ParticleState
 from repro_torch.kernels import nbody_force, ops
+from repro_torch.obs import metrics as obs_metrics
 
 #: the source axis: every launch over all sources, or the Ahmad-Cohen
 #: neighbor windows (not ported yet)
@@ -61,6 +73,80 @@ BUCKET_MODES = ("member", "shared")
 #: same thing, but only the single-card one is ported
 STRATEGY_LABELS = ("single", "replicated", "two_level", "mesh_sharded",
                    "ring")
+#: the reference's evaluation paths; here labels checked against the device
+ENSEMBLE_IMPLS = ("xla", "fp64", "pallas", "pallas_interpret")
+#: user-facing force-kernel switch: "ref" (all-pairs op) | "pallas"
+KERNELS = ("ref", "pallas")
+#: stepper modes of the ensemble engine
+STEPPERS = ("fixed", "adaptive", "block")
+#: labels of the reference's XLA op and interpreted kernel: the plain
+#: versions, which run on the CPU only
+_PLAIN_IMPLS = ("xla", "pallas_interpret")
+
+
+def resolve_kernel(kernel: Optional[str]) -> str:
+    """Map the user-facing ``kernel`` switch to an evaluation ``impl``.
+
+    ``"ref"`` is the reference's all-pairs op (``"xla"``), ``"pallas"`` its
+    tiled kernel.  On the port a CUDA tensor always goes through the
+    hand-written kernels and a CPU tensor through their plain versions;
+    :func:`check_impl` refuses ``"xla"`` on the card.
+    """
+    if kernel in (None, "ref"):
+        return "xla"
+    if kernel == "pallas":
+        return "pallas"
+    raise ValueError(f"unknown kernel {kernel!r}; one of {KERNELS}")
+
+
+def resolve_eval_impl(impl: Optional[str], kernel: Optional[str], *,
+                      default: Optional[str] = None) -> Optional[str]:
+    """Resolve the (``impl``, ``kernel``) pair to one evaluation impl.
+
+    The user-facing ``kernel`` switch and the low-level ``impl`` are
+    mutually exclusive when both are explicit: silently preferring one
+    could e.g. turn a requested ``impl="fp64"`` golden-reference run into
+    FP32 with no trace in the report.  The default is None, the device's
+    own path (the reference defaults to its XLA op).
+    """
+    if kernel is not None:
+        if impl is not None:
+            raise ValueError(
+                f"pass either impl={impl!r} or kernel={kernel!r}, not both")
+        return resolve_kernel(kernel)
+    return impl if impl is not None else default
+
+
+def check_impl(impl: Optional[str], device) -> Optional[str]:
+    """Hold a resolved impl to what ``device`` runs; returns it.
+
+    ``None`` and ``"pallas"`` are the kernels on ``cuda`` and their plain
+    versions on ``cpu``; ``"fp64"`` is the oracle anywhere; ``"xla"`` and
+    ``"pallas_interpret"`` name plain versions, so ``cuda`` refuses them:
+    the card runs the kernels only.
+    """
+    if impl is not None and impl not in ENSEMBLE_IMPLS:
+        raise ValueError(
+            f"unknown impl {impl!r}; one of {ENSEMBLE_IMPLS}")
+    if impl in _PLAIN_IMPLS and torch.device(device).type == "cuda":
+        raise ValueError(
+            f"impl={impl!r} names a plain version; on cuda the force "
+            "evaluation runs the hand-written kernels only (pass impl=None "
+            "or 'pallas', or run with device='cpu')")
+    return impl
+
+
+def _count_engine_build(kind: str) -> None:
+    """Emit one ``engine.cache_miss`` tick into the current metrics registry.
+
+    Every engine constructor below is ``lru_cache``d, so its body only runs
+    when a (configuration, bucket groups, device) key has never been built
+    before: the counter is the engine build count.
+    """
+    reg = obs_metrics.registry()
+    reg.counter("engine.cache_miss", unit="builds",
+                help="engine constructions (evaluators, device tables)").inc()
+    reg.counter(f"engine.cache_miss.{kind}", unit="builds").inc()
 
 
 def _single_card(*, devices=None, mesh=None, strategy: str = "single",
@@ -191,9 +277,22 @@ def _as_t_end(batched: ParticleState, t_end) -> torch.Tensor:
     return t
 
 
-def _lockstep_evaluator(n_active, *, order, eps, dtype):
-    return _mask_evaluator(make_evaluator(order=order, eps=eps, dtype=dtype),
-                           n_active)
+@functools.lru_cache(maxsize=64)
+def _engine(order: int, eps: float, dtype: str, device: torch.device):
+    """Fixed-dt lockstep engine: ``(init, run)`` over one evaluator."""
+    _count_engine_build("fixed")
+    ev = make_evaluator(order=order, eps=eps, dtype=dtype)
+
+    def init(batched: ParticleState, na) -> ParticleState:
+        return hermite.initialize(batched, _mask_evaluator(ev, na))
+
+    def run(batched: ParticleState, na, dt, n_steps: int) -> ParticleState:
+        mev = _mask_evaluator(ev, na)
+        for _ in range(n_steps):
+            batched = hermite.step(batched, dt, mev, order=order)
+        return batched
+
+    return init, run
 
 
 def ensemble_initialize(
@@ -208,9 +307,8 @@ def ensemble_initialize(
 ) -> ParticleState:
     """Bootstrap derivatives for every member (one batched t=0 pass)."""
     _single_card(devices=devices, mesh=mesh)
-    na = _as_n_active(batched, n_active)
-    ev = _lockstep_evaluator(na, order=order, eps=eps, dtype=dtype)
-    return hermite.initialize(batched, ev)
+    init, _ = _engine(order, eps, dtype, batched.device)
+    return init(batched, _as_n_active(batched, n_active))
 
 
 def ensemble_run(
@@ -227,11 +325,8 @@ def ensemble_run(
     """Advance an initialized batch by ``n_steps`` fixed-dt steps: the
     arithmetic of ``hermite.evolve_scan`` on every member at once."""
     _single_card(devices=devices)
-    na = _as_n_active(batched, n_active)
-    ev = _lockstep_evaluator(na, order=order, eps=eps, dtype=dtype)
-    for _ in range(n_steps):
-        batched = hermite.step(batched, dt, ev, order=order)
-    return batched
+    _, run = _engine(order, eps, dtype, batched.device)
+    return run(batched, _as_n_active(batched, n_active), dt, n_steps)
 
 
 def _step_members(s: ParticleState, h, ev, order: int) -> ParticleState:
@@ -244,6 +339,35 @@ def _step_members(s: ParticleState, h, ev, order: int) -> ParticleState:
         pos=x1, vel=v1, acc=out.acc.to(s.dtype), jerk=out.jerk.to(s.dtype),
         snap=out.snap.to(s.dtype), crackle=crackle, mass=s.mass,
         pot=out.pot.to(s.mass.dtype), time=s.time + h)
+
+
+@functools.lru_cache(maxsize=64)
+def _adaptive_engine(order: int, eps: float, eta: float, dt_max: float,
+                     dtype: str, device: torch.device):
+    """Per-member shared-adaptive (Aarseth) lockstep engine."""
+    _count_engine_build("adaptive")
+    ev = make_evaluator(order=order, eps=eps, dtype=dtype)
+
+    def run(s, hp, cnt, na, t_end_, n_steps: int):
+        mev = _mask_evaluator(ev, na)
+        for _ in range(n_steps):
+            remaining = t_end_ - s.time
+            active = remaining > 0.0
+            # padding rows carry zero derivatives, so they fall into
+            # aarseth_dt's num > 0 guard and never tighten the step
+            h = hermite.aarseth_dt_particles(s, eta=eta,
+                                             dt_max=dt_max).amin(-1)
+            h = torch.where(hp > 0.0, torch.minimum(torch.maximum(
+                h, 0.5 * hp), 2.0 * hp), h)
+            h = torch.minimum(h, torch.clamp(remaining, min=1e-12))
+            # the corrector divides by h^3
+            h_safe = torch.where(active, h, torch.ones_like(h))
+            s = _select(active, _step_members(s, h_safe, mev, order), s)
+            hp = torch.where(active, h, hp)
+            cnt = cnt + active.to(cnt.dtype)
+        return s, hp, cnt
+
+    return run
 
 
 def ensemble_run_adaptive(
@@ -274,30 +398,14 @@ def ensemble_run_adaptive(
     productive steps per member.  ``t_end`` is a scalar or a (B,) vector.
     """
     _single_card(devices=devices)
-    na = _as_n_active(batched, n_active)
-    ev = _lockstep_evaluator(na, order=order, eps=eps, dtype=dtype)
+    run = _adaptive_engine(order, eps, eta, dt_max, dtype, batched.device)
     b = batch_size(batched)
     if h_prev is None:
         h_prev = torch.zeros(b, dtype=batched.dtype, device=batched.device)
     if n_taken is None:
         n_taken = torch.zeros(b, dtype=torch.int32, device=batched.device)
-    t_end_ = _as_t_end(batched, t_end)
-    s, hp, cnt = batched, h_prev, n_taken
-    for _ in range(n_steps):
-        remaining = t_end_ - s.time
-        active = remaining > 0.0
-        # padding rows carry zero derivatives, so they fall into
-        # aarseth_dt's num > 0 guard and never tighten the step
-        h = hermite.aarseth_dt_particles(s, eta=eta, dt_max=dt_max).amin(-1)
-        h = torch.where(hp > 0.0,
-                        torch.minimum(torch.maximum(h, 0.5 * hp), 2.0 * hp),
-                        h)
-        h = torch.minimum(h, torch.clamp(remaining, min=1e-12))
-        h_safe = torch.where(active, h, torch.ones_like(h))  # corrector / h^3
-        s = _select(active, _step_members(s, h_safe, ev, order), s)
-        hp = torch.where(active, h, hp)
-        cnt = cnt + active.to(cnt.dtype)
-    return s, hp, cnt
+    return run(batched, h_prev, n_taken, _as_n_active(batched, n_active),
+               _as_t_end(batched, t_end), n_steps)
 
 
 def evolve_ensemble(
@@ -590,6 +698,27 @@ class _BlockEngine:
         return s, c
 
 
+@functools.lru_cache(maxsize=64)
+def _block_engine(order: int, eps: float, eta: float, dt_max: float,
+                  n_levels: int, compaction: str, block_i: int, block_j: int,
+                  groups: tuple, dtype: str, n: int, device: torch.device
+                  ) -> _BlockEngine:
+    """The cached :class:`_BlockEngine` of one configuration, bucket groups
+    and device: its evaluators and device tables are built once."""
+    _count_engine_build("block")
+    if compaction == "gather":
+        # capacity buckets across the bucket groups: the denominator of the
+        # build accounting (engine.cache_miss ticks once per build)
+        obs_metrics.registry().counter(
+            "engine.bucket_branches", unit="branches",
+            help="capacity buckets across the bucket groups built"
+        ).inc(sum(n_caps for _, n_caps in groups))
+    return _BlockEngine(order=order, eps=eps, eta=eta, dt_max=dt_max,
+                        n_levels=n_levels, compaction=compaction,
+                        block_i=block_i, block_j=block_j, groups=groups,
+                        dtype=dtype, n=n, device=device)
+
+
 def ensemble_run_block(
     batched: ParticleState,
     *,
@@ -645,10 +774,8 @@ def ensemble_run_block(
     else:
         counts = [n] * batch_size(batched)
     groups = _bucket_groups(n, counts, bi, bj, compaction, bucket_mode)
-    engine = _BlockEngine(order=order, eps=eps, eta=eta, dt_max=dt_max,
-                          n_levels=n_levels, compaction=compaction,
-                          block_i=bi, block_j=bj, groups=groups, dtype=dtype,
-                          n=n, device=batched.device)
+    engine = _block_engine(order, eps, eta, dt_max, n_levels, compaction,
+                           bi, bj, groups, dtype, n, batched.device)
     if carry is None:
         carry = engine.init(batched, t_end_)
     return engine.run(batched, carry, na, t_end_, n_events)

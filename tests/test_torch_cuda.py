@@ -454,3 +454,46 @@ def test_flash_refused_launch_raises(cuda):
     with pytest.raises(RuntimeError, match="launch failed"):
         fa.flash_attention(q, k, v, block_q=64, block_k=64)
     assert fa.flash_attention.launches == before
+
+
+def test_api_runs_equal_the_engines_bit_for_bit(cuda):
+    """The simulation API drives the same engines: its single run is
+    ``hermite.evolve`` on the same state, its block run the engine's own
+    ``evolve_ensemble_block``, bit for bit, with one launch of each kernel
+    per step or event and one for the bootstrap."""
+    from repro_torch.core import hermite
+    from repro_torch.core.evaluate import make_evaluator
+    from repro_torch.obs import metrics
+    from repro_torch.sim import api, scenarios
+    from repro_torch.sim import ensemble as ens
+
+    def drive(cfg):
+        with metrics.use():
+            runner = api.get_runner(api.resolve_kind(cfg))
+            h = runner.build(cfg)
+            while not runner.step(h):
+                pass
+            return h, runner.collect(h)
+
+    fields = ("pos", "vel", "acc", "jerk", "snap", "crackle", "pot", "time")
+    before = nbody_force.acc_jerk_pot_packed.launches
+    h, rep = drive(api.SimConfig(scenario="plummer", n=512, t_end=1 / 64,
+                                 validate_ic=False))
+    assert nbody_force.acc_jerk_pot_packed.launches - before == \
+        rep["steps"] + 1
+    st = scenarios.make("plummer", 512, seed=0, device=cuda, validate=False)
+    ref = hermite.evolve(st, make_evaluator(), t_end=1 / 64)
+    for f in fields:
+        assert torch.equal(getattr(h.state, f), getattr(ref, f)), f
+
+    kw = dict(t_end=1 / 16, dt_max=1 / 16, n_levels=6, eta=0.02)
+    h, rep = drive(api.SimConfig(scenario="binary_plummer", n=512,
+                                 stepper="block", compaction="gather",
+                                 validate_ic=False, **kw))
+    st = scenarios.make("binary_plummer", 512, seed=0, device=cuda,
+                        validate=False)
+    ref, carry = ens.evolve_ensemble_block([st], compaction="gather", **kw)
+    assert rep["steps"] == int(carry.n_events[0])
+    assert rep["grid_tiles_total"] == float(carry.n_tiles[0])
+    for f in fields:
+        assert torch.equal(getattr(h.batched, f), getattr(ref, f)), f

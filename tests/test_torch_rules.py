@@ -15,10 +15,10 @@ import torch
 
 from repro_torch.core import evaluate, nbody
 from repro_torch.kernels import _build, flash_attention, nbody_force, ops
-from repro_torch.launch import nbody_run, quickstart, serve_lm
+from repro_torch.launch import nbody_run, quickstart, serve_lm, sim_run
 from repro_torch.models import config as lm_config
 from repro_torch.models import layers, model, params
-from repro_torch.sim import ensemble, scenarios
+from repro_torch.sim import api, ensemble, scenarios
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -76,6 +76,37 @@ def test_sim_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert scenarios.make("plummer", 16, device="cpu").device.type == "cpu"
+
+
+#: the simulation API slice: each mirrors its reference module by path
+API_MODULES = ("obs/__init__.py", "obs/metrics.py", "obs/energy.py",
+               "obs/trace.py", "sim/telemetry.py", "sim/api.py",
+               "sim/driver.py", "launch/sim_run.py")
+
+
+@pytest.mark.parametrize("rel", API_MODULES)
+def test_api_modules_mirror_the_reference_and_stand_alone(rel):
+    """Each module exists beside its reference counterpart and is among
+    the files the import rule above checks."""
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path.exists() and (ROOT / "src" / "repro" / rel).exists()
+    assert path in PORT_FILES
+    for mod in _imported_modules(path):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
+
+
+def test_api_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
+    assert api.SimConfig().device == "cuda"
+    cfg = api.SimConfig(n=16, t_end=0.001, dt=0.0005, validate_ic=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.run(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.run(api.SimConfig(n=16, ensemble=2, t_end=0.001, dt=0.0005,
+                              validate_ic=False))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim_run.main(["--n", "16", "--t-end", "0.001", "--no-validate"])
+    assert sim_run.main(["--n", "16", "--t-end", "0.001", "--no-validate",
+                         "--device", "cpu", "--out", os.devnull]) == 0
 
 
 def test_ensemble_functions_take_no_device_and_refuse_what_is_not_ported():

@@ -1,0 +1,162 @@
+"""Port parity: the ``repro_torch.launch.sim_run`` CLI against
+``repro.launch.sim_run`` on the CPU (``--device cpu``).
+
+The same flags give the same ``[sim]`` lines (the same fields and, where
+they are counts or labels, the same values), a report file that loads with
+the reference's reader, and, for what one card does not run yet, an exit
+whose message names the ROADMAP item.
+"""
+
+import contextlib
+import io
+import json
+import re
+
+import pytest
+import torch
+
+from repro.launch import sim_run as jsim_run
+from repro.obs import metrics as jmetrics
+from repro.sim import ensemble as jens
+from repro.sim import telemetry as jtelemetry
+from repro_torch.launch import sim_run
+from repro_torch.sim import ensemble as ens
+from repro_torch.sim.telemetry import RunReport
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Many small tensor operations: one thread per test worker."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+CASES = {
+    "single": ["--scenario", "plummer", "--n", "16", "--t-end", "0.02",
+               "--dt", "0.00390625", "--diag-every", "4", "--no-validate"],
+    "block_gather": ["--scenario", "plummer", "--n", "32", "--ensemble", "2",
+                     "--t-end", "0.0625", "--stepper", "block", "--levels",
+                     "3", "--compaction", "gather", "--block-i", "8",
+                     "--block-j", "32", "--diag-every", "4",
+                     "--no-validate"],
+    "mixed": ["--scenario", "plummer:16", "two_body:2", "--pad", "auto",
+              "--t-end", "0.02", "--dt", "0.00390625", "--diag-every", "4",
+              "--no-validate"],
+}
+
+
+def _clear_engines():
+    """Empty both packages' engine caches, so each run builds its engines
+    and its ``[sim] metrics:`` line names the same ``engine.*`` counters
+    whatever ran before in the process."""
+    for fn in (jens._engine, jens._adaptive_engine, jens._block_engine,
+               ens._engine, ens._adaptive_engine, ens._block_engine):
+        fn.cache_clear()
+
+
+def _run(main, argv, capsys):
+    assert main(argv) == 0
+    return capsys.readouterr().out
+
+
+@pytest.fixture(scope="module")
+def cli_runs(tmp_path_factory):
+    out = {}
+    root = tmp_path_factory.mktemp("cli")
+    for name, argv in CASES.items():
+        res = {}
+        for tag, main, extra in (("ref", jsim_run.main, []),
+                                 ("port", sim_run.main,
+                                  ["--device", "cpu"])):
+            path = str(root / f"{name}_{tag}.json")
+            _clear_engines()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                assert main(argv + extra + ["--out", path]) == 0
+            with open(path) as f:
+                res[tag] = (buf.getvalue(), f.read(), path)
+        out[name] = res
+    return out
+
+
+def _fields(line):
+    """``key=value`` tokens of a ``[sim]`` line, in order."""
+    return re.findall(r"([\w/|.]+)=(\S+)", line)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_sim_lines_match_the_references(cli_runs, name):
+    ref_out, _, _ = cli_runs[name]["ref"]
+    port_out, _, path = cli_runs[name]["port"]
+    ref_lines = [ln for ln in ref_out.splitlines() if ln.startswith("[sim]")]
+    port_lines = [ln for ln in port_out.splitlines()
+                  if ln.startswith("[sim]")]
+    assert len(ref_lines) == len(port_lines) >= 4
+    assert ref_lines[0] == port_lines[0]     # scenario, stepper, dtype...
+    for a, b in zip(ref_lines[1:], port_lines[1:]):
+        fa, fb = _fields(a), _fields(b)
+        assert [k for k, _ in fa] == [k for k, _ in fb], (a, b)
+        for (k, va), (_, vb) in zip(fa, fb):
+            if k in ("steps", "force_evals", "grid_tiles", "N_max",
+                     "n_active", "t"):
+                assert va == vb, (k, a, b)
+    metrics_line = [ln for ln in port_lines if "metrics:" in ln][0]
+    assert "sim.events" in metrics_line
+    assert port_lines[-1] == f"[sim] report -> {path}"
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_report_file_loads_with_the_references_reader(cli_runs, name):
+    _, ref_text, _ = cli_runs[name]["ref"]
+    _, text, _ = cli_runs[name]["port"]
+    report = jtelemetry.RunReport.from_json(text)
+    jmetrics.validate_snapshot(report["metrics"])
+    ours, theirs = RunReport.from_json(text), json.loads(ref_text)
+    assert ours["steps"] == theirs["steps"]
+    assert set(ours) == set(theirs)
+
+
+def test_list_scenarios_equals_the_references(capsys):
+    assert sim_run.main(["--list-scenarios"]) == 0
+    ours = capsys.readouterr().out
+    assert jsim_run.main(["--list-scenarios"]) == 0
+    assert ours == capsys.readouterr().out
+
+
+def test_trace_flag_writes_the_trace(tmp_path, capsys):
+    trace_path = str(tmp_path / "cli_trace.json")
+    out = _run(sim_run.main, CASES["block_gather"] + [
+        "--device", "cpu", "--trace", trace_path, "--metrics-interval", "1",
+        "--out", str(tmp_path / "r.json")], capsys)
+    assert f"[sim] trace -> {trace_path}" in out
+    names = {e["name"] for e in json.load(open(trace_path))["traceEvents"]}
+    assert {"macro-step", "event", "kernel-launch"} <= names
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--devices", "2"], "item 7"),
+    (["--ensemble", "2", "--devices", "2"], "item 7"),
+    (["--strategy", "ring"], "item 7"),
+    (["--strategy", "mesh_sharded", "--stepper", "block"], "item 7"),
+    (["--mesh", "1x1", "--stepper", "block"], "item 7"),
+    (["--sources", "neighbor", "--stepper", "block"], "item 8"),
+])
+def test_what_one_card_does_not_run_exits_naming_its_item(argv, item,
+                                                          tmp_path):
+    base = ["--scenario", "plummer", "--n", "16", "--t-end", "0.01",
+            "--no-validate", "--device", "cpu",
+            "--out", str(tmp_path / "r.json")]
+    with pytest.raises(SystemExit) as info:
+        sim_run.main(base + argv)
+    assert f"ROADMAP.md queue 1 {item}" in str(info.value.code)
+    assert not (tmp_path / "r.json").exists()
+
+
+def test_plain_version_flags_run_on_the_cpu(tmp_path, capsys):
+    for flags in (["--kernel", "ref"], ["--impl", "xla"],
+                  ["--kernel", "pallas"]):
+        out = _run(sim_run.main, CASES["single"] + flags + [
+            "--device", "cpu", "--out", str(tmp_path / "r.json")], capsys)
+        assert "steps=6" in out
