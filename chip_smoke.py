@@ -95,6 +95,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.core import hermite, nbody  # noqa: E402
+from repro_torch.core import strategies  # noqa: E402
 from repro_torch.core.evaluate import make_evaluator  # noqa: E402
 from repro_torch.kernels import _build, nbody_force, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -240,6 +241,32 @@ API_MIXED_ARGS = (["--scenario"] + [f"{name}:{n}" for name, n in PADDED_MIX]
                   + ["--pad", "auto"] + API_BLOCK_ARGS[4:])
 #: idle power: NVML readings averaged before anything runs on the card
 IDLE_READINGS, IDLE_INTERVAL_S = 50, 0.1
+
+#: phase 10 (a): the paper's Table 1 recipe at full scale
+#: (benchmarks/table1_strategies.py:17-19): Plummer N = 409600, seed 0,
+#: fixed dt, the bootstrap and three Hermite steps, each strategy over
+#: TABLE1_P slots of the one card (two_level as 2 cards x 2 chips)
+TABLE1_N, TABLE1_STEPS, TABLE1_DT, TABLE1_P = 409600, 3, 1e-3, 4
+#: each run: (strategy, dtype, ring mode); "single" is the one-card path
+TABLE1_RUNS = [("single", "fp32", None), ("replicated", "fp32", None),
+               ("two_level", "fp32", None), ("mesh_sharded", "fp32", None),
+               ("ring", "fp32", "overlap"), ("ring", "fp32", "sync"),
+               ("single", "mixed", None), ("replicated", "mixed", None),
+               ("ring", "mixed", "overlap")]
+#: a strategy's bootstrap evaluation against the single path's, relative
+#: per field (max |a - b| / max |b|): fp32 the reference's own limit
+#: (tests/test_strategies.py:39), mixed the mixed tier
+STRATEGY_TOL = {"fp32": 1e-5, "mixed": 1e-3}
+#: phase 10 (b): phase 8's block run under each strategy over this many
+#: slots of the one card
+BLOCK_P = 2
+#: phase 10 (c): the CLI under a strategy on one card
+API_STRATEGY_SINGLE_ARGS = ["--scenario", "plummer", "--n", str(N_MAIN),
+                            "--t-end", "0.0078125", "--dtype", "fp32",
+                            "--strategy", "replicated", "--devices", "1",
+                            "--no-validate"]
+API_STRATEGY_BLOCK_ARGS = API_BLOCK_ARGS + ["--strategy", "mesh_sharded",
+                                            "--devices", "1"]
 
 
 def check(ok: bool, msg: str):
@@ -1110,6 +1137,320 @@ def api_phase(dev, all_kernels, block, main_run, nvml):
     return out
 
 
+def strategy_evaluator(strategy, dtype, mode, slots):
+    if strategy == "single":
+        return make_evaluator(dtype=dtype)
+    return strategies.make_strategy_evaluator(
+        strategy, devices=slots, dtype=dtype, ring_mode=mode or "overlap")
+
+
+def table1_runs(dev, all_kernels, nvml):
+    """Phase 10 (a): Table 1 at full scale on one card.  Returns the
+    readings by (strategy, dtype, mode)."""
+    p = TABLE1_P
+    slots = [dev] * p
+    state0 = nbody.plummer(TABLE1_N, seed=0, device=dev)
+    evals = TABLE1_STEPS + 1
+    out = {}
+    for strategy, dtype, mode in TABLE1_RUNS:
+        ev = strategy_evaluator(strategy, dtype, mode, slots)
+        boot = []
+
+        def bootstrap():
+            def first(pos, vel, mass):
+                boot.append(ev(pos, vel, mass))
+                return boot[-1]
+            return hermite.initialize(state0, first)
+
+        def steps(s):
+            for _ in range(TABLE1_STEPS):
+                s = hermite.step(s, TABLE1_DT, ev)
+            return s
+
+        with obs_metrics.use() as reg:
+            torch.cuda.synchronize()
+            e0 = nvml.energy_j()
+            s, c0, _, w0 = counted(bootstrap, all_kernels)
+            s, c1, _, wall = counted(lambda: steps(s), all_kernels)
+            joules = nvml.energy_j() - e0
+            shifts = reg.counter("ring.shifts_issued").value
+        counts = {k: c0[k] + c1[k] for k in c0}
+        shards = 1 if strategy == "single" else p
+        model = energy.modeled_energy(w0 + wall, shards, energy.DEFAULT_UTIL)
+        out[(strategy, dtype, mode)] = r = {
+            "boot": boot[0], "state": s, "counts": counts, "shifts": shifts,
+            "step_ms": 1e3 * wall / TABLE1_STEPS, "boot_ms": 1e3 * w0,
+            "joules": joules, "modeled_J": model["energy_J"],
+            "shards": shards}
+        label = strategy + (f" {mode}" if mode else "")
+        print(f"table1 {label:<17} {dtype:<6} N={TABLE1_N} p={shards}: "
+              f"{1e3 * wall / TABLE1_STEPS:.3f} ms per step "
+              f"(bootstrap {1e3 * w0:.3f} ms), launches {counts}, "
+              f"ring.shifts_issued {shifts:g}; NVML {joules:.3f} J over the "
+              f"run ({joules / (w0 + wall):.2f} W mean), modeled "
+              f"{model['energy_J']:.3f} J (the report's model at "
+              f"n_devices={shards}, util {energy.DEFAULT_UTIL}; one card "
+              f"ran)", flush=True)
+        per_shard = 1 if strategy == "single" else (
+            p * p if strategy == "ring" else p)
+        for name in ("acc_jerk_pot", "snap"):
+            check(counts[name] == evals * per_shard,
+                  f"table1 {label} {dtype}: {name} launched {counts[name]} "
+                  f"times, expected {per_shard} per evaluation x {evals}")
+        check(counts["flash_attention"] == 0,
+              f"table1 {label}: the flash kernel ran on the N-body path")
+        if strategy == "ring":
+            want = evals * 2 * (p - 1 if mode == "overlap" else p)
+            check(shifts == want, f"table1 ring {mode} {dtype}: "
+                  f"{shifts:g} shift rounds, expected {want}")
+        check(all(bool(torch.isfinite(x).all()) for x in (s.pos, s.vel, s.acc))
+              and tuple(s.pos.shape) == (TABLE1_N, 3),
+              f"table1 {label} {dtype}: bad state")
+        del ev
+    for (strategy, dtype, mode), r in out.items():
+        if strategy == "single":
+            continue
+        ref = out[("single", dtype, None)]
+        errs = {f: float((getattr(r["boot"], f) - getattr(ref["boot"], f))
+                         .abs().max() / getattr(ref["boot"], f).abs().max())
+                for f in ("acc", "jerk", "snap", "pot")}
+        dpos = float((r["state"].pos - ref["state"].pos).abs().max())
+        r["errs"], r["dpos"] = errs, dpos
+        label = strategy + (f" {mode}" if mode else "")
+        print(f"table1 {label:<17} {dtype:<6} vs single: bootstrap "
+              + " ".join(f"{f} {e:.3e}" for f, e in errs.items())
+              + f" (relative, tol {STRATEGY_TOL[dtype]:.0e}); final max "
+              f"|dpos| {dpos:.3e} (tol {GOLDEN_TOL[dtype]:.0e}); step "
+              f"{r['step_ms'] / ref['step_ms']:.3f}x the single path's, "
+              f"NVML J {r['joules'] / ref['joules']:.3f}x", flush=True)
+        for f, e in errs.items():
+            check(e <= STRATEGY_TOL[dtype],
+                  f"table1 {label} {dtype}: bootstrap {f} off by {e:.3e}")
+        check(dpos <= GOLDEN_TOL[dtype],
+              f"table1 {label} {dtype}: final positions off by {dpos:.3e}")
+    ov, sy = out[("ring", "fp32", "overlap")], out[("ring", "fp32", "sync")]
+    same = bitwise_same(ov["state"], sy["state"], nbody.FIELDS) and all(
+        torch.equal(a, b) for a, b in zip(ov["boot"], sy["boot"]))
+    print(f"table1 ring overlap vs sync: bootstrap and final state bitwise "
+          f"equal {same}", flush=True)
+    check(same, "table1 ring: overlap and sync differ")
+    for r in out.values():
+        del r["boot"], r["state"]
+    return out
+
+
+def shard_timings(dev):
+    """K1 and K2 at phase 10 (a)'s shapes, fp32: the single path's launch
+    (N against N), a resident shard's (N/p targets against N sources) and
+    a ring round's (N/p against N/p); returns ``{(name, label): (ms, bound
+    ms, bound by, shape)}``."""
+    bi, bj = nbody_force.DEFAULT_BLOCK_I, nbody_force.DEFAULT_BLOCK_J
+    st = nbody.plummer(TABLE1_N, seed=0, device=dev)
+    st = hermite.initialize(st, make_evaluator())
+    f32 = torch.float32
+    pos, vel, acc, mass = (x.to(f32) for x in (st.pos, st.vel, st.acc,
+                                                st.mass))
+    out = {}
+    for label, n_l, n_s in (
+            ("single", TABLE1_N, TABLE1_N),
+            ("resident shard", TABLE1_N // TABLE1_P, TABLE1_N),
+            ("ring round", TABLE1_N // TABLE1_P, TABLE1_N // TABLE1_P)):
+        nt_pad, ns_pad = ops._round_up(n_l, bi), ops._round_up(n_s, bj)
+        tgt = ops.pack_targets(pos[:n_l], vel[:n_l], nt_pad)
+        tacc = ops.pack_acc_targets(acc[:n_l], nt_pad)
+        src = ops.pack_sources(pos[:n_s], vel[:n_s], mass[:n_s], ns_pad)
+        sacc = ops.pack_acc_sources(acc[:n_s], ns_pad)
+        operands = {"acc_jerk_pot": (tgt, src), "snap": (tgt, src, tacc, sacc)}
+        for name, fn in (("acc_jerk_pot", nbody_force.acc_jerk_pot_packed),
+                         ("snap", nbody_force.snap_packed)):
+            x = operands[name]
+            ms = cuda_ms(lambda: fn(*x, block_i=bi, block_j=bj), 3, warmup=1)
+            bms, by = bound_ms(name, "fp32", n_l, n_l, n_s)
+            out[(name, label)] = (ms, bms, by, (n_l, n_s))
+            print(f"{name:<13} fp32 {label} N_t={n_l} N_s={n_s}: kernel "
+                  f"{ms:.4f} ms  bound {bms:.4f} ms ({by})  bound/kernel "
+                  f"{bms / ms:.3f}", flush=True)
+    return out
+
+
+def strategy_block_runs(dev, all_kernels, block):
+    """Phase 10 (b): phase 8's block run under each strategy over BLOCK_P
+    slots of the one card.  Returns the readings by (strategy, compaction,
+    mode)."""
+    bi, bj = nbody_force.DEFAULT_BLOCK_I, nbody_force.DEFAULT_BLOCK_J
+    p = BLOCK_P
+    slots = [dev] * p
+    st = scenarios.make(BLOCK_SCENARIO, N_MAIN, seed=0, device=dev,
+                        validate=False)
+    g8 = block["runs"]["gather"]
+    # gather first: none reads nothing per event, so it runs exactly the
+    # gather run's event count in one chunk
+    cases = [(s_, c_, "overlap") for s_ in strategies.STRATEGIES
+             for c_ in ("gather", "none")] + [("ring", "gather", "sync")]
+    out = {}
+    for strategy, compaction, mode in cases:
+        n_ev = 256 if compaction == "gather" else \
+            out[(strategy, "gather", mode)]["events"]
+        # the engine this run uses, with its per-event bounds recorded
+        engine = ens._strategy_block_engine(
+            strategy, tuple(slots), 2, 6, 1e-7, BLOCK_KW["eta"],
+            BLOCK_KW["dt_max"], BLOCK_KW["n_levels"], compaction, bi, bj,
+            "fp32", "full", mode)
+        bounds, bound_of = [], engine._bound
+
+        def record(*args):
+            b = bound_of(*args)
+            if b is not None:
+                bounds.append(b)
+            return b
+
+        engine._bound = record
+        try:
+            (s, carry), counts, reads, wall = counted(
+                lambda: ens.evolve_strategy_block(
+                    st, strategy=strategy, compaction=compaction,
+                    devices=slots, ring_mode=mode, n_events=n_ev,
+                    **BLOCK_KW), all_kernels)
+        finally:
+            del engine._bound
+        events = int(carry.n_events)
+        tiles = carry.n_tiles.tolist()
+        e0 = nbody.total_energy(hermite.initialize(
+            st, strategies.make_strategy_evaluator(strategy, devices=slots,
+                                                   ring_mode=mode)))
+        de = abs(float((nbody.total_energy(s) - e0) / e0))
+        ring = strategy == "ring"
+        shard_plan = ops.CapacityPlan(N_MAIN, N_MAIN, bi, bj).shard(p)
+        if ring:
+            shard_plan = dataclasses.replace(
+                shard_plan, n_sources=N_MAIN // p, n_passes=2 * p)
+        dense = events * shard_plan.dense_tiles
+        expect = [float(sum(shard_plan.tiles(
+            strategies._shard_bucket(shard_plan, b[i])) for b in bounds))
+            for i in range(p)] if compaction == "gather" else [float(dense)] * p
+        # the a-priori bound: every event sized from occupancy entry 0
+        # (each shard's real particles)
+        sized = [float(events * shard_plan.tiles(strategies._shard_bucket(
+            shard_plan, N_MAIN // p)))] * p
+        out[(strategy, compaction, mode)] = r = {
+            "state": s, "events": events, "tiles": tiles, "counts": counts,
+            "reads": reads, "wall": wall, "de": de}
+        label = f"{strategy} {compaction}" + (" " + mode if ring else "")
+        print(f"block strategy {label:<20} p={p}: events {events} (phase 8 "
+              f"{g8['events']}), wall {wall:.3f} s ({1e3 * wall / events:.4f}"
+              f" ms/event, phase 8 {1e3 * g8['wall'] / g8['events']:.4f}), "
+              f"host reads {reads} ({reads / events:.3f}/event), launches "
+              f"{counts}, tiles per shard {tiles} (CapacityPlan.shard at the "
+              f"recorded bounds {expect}; bound-sized {sized[0]:.0f}, dense "
+              f"{dense}), |dE/E| {de:.3e}", flush=True)
+        check(tiles == expect, f"block strategy {label}: tiles {tiles} vs "
+              f"CapacityPlan.shard {expect}")
+        check(all(t <= b <= dense for t, b in zip(tiles, sized)),
+              f"block strategy {label}: launched <= bound-sized <= dense")
+        per_shard = p * p if ring else p
+        for name in ("acc_jerk_pot", "snap"):
+            check(counts[name] == (events + 1) * per_shard,
+                  f"block strategy {label}: {name} launched {counts[name]} "
+                  f"times for {events} events and the bootstrap")
+        check(de <= DE_TIERS["fp32"], f"block strategy {label}: |dE/E| {de}")
+        check(abs(float(s.time) - BLOCK_KW["t_end"]) < 1e-12,
+              f"block strategy {label} stopped at t={float(s.time)}")
+    for strategy in strategies.STRATEGIES:
+        g, nn = out[(strategy, "gather", "overlap")], \
+            out[(strategy, "none", "overlap")]
+        same = bitwise_same(g["state"], nn["state"]) and \
+            g["events"] == nn["events"]
+        print(f"block strategy {strategy}: gather vs none bitwise equal "
+              f"{same}, tiles {sum(g['tiles']):.0f} vs "
+              f"{sum(nn['tiles']):.0f}", flush=True)
+        check(same, f"block strategy {strategy}: gather and none differ")
+    ov, sy = out[("ring", "gather", "overlap")], out[("ring", "gather", "sync")]
+    same = bitwise_same(ov["state"], sy["state"], nbody.FIELDS)
+    print(f"block strategy ring gather: overlap vs sync bitwise equal {same}",
+          flush=True)
+    check(same, "block strategy ring: overlap and sync differ")
+    for r in out.values():
+        del r["state"]
+    return out
+
+
+def strategy_cli(dev, all_kernels, block):
+    """Phase 10 (c): the CLI under a strategy on one card, and a device
+    count above the visible one refused."""
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_strategy_")
+    try:
+        path = os.path.join(tmp, "single.json")
+        rc, counts, _, wall = counted(
+            lambda: sim_run.main(API_STRATEGY_SINGLE_ARGS + ["--out", path]),
+            all_kernels)
+        with open(path) as f:
+            rep = json.load(f)
+        check(rc == 0, f"cli replicated: sim_run exited {rc}")
+        print(f"cli replicated --devices 1 plummer N={N_MAIN}: steps "
+              f"{rep['steps']}, devices {rep['devices']}, |dE/E| "
+              f"{rep['de_rel']:.3e}, launches {counts}, wall {wall:.3f} s",
+              flush=True)
+        for name in ("acc_jerk_pot", "snap"):
+            check(counts[name] == rep["steps"] + 1, f"cli replicated: {name} "
+                  f"launched {counts[name]} times for {rep['steps']} steps")
+        check(rep["de_rel"] <= DE_TIERS["fp32"] and rep["devices"] == 1,
+              f"cli replicated: |dE/E| {rep['de_rel']}")
+        out["single"] = {"steps": rep["steps"], "counts": counts,
+                         "wall": wall}
+
+        path = os.path.join(tmp, "block.json")
+        rc, counts, reads, wall = counted(
+            lambda: sim_run.main(API_STRATEGY_BLOCK_ARGS + ["--out", path]),
+            all_kernels)
+        with open(path) as f:
+            rep = json.load(f)
+        check(rc == 0, f"cli mesh_sharded block: sim_run exited {rc}")
+        g8 = block["runs"]["gather"]
+        per_shard = rep["grid_tiles_per_shard"]
+        print(f"cli mesh_sharded --stepper block --compaction gather "
+              f"--devices 1: events {rep['steps']} (phase 8 {g8['events']}), "
+              f"grid_tiles_per_shard {per_shard} (phase 8's gather tiles "
+              f"{g8['tiles']:.0f}), launches {counts}, host reads {reads}, "
+              f"wall {wall:.3f} s, |dE/E| {rep['de_rel']:.3e}", flush=True)
+        check(per_shard == [rep["grid_tiles_total"]] and
+              rep["steps"] == g8["events"] and per_shard[0] == g8["tiles"],
+              f"cli mesh_sharded block: grid_tiles_per_shard {per_shard}")
+        check(rep["de_rel"] <= DE_TIERS["fp32"],
+              f"cli mesh_sharded block: |dE/E| {rep['de_rel']}")
+        out["block"] = {"events": rep["steps"], "tiles": per_shard,
+                        "counts": counts, "wall": wall}
+
+        visible = torch.cuda.device_count()
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.sim_run",
+             "--scenario", "plummer", "--n", "64", "--t-end", "0.001",
+             "--strategy", "replicated", "--devices", str(visible + 1),
+             "--no-validate", "--out", os.path.join(tmp, "refused.json")],
+            capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+        said = f"only {visible} visible"
+        print(f"cli --devices {visible + 1} on {visible} visible card(s): "
+              f"exit {proc.returncode}, names the visible count "
+              f"{said in proc.stderr}", flush=True)
+        check(proc.returncode != 0 and said in proc.stderr,
+              f"cli --devices {visible + 1}: exit {proc.returncode}, "
+              f"stderr {proc.stderr[-300:]!r}")
+        out["refused_rc"] = proc.returncode
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def strategy_phase(dev, all_kernels, block, nvml):
+    """Phase 10: the paper's distribution strategies on the card."""
+    out = {"table1": table1_runs(dev, all_kernels, nvml)}
+    out["shapes"] = shard_timings(dev)
+    out["block"] = strategy_block_runs(dev, all_kernels, block)
+    out["cli"] = strategy_cli(dev, all_kernels, block)
+    return out
+
+
 def serve_path(cfg, dev, all_kernels):
     """Phase 7: qwen3-0.6b at full width through ``Engine.generate`` with the
     flash kernel, after holding the flash route's logits against the plain
@@ -1519,6 +1860,9 @@ def main() -> int:
     api_r = api_phase(dev, all_kernels, block, {
         "steps": main_steps["fp32"], "step_ms": step_ms["fp32"]}, nvml)
 
+    phase("10. the distribution strategies on the card")
+    strat = strategy_phase(dev, all_kernels, block, nvml)
+
     rows = []
     for name in kernels:
         ms, pms, bms, by = timings[(name, "fp32", N_MAIN)]
@@ -1549,6 +1893,20 @@ def main() -> int:
             "launches_api_mixed": api_r["mixed"]["counts"][name],
             "blocks_per_launch_block_gather":
                 block["runs"]["gather"]["blocks"],
+            "launches_table1": {
+                f"{s_} {d_}" + (f" {m_}" if m_ else ""): r["counts"][name]
+                for (s_, d_, m_), r in strat["table1"].items()},
+            "launches_block_strategies": {
+                f"{s_} {c_} {m_}": r["counts"][name]
+                for (s_, c_, m_), r in strat["block"].items()},
+            "launches_cli_strategies": {
+                k: strat["cli"][k]["counts"][name]
+                for k in ("single", "block")},
+            "strategy_shapes": {
+                label: {"ms": ms_, "bound_ms": b_, "bound_by": by_,
+                        "n_t": sh_[0], "n_s": sh_[1]}
+                for (n_, label), (ms_, b_, by_, sh_)
+                in strat["shapes"].items() if n_ == name},
             "block_shapes": {
                 f"{label} {dtype}": {
                     "ms": timings[(name, dtype, label)][0],

@@ -1,7 +1,7 @@
 """Packing wrappers around the N-body force kernels.
 
-Port of ``repro/kernels/ops.py`` (the TPU-specific VMEM accounting, the
-sharded and neighbor-window plans are not ported).  These functions own
+Port of ``repro/kernels/ops.py`` (the TPU-specific VMEM accounting and
+the neighbor-window plans are not ported).  These functions own
 the (un)packing between the physics-facing layout (pos/vel/mass tensors,
 any N, any float dtype) and the kernels' packed, block-padded float32
 layout, then call ``nbody_force``'s packed wrappers, which launch the CUDA
@@ -222,6 +222,20 @@ class CapacityPlan:
     def tiles(self, idx: int) -> int:
         """Tiles one event enqueues at bucket ``idx``."""
         return self.tiles_by_cap[idx]
+
+    def shard(self, n_shards: int) -> "CapacityPlan":
+        """The per-shard local plan: each shard compacts its own
+        ``n_targets / n_shards`` target rows against the same sources (the
+        strategies pad N to a shard multiple first, so the split is exact).
+        The ring's plan, whose sources are the local extent too and whose
+        ``n_passes`` counts every round of every pass, is built directly
+        (``core.strategies._shard_plan``)."""
+        if self.n_targets % n_shards:
+            raise ValueError(
+                f"{self.n_targets} targets do not split over "
+                f"{n_shards} shards")
+        return dataclasses.replace(
+            self, n_targets=self.n_targets // n_shards, caps=())
 
     def restrict(self, ceiling: int) -> "CapacityPlan":
         """Plan truncated to the buckets a member with at most ``ceiling``

@@ -14,6 +14,17 @@ and a JSON report in the reference's schema.
 ``--device {cuda,cpu}`` (default ``cuda``, which refuses to start without a
 card) picks the hand-written kernels or their plain versions.
 
+``--strategy {replicated,two_level,mesh_sharded,ring}`` shards one run's
+domain over ``--devices k`` shards (``core.strategies``): on ``cpu`` k
+slots on the CPU, on ``cuda`` the first k cards, refused with the visible
+count when fewer are there:
+
+    PYTHONPATH=src python -m repro_torch.launch.sim_run --device cpu \
+        --devices 4 --strategy ring --scenario plummer --n 256 --t-end 0.0625
+    PYTHONPATH=src python -m repro_torch.launch.sim_run --strategy \
+        mesh_sharded --stepper block --compaction gather --devices 1 \
+        --scenario binary_plummer --n 16384 --levels 10 --t-end 0.0625
+
 ``--scenario`` takes either one registry name (homogeneous runs; ``name:N``
 is shorthand for ``--n N``) or several ``name:N`` tokens — a *mixed*
 ensemble, packed into one rectangular batch with zero-mass padding up to
@@ -36,10 +47,9 @@ instead of masking it (``--block-i/--block-j`` set the logical tile);
 buckets per member group instead of batch-shared.
 
 Not ported yet, each exits with the ``NotImplementedError`` naming its
-ROADMAP.md item: ``--devices k`` (k > 1), ``--mesh BxP``, ``--strategy X``
-on a single run (queue 1 item 7) and ``--sources neighbor`` (item 8).  A
-strategy label on a batched run with one device only tags the report, as
-in the reference.
+ROADMAP.md item: an ensemble over ``--devices k`` (k > 1) and ``--mesh
+BxP`` (queue 1 item 7b), and ``--sources neighbor`` (item 8).  A strategy
+label on a batched run only tags the report, as in the reference.
 
 Each invocation emits a one-line summary plus a JSON telemetry report
 (wall time, steps/s, interactions/s, modeled energy/EDP, per-run energy
@@ -140,13 +150,15 @@ def main(argv=None):
                     choices=("single", "replicated", "two_level",
                              "mesh_sharded", "ring"))
     ap.add_argument("--devices", type=int, default=1,
-                    help="cards (k > 1 not ported yet: ROADMAP.md queue 1 "
-                         "item 7)")
+                    help="shards of a run under --strategy: k CPU slots "
+                         "with --device cpu, the first k cards on cuda "
+                         "(an ensemble over k > 1 is not ported yet: "
+                         "ROADMAP.md queue 1 item 7b)")
     ap.add_argument("--mesh", default=None, metavar="BxP",
                     help="fused 2-D device grid for the block stepper, B "
                          "batch shards x P domain shards (B*P must equal "
                          "--devices; not ported yet: ROADMAP.md queue 1 "
-                         "item 7)")
+                         "item 7b)")
     ap.add_argument("--impl", default=None,
                     choices=(None, "pallas", "pallas_interpret", "xla",
                              "fp64"))

@@ -168,6 +168,19 @@ def set_tracer(tracer: Optional[NullTracer]) -> NullTracer:
 
 
 @contextmanager
+def named_scope(name: str):
+    """A ``torch.profiler.record_function`` range under the reference's
+    ``jax.named_scope`` name (the strategies' ``collective.*`` ranges), and
+    a span of the current tracer when one is live."""
+    if _current.enabled:
+        with _current.span(name):
+            yield
+    else:
+        with torch.profiler.record_function(name):
+            yield
+
+
+@contextmanager
 def tracing(path: Optional[str] = None):
     """Scope a live :class:`SpanTracer` as current; export to ``path`` on
     exit when given.  Yields the tracer."""

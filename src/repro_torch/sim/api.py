@@ -26,11 +26,18 @@ so the two packages' reports carry the same keys.  ``impl``/``kernel`` keep
 the reference's names and conflicts (``ensemble.resolve_eval_impl``);
 ``ensemble.check_impl`` refuses a plain-version label on the card.
 
-**What one card does not run yet** raises ``NotImplementedError`` at
-``build``: several devices, a mesh, a single run under a distribution
-strategy and the block-strategy runner (ROADMAP.md queue 1 item 7), and the
-Ahmad-Cohen neighbor scheme (item 8).  A strategy label on a batched run
-with one device only tags the report, as in the reference.
+**Devices.** ``SimConfig.devices`` is the shard count of a run under a
+distribution strategy (``core.strategies``): on the CPU ``[cpu] *
+devices`` slots, as the reference's launcher fakes host devices, on
+``cuda`` the first ``devices`` cards, and ``ValueError`` naming the visible
+count when fewer are there (no fallback).  A single run under a strategy
+(``SingleRunner``) and a block run under one (``BlockStrategyRunner``)
+shard the run's domain; a strategy label on a batched run only tags the
+report, as in the reference.
+
+**Not ported yet**, raising ``NotImplementedError`` at ``build``: batches
+sharded over several devices and the fused mesh (ROADMAP.md queue 1 item
+7b), and the Ahmad-Cohen neighbor scheme (item 8).
 """
 
 from __future__ import annotations
@@ -43,6 +50,8 @@ import torch
 
 from repro_torch.core import hermite, nbody
 from repro_torch.core.evaluate import make_evaluator
+from repro_torch.core.strategies import (STRATEGIES, make_strategy_evaluator,
+                                         mesh_devices)
 from repro_torch.kernels import nbody_force, ops
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -52,8 +61,8 @@ from repro_torch.sim.telemetry import RunReport
 
 MAX_STEPS = 200_000
 
-#: the ROADMAP items behind what one card does not run yet
-_STRATEGIES_ITEM = "ROADMAP.md queue 1 item 7"
+#: the ROADMAP items behind what the port does not run yet
+_BATCH_DEVICES_ITEM = "ROADMAP.md queue 1 item 7b"
 _NEIGHBOR_ITEM = "ROADMAP.md queue 1 item 8"
 
 
@@ -262,27 +271,30 @@ def validate_config(cfg: SimConfig) -> str:
     return cfg.resolved_stepper()
 
 
-def _device_list(cfg: SimConfig):
-    """The run's one device; several are not ported yet."""
-    if cfg.devices > 1:
-        raise NotImplementedError(
-            f"devices={cfg.devices}: multi-device runs are not ported yet: "
-            f"{_STRATEGIES_ITEM}")
-    return [nbody.resolve_device(cfg.device)]
+def _device_list(cfg: SimConfig) -> list:
+    """The run's devices, one per shard (``strategies.mesh_devices``):
+    ``[cpu] * devices`` on the CPU, the first ``devices`` cards on
+    ``cuda``, ``ValueError`` naming the visible count when fewer are
+    there."""
+    return mesh_devices(cfg.devices, cfg.device)
 
 
-def _one_card(cfg: SimConfig) -> torch.device:
-    """Refuse what one card does not run yet; returns the run's device."""
+def _batch_device(cfg: SimConfig) -> torch.device:
+    """Refuse what a batched run does not run yet; returns its device."""
+    devices = _device_list(cfg)
     if cfg.mesh is not None:
         raise NotImplementedError(
             f"mesh={tuple(cfg.mesh)}: the fused (batch, domain) mesh is not "
-            f"ported yet: {_STRATEGIES_ITEM}")
+            f"ported yet: {_BATCH_DEVICES_ITEM}")
     if cfg.sources == "neighbor":
         raise NotImplementedError(
             "sources='neighbor' (the Ahmad-Cohen scheme) is not ported yet: "
             f"{_NEIGHBOR_ITEM}")
-    (dev,) = _device_list(cfg)
-    return dev
+    if len(devices) > 1:
+        raise NotImplementedError(
+            f"devices={cfg.devices}: ensembles sharded over devices are not "
+            f"ported yet: {_BATCH_DEVICES_ITEM}")
+    return nbody.resolve_device(cfg.device)
 
 
 def _eval_dtype(cfg: SimConfig, impl: Optional[str]) -> str:
@@ -440,7 +452,8 @@ def get_runner(kind: str) -> Runner:
 # --------------------------------------------------------------------------
 class SingleRunner(Runner):
     """One run stepped by the host as ``hermite.evolve`` steps it: the same
-    loop, with the reference's per-step host syncs and telemetry."""
+    loop, with the reference's per-step host syncs and telemetry, its
+    force evaluation single-device or sharded by ``cfg.strategy``."""
 
     kind = "single"
 
@@ -452,21 +465,24 @@ class SingleRunner(Runner):
         validate_config(cfg)
         h = RunHandle(cfg, self.kind)
         impl = ens.resolve_eval_impl(cfg.impl, cfg.kernel, default=None)
-        if cfg.strategy in ens.STRATEGY_LABELS and cfg.strategy != "single":
+        if cfg.strategy in STRATEGIES:
             if impl == "fp64" or cfg.dtype == "fp64":
                 raise ValueError(
                     "fp64 (golden reference) only runs under "
                     "strategy='single'")
-            raise NotImplementedError(
-                f"strategy={cfg.strategy!r}: distribution strategies are "
-                f"not ported yet: {_STRATEGIES_ITEM}")
-        if cfg.strategy != "single":
+        elif cfg.strategy != "single":
             raise ValueError(f"unknown strategy {cfg.strategy!r}")
-        dev = _one_card(cfg)
+        devices = _device_list(cfg)
+        dev = nbody.resolve_device(cfg.device)
         ens.check_impl(impl, dev)
         state = _build_states(cfg)[0]
-        evaluator = make_evaluator(order=cfg.order, eps=cfg.eps,
-                                   dtype=_eval_dtype(cfg, impl))
+        if cfg.strategy == "single":
+            evaluator = make_evaluator(order=cfg.order, eps=cfg.eps,
+                                       dtype=_eval_dtype(cfg, impl))
+        else:
+            evaluator = make_strategy_evaluator(
+                cfg.strategy, devices=devices, order=cfg.order, eps=cfg.eps,
+                dtype=cfg.dtype)
 
         h.recorder = telemetry.TelemetryRecorder(cfg.meta())
         state = hermite.initialize(state, evaluator)
@@ -528,10 +544,9 @@ class SingleRunner(Runner):
 # single block run under a distribution strategy (shard-local compaction)
 # --------------------------------------------------------------------------
 class BlockStrategyRunner(Runner):
-    """One block run, its force evaluation sharded by ``cfg.strategy``.
-
-    Dispatch matches the reference's, so such a config resolves to this
-    kind; its build needs the distribution strategies, not ported yet.
+    """One run, its force evaluation sharded by ``cfg.strategy``: each shard
+    compacts its own local active targets (``compaction="gather"``) and the
+    report carries the per-shard launched tiles as ``grid_tiles_per_shard``.
     """
 
     kind = "block_strategy"
@@ -545,12 +560,105 @@ class BlockStrategyRunner(Runner):
 
     def build(self, cfg: SimConfig) -> RunHandle:
         validate_config(cfg)
-        if cfg.strategy not in ens.STRATEGY_LABELS:
+        if cfg.strategy not in STRATEGIES:
             raise ValueError(f"unknown strategy {cfg.strategy!r}")
-        raise NotImplementedError(
-            f"strategy={cfg.strategy!r} with the block stepper shards one "
-            "run's domain across devices (shard-local compaction); the "
-            f"distribution strategies are not ported yet: {_STRATEGIES_ITEM}")
+        h = RunHandle(cfg, self.kind)
+        impl = ens.resolve_eval_impl(cfg.impl, cfg.kernel)
+        if impl == "fp64" or cfg.dtype == "fp64":
+            raise ValueError(
+                "fp64 (golden reference) only runs under strategy='single'")
+        devices = _device_list(cfg)
+        ens.check_impl(impl, nbody.resolve_device(cfg.device))
+        state = _build_states(cfg)[0]
+        # same tile shape for the bootstrap pass as for the event loop, so a
+        # CLI run is bit for bit ens.evolve_strategy_block's
+        evaluator = make_strategy_evaluator(
+            cfg.strategy, devices=devices, order=cfg.order, eps=cfg.eps,
+            dtype=cfg.dtype,
+            block_i=cfg.block_i or nbody_force.DEFAULT_BLOCK_I,
+            block_j=cfg.block_j or nbody_force.DEFAULT_BLOCK_J)
+
+        h.recorder = telemetry.TelemetryRecorder(cfg.meta())
+        state = hermite.initialize(state, evaluator)
+        _sync(state.pos)
+        h.e0 = float(nbody.total_energy(state))
+        h.recorder.record_snapshot(0, 0.0, energy=h.e0, de_rel=0.0)
+
+        n_levels = cfg.n_levels
+        if n_levels is None:  # --levels auto, from the initial dt spread
+            dt_i = hermite.aarseth_dt_particles(state, eta=cfg.eta,
+                                                dt_max=cfg.dt_max)
+            n_levels = int(hermite.auto_n_levels(dt_i, dt_max=cfg.dt_max))
+            h.recorder.meta["n_levels"] = n_levels
+            h.recorder.meta["n_levels_auto"] = [n_levels]
+        h.state, h.devices, h.n_levels = state, devices, n_levels
+        h.carry = None
+        h.done = 0
+        h.ev_prev = h.tiles_prev = 0.0
+        return h
+
+    def step(self, h: RunHandle) -> bool:
+        if h.finished:
+            return True
+        cfg = h.cfg
+        if not h.done * cfg.diag_every < MAX_STEPS:
+            h.finished = True
+            return True
+        tracer = obs_trace.get_tracer()
+        reg = obs_metrics.registry()
+        t0 = time.perf_counter()
+        t0_us = tracer.now_us()
+        h.state, h.carry = ens.strategy_run_block(
+            h.state, t_end=cfg.t_end, n_events=cfg.diag_every,
+            dt_max=cfg.dt_max, n_levels=h.n_levels, carry=h.carry,
+            eta=cfg.eta, order=cfg.order, eps=cfg.eps,
+            strategy=cfg.strategy, compaction=cfg.compaction,
+            block_i=cfg.block_i, block_j=cfg.block_j, devices=h.devices,
+            dtype=cfg.dtype)
+        _sync(h.state.pos)
+        h.done += 1
+        ev_now = float(h.carry.n_events)
+        per_shard_now = h.carry.n_tiles.tolist()
+        tiles_now = float(sum(per_shard_now))
+        _chunk_spans(tracer, t0_us, tracer.now_us() - t0_us, chunk=h.done,
+                     events=int(ev_now - h.ev_prev),
+                     tiles=tiles_now - h.tiles_prev)
+        reg.counter("sim.events", unit="events").inc(ev_now - h.ev_prev)
+        reg.counter("sim.tiles_launched", unit="tiles").inc(
+            tiles_now - h.tiles_prev)
+        mean = tiles_now / len(per_shard_now)
+        if mean > 0:
+            reg.gauge(
+                "sim.shard_imbalance", unit="ratio",
+                help="max/mean per-shard launched tiles").set(
+                max(per_shard_now) / mean)
+        h.ev_prev, h.tiles_prev = ev_now, tiles_now
+        e = float(nbody.total_energy(h.state))
+        h.recorder.record_step(int(h.carry.n_events), float(h.state.time),
+                               time.perf_counter() - t0)
+        h.recorder.record_snapshot(
+            int(h.carry.n_events), float(h.state.time), energy=e,
+            de_rel=abs((e - h.e0) / h.e0),
+            **({"metrics": reg.snapshot()}
+               if cfg.metrics_interval
+               and h.done % cfg.metrics_interval == 0 else {}))
+        if float(h.state.time) >= cfg.t_end:
+            h.finished = True
+        return h.finished
+
+    def collect(self, h: RunHandle) -> RunReport:
+        cfg = h.cfg
+        e1 = float(nbody.total_energy(h.state))
+        per_shard = [float(t) for t in h.carry.n_tiles.tolist()]
+        return h.recorder.finalize(
+            n_bodies=cfg.n, ensemble=1, n_devices=cfg.devices,
+            per_run_steps=[int(h.carry.n_events)],
+            per_run_pairs=[float(h.carry.n_pairs)],
+            per_run_tiles=[sum(per_shard)], per_shard_tiles=per_shard,
+            metrics=obs_metrics.registry().snapshot(),
+            extra={"e0": h.e0, "e1": e1,
+                   "de_rel": abs((e1 - h.e0) / h.e0),
+                   "t_final": float(h.state.time)})
 
 
 # --------------------------------------------------------------------------
@@ -580,7 +688,7 @@ class EnsembleRunner(Runner):
         validate_config(cfg)
         if cfg.strategy not in ens.STRATEGY_LABELS:
             raise ValueError(f"unknown strategy {cfg.strategy!r}")
-        dev = _one_card(cfg)
+        dev = _batch_device(cfg)
         impl = ens.check_impl(ens.resolve_eval_impl(cfg.impl, cfg.kernel),
                               dev)
         h = RunHandle(cfg, self.kind)

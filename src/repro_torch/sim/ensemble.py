@@ -38,11 +38,18 @@ padding: zero mass makes them invisible as sources (a kernel invariant),
 and the engine's per-member mask zeroes their evaluated derivatives so
 they stay frozen as targets and never tighten a timestep.
 
-Not ported yet: multi-device batches and meshes (``devices=``, ``mesh=``,
-strategy labels other than ``"single"``; ROADMAP.md queue 1 item 7), the
-Ahmad-Cohen neighbor scheme (``sources="neighbor"``, item 8) and admission
-into a running block batch (item 9).  The tensors' device picks the
-kernels or their plain versions, so the engines take no ``impl``:
+**One run under a distribution strategy.** :func:`strategy_run_block` /
+:func:`evolve_strategy_block` run the block stepper on one unbatched run
+whose force evaluation is sharded over a device mesh by one of the paper's
+strategies (``core.strategies``), each shard compacting its own active
+targets; the event schedule is the ensemble engine's.  A strategy label on
+a batch only tags it, as in the reference: its members are independent.
+
+Not ported yet: batches sharded over several devices and the fused mesh
+(``devices=`` of more than one, ``mesh=``; ROADMAP.md queue 1 item 7b),
+the Ahmad-Cohen neighbor scheme (``sources="neighbor"``, item 8) and
+admission into a running block batch (item 9).  The tensors' device picks
+the kernels or their plain versions, so the engines take no ``impl``:
 ``dtype="fp64"`` is the oracle.  The reference's ``impl``/``kernel``
 labels are resolved for the API by :func:`resolve_eval_impl` and checked
 against the device by :func:`check_impl`.
@@ -61,6 +68,10 @@ from repro_torch.core.evaluate import (COMPACTIONS, make_block_evaluator,
                                        make_evaluator, shared_cap_index)
 from repro_torch.core.hermite import Evaluation
 from repro_torch.core.nbody import FIELDS, ParticleState
+from repro_torch.core.strategies import (STRATEGIES,
+                                         make_strategy_block_evaluator,
+                                         make_strategy_evaluator,
+                                         mesh_devices)
 from repro_torch.kernels import nbody_force, ops
 from repro_torch.obs import metrics as obs_metrics
 
@@ -69,10 +80,10 @@ from repro_torch.obs import metrics as obs_metrics
 SOURCES = ("full", "neighbor")
 #: per-member capacity-bucket dispatch modes of the block engine
 BUCKET_MODES = ("member", "shared")
-#: strategy labels: on one card every label of the reference computes the
-#: same thing, but only the single-card one is ported
-STRATEGY_LABELS = ("single", "replicated", "two_level", "mesh_sharded",
-                   "ring")
+#: strategy labels: on a batch every label computes the same thing (its
+#: members are independent); one run under a distribution strategy goes
+#: through :func:`strategy_run_block`
+STRATEGY_LABELS = ("single",) + STRATEGIES
 #: the reference's evaluation paths; here labels checked against the device
 ENSEMBLE_IMPLS = ("xla", "fp64", "pallas", "pallas_interpret")
 #: user-facing force-kernel switch: "ref" (all-pairs op) | "pallas"
@@ -149,17 +160,37 @@ def _count_engine_build(kind: str) -> None:
     reg.counter(f"engine.cache_miss.{kind}", unit="builds").inc()
 
 
+def _n_devices(devices) -> int:
+    """How many devices ``devices`` names: an int count, a sequence, or
+    None (one)."""
+    if devices is None:
+        return 1
+    if isinstance(devices, int):
+        return devices
+    return len(list(devices))
+
+
+def _mesh_list(devices, device) -> list:
+    """A strategy engine's device list: a sequence as given, an int count
+    or None resolved by ``strategies.mesh_devices`` for tensors on
+    ``device`` (None: every visible card, or one CPU slot)."""
+    if devices is None or isinstance(devices, int):
+        return mesh_devices(devices, device)
+    return list(devices)
+
+
 def _single_card(*, devices=None, mesh=None, strategy: str = "single",
                  sources: str = "full"):
-    """Refuse what this slice does not run: several cards, a mesh, a
-    distributed strategy label or the neighbor scheme."""
+    """Refuse what the batch engines do not run yet: a batch sharded over
+    several devices, the fused mesh or the neighbor scheme.  A strategy
+    label only tags a batch."""
     if strategy not in STRATEGY_LABELS:
         raise ValueError(f"unknown strategy {strategy!r}; one of "
                          f"{STRATEGY_LABELS}")
-    if devices is not None or mesh is not None or strategy != "single":
+    if mesh is not None or _n_devices(devices) > 1:
         raise NotImplementedError(
-            "multi-device ensembles (devices=, mesh=, strategy labels other "
-            "than 'single') are not ported yet: ROADMAP.md queue 1 item 7")
+            "ensembles sharded over devices (devices= of more than one, "
+            "mesh=) are not ported yet: ROADMAP.md queue 1 item 7b")
     if sources not in SOURCES:
         raise ValueError(
             f"sources must be one of {SOURCES}; got {sources!r}")
@@ -830,3 +861,227 @@ def evolve_ensemble_block(
         if done:
             break
     return batched, carry
+
+
+# --------------------------------------------------------------------------
+# single-run block stepper under a multi-device distribution strategy
+# --------------------------------------------------------------------------
+def _batch1(state: ParticleState) -> ParticleState:
+    """One unbatched run as a B = 1 batch (views)."""
+    return ParticleState(**{f: getattr(state, f)[None] for f in FIELDS})
+
+
+def _unbatch1(batched: ParticleState) -> ParticleState:
+    return ParticleState(**{f: getattr(batched, f)[0] for f in FIELDS})
+
+
+class _StrategyBlockEngine:
+    """Block-timestep engine whose force evaluation is distributed over a
+    device mesh instead of batched: one run, its domain sharded by one of
+    the paper's strategies, each shard compacting its own local active
+    targets (``core.strategies.make_strategy_block_evaluator``).
+
+    The event logic is the ensemble engine's own (:func:`_event_init`,
+    :func:`_event_pre`, :func:`_event_post` on the run as a B = 1 batch),
+    so the event schedule, and with it the committed block golden, is the
+    same; only the evaluator and the per-shard tile counts differ.
+
+    The capacity buckets are sized on the host: each gather event's
+    per-shard bound is ``hermite.block_level_occupancy`` at the tick's
+    threshold level over each shard's contiguous row chunk (padding rows
+    at level -1), read to the host with the event's live flag in one copy
+    of ``p + 1`` counts.  A particle at level ``l`` steps at exactly the
+    multiples of its period, so the tick's active set is ``{level >=
+    threshold}`` and the bound is the measured count: the same buckets,
+    tiles and physics as measuring.  ``compaction="none"`` reads nothing
+    per event.
+    """
+
+    def __init__(self, *, strategy, devices, chips_per_card, order, eps,
+                 eta, dt_max, n_levels, compaction, block_i, block_j, dtype,
+                 sources, ring_mode):
+        self.p = len(devices)
+        self.order, self.eta, self.dt_max = order, eta, dt_max
+        self.n_levels, self.n_sub = n_levels, 2 ** (n_levels - 1)
+        self.compaction = compaction
+        self.bev = make_strategy_block_evaluator(
+            strategy, devices=devices, chips_per_card=chips_per_card,
+            eps=eps, order=order, block_i=block_i, block_j=block_j,
+            compaction=compaction, dtype=dtype, sources=sources,
+            ring_mode=ring_mode)
+
+    def init(self, state: ParticleState, t_end) -> BlockCarry:
+        t_last, levels, dt_macro = _event_init(
+            _batch1(state), t_end.reshape(1), eta=self.eta,
+            dt_max=self.dt_max, n_levels=self.n_levels)
+        f64 = dict(dtype=torch.float64, device=state.device)
+        return BlockCarry(
+            t_last=t_last[0], levels=levels[0], dt_macro=dt_macro[0],
+            n_pairs=torch.zeros((), **f64),
+            n_events=torch.zeros((), dtype=torch.int32, device=state.device),
+            n_tiles=torch.zeros(self.p, **f64),
+            # the per-shard buckets live inside the shards; there is no
+            # batch-level bucket distribution to report
+            bucket_hits=torch.zeros((0,), **f64))
+
+    def _bound(self, levels, t_next, live):
+        """The event's per-shard bucket bounds and live flag, read to the
+        host in one copy; None when the run is past ``t_end``."""
+        n = levels.shape[-1]
+        n_pad = -(-n // self.p) * self.p
+        thr = hermite.tick_threshold_level(t_next, n_levels=self.n_levels)
+        lev = torch.nn.functional.pad(levels, (0, n_pad - n), value=-1)
+        occ = torch.stack([
+            hermite.block_level_occupancy(lv, n_levels=self.n_levels)
+            for lv in lev.reshape(self.p, -1)])
+        host = torch.cat([occ[:, thr], live.to(torch.int32)]).tolist()
+        ensemble_run_block.host_syncs += 1
+        return host[:-1] if host[-1] else None
+
+    def run(self, state: ParticleState, c: BlockCarry, t_end,
+            n_events: int):
+        s = _batch1(state)
+        na = torch.full((1,), state.pos.shape[0], dtype=torch.int32,
+                        device=state.device)
+        t_end_ = t_end.reshape(1)
+        t_last, levels, dt_macro = c.t_last[None], c.levels[None], \
+            c.dt_macro[None]
+        n_pairs, n_ev, n_tiles = c.n_pairs, c.n_events, c.n_tiles
+        for _ in range(n_events):
+            live, t_next, active, h, xp, vp, ap = _event_pre(
+                s, t_last, levels, dt_macro, na, t_end_, n_sub=self.n_sub)
+            bound = None
+            if self.compaction == "gather":
+                bound = self._bound(levels[0], t_next[0], live)
+                if bound is None:
+                    break  # the run is past t_end
+            # past t_end the outputs are discarded, so the targets go to
+            # the kernels inactive and their blocks skip their work
+            act = (active & live[:, None])[0]
+            ev, tiles = self.bev(xp[0], vp[0], ap[0], s.mass[0], act, bound)
+            s, t_last, levels, dt_macro, dp = _event_post(
+                s, Evaluation(*(x[None] for x in ev)), live, t_next, active,
+                h, t_last, levels, dt_macro, na, t_end_, n_sub=self.n_sub,
+                eta=self.eta, dt_max=self.dt_max, n_levels=self.n_levels,
+                order=self.order)
+            n_pairs = n_pairs + dp[0]
+            n_ev = n_ev + live[0].to(torch.int32)
+            n_tiles = n_tiles + torch.where(live[0], tiles.to(torch.float64),
+                                            0.0)
+        return _unbatch1(s), BlockCarry(
+            t_last=t_last[0], levels=levels[0], dt_macro=dt_macro[0],
+            n_pairs=n_pairs, n_events=n_ev, n_tiles=n_tiles,
+            bucket_hits=c.bucket_hits)
+
+
+@functools.lru_cache(maxsize=64)
+def _strategy_block_engine(strategy: str, devices: tuple,
+                           chips_per_card: int, order: int, eps: float,
+                           eta: float, dt_max: float, n_levels: int,
+                           compaction: str, block_i: int, block_j: int,
+                           dtype: str, sources: str = "full",
+                           ring_mode: str = "overlap"
+                           ) -> _StrategyBlockEngine:
+    """The cached :class:`_StrategyBlockEngine` of one configuration and
+    device list."""
+    _count_engine_build("block_strategy")
+    return _StrategyBlockEngine(
+        strategy=strategy, devices=devices, chips_per_card=chips_per_card,
+        order=order, eps=eps, eta=eta, dt_max=dt_max, n_levels=n_levels,
+        compaction=compaction, block_i=block_i, block_j=block_j, dtype=dtype,
+        sources=sources, ring_mode=ring_mode)
+
+
+def strategy_run_block(
+    state: ParticleState,
+    *,
+    t_end: float,
+    n_events: int = 64,
+    dt_max: float = 0.0625,
+    n_levels: int = 8,
+    carry: Optional[BlockCarry] = None,
+    eta: float = 0.02,
+    order: int = 6,
+    eps: float = 1e-7,
+    dtype: str = "fp32",
+    strategy: str = "replicated",
+    chips_per_card: int = 2,
+    compaction: str = "none",
+    block_i: Optional[int] = None,
+    block_j: Optional[int] = None,
+    sources: str = "full",
+    devices=None,
+    ring_mode: str = "overlap",
+):
+    """Advance ONE initialized run by up to ``n_events`` block events, the
+    force evaluation distributed by ``strategy`` over ``devices`` (a device
+    sequence, an int count or None, resolved by
+    ``core.strategies.mesh_devices`` for the state's device).  ``sources``
+    is validated by the strategy evaluator: the sharded strategies evaluate
+    full sources only.
+
+    Returns ``(state, carry)`` like :func:`ensemble_run_block`, except that
+    the carry's leaves are unbatched and ``carry.n_tiles`` is the ``(P,)``
+    vector of kernel grid tiles *each shard* enqueued.  A gather run stops
+    early once the run is past ``t_end``.
+    """
+    if n_levels < 1:
+        raise ValueError(f"n_levels={n_levels} must be >= 1")
+    if compaction not in COMPACTIONS:
+        raise ValueError(
+            f"compaction must be one of {COMPACTIONS}; got {compaction!r}")
+    engine = _strategy_block_engine(
+        strategy, tuple(_mesh_list(devices, state.device)), chips_per_card,
+        order, eps, eta, dt_max, n_levels, compaction,
+        block_i or nbody_force.DEFAULT_BLOCK_I,
+        block_j or nbody_force.DEFAULT_BLOCK_J, dtype, sources, ring_mode)
+    t_end_ = torch.as_tensor(t_end, dtype=state.dtype, device=state.device)
+    if carry is None:
+        carry = engine.init(state, t_end_)
+    return engine.run(state, carry, t_end_, n_events)
+
+
+def evolve_strategy_block(
+    state: ParticleState,
+    *,
+    t_end: float,
+    strategy: str = "replicated",
+    dt_max: float = 0.0625,
+    n_levels: int = 8,
+    eta: float = 0.02,
+    order: int = 6,
+    eps: float = 1e-7,
+    dtype: str = "fp32",
+    chips_per_card: int = 2,
+    compaction: str = "none",
+    block_i: Optional[int] = None,
+    block_j: Optional[int] = None,
+    devices=None,
+    ring_mode: str = "overlap",
+    n_events: int = 64,
+    max_chunks: int = 100_000,
+):
+    """One-shot strategy-distributed block run: initialize with the same
+    strategy's lockstep evaluator (at the same tile shape), evolve to
+    ``t_end``.  Returns ``(state, carry)`` (see
+    :func:`strategy_run_block`)."""
+    devs = _mesh_list(devices, state.device)
+    ev = make_strategy_evaluator(
+        strategy, devices=devs, chips_per_card=chips_per_card, eps=eps,
+        order=order, block_i=block_i or nbody_force.DEFAULT_BLOCK_I,
+        block_j=block_j or nbody_force.DEFAULT_BLOCK_J, dtype=dtype,
+        ring_mode=ring_mode)
+    state = hermite.initialize(state, ev)
+    carry = None
+    for _ in range(max_chunks):
+        state, carry = strategy_run_block(
+            state, t_end=t_end, n_events=n_events, dt_max=dt_max,
+            n_levels=n_levels, carry=carry, eta=eta, order=order, eps=eps,
+            dtype=dtype, strategy=strategy, chips_per_card=chips_per_card,
+            compaction=compaction, block_i=block_i, block_j=block_j,
+            devices=devs, ring_mode=ring_mode)
+        done = float(state.time) >= t_end
+        ensemble_run_block.host_syncs += 1
+        if done:
+            break
+    return state, carry

@@ -24,6 +24,7 @@ from repro.obs import metrics as jmetrics
 from repro.sim import api as japi
 from repro.sim import ensemble as jens
 from repro.sim import telemetry as jtelemetry
+from repro_torch.kernels import ops
 from repro_torch.obs import energy
 from repro_torch.obs import metrics
 from repro_torch.sim import api, driver, telemetry
@@ -69,12 +70,29 @@ CONFIGS = {
                               diag_every=4, validate_ic=False),
     "mixed": dict(mix=(("plummer", 16), ("two_body", 2)), scenario="mixed",
                   t_end=0.02, dt=1 / 256, diag_every=4, validate_ic=False),
+    # the distribution strategies at one device, where the reference runs
+    # them in this process; a single-strategy run ignores devices
+    "single_devices2": dict(scenario="plummer", n=16, t_end=0.02,
+                            dt=1 / 256, devices=2, diag_every=4,
+                            validate_ic=False),
+    "single_ring": dict(scenario="plummer", n=16, t_end=0.02, dt=1 / 256,
+                        strategy="ring", diag_every=4, validate_ic=False),
+    # binary_plummer_block_2dev.json's recipe, at one device
+    "block_strategy_gather": dict(scenario="binary_plummer", n=24, seed=1,
+                                  t_end=0.0625, dt_max=1 / 64,
+                                  stepper="block", n_levels=4,
+                                  compaction="gather", block_i=8,
+                                  block_j=128, strategy="mesh_sharded",
+                                  impl="xla", diag_every=4,
+                                  validate_ic=False),
 }
 
 
 def _clear_engines():
     for fn in (jens._engine, jens._adaptive_engine, jens._block_engine,
-               ens._engine, ens._adaptive_engine, ens._block_engine):
+               jens._strategy_block_engine, ens._engine,
+               ens._adaptive_engine, ens._block_engine,
+               ens._strategy_block_engine):
         fn.cache_clear()
 
 
@@ -146,7 +164,7 @@ def test_report_counts_equal_the_references(reports, name):
     for k in meta:
         assert want.get(k) == got.get(k), k
     for k in ("steps", "force_evals", "force_evals_total", "grid_tiles",
-              "grid_tiles_total"):
+              "grid_tiles_total", "grid_tiles_per_shard"):
         assert want.get(k) == got.get(k), k
     for a, b in zip(want.get("runs", []), got.get("runs", [])):
         for k in ("run", "scenario", "n", "seed", "steps", "force_evals",
@@ -312,22 +330,62 @@ def test_bad_configs_raise_as_the_reference(name):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(devices=2), "item 7"),
-    (dict(ensemble=2, devices=2), "item 7"),
-    (dict(strategy="ring"), "item 7"),
-    (dict(stepper="block", dt=None, strategy="mesh_sharded"), "item 7"),
-    (dict(stepper="block", dt=None, mesh=(1, 1)), "item 7"),
+    (dict(ensemble=2, devices=2), "item 7b"),
+    (dict(stepper="block", dt=None, ensemble=2, devices=2), "item 7b"),
+    (dict(stepper="block", dt=None, mesh=(1, 1)), "item 7b"),
     (dict(stepper="block", dt=None, sources="neighbor"), "item 8"),
     (dict(stepper="block", dt=None, ensemble=2, sources="neighbor"),
      "item 8"),
 ])
 def test_what_one_card_does_not_run_raises(kw, item):
-    """Configurations the reference runs that need several cards or the
-    neighbor scheme raise at build, naming their ROADMAP item; nothing runs
-    quietly in their place."""
+    """Configurations the reference runs that the port does not yet (a
+    batch sharded over devices, the fused mesh, the neighbor scheme) raise
+    at build, naming their ROADMAP item; nothing runs quietly in their
+    place."""
     cfg = _cfg(api, **kw)
     with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
         api.run(cfg)
+
+
+@pytest.mark.parametrize("name,kind,devices", [
+    ("single_devices2", "single", 1),
+    ("single_ring", "single", 1),
+    ("block_strategy_gather", "block_strategy", 1),
+])
+def test_what_the_strategies_port_runs(reports, name, kind, devices):
+    """A single run over several devices, a single run under a strategy
+    and the block-strategy runner now run, as the reference's do (their
+    reports are held field by field by the ``CONFIGS`` tests above): the
+    kind dispatched, the devices reported and the per-shard tiles."""
+    want, got = reports[name]
+    assert api.resolve_kind(api.SimConfig(**CONFIGS[name])) == kind
+    assert got["devices"] == want["devices"] == devices
+    if kind == "block_strategy":
+        assert got["grid_tiles_per_shard"] == want["grid_tiles_per_shard"]
+        assert got["grid_tiles_per_shard"] == [got["grid_tiles_total"]]
+        assert got["grid_tiles_total"] < got["steps"] * ops.CapacityPlan(
+            24, 24, 8, 128).dense_tiles
+
+
+def test_device_count_is_resolved_per_device():
+    """On the CPU a run takes ``devices`` slots of the CPU; on ``cuda`` the
+    first ``devices`` cards, refused with the visible count when fewer are
+    there (no fallback)."""
+    assert api._device_list(_cfg(api, devices=3)) == \
+        [torch.device("cpu")] * 3
+    if torch.cuda.device_count() == 0:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            api._device_list(_cfg(api, device="cuda"))
+
+
+def test_strategy_runs_shard_over_cpu_slots():
+    """A single run under each strategy over two CPU slots: the same steps
+    as the single path, energies within the fp32 tier of it."""
+    plain = api.run(_cfg(api))
+    for strategy in ("replicated", "two_level", "mesh_sharded", "ring"):
+        got = api.run(_cfg(api, strategy=strategy, devices=2))
+        assert got["devices"] == 2 and got["steps"] == plain["steps"]
+        assert abs(got["e1"] - plain["e1"]) <= TOL["fp32"], strategy
 
 
 def test_strategy_label_on_a_batch_only_tags_the_report():

@@ -497,3 +497,73 @@ def test_api_runs_equal_the_engines_bit_for_bit(cuda):
     assert rep["grid_tiles_total"] == float(carry.n_tiles[0])
     for f in fields:
         assert torch.equal(getattr(h.batched, f), getattr(ref, f)), f
+
+
+@pytest.mark.parametrize("strategy", ("replicated", "two_level",
+                                      "mesh_sharded", "ring"))
+def test_strategies_on_card_slots_match_the_single_path(cuda, strategy):
+    """Each strategy over four slots of the card against the one-card
+    evaluation (relative 1e-5 per field: the sum over sources runs in
+    another order under the ring; the resident strategies give its bits),
+    with p (resident) or p**2 (ring) launches of each kernel."""
+    from repro_torch.core import nbody, strategies
+    from repro_torch.core.evaluate import make_evaluator
+
+    st = nbody.plummer(2001, seed=5, device=cuda)
+    want = make_evaluator()(st.pos, st.vel, st.mass)
+    ev = strategies.make_strategy_evaluator(strategy, devices=[cuda] * 4)
+    before = nbody_force.acc_jerk_pot_packed.launches
+    got = ev(st.pos, st.vel, st.mass)
+    torch.cuda.synchronize()
+    per_eval = 16 if strategy == "ring" else 4
+    assert nbody_force.acc_jerk_pot_packed.launches - before == per_eval
+    for f in ("acc", "jerk", "snap", "pot"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.device == b.device and a.shape == b.shape
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), f
+        if strategy != "ring":
+            assert torch.equal(a, b), f
+
+
+@pytest.mark.parametrize("dtype", ("fp32", "mixed"))
+def test_ring_schedules_give_the_same_bits_on_the_card(cuda, dtype):
+    from repro_torch.core import hermite, nbody, strategies
+    from repro_torch.obs import metrics
+
+    st = nbody.plummer(1500, seed=6, device=cuda)
+    outs, shifts = {}, {}
+    for mode in strategies.RING_MODES:
+        with metrics.use() as reg:
+            ev = strategies.make_strategy_evaluator(
+                "ring", devices=[cuda] * 3, dtype=dtype, ring_mode=mode)
+            outs[mode] = hermite.initialize(st, ev)
+            shifts[mode] = reg.counter("ring.shifts_issued").value
+    assert shifts == {"overlap": 4, "sync": 6}
+    for f in ("acc", "jerk", "snap", "pot"):
+        assert torch.equal(getattr(outs["overlap"], f),
+                           getattr(outs["sync"], f)), f
+
+
+@pytest.mark.parametrize("strategy", ("replicated", "two_level",
+                                      "mesh_sharded", "ring"))
+def test_strategy_block_gather_gives_none_bits_on_the_card(cuda, strategy):
+    """Shard-local compaction on two slots of the card: the gather run has
+    the none run's events and bits, no shard launches more tiles, and the
+    shards launch fewer in all (a shard whose particles are all active at
+    every event keeps its full window)."""
+    from repro_torch.sim import ensemble as ens
+    from repro_torch.sim import scenarios
+
+    st = scenarios.make("binary_plummer", 1024, seed=0, device=cuda,
+                        validate=False)
+    kw = dict(t_end=1 / 16, dt_max=1 / 16, n_levels=6, eta=0.02,
+              block_i=32, block_j=256, devices=[cuda] * 2)
+    a, ca = ens.evolve_strategy_block(st, strategy=strategy,
+                                      compaction="none", **kw)
+    b, cb = ens.evolve_strategy_block(st, strategy=strategy,
+                                      compaction="gather", **kw)
+    assert int(ca.n_events) == int(cb.n_events) > 0
+    assert (cb.n_tiles <= ca.n_tiles).all()
+    assert float(cb.n_tiles.sum()) < float(ca.n_tiles.sum())
+    for f in ("pos", "vel", "acc", "jerk", "snap", "crackle", "pot"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import evaluate, nbody
+from repro_torch.core import evaluate, nbody, strategies
 from repro_torch.kernels import _build, flash_attention, nbody_force, ops
 from repro_torch.launch import nbody_run, quickstart, serve_lm, sim_run
 from repro_torch.models import config as lm_config
@@ -111,19 +111,50 @@ def test_api_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
 
 def test_ensemble_functions_take_no_device_and_refuse_what_is_not_ported():
     """Below the scenario entry points the batch's device decides; the
-    neighbor scheme and multi-device layouts raise, naming their ROADMAP
-    items."""
+    neighbor scheme and a batch over several devices raise, naming their
+    ROADMAP items, and a strategy label on a batch only tags it."""
     for fn in (ensemble.ensemble_initialize, ensemble.ensemble_run,
                ensemble.ensemble_run_adaptive, ensemble.evolve_ensemble,
-               ensemble.ensemble_run_block, ensemble.evolve_ensemble_block):
+               ensemble.ensemble_run_block, ensemble.evolve_ensemble_block,
+               ensemble.strategy_run_block, ensemble.evolve_strategy_block):
         assert "device" not in inspect.signature(fn).parameters, fn.__name__
     state = scenarios.make("plummer", 16, device="cpu")
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         ensemble.evolve_ensemble_block([state], t_end=0.01,
                                        sources="neighbor")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        ensemble.evolve_ensemble([state], n_steps=1, dt=0.01,
-                                 strategy="mesh_sharded")
+    with pytest.raises(NotImplementedError, match="queue 1 item 7b"):
+        ensemble.evolve_ensemble([state], n_steps=1, dt=0.01, devices=2)
+    tagged = ensemble.evolve_ensemble([state], n_steps=1, dt=0.01,
+                                      strategy="mesh_sharded")
+    plain = ensemble.evolve_ensemble([state], n_steps=1, dt=0.01)
+    assert torch.equal(tagged.pos, plain.pos)
+
+
+def test_strategies_module_mirrors_the_reference_and_stands_alone():
+    path = ROOT / "src" / "repro_torch" / "core" / "strategies.py"
+    assert (ROOT / "src" / "repro" / "core" / "strategies.py").exists()
+    assert path in PORT_FILES
+    for mod in _imported_modules(path):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
+
+
+def test_strategies_default_to_every_card_and_raise_without_one(no_card):
+    """``devices=None`` is every visible card: without a card the mesh
+    raises, as every entry point does; ``["cpu"] * p`` must be asked for."""
+    for call in (lambda: strategies.mesh_devices(),
+                 lambda: strategies.mesh_devices(2),
+                 lambda: strategies.make_strategy_evaluator("ring"),
+                 lambda: strategies.make_strategy_block_evaluator(
+                     "replicated")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert strategies.mesh_devices(2, "cpu") == [torch.device("cpu")] * 2
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        nbody_run.main(["--n", "16", "--t-end", "0.001", "--strategy",
+                        "ring", "--devices", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim_run.main(["--n", "16", "--t-end", "0.001", "--no-validate",
+                      "--strategy", "ring", "--devices", "2"])
 
 
 def test_evaluator_and_wrappers_take_no_device():

@@ -44,6 +44,18 @@ CASES = {
     "mixed": ["--scenario", "plummer:16", "two_body:2", "--pad", "auto",
               "--t-end", "0.02", "--dt", "0.00390625", "--diag-every", "4",
               "--no-validate"],
+    # the strategies at one device, where the reference runs them in this
+    # process
+    "strategy_single": ["--scenario", "plummer", "--n", "16", "--t-end",
+                        "0.02", "--dt", "0.00390625", "--strategy", "ring",
+                        "--diag-every", "4", "--no-validate"],
+    "strategy_block": ["--scenario", "binary_plummer", "--n", "24",
+                       "--seed", "1", "--t-end", "0.0625", "--dt-max",
+                       "0.015625", "--stepper", "block", "--levels", "4",
+                       "--compaction", "gather", "--block-i", "8",
+                       "--block-j", "128", "--strategy", "mesh_sharded",
+                       "--impl", "xla", "--diag-every", "4",
+                       "--no-validate"],
 }
 
 
@@ -52,7 +64,9 @@ def _clear_engines():
     and its ``[sim] metrics:`` line names the same ``engine.*`` counters
     whatever ran before in the process."""
     for fn in (jens._engine, jens._adaptive_engine, jens._block_engine,
-               ens._engine, ens._adaptive_engine, ens._block_engine):
+               jens._strategy_block_engine, ens._engine,
+               ens._adaptive_engine, ens._block_engine,
+               ens._strategy_block_engine):
         fn.cache_clear()
 
 
@@ -100,7 +114,7 @@ def test_sim_lines_match_the_references(cli_runs, name):
         assert [k for k, _ in fa] == [k for k, _ in fb], (a, b)
         for (k, va), (_, vb) in zip(fa, fb):
             if k in ("steps", "force_evals", "grid_tiles", "N_max",
-                     "n_active", "t"):
+                     "n_active", "t", "grid_tiles_per_shard"):
                 assert va == vb, (k, a, b)
     metrics_line = [ln for ln in port_lines if "metrics:" in ln][0]
     assert "sim.events" in metrics_line
@@ -136,11 +150,9 @@ def test_trace_flag_writes_the_trace(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--devices", "2"], "item 7"),
-    (["--ensemble", "2", "--devices", "2"], "item 7"),
-    (["--strategy", "ring"], "item 7"),
-    (["--strategy", "mesh_sharded", "--stepper", "block"], "item 7"),
-    (["--mesh", "1x1", "--stepper", "block"], "item 7"),
+    (["--ensemble", "2", "--devices", "2"], "item 7b"),
+    (["--ensemble", "2", "--devices", "2", "--stepper", "block"], "item 7b"),
+    (["--mesh", "1x1", "--stepper", "block"], "item 7b"),
     (["--sources", "neighbor", "--stepper", "block"], "item 8"),
 ])
 def test_what_one_card_does_not_run_exits_naming_its_item(argv, item,
@@ -152,6 +164,28 @@ def test_what_one_card_does_not_run_exits_naming_its_item(argv, item,
         sim_run.main(base + argv)
     assert f"ROADMAP.md queue 1 {item}" in str(info.value.code)
     assert not (tmp_path / "r.json").exists()
+
+
+@pytest.mark.parametrize("argv,line", [
+    (["--devices", "2"], "strategy=single devices=2"),
+    (["--strategy", "ring", "--devices", "4"], "strategy=ring devices=4"),
+    (["--strategy", "mesh_sharded", "--stepper", "block", "--devices", "2",
+      "--compaction", "gather", "--levels", "3", "--block-i", "8"],
+     "strategy=mesh_sharded devices=2"),
+])
+def test_what_the_strategies_port_runs(argv, line, tmp_path, capsys):
+    """Runs the reference's CLI shards over devices now run on the CPU's
+    slots: a single run over several devices, a strategy run, a block run
+    under a strategy with its per-shard tiles."""
+    base = ["--scenario", "plummer", "--n", "16", "--t-end", "0.01",
+            "--no-validate", "--device", "cpu",
+            "--out", str(tmp_path / "r.json")]
+    out = _run(sim_run.main, base + argv, capsys)
+    assert line in out
+    report = json.load(open(tmp_path / "r.json"))
+    if "--stepper" in argv:
+        assert len(report["grid_tiles_per_shard"]) == 2
+        assert "[sim] grid_tiles_per_shard=" in out
 
 
 def test_plain_version_flags_run_on_the_cpu(tmp_path, capsys):

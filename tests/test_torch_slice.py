@@ -156,15 +156,26 @@ def test_quickstart_run_conserves_energy(dtype):
 
 
 def test_cli_runs_single_and_refuses_other_strategies(capsys):
+    """The single path, a strategy over CPU slots (the same steps, the
+    energy drift in the fp32 tier), and what a strategy refuses: two_level
+    over an odd device count, an unknown strategy name."""
     assert nbody_run.main(["--n", "32", "--t-end", "0.005",
                            "--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert "strategy=single device=cpu dtype=fp32" in out
+    assert "strategy=single devices=1 device=cpu dtype=fp32" in out
     assert "|dE/E0|=" in out
+    single = nbody_run.run(n=32, t_end=0.005, device="cpu")
+    ring = nbody_run.run(n=32, t_end=0.005, device="cpu", strategy="ring",
+                         devices=2)
+    assert ring["steps"] == single["steps"]
+    assert ring["de_rel"] <= DE_TIERS["fp32"]
+    with pytest.raises(ValueError, match="not divisible"):
+        nbody_run.main(["--n", "32", "--t-end", "0.005", "--device", "cpu",
+                        "--strategy", "two_level", "--devices", "3"])
     with pytest.raises(SystemExit) as exc:
-        nbody_run.main(["--strategy", "ring", "--device", "cpu"])
+        nbody_run.main(["--strategy", "warp", "--device", "cpu"])
     assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    assert "invalid choice" in capsys.readouterr().err
 
 
 # --------------------------------------------------------------------------
