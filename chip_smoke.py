@@ -67,6 +67,28 @@ Phases, in order; any failure raises and the script exits nonzero:
    events, tiles and bits equal to phase 8's); the card's energy counter
    (NVML) read around the single and block CLI runs beside the report's
    modeled energy;
+10. the distribution strategies: Table 1's recipe at N = 409600 under
+   each strategy over four slots of the card, phase 8's block run under
+   each over two, and ``sim_run`` under a strategy;
+11. the Ahmad-Cohen neighbor scheme at the reference's acceptance point
+   (``benchmarks/bench_ci.py``'s neighbor A/B, Plummer N = 16384): full
+   and neighbor sources at fp32 and the neighbor run at mixed through
+   ``repro_torch.sim.driver``, each with its events, force evaluations,
+   refreshes, |dE/E| in its tier, wall per event, host reads and syncs per
+   event, K1/K2 launches and grids; K1/K2 at the run's most used window
+   shapes against their plain versions and timed; ``near1``/``near2``
+   against their plain versions on the same windows, and bit for bit the
+   same at the next bucket up; the overflow run (every window the full
+   extent) against full sources at N = 4096; the peak allocated memory;
+12. the simulation server (``repro_torch.serve.sim_engine``) at n_max =
+   16384: a deterministic Poisson trace of 12 requests (plummer, king,
+   binary_plummer, merger at 2048-16384 bodies, adaptive and block) through
+   a server with full-source block pods and its block requests through one
+   with neighbor pods, after ``warmup`` with no engine build and no kernel
+   library load, every report's |dE/E| in its tier, requests/s and p50/p99
+   turnaround; then the trace suspended mid-way and resumed in a fresh
+   server, its final states bit for bit the uninterrupted run's, the first
+   ticks profiled for the card's busy share;
 then one ``kernels`` JSON line and ``{"ok": true, "device": {...}}`` as the
 last line.
 
@@ -76,6 +98,7 @@ exits nonzero without a card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import itertools
@@ -96,17 +119,19 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.core import hermite, nbody  # noqa: E402
 from repro_torch.core import strategies  # noqa: E402
-from repro_torch.core.evaluate import make_evaluator  # noqa: E402
-from repro_torch.kernels import _build, nbody_force, ops  # noqa: E402
+from repro_torch.core.evaluate import (  # noqa: E402
+    make_evaluator, make_neighbor_block_evaluator)
+from repro_torch.kernels import _build, nbody_force, neighbor, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.launch import nbody_run, sim_run  # noqa: E402
 from repro_torch.models import config as lm_config  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.models import params as lm_params  # noqa: E402
+from repro_torch.serve import sim_engine  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.obs import energy  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
-from repro_torch.sim import api  # noqa: E402
+from repro_torch.sim import api, driver  # noqa: E402
 from repro_torch.sim import ensemble as ens  # noqa: E402
 from repro_torch.sim import scenarios  # noqa: E402
 
@@ -267,6 +292,40 @@ API_STRATEGY_SINGLE_ARGS = ["--scenario", "plummer", "--n", str(N_MAIN),
                             "--no-validate"]
 API_STRATEGY_BLOCK_ARGS = API_BLOCK_ARGS + ["--strategy", "mesh_sharded",
                                             "--devices", "1"]
+#: phase 11: the reference's neighbor A/B recipe (benchmarks/bench_ci.py
+#: _NEIGHBOR, :392-495) at its acceptance point, the largest N of
+#: NEIGHBOR_NS_FULL (:425): the scheme's own cell, at fp32 on the card
+NBR_N = 16384
+NBR_CFG = dict(scenario="plummer", n=NBR_N, seed=0, t_end=0.0625,
+               stepper="block", dt_max=0.0625, n_levels=8, eta=0.01,
+               eps=4.0 / NBR_N, block_i=32, block_j=32,
+               neighbor_radius=0.125, refresh_levels=2, validate_ic=False,
+               diag_every=64)
+#: phase 11 (c): every window the full extent, against full sources
+NBR_OVERFLOW_N, NBR_OVERFLOW_RADIUS = 4096, 1e9
+#: tests/test_golden_trajectories.py BLOCK_TOL at fp32 (pos, vel)
+BLOCK_TOL_FP32 = (1e-6, 1e-5)
+#: phase 12: the simulation server at full size, a deterministic Poisson
+#: trace as benchmarks/serve_throughput.py builds one (numpy seed 0,
+#: exponential gaps of its MEAN_GAP_S, every request to its T_END:
+#: serve_throughput.py:38-39) cycling through these (scenario, n, stepper)
+#: shapes; block pods run full sources in one server and the neighbor
+#: split (phase 11's radius and tile) in a second.  The softening is the
+#: reference's at N = 16384 (eps = 4/N, as phase 11): unsoftened (the
+#: server's default 1e-7), plummer:16384 seed 0 leaves the fp32 tier by
+#: t = 0.04 at 8 levels, in the float64 oracle as in the kernels
+SERVE_CFG = dict(n_max=16384, slots_per_pod=4, chunk_events=16,
+                 dtype="fp32", eps=4.0 / 16384)
+SERVE_NBR = dict(sources="neighbor", neighbor_radius=0.125, block_i=32,
+                 block_j=32)
+SERVE_SHAPES = (("plummer", 16384, "block"), ("king", 2048, "adaptive"),
+                ("binary_plummer", 4096, "block"),
+                ("merger", 8192, "adaptive"),
+                ("plummer", 2048, "adaptive"),
+                ("binary_plummer", 8192, "block"))
+SERVE_REQUESTS, SERVE_MEAN_GAP_S, SERVE_T_END = 12, 0.05, 0.04
+#: phase 12: the profiled window of the suspended run, in scheduler ticks
+SERVE_PROFILE_TICKS = 4
 
 
 def check(ok: bool, msg: str):
@@ -1572,6 +1631,505 @@ def serve_path(cfg, dev, all_kernels):
             "launches_prefill": int(n_prefill), "launches_decode": int(n_decode),
             "stats": stats, "peak": peak, "routes": routes, "profile": profile}
 
+# --------------------------------------------------------------------------
+# phase 11: the Ahmad-Cohen neighbor scheme
+# --------------------------------------------------------------------------
+@contextlib.contextmanager
+def recording(shapes):
+    """Record each K1/K2 launch's operand shapes while the path runs as it
+    does (the rect wrappers, which pack and launch, are wrapped, not the
+    kernels): ``shapes[(name, targets shape, sources shape)] = [launches,
+    (arguments, keywords) of the last one]``."""
+    real = {"acc_jerk_pot": ops.acc_jerk_pot_rect, "snap": ops.snap_rect}
+
+    def wrap(name):
+        def call(*x, **kw):
+            key = (name, tuple(x[0].shape), tuple(x[-2].shape))
+            entry = shapes.setdefault(key, [0, None])
+            entry[0] += 1
+            entry[1] = (x, kw)
+            return real[name](*x, **kw)
+        return call
+
+    ops.acc_jerk_pot_rect = wrap("acc_jerk_pot")
+    ops.snap_rect = wrap("snap")
+    try:
+        yield shapes
+    finally:
+        ops.acc_jerk_pot_rect = real["acc_jerk_pot"]
+        ops.snap_rect = real["snap"]
+
+
+def packed(name, x, kw):
+    """The packed kernel operands and keywords of a recorded rect call, as
+    ``ops.acc_jerk_pot_rect`` / ``ops.snap_rect`` build them."""
+    bi, bj = kw["block_i"], kw["block_j"]
+    nt = -(-x[0].shape[-2] // bi) * bi
+    ns = -(-x[-2].shape[-2] // bj) * bj
+    mask = kw.get("mask_t")
+    tgt = ops.pack_targets(x[0], x[1], nt, mask)
+    kkw = dict(eps=kw["eps"], block_i=bi, block_j=bj,
+               compute_dtype=ops.compute_dtype_for(kw["dtype"]))
+    if name == "acc_jerk_pot":
+        return (tgt, ops.pack_sources(x[2], x[3], x[4], ns)), kkw
+    return (tgt, ops.pack_sources(x[3], x[4], x[6], ns),
+            ops.pack_acc_targets(x[2], nt),
+            ops.pack_acc_sources(x[5], ns)), kkw
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """K1 and K2 replaced by their plain versions on the same (CUDA)
+    operands, for the comparisons only: nothing launches, nothing counts."""
+    real = (nbody_force.acc_jerk_pot_packed, nbody_force.snap_packed)
+
+    def plain(fn):
+        def call(*x, eps, block_i, block_j, compute_dtype):
+            batch = x[0].shape[0] if x[0].dim() == 3 else 0
+            return nbody_force._plain(fn, x, batch, eps=eps, block_i=block_i,
+                                      block_j=block_j,
+                                      compute_dtype=compute_dtype)
+        return call
+
+    nbody_force.acc_jerk_pot_packed = plain(nbody_force._acc_jerk_plain)
+    nbody_force.snap_packed = plain(nbody_force._snap_plain)
+    try:
+        yield
+    finally:
+        nbody_force.acc_jerk_pot_packed, nbody_force.snap_packed = real
+
+
+def window_bound_ms(name, dtype, x):
+    """Least time of one launch on window operands ``x`` (batched packed
+    K1 or K2 operands): the operations of the pairs this data needs
+    (active targets against the sources of nonzero mass, per member) over
+    the fp32 peak, or each operand read once and the output written once
+    over HBM bandwidth, whichever is larger."""
+    tgt, src = x[0], x[1]
+    act = (tgt[..., 3] != 0).sum(-1).to(torch.float64)
+    real = (src[:, 3, :] != 0).sum(-1).to(torch.float64)
+    pairs = float((act * real).sum())
+    flops = FLOPS_PER_PAIR[(name, dtype)] * pairs
+    nbytes = sum(t.numel() * 4 for t in x) + tgt.numel() * 4
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", pairs)
+
+
+def near_holds(dev, dtype, nbr_state):
+    """(a) and (b): near1/near2 on the card against their plain versions on
+    the same windows, and a window evaluated at its bucket and the next one
+    up giving the same bits.  The targets are a seeded 30% of the rows of
+    the sorted state's blocks whose windows fit a bucket below the full
+    extent (so a bucket above theirs exists), the first block inactive."""
+    n, bi, bj = NBR_N, NBR_CFG["block_i"], NBR_CFG["block_j"]
+    eps = NBR_CFG["eps"]
+    near1, near2 = make_neighbor_block_evaluator(
+        n=n, eps=eps, block_i=bi, block_j=bj, dtype=dtype)
+    s = nbr_state
+    real = torch.ones(1, n, dtype=torch.bool, device=dev)
+    win_idx, win_cnt = neighbor.build_windows(
+        s.pos, real, block_i=bi, block_j=bj,
+        radius=NBR_CFG["neighbor_radius"])
+    plan = ops.CapacityPlan(n, n, bi, bj, sources="neighbor")
+    fits = win_cnt * bj <= plan.source_caps[-2]
+    rng = np.random.default_rng(11)
+    mask = torch.as_tensor(rng.uniform(size=(1, n)) < 0.3, device=dev)
+    mask &= fits.repeat_interleave(bi, dim=1)[:, :n]
+    mask[:, :bi] = False
+    w = int(plan.source_bucket(torch.where(fits, win_cnt, 0).max() * bj))
+    acc_s = s.acc.clone()
+    args1 = (s.pos, s.vel, s.mass, mask, win_idx, win_cnt)
+    args2 = (s.pos, s.vel, s.acc, acc_s, s.mass, mask, win_idx, win_cnt)
+    got1, got2 = near1(*args1, w), near2(*args2, w)
+    with plain_kernels():
+        want1, want2 = near1(*args1, w), near2(*args2, w)
+    torch.cuda.synchronize()
+    out = {"bucket": w, "window_rows": plan.source_caps[w],
+           "max_win_cnt": int(win_cnt.max()),
+           "mean_win_cnt": float(win_cnt.float().mean()),
+           "blocks_held": int(fits.sum()), "targets": int(mask.sum())}
+    errs = {}
+    for label, g, want in zip(("acc", "jerk", "pot", "snap"),
+                              got1 + (got2,), want1 + (want2,)):
+        check(bool(torch.isfinite(g).all()), f"near {label}: non-finite")
+        d = float((g - want).abs().max())
+        scale = float(want.abs().max())
+        errs[label] = (d / scale, d)
+        check(bool((g[~mask] == 0).all()),
+              f"near {dtype} {label}: inactive rows not exactly zero")
+        check(d / scale <= TOL[dtype], f"near {dtype} {label}: normalised "
+              f"error {d / scale:.3e} > {TOL[dtype]}")
+    out["errs"] = errs
+    # (b) the next bucket up appends only zero-mass slots to every window
+    up = w + 1
+    same = (all(torch.equal(a, b) for a, b in zip(got1, near1(*args1, up)))
+            and torch.equal(got2, near2(*args2, up)))
+    out["growth_bitwise"] = same
+    print(f"near {dtype} (sorted plummer {n}, {out['targets']} targets in "
+          f"{out['blocks_held']} of {n // bi} blocks, bucket {w} = "
+          f"{plan.source_caps[w]} rows; every block's window max "
+          f"{out['max_win_cnt']}, mean {out['mean_win_cnt']:.2f} of "
+          f"{n // bj} blocks): kernel vs "
+          f"plain max normalised err " + ", ".join(
+              f"{k} {v[0]:.3e}" for k, v in errs.items())
+          + f" (tol {TOL[dtype]:.0e}); bucket {w} vs {up} "
+          f"({plan.source_caps[up]} rows) bitwise equal {same}", flush=True)
+    check(same, f"near {dtype}: bucket growth changed the bits")
+    return out
+
+
+def neighbor_phase(dev, all_kernels):
+    """Phase 11: the neighbor scheme at full size.  Returns the readings
+    the JSON line and PERF.md report."""
+    torch.cuda.reset_peak_memory_stats()
+    out = {"runs": {}, "shapes": {}}
+    runs = (("full", "fp32"), ("neighbor", "fp32"), ("neighbor", "mixed"))
+    for sources, dtype in runs:
+        cfg = driver.SimConfig(device="cuda", sources=sources, dtype=dtype,
+                               **NBR_CFG)
+        shapes = {}
+        with recording(shapes):
+            rep, counts, reads, wall = counted(lambda: driver.run(cfg),
+                                               all_kernels)
+        blocks = {name: dict(sorted(k.blocks.items()))
+                  for name, k in all_kernels.items() if hasattr(k, "blocks")}
+        events = rep["steps"]
+        prof = kernel_profile(lambda: driver.run(cfg))
+        r = out["runs"][(sources, dtype)] = {
+            "events": events, "force_evals": rep["force_evals_total"],
+            "de": rep["de_rel"], "wall": wall, "report_wall": rep["wall_s"],
+            "chunk_median": rep["step_wall_s"]["median"],
+            "refreshes": rep.get("neighbor_refreshes", 0),
+            "overflows": rep.get("neighbor_overflows", 0),
+            "counts": counts, "reads": reads, "blocks": blocks,
+            "profile": prof, "shapes": {k: v[0] for k, v in shapes.items()}}
+        tier = DE_TIERS[dtype]
+        print(f"neighbor A/B {sources:<8} {dtype:<5}: plummer N={NBR_N} "
+              f"events {events}, force evals {r['force_evals']:.0f}, "
+              f"refreshes {r['refreshes']}, overflows {r['overflows']}, "
+              f"|dE/E| {r['de']:.3e} (tier {tier:.0e}), wall {wall:.3f} s "
+              f"(report {r['report_wall']:.3f} s, "
+              f"{1e3 * r['report_wall'] / events:.4f} ms/event; median "
+              f"chunk {1e3 * r['chunk_median'] / NBR_CFG['diag_every']:.4f} "
+              f"ms/event), engine host reads {reads} "
+              f"({reads / events:.3f}/event), launches {counts}, grids "
+              f"{blocks}", flush=True)
+        for key, n_launch in sorted(r["shapes"].items(),
+                                    key=lambda kv: -kv[1]):
+            print(f"  launches {key[0]:<13} tgt {key[1]} src {key[2]}: "
+                  f"{n_launch}", flush=True)
+        if prof is not None:
+            print(f"  profile: wall {prof['wall_ms']:.3f} ms, device "
+                  f"{prof['device_ms']:.3f} ms in {prof['kernels']} launches "
+                  f"({prof['kernels'] / events:.1f} per event, busy "
+                  f"{100 * prof['busy']:.1f}%), K1 + K2 "
+                  f"{prof['nbody_ms']:.3f} ms, host syncs (sync debug mode) "
+                  f"{prof['syncs']} ({prof['syncs'] / events:.3f} per "
+                  f"event)", flush=True)
+        else:
+            print("  profile: torch.profiler recorded no device time",
+                  flush=True)
+        for name in ("acc_jerk_pot", "snap"):
+            check(counts[name] > 0, f"neighbor {sources} {dtype}: {name} "
+                  f"never launched")
+        check(r["de"] <= tier, f"neighbor {sources} {dtype}: |dE/E| "
+              f"{r['de']:.3e} > {tier}")
+        if sources == "neighbor":
+            check(r["refreshes"] > 0, "neighbor: no refresh")
+            # one read per event, one more per refresh event, the read that
+            # finds no member live, and sim.driver's per-chunk reads
+            check(reads >= events + r["refreshes"],
+                  f"neighbor: {reads} host reads for {events} events")
+            out["shapes"][dtype] = shapes
+    full, nbr = out["runs"][("full", "fp32")], out["runs"][("neighbor",
+                                                             "fp32")]
+    print(f"neighbor A/B fp32: events {full['events']} / {nbr['events']}, "
+          f"force evals {full['force_evals'] / nbr['force_evals']:.3f}x "
+          f"fewer, wall per event {full['report_wall'] / full['events'] * 1e3:.4f}"
+          f" / {nbr['report_wall'] / nbr['events'] * 1e3:.4f} ms "
+          f"({(full['report_wall'] / full['events']) / (nbr['report_wall'] / nbr['events']):.3f}x)",
+          flush=True)
+
+    # K1 and K2 at the neighbor run's most used window shapes: kernel
+    # against plain on the operands of its last launch there, and timed
+    shapes = out["shapes"]["fp32"]
+    out["window_timings"] = {}
+    for name in ("acc_jerk_pot", "snap"):
+        near = sorted(((v[0], k) for k, v in shapes.items()
+                       if k[0] == name and k[1][0] > 1), reverse=True)[:2]
+        for n_launch, key in near:
+            x, kw = packed(name, *shapes[key][1])
+            kern = all_kernels[name]
+            plain = {"acc_jerk_pot": nbody_force._acc_jerk_plain,
+                     "snap": nbody_force._snap_plain}[name]
+            got = kern(*x, **kw)
+            want = nbody_force._plain(plain, x, x[0].shape[0], **kw)
+            torch.cuda.synchronize()
+            norm_err, abs_err = compare(name, got, want, x[0], TOL["fp32"])
+            kern.blocks = {}
+            ms = cuda_ms(lambda: kern(*x, **kw), 20)
+            blocks = next(iter(kern.blocks))
+            pms = cuda_ms(lambda: nbody_force._plain(
+                plain, x, x[0].shape[0], **kw), 1, warmup=1)
+            bms, by, pairs = window_bound_ms(name, "fp32", x)
+            shape = (x[0].shape[0], x[0].shape[1], x[1].shape[2])
+            out["window_timings"][(name, shape)] = {
+                "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                "pairs": pairs, "launches": n_launch, "blocks": blocks,
+                "max_norm_err": norm_err, "max_abs_err": abs_err}
+            print(f"{name:<13} window B*nbt={shape[0]} x N_t={shape[1]} x "
+                  f"N_s={shape[2]}: {n_launch} launches in the run, blocks "
+                  f"{blocks}, kernel {ms:.4f} ms  plain {pms:.4f} ms  bound "
+                  f"{bms:.4f} ms ({by}, {pairs:.0f} active pairs)  "
+                  f"bound/kernel {bms / ms:.3f}  vs plain max normalised err "
+                  f"{norm_err:.3e}", flush=True)
+    del shapes, out["shapes"]
+
+    # (a), (b): near1/near2 vs plain, bucket growth, on the sorted state
+    st = ens.spatial_sort_batched(ens.stack_states(
+        [scenarios.make("plummer", NBR_N, seed=0, device=dev,
+                        validate=False)]), leaf=NBR_CFG["block_i"])
+    st = ens.ensemble_initialize(st, eps=NBR_CFG["eps"])
+    out["near"] = {dtype: near_holds(dev, dtype, st)
+                   for dtype in ("fp32", "mixed")}
+    del st
+
+    # (c) the overflow run (every window the full extent) vs full sources
+    kw = dict(BLOCK_KW, block_i=32, block_j=32)
+    st = scenarios.make(BLOCK_SCENARIO, NBR_OVERFLOW_N, seed=0, device=dev)
+    srt = ens.spatial_sort_state(st, leaf=32)
+    full_s, full_c = ens.evolve_ensemble_block([srt], **kw)
+    nbr_s, nbr_c = ens.evolve_ensemble_block(
+        [st], sources="neighbor", neighbor_radius=NBR_OVERFLOW_RADIUS, **kw)
+    dpos = float((nbr_s.pos - full_s.pos).abs().max())
+    dvel = float((nbr_s.vel - full_s.vel).abs().max())
+    same = bitwise_same(nbr_s, full_s)
+    ov = {"events": (int(full_c.n_events[0]), int(nbr_c.n_events[0])),
+          "overflows": int(nbr_c.nbr.n_overflow[0]),
+          "refreshes": int(nbr_c.nbr.n_refresh[0]), "dpos": dpos,
+          "dvel": dvel, "bitwise": same}
+    out["overflow"] = ov
+    print(f"overflow (radius {NBR_OVERFLOW_RADIUS:g}) vs full sources, "
+          f"{BLOCK_SCENARIO} N={NBR_OVERFLOW_N} fp32: events {ov['events']}, "
+          f"overflows {ov['overflows']} of {ov['refreshes']} refreshes, "
+          f"final max |dpos| {dpos:.3e} |dvel| {dvel:.3e} (BLOCK_TOL fp32 "
+          f"{BLOCK_TOL_FP32}), bitwise equal {same}", flush=True)
+    check(ov["overflows"] == ov["refreshes"] > 0,
+          "overflow run: not every refresh overflowed")
+    check(ov["events"][0] == ov["events"][1], "overflow run: events differ")
+    check(dpos <= BLOCK_TOL_FP32[0] and dvel <= BLOCK_TOL_FP32[1],
+          "overflow run: outside BLOCK_TOL fp32")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"phase 11 peak allocated memory {out['peak_gb']:.3f} GB",
+          flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 12: the simulation server
+# --------------------------------------------------------------------------
+def serve_trace():
+    """``[(arrival_s, SimRequest), ...]``: the deterministic Poisson trace
+    (numpy seed 0, exponential gaps of mean SERVE_MEAN_GAP_S)."""
+    rng = np.random.default_rng(0)
+    arrivals = np.cumsum(rng.exponential(SERVE_MEAN_GAP_S,
+                                         size=SERVE_REQUESTS))
+    out = []
+    for i in range(SERVE_REQUESTS):
+        name, n, stepper = SERVE_SHAPES[i % len(SERVE_SHAPES)]
+        spec = scenarios.ScenarioSpec.parse(f"{name}:{n}", seed=i)
+        out.append((float(arrivals[i]), sim_engine.SimRequest(
+            spec=spec, stepper=stepper, t_end=SERVE_T_END)))
+    return out
+
+
+@contextlib.contextmanager
+def capturing_retirements(finals):
+    """Keep each retired member's rows (``finals[request_id]``) as
+    ``Pod.retire`` frees its slot."""
+    real = sim_engine.Pod.retire
+
+    def retire(pod, slot, now):
+        rows = {f: getattr(pod.batched, f)[slot].clone()
+                for f in nbody.FIELDS}
+        report = real(pod, slot, now)
+        finals[report["request_id"]] = rows
+        return report
+
+    sim_engine.Pod.retire = retire
+    try:
+        yield finals
+    finally:
+        sim_engine.Pod.retire = real
+
+
+@contextlib.contextmanager
+def timing(methods, seconds):
+    """Add each call's host seconds of ``cls.name`` to ``seconds[label]``
+    for ``(cls, name, label)`` in ``methods``.  Each method ends in a
+    device-to-host read, so the host clock spans its device work."""
+    reals = [(cls, name, getattr(cls, name)) for cls, name, _ in methods]
+
+    def timed(real, label):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kw)
+            finally:
+                seconds[label] = (seconds.get(label, 0.0)
+                                  + time.perf_counter() - t0)
+        return call
+
+    for (cls, name, real), (_, _, label) in zip(reals, methods):
+        setattr(cls, name, timed(real, label))
+    try:
+        yield seconds
+    finally:
+        for cls, name, real in reals:
+            setattr(cls, name, real)
+
+
+#: phase 12's time split: admission (of it, building and validating the
+#: initial conditions on the host) and the pods' engine chunks
+SERVE_SPLIT = ((sim_engine.Pod, "admit", "admit"),
+               (scenarios.ScenarioSpec, "build", "build ICs"),
+               (sim_engine.Pod, "advance", "advance"))
+
+
+def serve_run(server, trace, *, stop_after=None):
+    """Replay ``trace`` in real time (each request submitted at its arrival
+    second) until drained, or until ``stop_after`` reports; returns the
+    wall seconds and the requests not yet submitted."""
+    pending = list(trace)
+    t0 = time.perf_counter()
+    while pending or server.busy():
+        if stop_after is not None and len(server.reports) >= stop_after:
+            break
+        now = time.perf_counter() - t0
+        while pending and pending[0][0] <= now:
+            server.submit(pending.pop(0)[1])
+        if server.busy():
+            server.step()
+        else:
+            time.sleep(0.001)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, pending
+
+
+def serve_phase(dev, all_kernels):
+    """Phase 12: the simulation server at full size.  Returns the readings
+    the JSON line and PERF.md report."""
+    trace = serve_trace()
+    out = {}
+    lib = nbody_force._library
+
+    for label, extra in (("full", {}), ("neighbor", SERVE_NBR)):
+        reqs = [(t, r) for t, r in trace
+                if label == "full" or r.stepper == "block"]
+        server = sim_engine.SimServer(sim_engine.ServerConfig(
+            device="cuda", **SERVE_CFG, **extra))
+        t0 = time.perf_counter()
+        warm = server.warmup([r for _, r in reqs])
+        warm_s = time.perf_counter() - t0
+        misses0, loads0 = server.cache_misses(), lib.cache_info().misses
+        finals, split = {}, {}
+        with capturing_retirements(finals), timing(SERVE_SPLIT, split):
+            (wall, _), counts, reads, _ = counted(
+                lambda: serve_run(server, reqs), all_kernels)
+        misses = server.cache_misses() - misses0
+        loads = lib.cache_info().misses - loads0
+        turn = sorted(r["turnaround_s"] for r in server.reports)
+        p50 = turn[len(turn) // 2]
+        p99 = turn[min(int(0.99 * (len(turn) - 1) + 0.5), len(turn) - 1)]
+        des = {r["request_id"]: r["de_rel"] for r in server.reports}
+        r = out[label] = {
+            "requests": len(server.reports), "wall": wall, "warmup_s": warm_s,
+            "warmup_builds": warm, "misses": misses, "loads": loads,
+            "rps": len(server.reports) / wall, "p50": p50, "p99": p99,
+            "counts": counts, "reads": reads, "max_de": max(des.values()),
+            "pods": sorted(server.pods), "finals": finals, "split": split,
+            "refreshes": sum(x.get("neighbor_refreshes", 0)
+                             for x in server.reports)}
+        print(f"server {label}: {r['requests']} requests in {wall:.3f} s "
+              f"({r['rps']:.4f} requests/s), turnaround p50 {p50:.3f} s p99 "
+              f"{p99:.3f} s, pods {r['pods']}, warmup {warm_s:.3f} s "
+              f"({warm:.0f} engine builds), after warmup engine builds "
+              f"{misses:.0f} and kernel library loads {loads}, launches "
+              f"{counts}, max |dE/E| {r['max_de']:.3e} (tier "
+              f"{DE_TIERS['fp32']:.0e}), neighbor refreshes "
+              f"{r['refreshes']}", flush=True)
+        admit, build = split.get("admit", 0.0), split.get("build ICs", 0.0)
+        advance = split.get("advance", 0.0)
+        print(f"server {label} time split: admission {admit:.3f} s "
+              f"(building the ICs {build:.3f} s), engine chunks "
+              f"{advance:.3f} s, the rest (retire, submit, idle) "
+              f"{wall - admit - advance:.3f} s of {wall:.3f} s", flush=True)
+        for x in sorted(server.reports, key=lambda x: x["request_id"]):
+            print(f"  request {x['request_id']:>2} {x['scenario']:<22} "
+                  f"{x['stepper'] if 'stepper' in x else '':<8} pod_cap "
+                  f"{x['pod_cap']:>5} steps {x['steps']:>5} |dE/E| "
+                  f"{x['de_rel']:.3e} turnaround {x['turnaround_s']:.3f} s",
+                  flush=True)
+        check(r["requests"] == len(reqs), f"server {label}: "
+              f"{r['requests']} of {len(reqs)} requests retired")
+        check(misses == 0, f"server {label}: {misses} engine builds after "
+              f"warmup")
+        check(loads == 0, f"server {label}: kernel library loaded after "
+              f"warmup")
+        check(r["max_de"] <= DE_TIERS["fp32"],
+              f"server {label}: |dE/E| {r['max_de']:.3e}")
+        for name in ("acc_jerk_pot", "snap"):
+            check(counts[name] > 0, f"server {label}: {name} never launched")
+        if label == "neighbor":
+            check(r["refreshes"] > 0, "server neighbor: no refresh")
+
+    # suspend mid-trace, resume in a fresh server: the final rows must be
+    # the uninterrupted run's, bit for bit; the first ticks are profiled
+    full = out["full"]
+    server = sim_engine.SimServer(sim_engine.ServerConfig(device="cuda",
+                                                          **SERVE_CFG))
+    server.warmup([r for _, r in trace])
+    for _, r in trace:
+        server.submit(r)
+    finals = {}
+    with capturing_retirements(finals):
+        server.step()   # the first tick admits: the ICs are built on the host
+        prof = kernel_profile(lambda: [server.step()
+                                       for _ in range(SERVE_PROFILE_TICKS)])
+        serve_run(server, [], stop_after=SERVE_REQUESTS // 2)
+        with tempfile.TemporaryDirectory() as tmp:
+            server.suspend(tmp, step=1)
+            resumed = sim_engine.SimServer.resume(tmp)
+        done_before = len(server.reports)
+        resumed.run_until_drained()
+    same = (sorted(finals) == sorted(full["finals"]) and all(
+        all(torch.equal(finals[k][f], full["finals"][k][f])
+            for f in nbody.FIELDS) for k in finals))
+    out["resume"] = {"before": done_before, "after": len(resumed.reports),
+                     "bitwise": same, "profile": prof}
+    print(f"server suspend/resume: {done_before} requests retired before "
+          f"the suspend, {len(resumed.reports)} after the resume; every "
+          f"final state bitwise equal to the uninterrupted run's: {same}",
+          flush=True)
+    if prof is None:
+        print("server profile: torch.profiler recorded no device time",
+              flush=True)
+    else:
+        print(f"server profile ({SERVE_PROFILE_TICKS} ticks after the first, "
+              f"all {SERVE_REQUESTS} requests queued): wall {prof['wall_ms']:.3f} ms, device "
+              f"{prof['device_ms']:.3f} ms in {prof['kernels']} launches, "
+              f"busy {100 * prof['busy']:.1f}%, K1 + K2 {prof['nbody_ms']:.3f}"
+              f" ms, host syncs {prof['syncs']}", flush=True)
+    check(0 < done_before < SERVE_REQUESTS and len(resumed.reports) > 0,
+          f"server: the suspend did not fall mid-trace ({done_before} "
+          f"retired before it)")
+    check(same, "server: resumed final states differ from the "
+          "uninterrupted run's")
+    for label in ("full", "neighbor"):
+        del out[label]["finals"]
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1863,6 +2421,12 @@ def main() -> int:
     phase("10. the distribution strategies on the card")
     strat = strategy_phase(dev, all_kernels, block, nvml)
 
+    phase("11. the Ahmad-Cohen neighbor scheme at full size")
+    nbr = neighbor_phase(dev, all_kernels)
+
+    phase("12. the simulation server at full size")
+    srv = serve_phase(dev, all_kernels)
+
     rows = []
     for name in kernels:
         ms, pms, bms, by = timings[(name, "fp32", N_MAIN)]
@@ -1902,6 +2466,18 @@ def main() -> int:
             "launches_cli_strategies": {
                 k: strat["cli"][k]["counts"][name]
                 for k in ("single", "block")},
+            "launches_neighbor_ab": {
+                f"{src_} {dt_}": r["counts"][name]
+                for (src_, dt_), r in nbr["runs"].items()},
+            "launches_server": {k: srv[k]["counts"][name]
+                                for k in ("full", "neighbor")},
+            "window_shapes": {
+                "x".join(map(str, shape_)): v
+                for (n_, shape_), v in nbr["window_timings"].items()
+                if n_ == name},
+            "near_max_norm_err": {
+                dt_: max(e[0] for e in r["errs"].values())
+                for dt_, r in nbr["near"].items()},
             "strategy_shapes": {
                 label: {"ms": ms_, "bound_ms": b_, "bound_by": by_,
                         "n_t": sh_[0], "n_s": sh_[1]}

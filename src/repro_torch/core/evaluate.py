@@ -1,12 +1,13 @@
 """Evaluator factories: the force-evaluation stage of the Hermite loop.
 
-Port of ``repro/core/evaluate.py`` (the neighbor-window evaluator is not
-ported yet).  ``make_block_evaluator`` is the single implementation body:
+Port of ``repro/core/evaluate.py``.  ``make_block_evaluator`` is the
+single implementation body:
 an active-target evaluator (per-target activity mask, sources stay full)
 with an optional compaction layer that gathers the active targets into a
 dense, block-aligned buffer before launching the kernels.
 ``make_evaluator``, the lockstep evaluator of the paper's one-chip
-configuration, is its all-ones-mask case.
+configuration, is its all-ones-mask case.  ``make_neighbor_block_evaluator``
+is the near-window pair of the Ahmad-Cohen split.
 
 Every evaluator takes one system (``(N, 3)`` leaves) or a batch of them
 (``(B, N, 3)``); a batch goes through one launch per pass.  The reference
@@ -185,6 +186,124 @@ def make_block_evaluator(
         return Evaluation(acc=acc, jerk=jerk, snap=snp, pot=pot)
 
     return evaluate_gather
+
+
+def make_neighbor_block_evaluator(
+    *,
+    n: int,
+    eps: float = 1e-7,
+    block_i: int = nbody_force.DEFAULT_BLOCK_I,
+    block_j: int = nbody_force.DEFAULT_BLOCK_J,
+    dtype: str = "fp32",
+):
+    """Near-window (regular-force) evaluator pair of the Ahmad-Cohen split.
+
+    The source-axis dual of :func:`make_block_evaluator`'s compaction: the
+    targets stay dense (every target block launches; the activity mask
+    handles inactive rows), but each target block sweeps only its gathered
+    window of neighbor source blocks (``kernels.neighbor.build_windows``)
+    instead of the full source extent.  Every target block of every member
+    is one batch entry of ONE launch per pass: ``B * nbt`` entries of
+    ``block_i`` targets against ``w * block_j`` gathered sources, on the
+    kernels' ``gridDim.y``.  ``w_idx`` (a Python int; the reference's
+    ``lax.switch`` index) picks the window capacity from the plan's
+    ``source_caps``; it must bound every live window count.  The last
+    bucket is the full padded source extent, so an overflowing window runs
+    the exact all-pairs sweep.
+
+    Returns ``(near1, near2)``, each on one system (``(n, 3)`` leaves) or a
+    batch (``(B, n, 3)``, windows ``(B, nbt, nsb)``)::
+
+        near1(pos, vel, mass, mask_t, win_idx, win_cnt, w_idx)
+            -> (acc, jerk, pot)                     # near field only
+        near2(pos, vel, acc_t, acc_s, mass, mask_t, win_idx, win_cnt, w_idx)
+            -> snap                                 # near field only
+
+    ``acc_t`` is the total (near + far) acceleration of the targets and
+    ``acc_s`` that of every source row: the snap term depends on both
+    particles' full accelerations even where only near pairs are summed.
+    Window slots past ``win_cnt`` gather with their mass zeroed, so they
+    contribute exactly zero: a wider bucket only appends exact zeros to
+    each row's sum.  ``B * nbt`` above :data:`nbody_force.MAX_BATCH` raises
+    ``ValueError`` before anything launches.
+    """
+    cast, rect1, rect2 = _rect_passes(eps=eps, block_i=block_i,
+                                      block_j=block_j, dtype=dtype)
+    nbt = -(-n // block_i)
+    nsb = -(-n // block_j)
+    nt_pad, ns_pad = nbt * block_i, nsb * block_j
+    # window capacities in source blocks per target block
+    w_caps = tuple(c // block_j for c in ops.capacity_buckets(n, block_j))
+
+    def _blocks(x, nb, block, rows):
+        """(B, n, ...) rows padded and split into (B, nb, block, ...)."""
+        pad = (0, 0) * (x.dim() - 2) + (0, rows - n)
+        x = torch.nn.functional.pad(x, pad)
+        return x.reshape((x.shape[0], nb, block) + x.shape[2:])
+
+    def _targets(x):
+        """(B, n, ...) -> (B * nbt, block_i, ...) target blocks."""
+        x = _blocks(x, nbt, block_i, nt_pad)
+        return x.reshape((-1,) + x.shape[2:])
+
+    def _unblock(x, b):
+        return x.reshape((b, nt_pad) + x.shape[2:])[:, :n]
+
+    def _gather(win_idx, win_cnt, w_idx, sm, *rows):
+        """The first ``w`` window entries of every target block, flattened
+        to (B * nbt, w * block_j, ...); slots past ``win_cnt`` zero their
+        mass."""
+        w = w_caps[w_idx]
+        b = sm.shape[0]
+        if b * nbt > nbody_force.MAX_BATCH:
+            raise ValueError(
+                f"{b} members x {nbt} target blocks = {b * nbt} batch "
+                f"entries exceed the {nbody_force.MAX_BATCH} one launch takes "
+                "(gridDim.y)")
+        idx = win_idx[:, :, :w].long()
+        bidx = torch.arange(b, device=sm.device)[:, None, None]
+        val = (torch.arange(w, device=sm.device)[None, None, :]
+               < win_cnt[:, :, None])
+        gm = torch.where(val[..., None], _blocks(sm, nsb, block_j,
+                                                 ns_pad)[bidx, idx], 0.0)
+        out = [gm.reshape(b * nbt, w * block_j)]
+        for x in rows:
+            g = _blocks(x, nsb, block_j, ns_pad)[bidx, idx]
+            out.append(g.reshape((b * nbt, w * block_j) + g.shape[4:]))
+        return out
+
+    def _batched(fn):
+        """Lift a batch-axis function to also take one unbatched system."""
+        def lifted(pos, *args):
+            if pos.dim() == 3:
+                return fn(pos, *args)
+            out = fn(pos[None], *(a[None] if isinstance(a, torch.Tensor)
+                                  else a for a in args))
+            if isinstance(out, tuple):
+                return tuple(o[0] for o in out)
+            return out[0]
+        return lifted
+
+    @_batched
+    def near1(pos, vel, mass, mask_t, win_idx, win_cnt, w_idx):
+        b = pos.shape[0]
+        p, v, m = cast(pos), cast(vel), cast(mass)
+        gm, gp, gv = _gather(win_idx, win_cnt, w_idx, m, p, v)
+        acc, jerk, pot = rect1(_targets(p), _targets(v), gp, gv, gm,
+                               _targets(mask_t))
+        return _unblock(acc, b), _unblock(jerk, b), _unblock(pot, b)
+
+    @_batched
+    def near2(pos, vel, acc_t, acc_s, mass, mask_t, win_idx, win_cnt, w_idx):
+        b = pos.shape[0]
+        p, v, m = cast(pos), cast(vel), cast(mass)
+        gm, gp, gv, ga = _gather(win_idx, win_cnt, w_idx, m, p, v,
+                                 cast(acc_s))
+        snp = rect2(_targets(p), _targets(v), _targets(cast(acc_t)), gp, gv,
+                    ga, gm, _targets(mask_t))
+        return _unblock(snp, b)
+
+    return near1, near2
 
 
 def make_evaluator(

@@ -45,6 +45,10 @@ _ACT = _M  # target blocks carry the activity mask in the (unused) mass slot
 
 _COMPUTE_DTYPES = {"bfloat16": torch.bfloat16}
 
+#: the most systems one launch takes: the batch rides the grid's y extent
+#: (``gridDim.y``); a larger batch fails at launch
+MAX_BATCH = 65535
+
 #: pair budget of one row chunk of the plain version (bounds its
 #: temporaries to a few hundred MB at N_s = 65536)
 _PLAIN_PAIRS = 1 << 22

@@ -1,7 +1,7 @@
 """Packing wrappers around the N-body force kernels.
 
-Port of ``repro/kernels/ops.py`` (the TPU-specific VMEM accounting and
-the neighbor-window plans are not ported).  These functions own
+Port of ``repro/kernels/ops.py`` (the TPU-specific VMEM accounting is
+not ported).  These functions own
 the (un)packing between the physics-facing layout (pos/vel/mass tensors,
 any N, any float dtype) and the kernels' packed, block-padded float32
 layout, then call ``nbody_force``'s packed wrappers, which launch the CUDA
@@ -33,6 +33,12 @@ _PAD_COLS = 8
 DTYPES = ("fp64", "fp32", "mixed")
 _COMPUTE_DTYPE = {"fp32": None, "mixed": "bfloat16"}
 _IO_BYTES = {"fp64": 8, "fp32": 4, "mixed": 4}
+
+# The source axis (--sources): "full" sweeps every launch over the complete
+# source extent; "neighbor" is the Ahmad-Cohen split, each target block
+# sweeping only its gathered window of neighbor source blocks at every
+# event, the far field refreshed on a slower level (``kernels/neighbor.py``).
+SOURCES = ("full", "neighbor")
 
 
 def compute_dtype_for(dtype: str):
@@ -179,11 +185,15 @@ class CapacityPlan:
     n_passes: int = 2
     caps: tuple = ()
     dtype: str = "fp32"
+    sources: str = "full"
 
     def __post_init__(self):
         if self.dtype not in DTYPES:
             raise ValueError(
                 f"plan dtype must be one of {DTYPES}, got {self.dtype!r}")
+        if self.sources not in SOURCES:
+            raise ValueError(
+                f"plan sources must be one of {SOURCES}, got {self.sources!r}")
         if not self.caps:
             object.__setattr__(
                 self, "caps", capacity_buckets(self.n_targets, self.block_i))
@@ -197,9 +207,15 @@ class CapacityPlan:
     @property
     def tile_io_bytes(self) -> int:
         """Bytes one (i, j) tile stages: the (BI, 8) target block and the
-        (8, BJ) source block in, the (BI, 8) output block out."""
-        return ((2 * self.block_i * 8 + 8 * self.block_j)
+        (8, BJ) source block in, the (BI, 8) output block out.  A
+        ``sources="neighbor"`` plan also pays the window gather per tile:
+        the (8, BJ) source block read from its resident rows and written
+        into the target block's gathered window."""
+        base = ((2 * self.block_i * 8 + 8 * self.block_j)
                 * self.io_bytes_per_element)
+        if self.sources == "neighbor":
+            base += 2 * 8 * self.block_j * self.io_bytes_per_element
+        return base
 
     @property
     def tiles_by_cap(self) -> tuple:
@@ -222,6 +238,34 @@ class CapacityPlan:
     def tiles(self, idx: int) -> int:
         """Tiles one event enqueues at bucket ``idx``."""
         return self.tiles_by_cap[idx]
+
+    # -- the source-extent schedule (the Ahmad-Cohen neighbor windows) -----
+    @property
+    def source_caps(self) -> tuple:
+        """Source-extent schedule in rows: block_j-aligned powers of two up
+        to the padded full source extent.  The last bucket is the full
+        window, so a neighbor window that outgrows every smaller bucket
+        runs the exact all-pairs sweep: overflow falls back to the full
+        window, never to truncation."""
+        return capacity_buckets(self.n_sources, self.block_j)
+
+    def source_bucket(self, n_src_rows):
+        """Index of the smallest source bucket holding ``n_src_rows``
+        gathered source rows (an int or an integer tensor)."""
+        return bucket_index(n_src_rows, self.source_caps)
+
+    @property
+    def window_tiles_by_cap(self) -> tuple:
+        """Tiles one neighbor event enqueues at each source-window capacity
+        (all passes): every target block sweeps its gathered window of
+        ``cap / BJ`` source blocks instead of the full j-extent."""
+        i_tiles = -(-self.n_targets // self.block_i)
+        return tuple(i_tiles * (c // self.block_j) * self.n_passes
+                     for c in self.source_caps)
+
+    def window_tiles(self, idx: int) -> int:
+        """Tiles one neighbor event enqueues at source bucket ``idx``."""
+        return self.window_tiles_by_cap[idx]
 
     def shard(self, n_shards: int) -> "CapacityPlan":
         """The per-shard local plan: each shard compacts its own
@@ -248,6 +292,19 @@ class CapacityPlan:
                 f"(0, {self.caps[-1]}]")
         idx = bisect.bisect_left(self.caps, ceiling)
         return dataclasses.replace(self, caps=self.caps[: idx + 1])
+
+    def admission_cap(self, n_active: int) -> int:
+        """Capacity ceiling for admitting a run of ``n_active`` bodies: the
+        top bucket of :meth:`restrict`, the smallest pod extent whose
+        launch schedule the member can never exceed.  The server keys its
+        pods by it, so a pod's bucket groups, and with them its cached
+        engine, stay the same under admit, retire and backfill."""
+        n_active = int(n_active)
+        if not 0 < n_active <= self.caps[-1]:
+            raise ValueError(
+                f"n_active={n_active} outside this plan's capacity range "
+                f"(0, {self.caps[-1]}]")
+        return self.restrict(n_active).caps[-1]
 
 
 def _window(perm, cap: int):

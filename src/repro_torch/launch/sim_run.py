@@ -44,12 +44,20 @@ additionally gathers each event's active targets into a dense
 block-aligned buffer so the kernel grid *shrinks* to the live block
 instead of masking it (``--block-i/--block-j`` set the logical tile);
 ``--bucket-mode member`` (the default) dispatches a mixed batch's capacity
-buckets per member group instead of batch-shared.
+buckets per member group instead of batch-shared.  ``--sources neighbor``
+runs the block stepper's Ahmad-Cohen split (near force over gathered
+per-block windows of ``--neighbor-radius``, far field refreshed every
+``n_sub >> --refresh-levels`` ticks); the rows are sorted spatially once
+at build:
 
-Not ported yet, each exits with the ``NotImplementedError`` naming its
-ROADMAP.md item: an ensemble over ``--devices k`` (k > 1) and ``--mesh
-BxP`` (queue 1 item 7b), and ``--sources neighbor`` (item 8).  A strategy
-label on a batched run only tags the report, as in the reference.
+    PYTHONPATH=src python -m repro_torch.launch.sim_run --scenario \
+        plummer --n 16384 --stepper block --sources neighbor \
+        --block-i 32 --block-j 32 --neighbor-radius 0.125 --t-end 0.0625
+
+Not ported yet, each exits with the ``NotImplementedError`` naming
+ROADMAP.md queue 1 item 7b: an ensemble over ``--devices k`` (k > 1) and
+``--mesh BxP``.  A strategy label on a batched run only tags the report,
+as in the reference.
 
 Each invocation emits a one-line summary plus a JSON telemetry report
 (wall time, steps/s, interactions/s, modeled energy/EDP, per-run energy
@@ -134,8 +142,9 @@ def main(argv=None):
     ap.add_argument("--sources", default="full",
                     choices=("full", "neighbor"),
                     help="block stepper force sources: 'full' (all-pairs) "
-                         "or 'neighbor' (the Ahmad-Cohen split; not ported "
-                         "yet: ROADMAP.md queue 1 item 8)")
+                         "or 'neighbor' (Ahmad-Cohen split: near force from "
+                         "gathered per-block neighbor windows every event, "
+                         "far field Taylor-predicted between refreshes)")
     ap.add_argument("--neighbor-radius", type=float, default=0.25,
                     help="neighbor window radius in simulation length units "
                          "(--sources neighbor; larger = more exact near "

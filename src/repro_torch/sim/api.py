@@ -37,12 +37,13 @@ report, as in the reference.
 
 **Not ported yet**, raising ``NotImplementedError`` at ``build``: batches
 sharded over several devices and the fused mesh (ROADMAP.md queue 1 item
-7b), and the Ahmad-Cohen neighbor scheme (item 8).
+7b).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Dict, Mapping, Optional, Tuple
 
@@ -61,9 +62,8 @@ from repro_torch.sim.telemetry import RunReport
 
 MAX_STEPS = 200_000
 
-#: the ROADMAP items behind what the port does not run yet
+#: the ROADMAP item behind what the port does not run yet
 _BATCH_DEVICES_ITEM = "ROADMAP.md queue 1 item 7b"
-_NEIGHBOR_ITEM = "ROADMAP.md queue 1 item 8"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,7 +85,7 @@ class SimConfig:
     block_i: Optional[int] = None    # kernel tile shape override (block
     block_j: Optional[int] = None    #   stepper; None => kernel defaults)
     sources: str = "full"            # "full" | "neighbor" (Ahmad-Cohen
-    #   near/far split; not ported yet)
+    #   near/far split; block stepper)
     mesh: Optional[Tuple[int, int]] = None  # fused (batch, domain) device
     #   grid (block stepper; product must equal devices; not ported yet)
     neighbor_radius: float = 0.25    # AC window radius (simulation length)
@@ -286,10 +286,6 @@ def _batch_device(cfg: SimConfig) -> torch.device:
         raise NotImplementedError(
             f"mesh={tuple(cfg.mesh)}: the fused (batch, domain) mesh is not "
             f"ported yet: {_BATCH_DEVICES_ITEM}")
-    if cfg.sources == "neighbor":
-        raise NotImplementedError(
-            "sources='neighbor' (the Ahmad-Cohen scheme) is not ported yet: "
-            f"{_NEIGHBOR_ITEM}")
     if len(devices) > 1:
         raise NotImplementedError(
             f"devices={cfg.devices}: ensembles sharded over devices are not "
@@ -693,6 +689,14 @@ class EnsembleRunner(Runner):
                               dev)
         h = RunHandle(cfg, self.kind)
         batched, n_active, runs_meta = self._batch(cfg)
+        if cfg.resolved_stepper() == "block" and cfg.sources == "neighbor":
+            # sort once at build (row order is carry-aligned for the whole
+            # run) so contiguous index blocks are compact spatial cells and
+            # the gathered neighbor windows stay tight
+            batched = ens.spatial_sort_batched(
+                batched, n_active,
+                leaf=math.gcd(cfg.block_i or nbody_force.DEFAULT_BLOCK_I,
+                              cfg.block_j or nbody_force.DEFAULT_BLOCK_J))
         h.b = ens.batch_size(batched)
         h.n_max = batched.pos.shape[1]
         h.n_active, h.runs_meta = n_active, runs_meta
@@ -747,6 +751,7 @@ class EnsembleRunner(Runner):
             h.tiles_prev = [0.0] * h.b
             h.pairs_prev = [0.0] * h.b
             h.bound_total = 0.0
+            h.nref_prev = h.nov_prev = 0.0
         return h
 
     def _snapshot(self, h: RunHandle, done, t_sim, wall) -> None:
@@ -823,7 +828,8 @@ class EnsembleRunner(Runner):
             eta=cfg.eta, compaction=cfg.compaction,
             bucket_mode=cfg.bucket_mode,
             block_i=cfg.block_i, block_j=cfg.block_j,
-            sources=cfg.sources, **h.kw)
+            sources=cfg.sources, neighbor_radius=cfg.neighbor_radius,
+            refresh_levels=cfg.refresh_levels, **h.kw)
         _sync(h.batched.pos)
         h.done += 1
         ev = [float(x) for x in h.carry.n_events.tolist()]
@@ -870,6 +876,31 @@ class EnsembleRunner(Runner):
                 help="capacity-bucket switch hit counts (full "
                      "schedule, summed over members)").set(
                 h.carry.bucket_hits.sum(dim=0).tolist())
+        if h.carry.nbr is not None:
+            nbr = h.carry.nbr
+            nref = float(nbr.n_refresh.sum())
+            nov = float(nbr.n_overflow.sum())
+            reg.counter(
+                "sim.neighbor_refreshes", unit="refreshes",
+                help="Ahmad-Cohen window rebuilds (far-field "
+                     "re-anchors, summed over members)").inc(
+                nref - h.nref_prev)
+            reg.counter(
+                "sim.neighbor_overflow", unit="fallbacks",
+                help="refreshes whose widest active window fit no "
+                     "bucket below the full source extent").inc(
+                nov - h.nov_prev)
+            h.nref_prev, h.nov_prev = nref, nov
+            wc = nbr.win_cnt.cpu().to(torch.float64)
+            nsb = nbr.win_idx.shape[-1]
+            blk_valid = (torch.arange(wc.shape[1])[None, :]
+                         * h.plan.block_i) < torch.tensor(h.n_active)[:, None]
+            occ_hist = reg.histogram(
+                "sim.neighbor_occupancy", unit="fraction",
+                help="per-target-block neighbor window fraction of "
+                     "the full source extent (sampled per chunk)")
+            for v in (wc[blk_valid] / nsb).tolist():
+                occ_hist.observe(v)
         h.ev_prev, h.tiles_prev, h.pairs_prev = ev, tiles, pairs
         t_min = float(torch.min(h.batched.time))
         self._snapshot(h, int(max(ev)), t_min, time.perf_counter() - t0)
@@ -908,6 +939,14 @@ class EnsembleRunner(Runner):
         extra = {"e0": list(h.e0), "e1": e1,
                  "de_rel": max(de), "t_final": t_final,
                  "runs": runs}
+        if h.stepper == "block" and h.carry.nbr is not None:
+            nref = h.carry.nbr.n_refresh.tolist()
+            nov = h.carry.nbr.n_overflow.tolist()
+            for i, r in enumerate(runs):
+                r["neighbor_refreshes"] = int(nref[i])
+                r["neighbor_overflows"] = int(nov[i])
+            extra["neighbor_refreshes"] = int(sum(nref))
+            extra["neighbor_overflows"] = int(sum(nov))
         return h.recorder.finalize(
             n_bodies=h.n_max, ensemble=h.b, n_devices=max(cfg.devices, 1),
             n_active=h.n_active, per_run_steps=per_run_steps,

@@ -23,6 +23,17 @@ capacity index (and whether any member is still live) in one
 device-to-host copy; ``compaction="none"`` reads nothing per event.
 ``ensemble_run_block.host_syncs`` counts the block path's reads.
 
+**The Ahmad-Cohen neighbor scheme.** ``sources="neighbor"`` splits the
+block stepper's force into a near sum over each target block's gathered
+window of neighbor source blocks (``kernels.neighbor``) and a far field
+Taylor-predicted between refreshes (:class:`NeighborCarry`).  Every target
+block of every member is one batch entry of one K1 (K2) launch per pass.
+The reference picks the window bucket and the refresh branch on the device
+(``lax.switch``/``lax.cond``); a launch needs its extent on the host, so a
+neighbor event reads ``[any refresh, window bucket, any live]`` in one
+copy, and a refresh event reads the new windows' bucket once more.
+:func:`block_admit_member` splices a new member into a running batch.
+
 **Engines.** Each stepper's engine (its evaluators, and for the block
 stepper the bucket groups' device tables) is built once per configuration,
 bucket groups and device and cached, as the reference caches its jitted
@@ -46,9 +57,8 @@ targets; the event schedule is the ensemble engine's.  A strategy label on
 a batch only tags it, as in the reference: its members are independent.
 
 Not ported yet: batches sharded over several devices and the fused mesh
-(``devices=`` of more than one, ``mesh=``; ROADMAP.md queue 1 item 7b),
-the Ahmad-Cohen neighbor scheme (``sources="neighbor"``, item 8) and
-admission into a running block batch (item 9).  The tensors' device picks
+(``devices=`` of more than one, ``mesh=``; ROADMAP.md queue 1 item 7b).
+The tensors' device picks
 the kernels or their plain versions, so the engines take no ``impl``:
 ``dtype="fp64"`` is the oracle.  The reference's ``impl``/``kernel``
 labels are resolved for the API by :func:`resolve_eval_impl` and checked
@@ -59,25 +69,28 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
 from repro_torch.core import hermite
 from repro_torch.core.evaluate import (COMPACTIONS, make_block_evaluator,
-                                       make_evaluator, shared_cap_index)
+                                       make_evaluator,
+                                       make_neighbor_block_evaluator,
+                                       shared_cap_index)
 from repro_torch.core.hermite import Evaluation
 from repro_torch.core.nbody import FIELDS, ParticleState
 from repro_torch.core.strategies import (STRATEGIES,
                                          make_strategy_block_evaluator,
                                          make_strategy_evaluator,
                                          mesh_devices)
-from repro_torch.kernels import nbody_force, ops
+from repro_torch.kernels import nbody_force, neighbor, ops
 from repro_torch.obs import metrics as obs_metrics
 
 #: the source axis: every launch over all sources, or the Ahmad-Cohen
-#: neighbor windows (not ported yet)
-SOURCES = ("full", "neighbor")
+#: neighbor windows
+SOURCES = ops.SOURCES
 #: per-member capacity-bucket dispatch modes of the block engine
 BUCKET_MODES = ("member", "shared")
 #: strategy labels: on a batch every label computes the same thing (its
@@ -182,8 +195,8 @@ def _mesh_list(devices, device) -> list:
 def _single_card(*, devices=None, mesh=None, strategy: str = "single",
                  sources: str = "full"):
     """Refuse what the batch engines do not run yet: a batch sharded over
-    several devices, the fused mesh or the neighbor scheme.  A strategy
-    label only tags a batch."""
+    several devices or the fused mesh.  A strategy label only tags a
+    batch."""
     if strategy not in STRATEGY_LABELS:
         raise ValueError(f"unknown strategy {strategy!r}; one of "
                          f"{STRATEGY_LABELS}")
@@ -194,10 +207,6 @@ def _single_card(*, devices=None, mesh=None, strategy: str = "single",
     if sources not in SOURCES:
         raise ValueError(
             f"sources must be one of {SOURCES}; got {sources!r}")
-    if sources != "full":
-        raise NotImplementedError(
-            "sources='neighbor' (the Ahmad-Cohen scheme) is not ported yet: "
-            "ROADMAP.md queue 1 item 8")
 
 
 # --------------------------------------------------------------------------
@@ -463,6 +472,32 @@ def evolve_ensemble(
 # --------------------------------------------------------------------------
 # hierarchical block-timestep engine (per-particle power-of-two levels)
 # --------------------------------------------------------------------------
+class NeighborCarry(NamedTuple):
+    """Per-batch carry of the Ahmad-Cohen neighbor scheme.
+
+    ``win_idx``/``win_cnt`` are the current windows (``(B, nbt, nsb)`` and
+    ``(B, nbt)`` int32, ``kernels.neighbor.build_windows``);
+    ``acc_far``/``jerk_far``/``snap_far``/``pot_far`` the far-field Taylor
+    coefficients captured at the last refresh (``far = full - near`` at the
+    refresh anchor, predicted between refreshes as ``a_far(h) = A + h J +
+    h^2/2 S``); ``t_ref`` the ``(B,)`` refresh anchor tick (``-1``: never
+    refreshed, which forces a refresh at the member's next event);
+    ``n_refresh``/``n_overflow`` count refresh events and window-overflow
+    fallbacks (a refresh whose widest window fit no bucket below the full
+    extent).
+    """
+
+    win_idx: torch.Tensor
+    win_cnt: torch.Tensor
+    acc_far: torch.Tensor
+    jerk_far: torch.Tensor
+    snap_far: torch.Tensor
+    pot_far: torch.Tensor
+    t_ref: torch.Tensor
+    n_refresh: torch.Tensor
+    n_overflow: torch.Tensor
+
+
 class BlockCarry(NamedTuple):
     """Per-batch carry of the block engine (pass back unchanged).
 
@@ -476,7 +511,8 @@ class BlockCarry(NamedTuple):
     dispatched each bucket of the full capacity schedule (all zeros
     without compaction).  The float counters are float64, as the
     reference keeps them under x64: exact integer adds far past float32's
-    2**24.
+    2**24.  ``nbr`` is the :class:`NeighborCarry` under
+    ``sources="neighbor"`` and None under full sources.
     """
 
     t_last: torch.Tensor
@@ -486,6 +522,67 @@ class BlockCarry(NamedTuple):
     n_events: torch.Tensor
     n_tiles: torch.Tensor
     bucket_hits: torch.Tensor
+    nbr: Optional[NeighborCarry] = None
+
+
+def neighbor_carry(b: int, n: int, block_i: int, block_j: int, dtype,
+                   device) -> NeighborCarry:
+    """The zeroed :class:`NeighborCarry` of a ``(b, n)`` batch.  ``t_ref =
+    -1`` forces a refresh at every member's first event, so the zeroed
+    windows and coefficients are never consumed."""
+    sd = dict(dtype=dtype, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    nbt, nsb = -(-n // block_i), -(-n // block_j)
+    return NeighborCarry(
+        win_idx=torch.zeros((b, nbt, nsb), **i32),
+        win_cnt=torch.zeros((b, nbt), **i32),
+        acc_far=torch.zeros((b, n, 3), **sd),
+        jerk_far=torch.zeros((b, n, 3), **sd),
+        snap_far=torch.zeros((b, n, 3), **sd),
+        pot_far=torch.zeros((b, n), **sd),
+        t_ref=torch.full((b,), -1, **i32),
+        n_refresh=torch.zeros(b, **i32),
+        n_overflow=torch.zeros(b, **i32))
+
+
+def _window_pairs(mask, win_cnt, block_i: int, block_j: int):
+    """(B,) float64 gathered interaction rows of one neighbor event: each
+    masked target sweeps its block's ``win_cnt * block_j`` gathered source
+    rows, the ``n_pairs`` cost the scheme shrinks from ``active * N``."""
+    b, n = mask.shape
+    nbt = win_cnt.shape[1]
+    per_block = torch.nn.functional.pad(mask, (0, nbt * block_i - n)).reshape(
+        b, nbt, block_i).sum(dim=2)
+    return (per_block * win_cnt).sum(dim=1).to(torch.float64) * block_j
+
+
+def spatial_sort_state(state: ParticleState, n_active=None, *,
+                       leaf: int = 32) -> ParticleState:
+    """Spatial sort of one run's rows (padding rows stay last).
+
+    The neighbor scheme windows contiguous index blocks, so spatial
+    locality of adjacent rows is what keeps the blocks' boxes, and with
+    them the gathered windows, tight.  Rows are laid out by balanced
+    orthogonal recursive bisection (``kernels.neighbor.kd_perm``; ``leaf``
+    should divide the kernel block sizes).  The physics is
+    permutation-invariant; entry points sort once at build or admission and
+    never mid-run.
+    """
+    n = state.pos.shape[0]
+    valid = (torch.arange(n, device=state.device)
+             < (n if n_active is None else int(n_active)))
+    perm = neighbor.kd_perm(state.pos, valid, leaf=leaf)
+    return ParticleState(**{
+        f: (x[perm] if x.dim() >= 1 else x)
+        for f, x in ((f, getattr(state, f)) for f in FIELDS)})
+
+
+def spatial_sort_batched(batched: ParticleState, n_active=None, *,
+                         leaf: int = 32) -> ParticleState:
+    """Per-member :func:`spatial_sort_state` over a batched state."""
+    na = _as_n_active(batched, n_active).tolist()
+    return stack_states([spatial_sort_state(m, a, leaf=leaf)
+                         for m, a in zip(unstack_states(batched), na)])
 
 
 def _macro_levels(s, dt_macro, *, eta, n_levels: int):
@@ -620,10 +717,12 @@ class _BlockEngine:
     """
 
     def __init__(self, *, order, eps, eta, dt_max, n_levels, compaction,
-                 block_i, block_j, groups, dtype, n, device):
+                 block_i, block_j, groups, dtype, n, device, sources="full",
+                 radius=0.25, refresh_levels=2):
         self.order, self.eta, self.dt_max = order, eta, dt_max
         self.n_levels, self.n_sub = n_levels, 2 ** (n_levels - 1)
-        self.compaction = compaction
+        self.compaction, self.sources = compaction, sources
+        self.block_i, self.block_j = block_i, block_j
         n_passes = 2 if order >= 6 else 1
         kw = dict(order=order, eps=eps, block_i=block_i, block_j=block_j,
                   dtype=dtype)
@@ -650,20 +749,30 @@ class _BlockEngine:
             # the masked dense launch covers the full grid, however many
             # blocks skip their work
             self.full_tiles = plan.dense_tiles
+        if sources == "neighbor":
+            self.near1, self.near2 = make_neighbor_block_evaluator(
+                n=n, eps=eps, block_i=block_i, block_j=block_j, dtype=dtype)
+            self.nplan = dataclasses.replace(plan, sources="neighbor")
+            self.refresh_period = max(1, self.n_sub >> refresh_levels)
+            self.radius = radius
 
     def init(self, batched, t_end) -> BlockCarry:
         t_last, levels, dt_macro = _event_init(
             batched, t_end, eta=self.eta, dt_max=self.dt_max,
             n_levels=self.n_levels)
-        b = batched.pos.shape[0]
-        f64 = dict(dtype=torch.float64, device=batched.device)
+        b, n = batched.pos.shape[0], batched.pos.shape[1]
+        dev = batched.device
+        f64 = dict(dtype=torch.float64, device=dev)
+        nbr = None
+        if self.sources == "neighbor":
+            nbr = neighbor_carry(b, n, self.block_i, self.block_j,
+                                 batched.dtype, dev)
         return BlockCarry(
             t_last=t_last, levels=levels, dt_macro=dt_macro,
             n_pairs=torch.zeros(b, **f64),
-            n_events=torch.zeros(b, dtype=torch.int32,
-                                 device=batched.device),
+            n_events=torch.zeros(b, dtype=torch.int32, device=dev),
             n_tiles=torch.zeros(b, **f64),
-            bucket_hits=torch.zeros((b, self.n_caps), **f64))
+            bucket_hits=torch.zeros((b, self.n_caps), **f64), nbr=nbr)
 
     def _gather_eval(self, xp, vp, ap, mass, act, live):
         """The gathered evaluation of one event, one launch per pass per
@@ -696,7 +805,155 @@ class _BlockEngine:
         hits = cap_idx[:, None] == self.cap_range
         return ev, self.tiles_table[cap_idx], hits.to(torch.float64)
 
+    def _near_total(self, pre, nb: NeighborCarry, dt_macro, mass, mask,
+                    win_idx, win_cnt, w_idx: int) -> Evaluation:
+        """Near force over the given windows plus the far field predicted
+        from the last refresh anchor, for every member.  The anchor does not
+        move inside the event, so one prediction serves both the snap
+        pass's accelerations and the returned evaluation."""
+        t_next, xp, vp, ap = pre
+        sd = xp.dtype
+        a_n, j_n, p_n = self.near1(xp, vp, mass, mask, win_idx, win_cnt,
+                                   w_idx)
+        hf = ((t_next - torch.clamp(nb.t_ref, min=0)).to(sd) * dt_macro
+              / self.n_sub)
+        h1 = hf[:, None, None]
+        a_far = nb.acc_far + h1 * nb.jerk_far + (0.5 * h1 * h1) * nb.snap_far
+        acc_t = a_n.to(sd) + a_far
+        if self.order >= 6:
+            acc_s = torch.where(mask[..., None], acc_t, ap)
+            s_n = self.near2(xp, vp, acc_t, acc_s, mass, mask, win_idx,
+                             win_cnt, w_idx)
+            snp = s_n.to(sd) + nb.snap_far
+        else:
+            snp = torch.zeros_like(acc_t)
+        return Evaluation(acc=acc_t,
+                          jerk=j_n.to(sd) + nb.jerk_far + h1 * nb.snap_far,
+                          snap=snp, pot=p_n.to(sd) + nb.pot_far)
+
+    def _neighbor_event(self, s, c: BlockCarry, na, t_end):
+        """One Ahmad-Cohen event (the reference's ``neighbor_body``).
+
+        Members whose refresh is due (``refresh_levels`` irregular levels
+        since their anchor, every macro boundary, and their first event)
+        take the full evaluation itself and re-anchor their far field on
+        fresh windows; the others take the near force over their windows
+        plus the predicted far field.  A refresh event does all the
+        reference's launches: the near passes over the old windows for the
+        members that keep their anchor, the full evaluation and the near
+        passes over the new windows; rows whose results an event discards
+        go to the kernels inactive.  Returns ``(state, carry)``, or None
+        when no member is live.
+        """
+        bi, bj, nplan = self.block_i, self.block_j, self.nplan
+        nb = c.nbr
+        live, t_next, active, h, xp, vp, ap = _event_pre(
+            s, c.t_last, c.levels, c.dt_macro, na, t_end, n_sub=self.n_sub)
+        b, n = active.shape
+        sd = s.dtype
+        need = live & ((nb.t_ref < 0)
+                       | (t_next - nb.t_ref >= self.refresh_period)
+                       | (t_next == self.n_sub))
+        keep = live & ~need
+        real = torch.arange(n, device=s.device)[None, :] < na[:, None]
+        act = active & live[:, None]
+        nbt = nb.win_cnt.shape[1]
+        # the window of one event is shared by every launched target block,
+        # so it is sized over the blocks that hold active targets
+        act_blk = torch.nn.functional.pad(act, (0, nbt * bi - n)).reshape(
+            b, nbt, bi).any(dim=2)
+        any_need = need.any()
+        sized = torch.where(any_need, keep, live)
+        wmax = torch.where(sized[:, None] & act_blk, nb.win_cnt, 0).amax()
+        host = torch.stack([any_need.long(), nplan.source_bucket(wmax * bj),
+                            live.any().long()]).tolist()
+        ensemble_run_block.host_syncs += 1
+        refresh, w_old, any_live = host
+        if not any_live:
+            return None
+        pre = (t_next, xp, vp, ap)
+        tiles_old = live.to(torch.float64) * nplan.window_tiles(w_old)
+        pairs_old = torch.where(live, _window_pairs(active, nb.win_cnt, bi,
+                                                    bj), 0.0)
+        if not refresh:
+            ev = self._near_total(pre, nb, c.dt_macro, s.mass, act,
+                                  nb.win_idx, nb.win_cnt, w_old)
+            nbr, dp, tiles = nb, pairs_old, tiles_old
+        else:
+            ev_o = self._near_total(pre, nb, c.dt_macro, s.mass,
+                                    act & keep[:, None], nb.win_idx,
+                                    nb.win_cnt, w_old)
+            # the refresh anchor: the full force at the event's predicted
+            # positions, new windows from the same positions, far = full -
+            # near with the same acc operands in both
+            fresh = real & need[:, None]
+            ev_f = self.bev(xp, vp, ap, s.mass, fresh)
+            win_idx_n, win_cnt_n = neighbor.build_windows(
+                xp, real, block_i=bi, block_j=bj, radius=self.radius)
+            wmax_n = torch.where(need[:, None], win_cnt_n, 0).amax()
+            w_new = int(nplan.source_bucket(wmax_n * bj))
+            ensemble_run_block.host_syncs += 1
+            a_nn, j_nn, p_nn = self.near1(xp, vp, s.mass, fresh, win_idx_n,
+                                          win_cnt_n, w_new)
+            af, jf, pf = ev_f.acc.to(sd), ev_f.jerk.to(sd), ev_f.pot.to(sd)
+            sel3, sel2 = need[:, None, None], need[:, None]
+            if self.order >= 6:
+                acc_s = torch.where(real[..., None], af, ap)
+                s_nn = self.near2(xp, vp, af, acc_s, s.mass, fresh,
+                                  win_idx_n, win_cnt_n, w_new)
+                sf = ev_f.snap.to(sd)
+                snapf_n = sf - s_nn.to(sd)
+                snap_ev = torch.where(sel3, sf, ev_o.snap)
+            else:
+                snapf_n = snap_ev = torch.zeros_like(af)
+            ev = Evaluation(acc=torch.where(sel3, af, ev_o.acc),
+                            jerk=torch.where(sel3, jf, ev_o.jerk),
+                            snap=snap_ev,
+                            pot=torch.where(sel2, pf, ev_o.pot))
+            src_caps = nplan.source_caps
+            if len(src_caps) > 1:
+                rows = win_cnt_n.amax(dim=1) * bj
+                dov = (need & (rows > src_caps[-2])).to(torch.int32)
+            else:
+                dov = torch.zeros_like(nb.n_overflow)  # one bucket: full
+            na_f = na.to(torch.float64)
+            # need implies live
+            dp = torch.where(
+                need, na_f * na_f + _window_pairs(real, win_cnt_n, bi, bj),
+                pairs_old)
+            tiles = torch.where(need, torch.full_like(
+                tiles_old, self.full_tiles + nplan.window_tiles(w_new)),
+                tiles_old)
+            nbr = NeighborCarry(
+                win_idx=torch.where(sel3, win_idx_n, nb.win_idx),
+                win_cnt=torch.where(sel2, win_cnt_n, nb.win_cnt),
+                acc_far=torch.where(sel3, af - a_nn.to(sd), nb.acc_far),
+                jerk_far=torch.where(sel3, jf - j_nn.to(sd), nb.jerk_far),
+                snap_far=torch.where(sel3, snapf_n, nb.snap_far),
+                pot_far=torch.where(sel2, pf - p_nn.to(sd), nb.pot_far),
+                t_ref=torch.where(
+                    need, torch.where(t_next == self.n_sub, 0, t_next),
+                    nb.t_ref),
+                n_refresh=nb.n_refresh + need.to(torch.int32),
+                n_overflow=nb.n_overflow + dov)
+        s1, t_last, levels, dt_macro, _ = _event_post(
+            s, ev, live, t_next, active, h, c.t_last, c.levels, c.dt_macro,
+            na, t_end, n_sub=self.n_sub, eta=self.eta, dt_max=self.dt_max,
+            n_levels=self.n_levels, order=self.order)
+        return s1, BlockCarry(
+            t_last=t_last, levels=levels, dt_macro=dt_macro,
+            n_pairs=c.n_pairs + dp,
+            n_events=c.n_events + live.to(torch.int32),
+            n_tiles=c.n_tiles + tiles, bucket_hits=c.bucket_hits, nbr=nbr)
+
     def run(self, s, c: BlockCarry, na, t_end, n_events: int):
+        if self.sources == "neighbor":
+            for _ in range(n_events):
+                out = self._neighbor_event(s, c, na, t_end)
+                if out is None:
+                    break  # every member is past t_end
+                s, c = out
+            return s, c
         for _ in range(n_events):
             live, t_next, active, h, xp, vp, ap = _event_pre(
                 s, c.t_last, c.levels, c.dt_macro, na, t_end,
@@ -732,10 +989,13 @@ class _BlockEngine:
 @functools.lru_cache(maxsize=64)
 def _block_engine(order: int, eps: float, eta: float, dt_max: float,
                   n_levels: int, compaction: str, block_i: int, block_j: int,
-                  groups: tuple, dtype: str, n: int, device: torch.device
-                  ) -> _BlockEngine:
+                  groups: tuple, dtype: str, n: int, device: torch.device,
+                  sources: str = "full", radius: float = 0.25,
+                  refresh_levels: int = 2) -> _BlockEngine:
     """The cached :class:`_BlockEngine` of one configuration, bucket groups
-    and device: its evaluators and device tables are built once."""
+    and device: its evaluators and device tables are built once.  The
+    neighbor knobs are part of the key under either source mode, as in the
+    reference."""
     _count_engine_build("block")
     if compaction == "gather":
         # capacity buckets across the bucket groups: the denominator of the
@@ -747,7 +1007,8 @@ def _block_engine(order: int, eps: float, eta: float, dt_max: float,
     return _BlockEngine(order=order, eps=eps, eta=eta, dt_max=dt_max,
                         n_levels=n_levels, compaction=compaction,
                         block_i=block_i, block_j=block_j, groups=groups,
-                        dtype=dtype, n=n, device=device)
+                        dtype=dtype, n=n, device=device, sources=sources,
+                        radius=radius, refresh_levels=refresh_levels)
 
 
 def ensemble_run_block(
@@ -768,6 +1029,8 @@ def ensemble_run_block(
     block_i: Optional[int] = None,
     block_j: Optional[int] = None,
     sources: str = "full",
+    neighbor_radius: float = 0.25,
+    refresh_levels: int = 2,
     devices=None,
     mesh=None,
 ):
@@ -785,15 +1048,31 @@ def ensemble_run_block(
     (:func:`_bucket_groups`), ``"shared"`` puts the whole batch in one
     group; both give the same physics.  ``block_i``/``block_j`` set the
     logical tile (default the kernels'): the capacity schedule's step and
-    the unit of the tile counts.  A gather run stops early once no member
-    is live; a ``"none"`` run always does its ``n_events`` iterations.
+    the unit of the tile counts.  A gather or neighbor run stops early once
+    no member is live; a full-sources ``"none"`` run always does its
+    ``n_events`` iterations.
+
+    ``sources="neighbor"`` switches the force evaluation to the Ahmad-Cohen
+    near/far split (:meth:`_BlockEngine._neighbor_event`):
+    ``neighbor_radius`` is the window radius in simulation length units,
+    ``refresh_levels`` how many levels below the macro step the far-field
+    refresh cadence sits (a refresh every ``n_sub >> refresh_levels``
+    ticks).  The batch should be spatially sorted first
+    (:func:`spatial_sort_batched`; the convenience entry points do it).
+    ``sources="full"`` ignores the two knobs.
     """
     if n_levels < 1:
         raise ValueError(f"n_levels={n_levels} must be >= 1")
+    _single_card(devices=devices, mesh=mesh, sources=sources)
+    if sources == "neighbor" and compaction != "none":
+        raise ValueError(
+            "sources='neighbor' gathers its own per-block source windows; "
+            "it composes with compaction='none' only")
+    if refresh_levels < 0:
+        raise ValueError(f"refresh_levels={refresh_levels} must be >= 0")
     if compaction not in COMPACTIONS:
         raise ValueError(
             f"compaction must be one of {COMPACTIONS}; got {compaction!r}")
-    _single_card(devices=devices, mesh=mesh, sources=sources)
     na = _as_n_active(batched, n_active)
     t_end_ = _as_t_end(batched, t_end)
     bi = block_i or nbody_force.DEFAULT_BLOCK_I
@@ -806,10 +1085,47 @@ def ensemble_run_block(
         counts = [n] * batch_size(batched)
     groups = _bucket_groups(n, counts, bi, bj, compaction, bucket_mode)
     engine = _block_engine(order, eps, eta, dt_max, n_levels, compaction,
-                           bi, bj, groups, dtype, n, batched.device)
+                           bi, bj, groups, dtype, n, batched.device, sources,
+                           float(neighbor_radius), refresh_levels)
     if carry is None:
         carry = engine.init(batched, t_end_)
     return engine.run(batched, carry, na, t_end_, n_events)
+
+
+def block_admit_member(carry: BlockCarry, member: ParticleState, slot: int,
+                       t_end, *, eta: float = 0.02, dt_max: float = 0.0625,
+                       n_levels: int = 8) -> BlockCarry:
+    """Splice a freshly admitted member's block carry into ``slot``.
+
+    The serving layer backfills a retired slot by writing the new member's
+    initialized ``(N,)`` state into the batch and resetting that slot's
+    carry: fresh levels and ticks from the member's own Aarseth step
+    distribution (:func:`_event_init`, the bootstrap ``init`` runs
+    batch-wide) and zeroed counters, so the retiring run's telemetry never
+    bleeds into its successor's.  The carry's tensors are written in place
+    at ``slot`` (the batch's shapes, and with them the cached engine, stay
+    as they are); every other slot is untouched, so batch-mates stay bit
+    for bit the same.  ``eta``/``dt_max``/``n_levels`` must match the
+    engine the batch runs.  Returns ``carry``.
+    """
+    m1 = ParticleState(**{f: getattr(member, f)[None] for f in FIELDS})
+    t_end_ = torch.full((1,), float(t_end), dtype=member.dtype,
+                        device=member.device)
+    t_last, levels, dt_macro = _event_init(m1, t_end_, eta=eta,
+                                           dt_max=dt_max, n_levels=n_levels)
+    carry.t_last[slot] = t_last[0]
+    carry.levels[slot] = levels[0]
+    carry.dt_macro[slot] = dt_macro[0]
+    for x in (carry.n_pairs, carry.n_events, carry.n_tiles,
+              carry.bucket_hits):
+        x[slot] = 0
+    if carry.nbr is not None:
+        # t_ref = -1 forces the new member to refresh, and build its
+        # windows, at its first event
+        for x in carry.nbr:
+            x[slot] = 0
+        carry.nbr.t_ref[slot] = -1
+    return carry
 
 
 #: device-to-host reads made by the block path (per gather event, per
@@ -833,6 +1149,8 @@ def evolve_ensemble_block(
     block_i: Optional[int] = None,
     block_j: Optional[int] = None,
     sources: str = "full",
+    neighbor_radius: float = 0.25,
+    refresh_levels: int = 2,
     devices=None,
     mesh=None,
     n_events: int = 256,
@@ -843,10 +1161,17 @@ def evolve_ensemble_block(
     ``t_end`` in chunks of ``n_events``.  Returns ``(batched, carry)``
     (see :func:`ensemble_run_block`).  ``initialized=True`` takes
     ``states`` as a batch that :func:`ensemble_initialize` has already
-    bootstrapped and runs no bootstrap evaluation."""
+    bootstrapped and runs no bootstrap evaluation.  ``sources="neighbor"``
+    sorts the batch spatially (:func:`spatial_sort_batched`) before the
+    bootstrap; the returned batch is in that sorted order."""
     _single_card(devices=devices, mesh=mesh, sources=sources)
     batched = states if isinstance(states, ParticleState) else \
         stack_states(list(states))
+    if sources == "neighbor":
+        batched = spatial_sort_batched(
+            batched, n_active,
+            leaf=math.gcd(block_i or nbody_force.DEFAULT_BLOCK_I,
+                          block_j or nbody_force.DEFAULT_BLOCK_J))
     kw = dict(n_active=n_active, order=order, eps=eps, dtype=dtype)
     if not initialized:
         batched = ensemble_initialize(batched, **kw)
@@ -855,7 +1180,9 @@ def evolve_ensemble_block(
         batched, carry = ensemble_run_block(
             batched, t_end=t_end, n_events=n_events, dt_max=dt_max,
             n_levels=n_levels, carry=carry, eta=eta, compaction=compaction,
-            bucket_mode=bucket_mode, block_i=block_i, block_j=block_j, **kw)
+            bucket_mode=bucket_mode, block_i=block_i, block_j=block_j,
+            sources=sources, neighbor_radius=neighbor_radius,
+            refresh_levels=refresh_levels, **kw)
         done = float(torch.min(batched.time)) >= t_end
         ensemble_run_block.host_syncs += 1
         if done:

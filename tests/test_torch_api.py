@@ -77,6 +77,12 @@ CONFIGS = {
                             validate_ic=False),
     "single_ring": dict(scenario="plummer", n=16, t_end=0.02, dt=1 / 256,
                         strategy="ring", diag_every=4, validate_ic=False),
+    # tests/test_neighbor.py's API case, as a batch of two
+    "block_neighbor": dict(scenario="plummer", n=64, ensemble=2,
+                           t_end=0.0625, stepper="block", n_levels=4,
+                           sources="neighbor", neighbor_radius=0.5,
+                           block_i=16, block_j=16, diag_every=8,
+                           validate_ic=False),
     # binary_plummer_block_2dev.json's recipe, at one device
     "block_strategy_gather": dict(scenario="binary_plummer", n=24, seed=1,
                                   t_end=0.0625, dt_max=1 / 64,
@@ -339,10 +345,32 @@ def test_bad_configs_raise_as_the_reference(name):
 ])
 def test_what_one_card_does_not_run_raises(kw, item):
     """Configurations the reference runs that the port does not yet (a
-    batch sharded over devices, the fused mesh, the neighbor scheme) raise
-    at build, naming their ROADMAP item; nothing runs quietly in their
-    place."""
+    batch sharded over devices, the fused mesh: item 7b) raise at build,
+    naming their ROADMAP item; nothing runs quietly in their place.  The
+    neighbor scheme (item 8) now runs: its report equals the reference's
+    counts, neighbor fields and ``sim.*`` metrics."""
     cfg = _cfg(api, **kw)
+    if item == "item 8":
+        _clear_engines()
+        want = json.loads(json.dumps(japi.run(_cfg(japi, **kw)),
+                                     default=float))
+        got = api.run(cfg)
+        _keys(want, got)
+        for k in ("steps", "force_evals", "force_evals_total", "grid_tiles",
+                  "neighbor_refreshes", "neighbor_overflows", "sources"):
+            assert got[k] == want[k], k
+        assert got["neighbor_refreshes"] > 0
+        for a, b in zip(want["runs"], got["runs"]):
+            for k in ("steps", "force_evals", "grid_tiles",
+                      "neighbor_refreshes", "neighbor_overflows"):
+                assert a[k] == b[k], k
+        for section in ("counters", "gauges", "histograms"):
+            assert ({k: v for k, v in got["metrics"][section].items()
+                     if k.startswith("sim.")}
+                    == {k: v for k, v in want["metrics"][section].items()
+                        if k.startswith("sim.")}), section
+        assert abs(got["de_rel"] - want["de_rel"]) <= 1e-6
+        return
     with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
         api.run(cfg)
 

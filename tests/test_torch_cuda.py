@@ -567,3 +567,145 @@ def test_strategy_block_gather_gives_none_bits_on_the_card(cuda, strategy):
     assert float(cb.n_tiles.sum()) < float(ca.n_tiles.sum())
     for f in ("pos", "vel", "acc", "jerk", "snap", "crackle", "pot"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+# --------------------------------------------------------------------------
+# the Ahmad-Cohen neighbor scheme and the simulation server on the card
+# --------------------------------------------------------------------------
+def _near_case(dev, dtype):
+    """A sorted Plummer 4096, its windows at radius 0.25, and a seeded 30%
+    of the rows of the blocks whose windows fit below the full extent (the
+    first block inactive); returns the evaluator pair, its arguments and
+    the bucket that holds every active block's window."""
+    from repro_torch.core.evaluate import make_neighbor_block_evaluator
+    from repro_torch.kernels import neighbor
+    from repro_torch.sim import ensemble as ens
+    from repro_torch.sim import scenarios
+
+    n, b = 4096, 32
+    st = ens.spatial_sort_batched(ens.stack_states(
+        [scenarios.make("plummer", n, seed=0, device=dev, validate=False)]),
+        leaf=b)
+    st = ens.ensemble_initialize(st)
+    real = torch.ones(1, n, dtype=torch.bool, device=dev)
+    win_idx, win_cnt = neighbor.build_windows(st.pos, real, block_i=b,
+                                              block_j=b, radius=0.25)
+    plan = ops.CapacityPlan(n, n, b, b, sources="neighbor")
+    fits = win_cnt * b <= plan.source_caps[-2]
+    rng = np.random.default_rng(3)
+    mask = torch.as_tensor(rng.uniform(size=(1, n)) < 0.3, device=dev)
+    mask &= fits.repeat_interleave(b, dim=1)
+    mask[:, :b] = False
+    w = int(plan.source_bucket(torch.where(fits, win_cnt, 0).max() * b))
+    near = make_neighbor_block_evaluator(n=n, eps=1e-7, block_i=b,
+                                         block_j=b, dtype=dtype)
+    args1 = (st.pos, st.vel, st.mass, mask, win_idx, win_cnt)
+    args2 = (st.pos, st.vel, st.acc, st.acc, st.mass, mask, win_idx,
+             win_cnt)
+    return near, args1, args2, w, mask
+
+
+@pytest.mark.parametrize("dtype,compute_dtype", [("fp32", None),
+                                                 ("mixed", "bfloat16")])
+def test_near_passes_match_plain(cuda, monkeypatch, dtype, compute_dtype):
+    """``near1``/``near2`` through K1/K2 (one launch per pass for every
+    target block) against the same evaluator with the kernels' plain
+    versions on the same windows."""
+    (near1, near2), args1, args2, w, mask = _near_case(cuda, dtype)
+    before = nbody_force.acc_jerk_pot_packed.launches
+    got = near1(*args1, w) + (near2(*args2, w),)
+    assert nbody_force.acc_jerk_pot_packed.launches - before == 1
+    for name, fn in (("acc_jerk_pot_packed", nbody_force._acc_jerk_plain),
+                     ("snap_packed", nbody_force._snap_plain)):
+        monkeypatch.setattr(
+            nbody_force, name,
+            lambda *x, _fn=fn, **kw: _plain(
+                _fn, x, **{k: v for k, v in kw.items() if k != "eps"}))
+    want = near1(*args1, w) + (near2(*args2, w),)
+    torch.cuda.synchronize()
+    for g, p in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert float((g - p).abs().max()) <= \
+            TOL[compute_dtype] * float(p.abs().max())
+        assert (g[~mask] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ("fp32", "mixed"))
+def test_near_bucket_growth_is_bit_for_bit(cuda, dtype):
+    """A window evaluated at its bucket and at the next one up: the extra
+    slots are zero-mass tail rows of K1's lane-strided tiles, so they add
+    exact zeros."""
+    (near1, near2), args1, args2, w, _ = _near_case(cuda, dtype)
+    a = near1(*args1, w) + (near2(*args2, w),)
+    b = near1(*args1, w + 1) + (near2(*args2, w + 1),)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_neighbor_golden_replays_through_the_kernels(cuda):
+    """binary_plummer_neighbor.json at fp32 through K1/K2 on the card: the
+    golden's event count, positions and velocities within BLOCK_TOL fp32."""
+    import json
+    import os
+
+    from repro_torch.sim import ensemble as ens
+    from repro_torch.sim import scenarios
+
+    path = os.path.join(os.path.dirname(__file__), "golden",
+                        "binary_plummer_neighbor.json")
+    with open(path) as f:
+        doc = json.load(f)
+    m = doc["meta"]
+    st = scenarios.make(m["scenario"], m["n"], seed=m["seed"], device=cuda)
+    before = nbody_force.acc_jerk_pot_packed.launches
+    out, carry = ens.evolve_ensemble_block(
+        [st], t_end=m["t_end"], dt_max=m["dt_max"], n_levels=m["n_levels"],
+        eta=m["eta"], order=m["order"], eps=m["eps"], sources="neighbor",
+        neighbor_radius=m["neighbor_radius"],
+        refresh_levels=m["refresh_levels"], block_i=m["block_i"],
+        block_j=m["block_j"], dtype="fp32")
+    assert nbody_force.acc_jerk_pot_packed.launches > before
+    assert int(carry.n_events[0]) == doc["n_events"]
+    assert int(carry.nbr.n_refresh[0]) > 0
+    assert float((out.pos[0].cpu() - torch.tensor(doc["pos"])).abs().max()) \
+        <= 1e-6
+    assert float((out.vel[0].cpu() - torch.tensor(doc["vel"])).abs().max()) \
+        <= 1e-5
+
+
+@pytest.mark.parametrize("sources", ("full", "neighbor"))
+def test_server_suspend_resume_is_bit_for_bit_on_the_card(cuda, tmp_path,
+                                                          sources):
+    """A server suspended after two ticks and resumed in a fresh one ends
+    every request in the uninterrupted run's state, bit for bit."""
+    from repro_torch.serve import ServerConfig, SimRequest, SimServer
+    from repro_torch.sim.scenarios import ScenarioSpec
+
+    cfg = ServerConfig(slots_per_pod=2, n_max=512, chunk_events=8,
+                       block_i=32, block_j=32, sources=sources,
+                       neighbor_radius=0.25)
+
+    def build():
+        s = SimServer(cfg)
+        for i, (tok, stepper) in enumerate((
+                ("plummer:512", "block"), ("king:256", "adaptive"),
+                ("binary_plummer:384", "block"), ("merger:512", "adaptive"),
+                ("plummer:300", "block"))):
+            s.submit(SimRequest(spec=ScenarioSpec.parse(tok, seed=i),
+                                stepper=stepper, t_end=1 / 256), now=0.0)
+        return s
+
+    finals = {}
+    straight = build()
+    for r in straight.run_until_drained():
+        finals[r["request_id"]] = (r["steps"], r["e1"], r["t_final"])
+    paused = build()
+    paused.step(now=0.0)
+    paused.step(now=1.0)
+    paused.suspend(str(tmp_path))
+    resumed = SimServer.resume(str(tmp_path))
+    for pod in resumed.pods.values():
+        assert pod.batched.pos.device.type == "cuda"
+    got = {r["request_id"]: (r["steps"], r["e1"], r["t_final"])
+           for r in paused.reports + resumed.run_until_drained()}
+    assert got == finals

@@ -13,11 +13,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.checkpoint import store
 from repro_torch.core import evaluate, nbody, strategies
-from repro_torch.kernels import _build, flash_attention, nbody_force, ops
+from repro_torch.kernels import (_build, flash_attention, nbody_force,
+                                 neighbor, ops)
 from repro_torch.launch import nbody_run, quickstart, serve_lm, sim_run
 from repro_torch.models import config as lm_config
 from repro_torch.models import layers, model, params
+from repro_torch.serve import sim_engine
 from repro_torch.sim import api, ensemble, scenarios
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -111,23 +114,69 @@ def test_api_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
 
 def test_ensemble_functions_take_no_device_and_refuse_what_is_not_ported():
     """Below the scenario entry points the batch's device decides; the
-    neighbor scheme and a batch over several devices raise, naming their
-    ROADMAP items, and a strategy label on a batch only tags it."""
+    neighbor scheme runs on the CPU, a batch over several devices (and the
+    fused mesh) raise, naming ROADMAP item 7b, and a strategy label on a
+    batch only tags it."""
     for fn in (ensemble.ensemble_initialize, ensemble.ensemble_run,
                ensemble.ensemble_run_adaptive, ensemble.evolve_ensemble,
                ensemble.ensemble_run_block, ensemble.evolve_ensemble_block,
-               ensemble.strategy_run_block, ensemble.evolve_strategy_block):
+               ensemble.strategy_run_block, ensemble.evolve_strategy_block,
+               ensemble.block_admit_member, ensemble.spatial_sort_batched):
         assert "device" not in inspect.signature(fn).parameters, fn.__name__
     state = scenarios.make("plummer", 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    out, carry = ensemble.evolve_ensemble_block([state], t_end=0.01,
+                                                sources="neighbor")
+    assert out.pos.device.type == "cpu" and carry.nbr is not None
+    assert int(carry.nbr.n_refresh[0]) > 0
+    with pytest.raises(NotImplementedError, match="queue 1 item 7b"):
         ensemble.evolve_ensemble_block([state], t_end=0.01,
-                                       sources="neighbor")
+                                       sources="neighbor", devices=2)
+    with pytest.raises(NotImplementedError, match="queue 1 item 7b"):
+        ensemble.evolve_ensemble_block([state], t_end=0.01, mesh=(1, 1))
     with pytest.raises(NotImplementedError, match="queue 1 item 7b"):
         ensemble.evolve_ensemble([state], n_steps=1, dt=0.01, devices=2)
     tagged = ensemble.evolve_ensemble([state], n_steps=1, dt=0.01,
                                       strategy="mesh_sharded")
     plain = ensemble.evolve_ensemble([state], n_steps=1, dt=0.01)
     assert torch.equal(tagged.pos, plain.pos)
+
+
+#: this slice's modules: each mirrors its reference module by path
+SLICE_MODULES = ("kernels/neighbor.py", "checkpoint/store.py",
+                 "serve/sim_engine.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES)
+def test_neighbor_and_server_modules_mirror_the_reference(rel):
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path.exists() and (ROOT / "src" / "repro" / rel).exists()
+    assert path in PORT_FILES
+    for mod in _imported_modules(path):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), mod
+
+
+def test_server_defaults_to_cuda_and_raises_without_a_card(no_card):
+    assert sim_engine.ServerConfig().device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim_engine.SimServer()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sim_engine.SimServer(sim_engine.ServerConfig(n_max=64, block_i=32))
+    cfg = sim_engine.ServerConfig(n_max=64, block_i=32, block_j=32,
+                                  device="cpu")
+    assert sim_engine.SimServer(cfg).cfg.device == "cpu"
+    with pytest.raises(NotImplementedError, match="queue 1 item 7b"):
+        sim_engine.SimServer(sim_engine.ServerConfig(
+            n_max=64, block_i=32, devices=2, device="cpu"))
+
+
+def test_neighbor_and_store_functions_take_no_device():
+    """The windows, the near evaluator and the store follow their tensors
+    (a restored leaf goes to its template's device)."""
+    for fn in (neighbor.kd_perm, neighbor.morton_keys,
+               neighbor.block_bounds, neighbor.build_windows,
+               evaluate.make_neighbor_block_evaluator, store.save,
+               store.restore, store.restore_latest):
+        assert "device" not in inspect.signature(fn).parameters, fn.__name__
 
 
 def test_strategies_module_mirrors_the_reference_and_stands_alone():

@@ -157,9 +157,21 @@ def test_trace_flag_writes_the_trace(tmp_path, capsys):
 ])
 def test_what_one_card_does_not_run_exits_naming_its_item(argv, item,
                                                           tmp_path):
+    """Item 7b's configurations exit naming it and write no report; the
+    neighbor scheme (item 8, ported) exits 0 and writes the report with its
+    neighbor fields."""
     base = ["--scenario", "plummer", "--n", "16", "--t-end", "0.01",
             "--no-validate", "--device", "cpu",
             "--out", str(tmp_path / "r.json")]
+    if item == "item 8":
+        assert sim_run.main(base + argv) == 0
+        with open(tmp_path / "r.json") as f:
+            report = json.load(f)
+        assert report["sources"] == "neighbor"
+        assert report["neighbor_refreshes"] > 0
+        assert report["neighbor_overflows"] >= 0
+        assert report["runs"][0]["neighbor_refreshes"] > 0
+        return
     with pytest.raises(SystemExit) as info:
         sim_run.main(base + argv)
     assert f"ROADMAP.md queue 1 {item}" in str(info.value.code)
