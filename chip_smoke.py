@@ -89,6 +89,19 @@ Phases, in order; any failure raises and the script exits nonzero:
    turnaround; then the trace suspended mid-way and resumed in a fresh
    server, its final states bit for bit the uninterrupted run's, the first
    ticks profiled for the card's busy share;
+13. the batch layouts (``sim.ensemble``'s ``devices=`` and ``mesh=``): phase
+   8's ensemble of four Plummer N = 16384 members over two slots of the
+   card (fixed dt, adaptive, block with none/gather x member/shared, and a
+   batch of three, padded) bit for bit against one slot, counters equal;
+   the fused 2x2 mesh over four slots at B = 4 Plummer N = 65536, block
+   gather, one 128-event chunk, bit for bit against the 1-D layout over
+   two slots, one slot and each member's solo ``mesh_sharded`` run, its
+   tiles those of ``CapacityPlan.shard`` at the recorded bounds, with wall
+   per event, launches and host reads per event, peak memory and a
+   profiled window of 16 events per layout printed;
+   the server on the fused mesh (plummer:8192, full and neighbor pods): no
+   engine build and no kernel load after warmup, final rows bit for bit a
+   one-slot server's, suspend/resume bit for bit;
 then one ``kernels`` JSON line and ``{"ok": true, "device": {...}}`` as the
 last line.
 
@@ -326,6 +339,27 @@ SERVE_SHAPES = (("plummer", 16384, "block"), ("king", 2048, "adaptive"),
 SERVE_REQUESTS, SERVE_MEAN_GAP_S, SERVE_T_END = 12, 0.05, 0.04
 #: phase 12: the profiled window of the suspended run, in scheduler ticks
 SERVE_PROFILE_TICKS = 4
+#: phase 13: the batch layouts, every run fp32 with eps = 4/N.  (a) phase
+#: 8's ensemble (ENSEMBLE_B Plummer N_MAIN) over LAYOUT_SLOTS slots of the
+#: card beside one slot, its block runs one chunk of LAYOUT_EVENTS events;
+#: (b) the fused mesh at full width: FUSED_B Plummer members of N_LARGE
+#: (seeds 0-3), block, gather, one chunk of FUSED_EVENTS events.  8 levels
+#: make the chunk the whole macro-step (128 ticks), so the run ends
+#: synchronized at t_end and its energy is the members' own; a macro of
+#: 1/64 (finest step 2^-13) keeps it in the fp32 tier, where 1/16 left
+#: it (member 0 at |dE/E| 2.267e-4, PERF.md).  (c) the
+#: server on the fused mesh of four slots of the card; N = 8192 keeps the
+#: host's IC validation at about 2 s a request (PERF.md, ROADMAP queue 3
+#: B10), built once per request and reused by the phase's servers
+LAYOUT_SLOTS, LAYOUT_EVENTS = 2, 64
+FUSED_B, FUSED_MESH, FUSED_EVENTS = 4, (2, 2), 128
+#: the profiled window of each fused-phase layout, in events from the start
+FUSED_PROFILE_EVENTS = 16
+FUSED_KW = dict(t_end=2.0 ** -6, dt_max=2.0 ** -6, n_levels=8, eta=0.02)
+MESH_SERVE_CFG = dict(n_max=8192, slots_per_pod=4, devices=4, mesh=(2, 2),
+                      dtype="fp32", eps=4.0 / 8192)
+MESH_SERVE_TRACE = tuple(("plummer:8192", seed) for seed in (1, 2, 3, 4))
+MESH_SERVE_T_END = 2.0 ** -8
 
 
 def check(ok: bool, msg: str):
@@ -1716,6 +1750,30 @@ def window_bound_ms(name, dtype, x):
             "operations" if t_ops >= t_bytes else "bytes", pairs)
 
 
+def launch_readings(name, x, kw, kern):
+    """K1 or K2 (``kern``) on the operands ``x`` of a launch the path made:
+    against its plain version at the fp32 tolerance, timed beside it (CUDA
+    events), with the launcher's grid and the bound of the pairs this data
+    needs (:func:`window_bound_ms`)."""
+    plain = {"acc_jerk_pot": nbody_force._acc_jerk_plain,
+             "snap": nbody_force._snap_plain}[name]
+    batch = x[0].shape[0]
+    got = kern(*x, **kw)
+    want = nbody_force._plain(plain, x, batch, **kw)
+    torch.cuda.synchronize()
+    norm_err, abs_err = compare(name, got, want, x[0], TOL["fp32"])
+    del got, want
+    kern.blocks = {}
+    ms = cuda_ms(lambda: kern(*x, **kw), 20)
+    blocks = next(iter(kern.blocks))
+    pms = cuda_ms(lambda: nbody_force._plain(plain, x, batch, **kw), 1,
+                  warmup=1)
+    bms, by, pairs = window_bound_ms(name, "fp32", x)
+    return {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "pairs": pairs, "blocks": blocks, "max_norm_err": norm_err,
+            "max_abs_err": abs_err}
+
+
 def near_holds(dev, dtype, nbr_state):
     """(a) and (b): near1/near2 on the card against their plain versions on
     the same windows, and a window evaluated at its bucket and the next one
@@ -1860,30 +1918,16 @@ def neighbor_phase(dev, all_kernels):
                        if k[0] == name and k[1][0] > 1), reverse=True)[:2]
         for n_launch, key in near:
             x, kw = packed(name, *shapes[key][1])
-            kern = all_kernels[name]
-            plain = {"acc_jerk_pot": nbody_force._acc_jerk_plain,
-                     "snap": nbody_force._snap_plain}[name]
-            got = kern(*x, **kw)
-            want = nbody_force._plain(plain, x, x[0].shape[0], **kw)
-            torch.cuda.synchronize()
-            norm_err, abs_err = compare(name, got, want, x[0], TOL["fp32"])
-            kern.blocks = {}
-            ms = cuda_ms(lambda: kern(*x, **kw), 20)
-            blocks = next(iter(kern.blocks))
-            pms = cuda_ms(lambda: nbody_force._plain(
-                plain, x, x[0].shape[0], **kw), 1, warmup=1)
-            bms, by, pairs = window_bound_ms(name, "fp32", x)
+            r = launch_readings(name, x, kw, all_kernels[name])
             shape = (x[0].shape[0], x[0].shape[1], x[1].shape[2])
-            out["window_timings"][(name, shape)] = {
-                "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                "pairs": pairs, "launches": n_launch, "blocks": blocks,
-                "max_norm_err": norm_err, "max_abs_err": abs_err}
+            out["window_timings"][(name, shape)] = dict(r, launches=n_launch)
             print(f"{name:<13} window B*nbt={shape[0]} x N_t={shape[1]} x "
                   f"N_s={shape[2]}: {n_launch} launches in the run, blocks "
-                  f"{blocks}, kernel {ms:.4f} ms  plain {pms:.4f} ms  bound "
-                  f"{bms:.4f} ms ({by}, {pairs:.0f} active pairs)  "
-                  f"bound/kernel {bms / ms:.3f}  vs plain max normalised err "
-                  f"{norm_err:.3e}", flush=True)
+                  f"{r['blocks']}, kernel {r['ms']:.4f} ms  plain "
+                  f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}, {r['pairs']:.0f} active pairs)  "
+                  f"bound/kernel {r['bound_ms'] / r['ms']:.3f}  vs plain max "
+                  f"normalised err {r['max_norm_err']:.3e}", flush=True)
     del shapes, out["shapes"]
 
     # (a), (b): near1/near2 vs plain, bucket growth, on the sorted state
@@ -2128,6 +2172,371 @@ def serve_phase(dev, all_kernels):
           "uninterrupted run's")
     for label in ("full", "neighbor"):
         del out[label]["finals"]
+    return out
+
+# --------------------------------------------------------------------------
+# phase 13: the batch layouts and the fused mesh
+# --------------------------------------------------------------------------
+def same_carry(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a[:7], b[:7]))
+
+
+def batch_layout_runs(dev, all_kernels):
+    """Phase 13 (a): phase 8's ensemble over LAYOUT_SLOTS slots of the
+    card against one slot.  Returns the two-slot runs' readings by label."""
+    eps = 4.0 / N_MAIN
+    batched, _ = scenarios.build_padded(
+        scenarios.make_mix([("plummer", N_MAIN)], seed=0,
+                           repeat=ENSEMBLE_B), device=dev, validate=False)
+    init = ens.ensemble_initialize(batched, eps=eps)
+    init3 = nbody.ParticleState(**{f: getattr(init, f)[:3]
+                                   for f in nbody.FIELDS})
+    block = dict(BLOCK_KW, n_events=LAYOUT_EVENTS, eps=eps)
+    runs = {
+        "fixed": lambda d: ens.evolve_ensemble(
+            batched, n_steps=FIXED_STEPS, dt=FIXED_DT, eps=eps, devices=d),
+        "adaptive": lambda d: ens.ensemble_run_adaptive(
+            init, t_end=ADAPTIVE_T_END, n_steps=ADAPTIVE_STEPS, eps=eps,
+            devices=d),
+    }
+    for comp in ("none", "gather"):
+        for mode in ("member", "shared"):
+            runs[f"block {comp} {mode}"] = (
+                lambda d, c=comp, m=mode: ens.ensemble_run_block(
+                    init, compaction=c, bucket_mode=m, devices=d, **block))
+    runs["block gather member B=3"] = lambda d: ens.ensemble_run_block(
+        init3, compaction="gather", devices=d, **block)
+    out = {}
+    for label, fn in runs.items():
+        one, c1, r1, w1 = counted(lambda: fn(None), all_kernels)
+        two, c2, r2, w2 = counted(lambda: fn([dev] * LAYOUT_SLOTS),
+                                  all_kernels)
+        if label == "fixed":
+            same = bitwise_same(one, two, nbody.FIELDS)
+            extra = ""
+        elif label == "adaptive":
+            same = bitwise_same(one[0], two[0], nbody.FIELDS) and all(
+                torch.equal(x, y) for x, y in zip(one[1:], two[1:]))
+            extra = f", steps per member {two[2].tolist()}"
+        else:
+            same = bitwise_same(one[0], two[0], nbody.FIELDS) and \
+                same_carry(one[1], two[1])
+            extra = (f", events per member {two[1].n_events.tolist()}, "
+                     f"tiles {two[1].n_tiles.tolist()}, host reads {r2} "
+                     f"(one slot {r1})")
+        out[label] = {"counts": c2, "counts_one": c1, "wall": w2,
+                      "wall_one": w1, "bitwise": same}
+        print(f"layout {label:<24} over {LAYOUT_SLOTS} slots: wall {w2:.3f} "
+              f"s (one slot {w1:.3f} s), launches {c2} (one slot {c1})"
+              f"{extra}; every leaf and counter bitwise equal to one "
+              f"slot's: {same}", flush=True)
+        check(same, f"layout {label}: differs from the one-slot run")
+        for name in ("acc_jerk_pot", "snap"):
+            check(c2[name] > 0, f"layout {label}: {name} never launched")
+    del batched, init, init3
+    return out
+
+
+def fused_runs(dev, all_kernels):
+    """Phase 13 (b): the fused mesh at full width against the 1-D layout,
+    one slot and each member's solo mesh_sharded run."""
+    n, eps = N_LARGE, 4.0 / N_LARGE
+    bi, bj = nbody_force.DEFAULT_BLOCK_I, nbody_force.DEFAULT_BLOCK_J
+    bdev, p = FUSED_MESH
+    grid = [dev] * (bdev * p)
+    batched = ens.stack_states([
+        scenarios.make("plummer", n, seed=s, device=dev, validate=False)
+        for s in range(FUSED_B)])
+    init = ens.ensemble_initialize(batched, eps=eps)
+    init_f = ens.ensemble_initialize(batched, eps=eps, mesh=FUSED_MESH,
+                                     devices=grid)
+    check(bitwise_same(init, init_f, nbody.FIELDS),
+          "fused: the mesh's bootstrap differs from one slot's")
+    e0 = ens.batched_total_energy(init)
+    run_kw = {k: v for k, v in FUSED_KW.items() if k != "t_end"}
+    run_kw.update(eps=eps, compaction="gather", n_events=FUSED_EVENTS)
+    # the fused grid's per-shard bounds, as its engine reads them
+    bounds, bound_of = [], ens._BlockEngine._bound
+
+    def record(self, *args):
+        b = bound_of(self, *args)
+        if b is not None:
+            bounds.append(b)
+        return b
+
+    layouts = {"fused 2x2": dict(mesh=FUSED_MESH, devices=grid),
+               f"1-D x{bdev}": dict(devices=[dev] * bdev), "one slot": {}}
+    out, shapes = {}, {}
+    ens._BlockEngine._bound = record
+    try:
+        for label, kw in layouts.items():
+            torch.cuda.reset_peak_memory_stats(dev)
+            with recording(shapes.setdefault(label, {})):
+                (s, carry), counts, reads, wall = counted(
+                    lambda: ens.ensemble_run_block(
+                        init, t_end=FUSED_KW["t_end"], **kw, **run_kw),
+                    all_kernels)
+            out[label] = {"state": s, "carry": carry, "counts": counts,
+                          "reads": reads, "wall": wall,
+                          "peak_gb": torch.cuda.max_memory_allocated(dev)
+                          / 2 ** 30,
+                          "grids": {name: dict(sorted(
+                              all_kernels[name].blocks.items()))
+                              for name in ("acc_jerk_pot", "snap")}}
+    finally:
+        ens._BlockEngine._bound = bound_of
+    solo = []
+    for i in range(FUSED_B):
+        m = nbody.ParticleState(**{f: getattr(init, f)[i]
+                                   for f in nbody.FIELDS})
+        (s, carry), counts, reads, wall = counted(
+            lambda: ens.strategy_run_block(
+                m, t_end=FUSED_KW["t_end"], strategy="mesh_sharded",
+                devices=[dev] * p, **run_kw), all_kernels)
+        solo.append({"state": s, "carry": carry, "counts": counts,
+                     "reads": reads, "wall": wall})
+    # where an event's time goes in each layout: the first
+    # FUSED_PROFILE_EVENTS events again, under the profiler
+    for label, kw in layouts.items():
+        prof = kernel_profile(lambda: ens.ensemble_run_block(
+            init, t_end=FUSED_KW["t_end"], **kw,
+            **dict(run_kw, n_events=FUSED_PROFILE_EVENTS)))
+        out[label]["profile"] = prof
+        if prof is None:
+            print(f"fused profile {label}: torch.profiler recorded no device "
+                  "time", flush=True)
+        else:
+            print(f"fused profile {label} ({FUSED_PROFILE_EVENTS} events): "
+                  f"wall {prof['wall_ms']:.3f} ms, device "
+                  f"{prof['device_ms']:.3f} ms in {prof['kernels']} "
+                  f"launches, busy {100 * prof['busy']:.1f}%, K1 + K2 "
+                  f"{prof['nbody_ms']:.3f} ms, host syncs {prof['syncs']}",
+                  flush=True)
+    f_, one_d, one = (out[k] for k in layouts)
+    events = f_["carry"].n_events.tolist()
+    plan = ops.CapacityPlan(n, n, bi, bj).shard(p)
+    bl = FUSED_B // bdev
+    expect = [0.0] * FUSED_B
+    for b in bounds:
+        for m in range(FUSED_B):
+            if sum(b[m]):
+                row = range(m // bl * bl, (m // bl + 1) * bl)
+                expect[m] += sum(plan.tiles(strategies._shard_bucket(
+                    plan, [b[j][k] for j in row])) for k in range(p))
+    tiles = f_["carry"].n_tiles.tolist()
+    de = de_rel(e0, ens.batched_total_energy(f_["state"]))
+    for label, r in out.items():
+        ev = max(r["carry"].n_events.tolist())
+        print(f"fused phase {label:<10} B={FUSED_B} N={n}: events {ev}, "
+              f"wall {r['wall']:.3f} s ({1e3 * r['wall'] / ev:.4f} ms per "
+              f"event), launches {r['counts']} "
+              f"({r['counts']['acc_jerk_pot'] / ev:.3f} K1 per event), host "
+              f"reads {r['reads']} ({r['reads'] / ev:.3f} per event), tiles "
+              f"per member {r['carry'].n_tiles.tolist()}, peak allocated "
+              f"{r['peak_gb']:.3f} GB", flush=True)
+    for i, r in enumerate(solo):
+        same = bitwise_same(member(f_["state"], i),
+                            ens._batch1(r["state"]), nbody.FIELDS)
+        r["bitwise"] = same
+        print(f"  member {i} solo mesh_sharded p={p}: events "
+              f"{int(r['carry'].n_events)}, wall {r['wall']:.3f} s, tiles "
+              f"per shard {r['carry'].n_tiles.tolist()} (fused "
+              f"{tiles[i]:.0f}), bitwise equal to the fused member {same}",
+              flush=True)
+        check(same, f"fused member {i}: differs from its solo run")
+        check(int(r["carry"].n_events) == events[i],
+              f"fused member {i}: events differ from its solo run")
+        check(float(r["carry"].n_tiles.sum()) <= tiles[i],
+              f"fused member {i}: its slot's shared cap launched fewer "
+              "tiles than the solo run")
+    same_1d = bitwise_same(f_["state"], one_d["state"], nbody.FIELDS)
+    same_one = bitwise_same(f_["state"], one["state"], nbody.FIELDS)
+    print(f"fused vs 1-D bitwise {same_1d}, vs one slot {same_one}; events "
+          f"{events}; tiles per member {tiles} (CapacityPlan.shard at the "
+          f"recorded bounds {expect}); |dE/E| {[f'{x:.3e}' for x in de]} "
+          f"(tier {DE_TIERS['fp32']:.0e}); time "
+          f"{f_['state'].time.tolist()}", flush=True)
+    check(same_1d and same_one, "fused: differs from the 1-D or one-slot run")
+    check(events == one_d["carry"].n_events.tolist()
+          == one["carry"].n_events.tolist(), "fused: events differ")
+    check(same_carry(one_d["carry"], one["carry"]),
+          "fused: the 1-D layout's counters differ from one slot's")
+    check(tiles == expect, f"fused: tiles {tiles} vs {expect}")
+    check(max(de) <= DE_TIERS["fp32"], f"fused: |dE/E| {max(de):.3e}")
+    check(bool((f_["state"].time == FUSED_KW["t_end"]).all()),
+          f"fused: members stopped at {f_['state'].time.tolist()}")
+    for name in ("acc_jerk_pot", "snap"):
+        check(f_["counts"][name] == max(events) * bdev * p,
+              f"fused: {name} launched {f_['counts'][name]} times, not one "
+              f"per slot per event")
+    # K1 and K2 at each layout's most launched slot shape, against plain
+    res = {label: {k: v for k, v in r.items()
+                   if k not in ("state", "carry")} for label, r in out.items()}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, r in res.items():
+        # a launch takes at least one block's sweep of all its sources:
+        # its grid in waves of one block per SM
+        r["waves_per_event"] = {
+            name: sum(c * -(-b // sms) for b, c in g.items()) / max(events)
+            for name, g in r["grids"].items()}
+        print(f"fused grids {label:<10}: K1 {r['grids']['acc_jerk_pot']}, "
+              f"K2 {r['grids']['snap']} (blocks: launches); waves of "
+              f"{sms} blocks per event K1 "
+              f"{r['waves_per_event']['acc_jerk_pot']:.3f}, K2 "
+              f"{r['waves_per_event']['snap']:.3f}", flush=True)
+    res["slot_shapes"] = {}
+    for label, rec in shapes.items():
+        for name in ("acc_jerk_pot", "snap"):
+            n_launch, key = max((v[0], k) for k, v in rec.items()
+                                if k[0] == name)
+            x, kw = packed(name, *rec[key][1])
+            r = launch_readings(name, x, kw, all_kernels[name])
+            shape = (x[0].shape[0], x[0].shape[1], x[1].shape[2])
+            per_event = r["ms"] * out[label]["counts"][name] / max(events)
+            res["slot_shapes"][(name, label)] = dict(
+                r, launches=n_launch, shape=shape, sms=sms)
+            print(f"{name:<13} slot {label:<10} B={shape[0]} x N_t="
+                  f"{shape[1]} x N_s={shape[2]}: {n_launch} of "
+                  f"{out[label]['counts'][name]} launches, blocks "
+                  f"{r['blocks']} on {sms} SMs, kernel {r['ms']:.4f} ms "
+                  f"(x launches per event {per_event:.4f} ms)  plain "
+                  f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}, {r['pairs']:.0f} active pairs)  "
+                  f"bound/kernel {r['bound_ms'] / r['ms']:.3f}  vs plain "
+                  f"max normalised err {r['max_norm_err']:.3e} (tol "
+                  f"{TOL['fp32']:.0e})", flush=True)
+    del shapes
+    res["events"], res["tiles"], res["de"] = events, tiles, de
+    res["solo_counts"] = [r["counts"] for r in solo]
+    res["solo_wall"] = [r["wall"] for r in solo]
+    del batched, init, init_f, out, solo
+    return res
+
+
+@contextlib.contextmanager
+def built_once(specs, device):
+    """Each of ``specs``' initial conditions built (and validated) once,
+    before the servers start: ``ScenarioSpec.build`` answers these
+    requests with a copy of that build, so the servers' walls time the
+    engine, not the host's IC validation."""
+    real = scenarios.ScenarioSpec.build
+    memo = {(s_.format(), s_.seed): real(s_, device=device) for s_ in specs}
+
+    def build(spec, dtype=torch.float64, **kw):
+        key = (spec.format(), spec.seed)
+        if key in memo and dtype == torch.float64:
+            return dataclasses.replace(memo[key])
+        return real(spec, dtype=dtype, **kw)
+
+    scenarios.ScenarioSpec.build = build
+    try:
+        yield
+    finally:
+        scenarios.ScenarioSpec.build = real
+
+
+@contextlib.contextmanager
+def card_slots(device):
+    """A server's slots as ``devices`` slots of the one card (it would
+    take that many cards), resumed servers included."""
+    real = sim_engine.ServerConfig.slots
+    sim_engine.ServerConfig.slots = lambda cfg: (
+        None if cfg.devices <= 1 and cfg.mesh is None
+        else [device] * cfg.devices)
+    try:
+        yield
+    finally:
+        sim_engine.ServerConfig.slots = real
+
+
+def mesh_serve_runs(dev, all_kernels):
+    """Phase 13 (c): the server on the fused mesh of four slots of the
+    card, full then neighbor sources, against a one-slot server."""
+    reqs = [sim_engine.SimRequest(
+        spec=scenarios.ScenarioSpec.parse(tok, seed=seed), stepper="block",
+        t_end=MESH_SERVE_T_END) for tok, seed in MESH_SERVE_TRACE]
+    trace = [(0.0, r) for r in reqs]
+    lib = nbody_force._library
+    mesh = dict(MESH_SERVE_CFG, device=dev.type)
+    one = dict(MESH_SERVE_CFG, device=dev.type, devices=1, mesh=None)
+    out = {}
+    with built_once([q.spec for q in reqs], dev), card_slots(dev):
+        for label, extra in (("full", {}), ("neighbor", SERVE_NBR)):
+            finals = {}
+            for layout, cfg in (("mesh", mesh), ("one slot", one)):
+                server = sim_engine.SimServer(sim_engine.ServerConfig(
+                    **cfg, **extra))
+                warm = server.warmup(reqs[:1])
+                misses0, loads0 = server.cache_misses(), \
+                    lib.cache_info().misses
+                finals[layout] = {}
+                with capturing_retirements(finals[layout]):
+                    (wall, _), counts, reads, _ = counted(
+                        lambda: serve_run(server, trace), all_kernels)
+                misses = server.cache_misses() - misses0
+                loads = lib.cache_info().misses - loads0
+                turn = sorted(r["turnaround_s"] for r in server.reports)
+                r = out[(label, layout)] = {
+                    "wall": wall, "rps": len(server.reports) / wall,
+                    "p50": turn[len(turn) // 2], "p99": turn[-1],
+                    "counts": counts, "reads": reads, "misses": misses,
+                    "loads": loads, "warm": warm,
+                    "max_de": max(x["de_rel"] for x in server.reports)}
+                print(f"mesh server {label} {layout}: {len(server.reports)} "
+                      f"requests in {wall:.3f} s ({r['rps']:.4f} requests/s),"
+                      f" turnaround p50 {r['p50']:.3f} s p99 {r['p99']:.3f} "
+                      f"s, warmup {warm:.0f} engine builds, after it "
+                      f"{misses:.0f} builds and {loads} kernel library "
+                      f"loads, launches {counts}, host reads {reads}, max "
+                      f"|dE/E| {r['max_de']:.3e}", flush=True)
+                check(len(server.reports) == len(reqs),
+                      f"mesh server {label} {layout}: requests lost")
+                check(misses == 0 and loads == 0,
+                      f"mesh server {label} {layout}: built after warmup")
+                check(r["max_de"] <= DE_TIERS["fp32"],
+                      f"mesh server {label} {layout}: |dE/E| {r['max_de']}")
+            same = sorted(finals["mesh"]) == sorted(finals["one slot"]) \
+                and all(all(torch.equal(finals["mesh"][k][f],
+                                        finals["one slot"][k][f])
+                            for f in nbody.FIELDS) for k in finals["mesh"])
+            # suspend after the first tick, resume in a fresh server; a
+            # chunk of one event keeps the first tick short of t_end (the
+            # chunking does not change the bits)
+            server = sim_engine.SimServer(sim_engine.ServerConfig(
+                **dict(mesh, chunk_events=1), **extra))
+            server.warmup(reqs[:1])
+            for q in reqs:
+                server.submit(q)
+            fin = {}
+            with capturing_retirements(fin):
+                server.step()
+                before = len(server.reports)
+                with tempfile.TemporaryDirectory() as tmp:
+                    server.suspend(tmp, step=1)
+                    resumed = sim_engine.SimServer.resume(tmp)
+                resumed.run_until_drained()
+            resumed_same = sorted(fin) == sorted(finals["mesh"]) and all(
+                all(torch.equal(fin[k][f], finals["mesh"][k][f])
+                    for f in nbody.FIELDS) for k in fin)
+            out[(label, "mesh")].update(bitwise_one_slot=same,
+                                        bitwise_resume=resumed_same)
+            print(f"mesh server {label}: final rows bitwise equal to the "
+                  f"one-slot server's {same}; suspended after one tick "
+                  f"({before} retired), resumed: bitwise equal "
+                  f"{resumed_same}", flush=True)
+            check(same, f"mesh server {label}: differs from one slot")
+            check(before == 0 and resumed_same,
+                  f"mesh server {label}: resume differs")
+    return out
+
+
+def layout_phase(dev, all_kernels):
+    """Phase 13: the batch layouts, the fused mesh and the server on it."""
+    t0 = time.perf_counter()
+    out = {"batch": batch_layout_runs(dev, all_kernels),
+           "fused": fused_runs(dev, all_kernels),
+           "serve": mesh_serve_runs(dev, all_kernels)}
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -2427,6 +2836,9 @@ def main() -> int:
     phase("12. the simulation server at full size")
     srv = serve_phase(dev, all_kernels)
 
+    phase("13. the batch layouts and the fused mesh on the card")
+    lay = layout_phase(dev, all_kernels)
+
     rows = []
     for name in kernels:
         ms, pms, bms, by = timings[(name, "fp32", N_MAIN)]
@@ -2471,6 +2883,25 @@ def main() -> int:
                 for (src_, dt_), r in nbr["runs"].items()},
             "launches_server": {k: srv[k]["counts"][name]
                                 for k in ("full", "neighbor")},
+            "launches_batch_layouts": {
+                k: r["counts"][name] for k, r in lay["batch"].items()},
+            "launches_fused": {
+                k: lay["fused"][k]["counts"][name]
+                for k in ("fused 2x2", "1-D x2", "one slot")},
+            "fused_grids": {
+                k: lay["fused"][k]["grids"][name]
+                for k in ("fused 2x2", "1-D x2", "one slot")},
+            "fused_slot_shapes": {
+                f"{label_} {'x'.join(map(str, r['shape']))}": {
+                    k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "pairs", "blocks", "sms",
+                                      "launches", "max_norm_err",
+                                      "max_abs_err")}
+                for (n_, label_), r in lay["fused"]["slot_shapes"].items()
+                if n_ == name},
+            "launches_mesh_server": {
+                f"{s_} {l_}": r["counts"][name]
+                for (s_, l_), r in lay["serve"].items()},
             "window_shapes": {
                 "x".join(map(str, shape_)): v
                 for (n_, shape_), v in nbr["window_timings"].items()

@@ -214,10 +214,14 @@ def make_neighbor_block_evaluator(
     Returns ``(near1, near2)``, each on one system (``(n, 3)`` leaves) or a
     batch (``(B, n, 3)``, windows ``(B, nbt, nsb)``)::
 
-        near1(pos, vel, mass, mask_t, win_idx, win_cnt, w_idx)
+        near1(pos, vel, mass, mask_t, win_idx, win_cnt, w_idx, blocks=None)
             -> (acc, jerk, pot)                     # near field only
-        near2(pos, vel, acc_t, acc_s, mass, mask_t, win_idx, win_cnt, w_idx)
-            -> snap                                 # near field only
+        near2(pos, vel, acc_t, acc_s, mass, mask_t, win_idx, win_cnt, w_idx,
+              blocks=None) -> snap                  # near field only
+
+    ``blocks=(lo, hi)`` evaluates target blocks ``lo .. hi`` only (a domain
+    shard of the fused mesh) and returns their rows, ``lo * block_i ..
+    min(hi * block_i, n)``; sources stay the members' full rows.
 
     ``acc_t`` is the total (near + far) acceleration of the targets and
     ``acc_s`` that of every source row: the snap term depends on both
@@ -241,23 +245,24 @@ def make_neighbor_block_evaluator(
         x = torch.nn.functional.pad(x, pad)
         return x.reshape((x.shape[0], nb, block) + x.shape[2:])
 
-    def _targets(x):
-        """(B, n, ...) -> (B * nbt, block_i, ...) target blocks."""
-        x = _blocks(x, nbt, block_i, nt_pad)
+    def _targets(x, lo, hi):
+        """(B, n, ...) -> (B * (hi - lo), block_i, ...) target blocks."""
+        x = _blocks(x, nbt, block_i, nt_pad)[:, lo:hi]
         return x.reshape((-1,) + x.shape[2:])
 
-    def _unblock(x, b):
-        return x.reshape((b, nt_pad) + x.shape[2:])[:, :n]
+    def _unblock(x, b, lo, hi):
+        rows = min(hi * block_i, n) - lo * block_i
+        return x.reshape((b, (hi - lo) * block_i) + x.shape[2:])[:, :rows]
 
     def _gather(win_idx, win_cnt, w_idx, sm, *rows):
-        """The first ``w`` window entries of every target block, flattened
-        to (B * nbt, w * block_j, ...); slots past ``win_cnt`` zero their
-        mass."""
+        """The first ``w`` window entries of every given target block,
+        flattened to (B * blocks, w * block_j, ...); slots past ``win_cnt``
+        zero their mass."""
         w = w_caps[w_idx]
-        b = sm.shape[0]
-        if b * nbt > nbody_force.MAX_BATCH:
+        b, nb = win_cnt.shape
+        if b * nb > nbody_force.MAX_BATCH:
             raise ValueError(
-                f"{b} members x {nbt} target blocks = {b * nbt} batch "
+                f"{b} members x {nb} target blocks = {b * nb} batch "
                 f"entries exceed the {nbody_force.MAX_BATCH} one launch takes "
                 "(gridDim.y)")
         idx = win_idx[:, :, :w].long()
@@ -266,42 +271,46 @@ def make_neighbor_block_evaluator(
                < win_cnt[:, :, None])
         gm = torch.where(val[..., None], _blocks(sm, nsb, block_j,
                                                  ns_pad)[bidx, idx], 0.0)
-        out = [gm.reshape(b * nbt, w * block_j)]
+        out = [gm.reshape(b * nb, w * block_j)]
         for x in rows:
             g = _blocks(x, nsb, block_j, ns_pad)[bidx, idx]
-            out.append(g.reshape((b * nbt, w * block_j) + g.shape[4:]))
+            out.append(g.reshape((b * nb, w * block_j) + g.shape[4:]))
         return out
 
     def _batched(fn):
         """Lift a batch-axis function to also take one unbatched system."""
-        def lifted(pos, *args):
+        def lifted(pos, *args, blocks=None):
+            lo, hi = (0, nbt) if blocks is None else blocks
             if pos.dim() == 3:
-                return fn(pos, *args)
+                return fn(pos, *args, lo=lo, hi=hi)
             out = fn(pos[None], *(a[None] if isinstance(a, torch.Tensor)
-                                  else a for a in args))
+                                  else a for a in args), lo=lo, hi=hi)
             if isinstance(out, tuple):
                 return tuple(o[0] for o in out)
             return out[0]
         return lifted
 
     @_batched
-    def near1(pos, vel, mass, mask_t, win_idx, win_cnt, w_idx):
+    def near1(pos, vel, mass, mask_t, win_idx, win_cnt, w_idx, *, lo, hi):
         b = pos.shape[0]
         p, v, m = cast(pos), cast(vel), cast(mass)
-        gm, gp, gv = _gather(win_idx, win_cnt, w_idx, m, p, v)
-        acc, jerk, pot = rect1(_targets(p), _targets(v), gp, gv, gm,
-                               _targets(mask_t))
-        return _unblock(acc, b), _unblock(jerk, b), _unblock(pot, b)
+        gm, gp, gv = _gather(win_idx[:, lo:hi], win_cnt[:, lo:hi], w_idx, m,
+                             p, v)
+        acc, jerk, pot = rect1(_targets(p, lo, hi), _targets(v, lo, hi), gp,
+                               gv, gm, _targets(mask_t, lo, hi))
+        return tuple(_unblock(x, b, lo, hi) for x in (acc, jerk, pot))
 
     @_batched
-    def near2(pos, vel, acc_t, acc_s, mass, mask_t, win_idx, win_cnt, w_idx):
+    def near2(pos, vel, acc_t, acc_s, mass, mask_t, win_idx, win_cnt, w_idx,
+              *, lo, hi):
         b = pos.shape[0]
         p, v, m = cast(pos), cast(vel), cast(mass)
-        gm, gp, gv, ga = _gather(win_idx, win_cnt, w_idx, m, p, v,
-                                 cast(acc_s))
-        snp = rect2(_targets(p), _targets(v), _targets(cast(acc_t)), gp, gv,
-                    ga, gm, _targets(mask_t))
-        return _unblock(snp, b)
+        gm, gp, gv, ga = _gather(win_idx[:, lo:hi], win_cnt[:, lo:hi], w_idx,
+                                 m, p, v, cast(acc_s))
+        snp = rect2(_targets(p, lo, hi), _targets(v, lo, hi),
+                    _targets(cast(acc_t), lo, hi), gp, gv, ga, gm,
+                    _targets(mask_t, lo, hi))
+        return _unblock(snp, b, lo, hi)
 
     return near1, near2
 

@@ -197,24 +197,26 @@ def block_level_dt(levels, dt_max, dtype=None):
 def block_level_occupancy(levels, *, n_levels: int, mask=None):
     """Per-level occupancy bound: entry ``t`` counts particles at levels
     >= t, the largest active set any tick with threshold level ``t`` can
-    see.  ``mask`` (optional bool ``(N,)``) restricts the count to real
-    particles."""
+    see.  ``mask`` (optional bool, ``levels``' shape) restricts the count
+    to real particles.  Leading axes of ``levels`` (``(..., N)``) stay:
+    the result is ``(..., n_levels)``."""
     thresholds = torch.arange(n_levels, dtype=levels.dtype,
                               device=levels.device)
-    lev = levels[None, :] >= thresholds[:, None]
+    lev = levels[..., None, :] >= thresholds[:, None]
     if mask is not None:
-        lev = lev & mask[None, :]
-    return torch.sum(lev, dim=1).to(torch.int32)
+        lev = lev & mask[..., None, :]
+    return torch.sum(lev, dim=-1).to(torch.int32)
 
 
 def tick_threshold_level(tick, *, n_levels: int):
     """Threshold level of a block-schedule tick:
     ``n_levels - 1 - trailing_zeros(tick)``; the macro-boundary tick
-    ``2**(n_levels - 1)`` maps to threshold 0."""
+    ``2**(n_levels - 1)`` maps to threshold 0.  A tensor of ticks gives
+    one threshold each."""
     t = torch.as_tensor(tick, dtype=torch.int32)
     pows = torch.tensor([2 ** k for k in range(1, n_levels)],
                         dtype=torch.int32, device=t.device)
-    tz = torch.sum((t % pows) == 0).to(torch.int32)
+    tz = torch.sum((t[..., None] % pows) == 0, dim=-1).to(torch.int32)
     return (n_levels - 1) - tz
 
 

@@ -33,18 +33,23 @@ strategy the port keeps the reference's bitwise contracts: the ring's
 ``overlap`` schedule equals ``sync`` bit for bit, and each block evaluator's
 ``compaction="gather"`` equals ``"none"`` bit for bit.
 
-The batch-axis layouts (ensembles sharded over devices, the fused
-``(batch, dev)`` mesh) are not ported yet: ROADMAP.md queue 1 item 7b.
+**The batch axis.**  :func:`make_batch_mesh` is the 1-D ``("batch",)``
+view an ensemble shards its members over (``sim.ensemble``), and
+:func:`make_fused_mesh` the 2-D ``("batch", "dev")`` grid of
+:func:`make_fused_block_evaluator`: slot ``(i, k)`` holds members ``i*B/bdev
+.. (i+1)*B/bdev`` and target rows ``k*N/p .. (k+1)*N/p`` of each of them,
+gathers sources along ``dev`` only (members stay independent) and runs ONE
+K1 (then one K2) launch per pass over its local members.
 """
 
 from __future__ import annotations
 
-import bisect
 import functools
 from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.core.evaluate import shared_cap_index
 from repro_torch.core.hermite import Evaluation, Evaluator
 from repro_torch.core.nbody import resolve_device
 from repro_torch.kernels import nbody_force, ops
@@ -107,6 +112,13 @@ class DeviceMesh:
         self.devices = tuple(torch.device(d) for d in devices)
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
+        for d in self.devices:
+            if d.type == "cuda" and d.index is not None \
+                    and d.index >= torch.cuda.device_count():
+                raise ValueError(
+                    f"{d} named, only {torch.cuda.device_count()} cards "
+                    "visible (a card named several times in a device list "
+                    "runs several shards on it)")
         self.shape = tuple(shape) if shape else (len(self.devices),)
         self.axis_names = tuple(axis_names)
         prod = 1
@@ -116,6 +128,15 @@ class DeviceMesh:
             raise ValueError(f"mesh shape {self.shape} over "
                              f"{self.axis_names} does not tile "
                              f"{len(self.devices)} devices")
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, DeviceMesh) and (
+            self.devices, self.shape, self.axis_names) == (
+            other.devices, other.shape, other.axis_names)
+
+    def __hash__(self) -> int:
+        # a mesh keys the engine caches by value
+        return hash((self.devices, self.shape, self.axis_names))
 
     @property
     def size(self) -> int:
@@ -132,13 +153,46 @@ class DeviceMesh:
         return torch.cat([q.to(device) for q in parts])
 
     @staticmethod
-    def _gather_group(parts, devices) -> list:
-        """``parts`` concatenated in order onto each of ``devices``."""
+    def _gather_group(parts, devices, dim: int = 0) -> list:
+        """``parts`` concatenated in order (along ``dim``) onto each of
+        ``devices``."""
         whole = {}
         for d in devices:
             if d not in whole:
-                whole[d] = torch.cat([q.to(d) for q in parts])
+                whole[d] = torch.cat([q.to(d) for q in parts], dim=dim)
         return [whole[d] for d in devices]
+
+    # -- the ("batch", "dev") grid: slot (i, k) is device i * p + k --------
+    def shard2(self, x: torch.Tensor) -> list:
+        """``x`` (``(B, N, ...)``) split into the grid's blocks: slot ``(i,
+        k)`` holds member chunk ``i`` of ``bdev`` and row chunk ``k`` of
+        ``p`` (B and N must be multiples of the extents)."""
+        bdev, p = self.shape
+        return [r.to(self.devices[i * p + k])
+                for i, xb in enumerate(x.chunk(bdev))
+                for k, r in enumerate(xb.chunk(p, dim=1))]
+
+    def unshard2(self, parts: Sequence, device) -> torch.Tensor:
+        """The grid's blocks reassembled as one ``(B, N, ...)`` tensor on
+        ``device``."""
+        bdev, p = self.shape
+        return torch.cat([torch.cat([q.to(device)
+                                     for q in parts[i * p:(i + 1) * p]],
+                                    dim=1) for i in range(bdev)])
+
+    def all_gather_dev(self, parts: Sequence) -> list:
+        """All-gather along ``dev`` only: every slot of batch row ``i``
+        receives the row's blocks concatenated along the particle axis;
+        nothing crosses ``batch``."""
+        bdev, p = self.shape
+        with named_scope("collective.all_gather_dev"):
+            out = []
+            for i in range(bdev):
+                idx = range(i * p, (i + 1) * p)
+                out += self._gather_group([parts[j] for j in idx],
+                                          [self.devices[j] for j in idx],
+                                          dim=1)
+            return out
 
     def all_gather(self, parts: Sequence) -> list:
         """Tiled all-gather over the whole mesh: every slot receives every
@@ -195,6 +249,28 @@ class DeviceMesh:
                     for i in range(p)]
 
 
+def make_batch_mesh(devices: Sequence) -> DeviceMesh:
+    """1-D ``("batch",)`` mesh over ``devices`` for ensembles sharded by
+    member: slot i holds the i-th of ``len(devices)`` equal member chunks
+    (``sim.ensemble`` pads the batch to a multiple)."""
+    return DeviceMesh(devices, axis_names=("batch",))
+
+
+def make_fused_mesh(devices: Sequence, *, mesh_shape: Sequence[int]
+                    ) -> DeviceMesh:
+    """2-D ``("batch", "dev")`` mesh fusing ensemble and domain
+    parallelism: ``mesh_shape = (bdev, p)``, device ``i * p + k`` holding
+    member chunk ``i`` and row chunk ``k``.  The device count must equal
+    ``bdev * p`` exactly: a remainder would drop devices silently."""
+    bdev, p = (int(x) for x in mesh_shape)
+    if bdev < 1 or p < 1:
+        raise ValueError(f"mesh_shape extents must be >= 1; got {mesh_shape}")
+    if bdev * p != len(devices):
+        raise ValueError(f"mesh_shape {bdev}x{p} needs {bdev * p} devices; "
+                         f"got {len(devices)}")
+    return DeviceMesh(devices, (bdev, p), ("batch", "dev"))
+
+
 def make_mesh(strategy: str, devices: Sequence,
               chips_per_card: int = 2) -> DeviceMesh:
     """The strategy's view of ``devices``: ``("card", "chip")`` for
@@ -213,11 +289,12 @@ def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
-def _pad_rows(x, n_pad: int, value=0):
-    """``x`` with rows appended up to ``n_pad`` (filled with ``value``)."""
-    extra = n_pad - x.shape[0]
-    return torch.nn.functional.pad(x, (0, 0) * (x.dim() - 1) + (0, extra),
-                                   value=value)
+def _pad_rows(x, n_pad: int, value=0, dim: int = 0):
+    """``x`` with rows appended along ``dim`` up to ``n_pad`` (filled with
+    ``value``)."""
+    extra = n_pad - x.shape[dim]
+    return torch.nn.functional.pad(
+        x, (0, 0) * (x.dim() - 1 - dim) + (0, extra), value=value)
 
 
 def _pad_particles(pos, vel, mass, n_pad: int):
@@ -363,6 +440,10 @@ def _ring_sweep(p, shift, ring_mode, init, src, compute):
 # prefix of it and their outputs are zero-padded back to the window, and one
 # scatter follows.  Rows past the chosen cap are inactive whenever the bound
 # holds the active count, so their output is exactly the masked result.
+#
+# Every helper below takes one shard's rows ((n_local, ...) leaves) or a
+# shard's local members ((b, n_local, ...) leaves, the fused mesh): the
+# members then go through one launch per pass, on the kernels' batch axis.
 
 
 def _shard_plan(n_local: int, n_sources: int, kw, n_passes: int):
@@ -372,37 +453,41 @@ def _shard_plan(n_local: int, n_sources: int, kw, n_passes: int):
                             n_passes=n_passes, dtype=kw["dtype"])
 
 
-def _shard_bucket(plan, bound: int) -> int:
-    """Bucket index from a shard's host-side active-count bound, clamped to
-    the local extent (an over-wide bound lands on the full-window bucket):
-    the smallest bucket holding it, as ``plan.bucket`` picks it."""
-    return bisect.bisect_left(plan.caps, min(int(bound), plan.caps[-1]))
+def _shard_bucket(plan, bound) -> int:
+    """Bucket index from a shard's host-side active-count bound: one int,
+    or the bounds of the shard's local members, which share one launch and
+    so the bucket of their max (``evaluate.shared_cap_index`` on host
+    ints).  Clamped to the local extent: an over-wide bound lands on the
+    full-window bucket."""
+    return int(shared_cap_index(plan, bound))
 
 
 def _window_launch(cap: int, launch, window, extra=()):
     """``launch`` on the first ``cap`` rows of the pre-gathered ``window``,
     each output zero-padded back to the window's extent (the reference's
-    ``_window_switch`` with the branch chosen on the host)."""
-    w = window[0].shape[0]
+    ``_window_switch`` with the branch chosen on the host).  The row axis
+    is the positions' second to last."""
+    ax = window[0].dim() - 2
+    w = window[0].shape[ax]
     c = min(cap, w)
-    outs = launch(tuple(x[:c] for x in window), *extra)
+    outs = launch(tuple(x.narrow(ax, 0, c) for x in window), *extra)
     if not isinstance(outs, tuple):
         outs = (outs,)
-    padded = tuple(_pad_rows(o, w) for o in outs)
+    padded = tuple(_pad_rows(o, w, dim=ax) for o in outs)
     return padded if len(padded) > 1 else padded[0]
 
 
 def _local_perm(mask):
     """Active rows first, in row order (a stable argsort of the inactive
     flag)."""
-    return torch.argsort((~mask).to(torch.int32), stable=True)
+    return torch.argsort((~mask).to(torch.int32), dim=-1, stable=True)
 
 
 def _shard_pass1(pos, vel, ap, mask, perm, cap, plan, kw, src, order):
     """Pass 1 on the compacted local targets; returns the scattered (acc,
     jerk, pot) and the blended snap source operand (fresh acc on active
     rows, predicted elsewhere), blended through the window only."""
-    n_local = pos.shape[0]
+    n_local = pos.shape[-2]
     cap_max = plan.caps[-1]
     window = ops.compact_targets(perm, cap_max, pos, vel, mask)
     m_w = window[2]
@@ -423,7 +508,7 @@ def _shard_pass2(pos, vel, acc, mask, perm, cap, plan, kw, src, ga):
     """Snap pass on the compacted local targets (pass 1's bucket); ``ga``
     is the gathered blended source acceleration."""
     gp, gv, gm = src
-    n_local = pos.shape[0]
+    n_local = pos.shape[-2]
     cap_max = plan.caps[-1]
     window = ops.compact_targets(perm, cap_max, pos, vel, acc, mask)
 
@@ -443,7 +528,7 @@ def _dense_pass1(pos, vel, ap, mask, kw, src, order):
     gp, gv, gm = src
     acc, jerk, pot = ops.acc_jerk_pot_rect(pos, vel, gp, gv, gm,
                                            mask_t=mask, **kw)
-    acc_s = torch.where(mask[:, None], acc, ap) if order >= 6 else ap
+    acc_s = torch.where(mask[..., None], acc, ap) if order >= 6 else ap
     return acc, jerk, pot, acc_s
 
 
@@ -451,13 +536,13 @@ def _shard_block_body(pos, vel, ap, mask, bound, src, *, kw, order,
                       compaction, n_passes):
     """Pass 1 of one shard against resident sources.
 
-    ``bound`` is the shard's host-side active-count bound (gather only).
-    Returns ``(acc, jerk, pot, acc_s, compacted, tiles)`` in the local
-    layout: ``compacted`` carries pass 1's permutation and bucket to the
-    snap pass (:func:`_resident_snap`), ``tiles`` the tiles both passes
-    enqueue.
+    ``bound`` is the shard's host-side active-count bound, or its local
+    members' bounds (gather only).  Returns ``(acc, jerk, pot, acc_s,
+    compacted, tiles)`` in the local layout: ``compacted`` carries pass
+    1's permutation and bucket to the snap pass (:func:`_resident_snap`),
+    ``tiles`` the tiles both passes enqueue.
     """
-    plan = _shard_plan(pos.shape[0], src[0].shape[0], kw, n_passes)
+    plan = _shard_plan(pos.shape[-2], src[0].shape[-2], kw, n_passes)
     if compaction == "gather":
         perm = _local_perm(mask)
         idx = _shard_bucket(plan, bound)
@@ -736,3 +821,125 @@ def _ring_block(mesh, order, kw, compaction, n_passes, ring_mode):
         return acc, jerk, snp, pot, tiles
 
     return eval_padded
+
+
+# --------------------------------------------------------------------------
+# fused (batch, dev) block evaluator: B ensemble members x P domain shards
+# --------------------------------------------------------------------------
+def _wrap_fused_block(mesh: DeviceMesh, compaction: str, eval_padded):
+    """Pad each member's N to a shard multiple, evaluate, slice back.
+
+    The batch axis is the engine's to pad (``sim.ensemble._pad_batch``
+    repeats the first run): a batch that is not a multiple of the batch
+    extent is the caller's fault here and raises, it is never padded over
+    with duplicated physics.  ``n_bound`` (optional, ``(B, P)`` host ints
+    or a tensor) bounds each member's active count on each domain shard
+    (the engine's analytic occupancy bound); ``None`` measures the masks in
+    one read to the host.  Returns ``(Evaluation, tiles)``, ``tiles`` the
+    ``(B, P)`` int64 tiles each member enqueued on each domain shard (both
+    passes; the shard's local members share its launches)."""
+    bdev, p = mesh.shape
+
+    def evaluate(pos, vel, acc_pred, mass, mask_t, n_bound=None):
+        b, n = pos.shape[0], pos.shape[1]
+        if b % bdev:
+            raise ValueError(
+                f"batch size {b} not divisible by the mesh's batch extent "
+                f"{bdev}; pad the batch first (sim.ensemble._pad_batch)")
+        bl = b // bdev
+        if bl > nbody_force.MAX_BATCH:
+            raise ValueError(
+                f"{bl} members per shard exceed the {nbody_force.MAX_BATCH} "
+                "one launch takes (gridDim.y)")
+        n_pad = _round_up(n, p)
+        f32 = torch.float32
+        pp, vp, app = (_pad_rows(x.to(f32), n_pad, dim=1)
+                       for x in (pos, vel, acc_pred))
+        mp = _pad_rows(mass.to(f32), n_pad, dim=1)
+        mk = _pad_rows(mask_t.to(torch.bool), n_pad, value=False, dim=1)
+        bound = None
+        if compaction == "gather":
+            if n_bound is None:
+                rows = mk.reshape(b, p, -1).sum(dim=2).tolist()
+            else:
+                rows = (n_bound.tolist() if isinstance(n_bound, torch.Tensor)
+                        else [list(r) for r in n_bound])
+                if len(rows) != b or any(len(r) != p for r in rows):
+                    raise ValueError(
+                        f"n_bound must be ({b}, {p}) for a {b}-member batch "
+                        f"on a {bdev}x{p} mesh")
+            # slot (i, k): the bounds of its local members on shard k
+            bound = [[int(rows[m][k]) for m in range(i * bl, (i + 1) * bl)]
+                     for i in range(bdev) for k in range(p)]
+        acc, jerk, snp, pot, tiles = eval_padded(pp, vp, app, mp, mk, bound)
+        ev = Evaluation(*(mesh.unshard2(o, pos.device)[:, :n]
+                          for o in (acc, jerk, snp, pot)))
+        per_member = tuple(tuple(int(tiles[i * p + k]) for k in range(p))
+                           for i in range(bdev) for _ in range(bl))
+        return ev, _tiles_tensor(per_member, pos.device)
+
+    return evaluate
+
+
+def _fused_block(mesh: DeviceMesh, order, kw, compaction, n_passes):
+    """The fused mesh's body: each slot holds its local members' ``N/p``
+    target rows and sweeps their full source sets, gathered along ``dev``
+    (the mesh_sharded placements of one batch row; nothing crosses
+    ``batch``).  Per slot and pass ONE launch serves the local members, and
+    under gather they share one capacity bucket (:func:`_shard_bucket` over
+    their bounds); the blended snap-source acceleration is the one
+    collective between the passes, as in :func:`_resident_block`."""
+
+    def eval_padded(pos, vel, ap, mass, mask, bound):
+        pos, vel, ap, mass, mask = (mesh.shard2(x)
+                                    for x in (pos, vel, ap, mass, mask))
+        src = list(zip(*(mesh.all_gather_dev(x) for x in (pos, vel, mass))))
+        return _resident_block(mesh, order, kw, compaction, n_passes,
+                               list(zip(pos, vel, mask)), src,
+                               mesh.all_gather_dev, ap, bound)
+
+    return eval_padded
+
+
+def make_fused_block_evaluator(
+    mesh_shape: Sequence[int],
+    *,
+    devices: Optional[Sequence] = None,
+    eps: float = 1e-7,
+    order: int = 6,
+    block_i: int = nbody_force.DEFAULT_BLOCK_I,
+    block_j: int = nbody_force.DEFAULT_BLOCK_J,
+    compaction: str = "none",
+    dtype: str = "fp32",
+):
+    """Batched active-target evaluator over a fused ``(batch, dev)`` mesh.
+
+    ``mesh_shape = (bdev, p)`` over ``devices`` (``bdev * p`` of them; a
+    card may appear several times, ``None``: every visible card): the
+    batch is sharded ``bdev`` ways and each member's particle domain ``p``
+    ways, the 2-D composition of the ensemble's batch layout with the
+    ``mesh_sharded`` strategy, which lets a serving pod hold several
+    large-N members on one device group.
+
+    Signature of the returned callable::
+
+        evaluate(pos, vel, acc_pred, mass, mask_t, n_bound=None) \\
+            -> (Evaluation, tiles)
+
+    Every operand carries the leading ``(B,)`` batch axis; ``n_bound`` and
+    ``tiles`` are ``(B, P)`` (see :func:`_wrap_fused_block`).  Each target
+    row is a row-local sum over its member's full source set in source
+    order, whatever slot or launch it sits in, so the result equals the
+    member's 1-D batch layout evaluation and its ``mesh_sharded`` strategy
+    evaluation; ``compaction="gather"`` gives ``"none"``'s bits.
+    """
+    if compaction not in COMPACTIONS:
+        raise ValueError(
+            f"compaction must be one of {COMPACTIONS}; got {compaction!r}")
+    kw = _force_kw(block_i, block_j, eps, dtype)
+    n_passes = 2 if order >= 6 else 1
+    mesh = make_fused_mesh(mesh_devices() if devices is None
+                           else list(devices), mesh_shape=mesh_shape)
+    return _wrap_fused_block(mesh, compaction,
+                             _fused_block(mesh, order, kw, compaction,
+                                          n_passes))

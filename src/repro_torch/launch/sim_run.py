@@ -54,10 +54,15 @@ at build:
         plummer --n 16384 --stepper block --sources neighbor \
         --block-i 32 --block-j 32 --neighbor-radius 0.125 --t-end 0.0625
 
-Not ported yet, each exits with the ``NotImplementedError`` naming
-ROADMAP.md queue 1 item 7b: an ensemble over ``--devices k`` (k > 1) and
-``--mesh BxP``.  A strategy label on a batched run only tags the report,
-as in the reference.
+An ensemble over ``--devices k`` (k > 1) shards its members over k slots,
+and ``--mesh BxP`` (``B * P`` equal to ``--devices``) runs the block
+stepper on the fused ``(batch, dev)`` grid: B batch shards, each member's
+domain split P ways.  A strategy label on a batched run only tags the
+report, as in the reference:
+
+    PYTHONPATH=src python -m repro_torch.launch.sim_run --device cpu \
+        --ensemble 2 --devices 4 --mesh 2x2 --stepper block \
+        --scenario plummer --n 64 --t-end 0.0625
 
 Each invocation emits a one-line summary plus a JSON telemetry report
 (wall time, steps/s, interactions/s, modeled energy/EDP, per-run energy
@@ -159,15 +164,13 @@ def main(argv=None):
                     choices=("single", "replicated", "two_level",
                              "mesh_sharded", "ring"))
     ap.add_argument("--devices", type=int, default=1,
-                    help="shards of a run under --strategy: k CPU slots "
-                         "with --device cpu, the first k cards on cuda "
-                         "(an ensemble over k > 1 is not ported yet: "
-                         "ROADMAP.md queue 1 item 7b)")
+                    help="shards of a run under --strategy, or of an "
+                         "ensemble's batch: k CPU slots with --device cpu, "
+                         "the first k cards on cuda")
     ap.add_argument("--mesh", default=None, metavar="BxP",
                     help="fused 2-D device grid for the block stepper, B "
                          "batch shards x P domain shards (B*P must equal "
-                         "--devices; not ported yet: ROADMAP.md queue 1 "
-                         "item 7b)")
+                         "--devices)")
     ap.add_argument("--impl", default=None,
                     choices=(None, "pallas", "pallas_interpret", "xla",
                              "fp64"))
@@ -283,10 +286,7 @@ def main(argv=None):
              else len(mix) * args.ensemble,
              "strategy": args.strategy}),
     )
-    try:
-        report = api.run(cfg)
-    except NotImplementedError as e:
-        raise SystemExit(f"sim_run: {e}") from None
+    report = api.run(cfg)
 
     desc = " ".join(f"{nm}:{n}" for nm, n in mix) if mixed \
         else f"{scenario_name} n={n_arg}"

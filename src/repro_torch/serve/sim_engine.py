@@ -1,6 +1,6 @@
 """Continuous-batching simulation server: admit, advance, retire, backfill.
 
-Port of ``repro/serve/sim_engine.py`` on one card.  A :class:`SimServer`
+Port of ``repro/serve/sim_engine.py``.  A :class:`SimServer`
 holds a queue of :class:`SimRequest`\\ s (a validated ``ScenarioSpec``, a
 stepper and a ``t_end``) and a set of pods, padded ``(B, cap)`` ensembles
 advanced in lockstep, and on every scheduler tick:
@@ -39,8 +39,13 @@ tensors through ``repro_torch.checkpoint.store`` plus a JSON manifest of
 the queue and slots; :meth:`SimServer.resume` rebuilds a server that
 continues bit for bit (dtype-strict restore).
 
-A server over several devices (``devices`` > 1, ``mesh``) is not ported
-yet and raises naming ROADMAP.md queue 1 item 7b.
+**Devices.**  ``devices`` > 1 shards every pod's batch over that many
+slots (``sim.ensemble``'s batch layout) and ``mesh=(B, P)`` puts block pods
+on the fused ``(batch, dev)`` grid; ``slots_per_pod`` must be a multiple
+of the batch extent.  The slots are the first ``devices`` cards
+(``ServerConfig.slots``).  A pod's state stays whole on ``device``, so
+checkpoints keep the reference's unsharded leaves; admission bootstraps
+each member on one slot.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ import torch
 
 from repro_torch.checkpoint import store
 from repro_torch.core import nbody
+from repro_torch.core.strategies import mesh_devices
 from repro_torch.core.nbody import FIELDS, ParticleState, zeros_like_state
 from repro_torch.kernels import nbody_force, ops
 from repro_torch.obs import metrics as obs_metrics
@@ -92,18 +98,33 @@ class ServerConfig:
     neighbor_radius: float = 0.25
     refresh_levels: int = 2
     devices: int = 1
-    mesh: Optional[Tuple[int, int]] = None
+    mesh: Optional[Tuple[int, int]] = None  # fused (batch, domain) grid for
+    #   block pods; product must equal devices (JSON manifests round-trip
+    #   it as a 2-list, so compare via tuple())
     device: str = "cuda"             # where every pod's tensors live
 
     def validate(self) -> "ServerConfig":
         if self.slots_per_pod < 1:
             raise ValueError(
                 f"slots_per_pod={self.slots_per_pod} must be >= 1")
-        if self.devices > 1 or self.mesh is not None:
-            raise NotImplementedError(
-                f"devices={self.devices}, mesh={self.mesh}: a server over "
-                "several devices is not ported yet: ROADMAP.md queue 1 "
-                "item 7b")
+        if self.mesh is not None:
+            if len(self.mesh) != 2 or any(int(e) < 1 for e in self.mesh):
+                raise ValueError(
+                    f"mesh={self.mesh!r} must be two positive extents "
+                    "(B_shards, P_shards)")
+            if self.mesh[0] * self.mesh[1] != self.devices:
+                raise ValueError(
+                    f"mesh={tuple(self.mesh)} covers "
+                    f"{self.mesh[0] * self.mesh[1]} devices; devices says "
+                    f"{self.devices}")
+        # the batch axis pads to the mesh's batch extent (all of `devices`
+        # without a fused mesh)
+        batch_extent = self.mesh[0] if self.mesh is not None else self.devices
+        if batch_extent >= 1 and self.slots_per_pod % batch_extent:
+            raise ValueError(
+                f"slots_per_pod={self.slots_per_pod} must be a multiple of "
+                f"the batch extent {batch_extent} (the batch axis shards "
+                "evenly)")
         if self.chunk_events < 1:
             raise ValueError(
                 f"chunk_events={self.chunk_events} must be >= 1")
@@ -126,7 +147,17 @@ class ServerConfig:
                 f"n_max={self.n_max} must be block_i-aligned "
                 f"(next aligned value: {plan.caps[-1]})")
         nbody.resolve_device(self.device)
+        self.slots()
         return self
+
+    def slots(self) -> Optional[list]:
+        """The engines' device list: None for one slot, else the first
+        ``devices`` cards or ``devices`` CPU slots
+        (``strategies.mesh_devices``: ``ValueError`` above the visible
+        cards)."""
+        if self.devices <= 1 and self.mesh is None:
+            return None
+        return mesh_devices(self.devices, self.device)
 
     @property
     def tile_shape(self) -> Tuple[int, int]:
@@ -253,10 +284,9 @@ class Pod:
     def occupied(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s is not None]
 
-    def _devices(self) -> int:
-        """The engines' device count: one card (``ServerConfig.validate``
-        refuses more, ROADMAP.md queue 1 item 7b)."""
-        return self.cfg.devices
+    def _devices(self) -> Optional[list]:
+        """The engines' device list (None: the pod's own device)."""
+        return self.cfg.slots()
 
     def _engine_kw(self) -> Dict[str, Any]:
         cfg = self.cfg
@@ -281,7 +311,7 @@ class Pod:
                 member, leaf=math.gcd(*self.cfg.tile_shape))
         b1 = ens.stack_states([scenarios.pad_state(member, self.cap)])
         b1 = ens.ensemble_initialize(
-            b1, n_active=[request.spec.n], devices=self._devices(),
+            b1, n_active=[request.spec.n], devices=None,
             **self._engine_kw())
         e0 = float(ens.batched_total_energy(b1)[0])
         return ParticleState(**{f: getattr(b1, f)[0] for f in FIELDS}), e0
@@ -334,7 +364,9 @@ class Pod:
                 eta=cfg.eta, compaction=cfg.compaction,
                 block_i=cfg.block_i, block_j=cfg.block_j,
                 sources=cfg.sources, neighbor_radius=cfg.neighbor_radius,
-                refresh_levels=cfg.refresh_levels, **kw)
+                refresh_levels=cfg.refresh_levels,
+                mesh=tuple(cfg.mesh) if cfg.mesh is not None else None,
+                **kw)
         times = self.batched.time.tolist()
         wall = time.perf_counter() - t0
         steps = self._per_slot_steps()

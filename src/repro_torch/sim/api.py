@@ -33,11 +33,10 @@ devices`` slots, as the reference's launcher fakes host devices, on
 count when fewer are there (no fallback).  A single run under a strategy
 (``SingleRunner``) and a block run under one (``BlockStrategyRunner``)
 shard the run's domain; a strategy label on a batched run only tags the
-report, as in the reference.
-
-**Not ported yet**, raising ``NotImplementedError`` at ``build``: batches
-sharded over several devices and the fused mesh (ROADMAP.md queue 1 item
-7b).
+report, as in the reference.  A batched run over ``devices`` > 1 shards
+its members over the slots (``sim.ensemble``'s batch layout), and
+``SimConfig.mesh=(B, P)`` puts a block run on the fused ``(batch, dev)``
+grid of ``B * P`` slots.
 """
 
 from __future__ import annotations
@@ -62,9 +61,6 @@ from repro_torch.sim.telemetry import RunReport
 
 MAX_STEPS = 200_000
 
-#: the ROADMAP item behind what the port does not run yet
-_BATCH_DEVICES_ITEM = "ROADMAP.md queue 1 item 7b"
-
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
@@ -87,7 +83,7 @@ class SimConfig:
     sources: str = "full"            # "full" | "neighbor" (Ahmad-Cohen
     #   near/far split; block stepper)
     mesh: Optional[Tuple[int, int]] = None  # fused (batch, domain) device
-    #   grid (block stepper; product must equal devices; not ported yet)
+    #   grid (block stepper; product must equal devices — --mesh BxP)
     neighbor_radius: float = 0.25    # AC window radius (simulation length)
     refresh_levels: int = 2          # far-field refresh: levels below macro
     eta: float = 0.02
@@ -277,20 +273,6 @@ def _device_list(cfg: SimConfig) -> list:
     ``cuda``, ``ValueError`` naming the visible count when fewer are
     there."""
     return mesh_devices(cfg.devices, cfg.device)
-
-
-def _batch_device(cfg: SimConfig) -> torch.device:
-    """Refuse what a batched run does not run yet; returns its device."""
-    devices = _device_list(cfg)
-    if cfg.mesh is not None:
-        raise NotImplementedError(
-            f"mesh={tuple(cfg.mesh)}: the fused (batch, domain) mesh is not "
-            f"ported yet: {_BATCH_DEVICES_ITEM}")
-    if len(devices) > 1:
-        raise NotImplementedError(
-            f"devices={cfg.devices}: ensembles sharded over devices are not "
-            f"ported yet: {_BATCH_DEVICES_ITEM}")
-    return nbody.resolve_device(cfg.device)
 
 
 def _eval_dtype(cfg: SimConfig, impl: Optional[str]) -> str:
@@ -684,7 +666,8 @@ class EnsembleRunner(Runner):
         validate_config(cfg)
         if cfg.strategy not in ens.STRATEGY_LABELS:
             raise ValueError(f"unknown strategy {cfg.strategy!r}")
-        dev = _batch_device(cfg)
+        devices = _device_list(cfg)
+        dev = nbody.resolve_device(cfg.device)
         impl = ens.check_impl(ens.resolve_eval_impl(cfg.impl, cfg.kernel),
                               dev)
         h = RunHandle(cfg, self.kind)
@@ -708,7 +691,13 @@ class EnsembleRunner(Runner):
             1.0 - float(sum(n_active)) / (h.b * h.n_max))
         na = torch.as_tensor(n_active, dtype=torch.int32, device=dev)
         h.kw = dict(n_active=na, order=cfg.order, eps=cfg.eps,
-                    dtype=_eval_dtype(cfg, impl))
+                    dtype=_eval_dtype(cfg, impl),
+                    devices=devices if len(devices) > 1 else None)
+        if cfg.mesh is not None:
+            # validated block-only, so the lockstep entry points (which
+            # take no mesh) never see the key
+            h.kw["mesh"] = tuple(int(e) for e in cfg.mesh)
+            h.kw["devices"] = devices
         batched = ens.ensemble_initialize(batched, **h.kw)
         _sync(batched.pos)
         h.batched = batched
@@ -850,19 +839,20 @@ class EnsembleRunner(Runner):
         # analytic a-priori tile bound: occupancy entry 0 (every real
         # particle) is the largest active set any tick of the block
         # schedule can see, so per member and event the launch can
-        # never exceed the tiles of occ[0]'s capacity bucket
-        occ0 = torch.stack([
-            hermite.block_level_occupancy(lv, n_levels=h.n_levels,
-                                          mask=m)[0]
-            for lv, m in zip(h.carry.levels, h.mask)]).tolist()
-        for i in range(h.b):
-            per_event = (int(h.plan.tiles(int(h.plan.bucket(int(occ0[i])))))
-                         if cfg.compaction == "gather"
-                         else h.plan.dense_tiles)
-            h.bound_total += ev_d[i] * per_event
-        reg.gauge("sim.tiles_occupancy_bound", unit="tiles",
-                  help="analytic bound; launched <= bound").set(
-            h.bound_total)
+        # never exceed the tiles of occ[0]'s capacity bucket.  The
+        # full-N bound does not transfer to the fused mesh, whose launches
+        # are sized by p shard-local plans
+        if cfg.mesh is None:
+            occ0 = hermite.block_level_occupancy(
+                h.carry.levels, n_levels=h.n_levels, mask=h.mask)[:, 0]
+            for i, o in enumerate(occ0.tolist()):
+                per_event = (int(h.plan.tiles(int(h.plan.bucket(o))))
+                             if cfg.compaction == "gather"
+                             else h.plan.dense_tiles)
+                h.bound_total += ev_d[i] * per_event
+            reg.gauge("sim.tiles_occupancy_bound", unit="tiles",
+                      help="analytic bound; launched <= bound").set(
+                h.bound_total)
         for i in range(h.b):
             if ev_d[i] > 0 and h.n_active[i] > 0:
                 reg.histogram(
@@ -870,7 +860,9 @@ class EnsembleRunner(Runner):
                     help="per-chunk mean active-target fraction"
                 ).observe(pairs_d[i]
                           / (ev_d[i] * float(h.n_active[i]) ** 2))
-        if cfg.compaction == "gather":
+        # the fused mesh's capacity switch lives inside the shards (one
+        # bucket per slot): there is no batch-level hit distribution
+        if cfg.compaction == "gather" and cfg.mesh is None:
             reg.gauge(
                 "sim.bucket_hits", unit="hits",
                 help="capacity-bucket switch hit counts (full "

@@ -1,6 +1,6 @@
 """Batched ensemble engine: B independent simulations advanced together.
 
-Port of ``repro/sim/ensemble.py`` on one card.  Independent runs are
+Port of ``repro/sim/ensemble.py``.  Independent runs are
 stacked on a leading batch axis of every ``ParticleState`` leaf and
 advanced in lockstep.  The reference lifts the Hermite step over members
 with ``jax.vmap``; ``torch.vmap`` cannot lift a hand-written kernel, so the
@@ -56,9 +56,21 @@ strategies (``core.strategies``), each shard compacting its own active
 targets; the event schedule is the ensemble engine's.  A strategy label on
 a batch only tags it, as in the reference: its members are independent.
 
-Not ported yet: batches sharded over several devices and the fused mesh
-(``devices=`` of more than one, ``mesh=``; ROADMAP.md queue 1 item 7b).
-The tensors' device picks
+**Batch layouts.** ``devices=`` (a device list, one slot each, or a count)
+shards a batch by member over the 1-D ``("batch",)`` mesh
+(``strategies.make_batch_mesh``): B is padded to a multiple of the slots
+by repeating the first run (:func:`_pad_batch`) and slot i takes the i-th
+member chunk.  The fixed-dt and adaptive engines run whole on each slot;
+the block engine keeps one event schedule and one host read per event over
+the whole batch, so whatever the reference shares across its vmapped batch
+(a bucket group's capacity, the neighbor window bucket) stays shared
+across slots, and each slot launches its members at those capacities.
+``mesh=(bdev, p)`` lays the batch on the fused ``("batch", "dev")`` grid:
+with full sources the block engine shards each member's target rows
+``p`` ways (one launch per slot and pass over the slot's members, a
+capacity bucket per slot), with neighbor sources it splits each member's
+target blocks over its row's slots.  Either way the bits
+are those of the unsharded batch.  The tensors' device picks
 the kernels or their plain versions, so the engines take no ``impl``:
 ``dtype="fp64"`` is the oracle.  The reference's ``impl``/``kernel``
 labels are resolved for the API by :func:`resolve_eval_impl` and checked
@@ -81,7 +93,10 @@ from repro_torch.core.evaluate import (COMPACTIONS, make_block_evaluator,
                                        shared_cap_index)
 from repro_torch.core.hermite import Evaluation
 from repro_torch.core.nbody import FIELDS, ParticleState
-from repro_torch.core.strategies import (STRATEGIES,
+from repro_torch.core.strategies import (STRATEGIES, DeviceMesh,
+                                         make_batch_mesh,
+                                         make_fused_block_evaluator,
+                                         make_fused_mesh,
                                          make_strategy_block_evaluator,
                                          make_strategy_evaluator,
                                          mesh_devices)
@@ -173,16 +188,6 @@ def _count_engine_build(kind: str) -> None:
     reg.counter(f"engine.cache_miss.{kind}", unit="builds").inc()
 
 
-def _n_devices(devices) -> int:
-    """How many devices ``devices`` names: an int count, a sequence, or
-    None (one)."""
-    if devices is None:
-        return 1
-    if isinstance(devices, int):
-        return devices
-    return len(list(devices))
-
-
 def _mesh_list(devices, device) -> list:
     """A strategy engine's device list: a sequence as given, an int count
     or None resolved by ``strategies.mesh_devices`` for tensors on
@@ -192,21 +197,120 @@ def _mesh_list(devices, device) -> list:
     return list(devices)
 
 
-def _single_card(*, devices=None, mesh=None, strategy: str = "single",
-                 sources: str = "full"):
-    """Refuse what the batch engines do not run yet: a batch sharded over
-    several devices or the fused mesh.  A strategy label only tags a
-    batch."""
+def _check_labels(*, strategy: str = "single", sources: str = "full"):
+    """A strategy label only tags a batch; both must be known."""
     if strategy not in STRATEGY_LABELS:
         raise ValueError(f"unknown strategy {strategy!r}; one of "
                          f"{STRATEGY_LABELS}")
-    if mesh is not None or _n_devices(devices) > 1:
-        raise NotImplementedError(
-            "ensembles sharded over devices (devices= of more than one, "
-            "mesh=) are not ported yet: ROADMAP.md queue 1 item 7b")
     if sources not in SOURCES:
         raise ValueError(
             f"sources must be one of {SOURCES}; got {sources!r}")
+
+
+# --------------------------------------------------------------------------
+# batch layouts over devices
+# --------------------------------------------------------------------------
+def _layout(devices, mesh, device) -> Optional[DeviceMesh]:
+    """The batch's layout for tensors on ``device``: None for one slot (the
+    batch's own device), the 1-D batch mesh over ``devices`` of more than
+    one, or with ``mesh=(bdev, p)`` the fused grid over them.  ``devices``
+    is a device list, an int count or None (``_mesh_list``); on ``cuda`` a
+    count or a list naming more cards than are visible raises
+    ``ValueError``."""
+    if mesh is not None:
+        return make_fused_mesh(_mesh_list(devices, device),
+                               mesh_shape=tuple(int(e) for e in mesh))
+    if devices is None:
+        return None
+    devs = _mesh_list(devices, device)
+    return make_batch_mesh(devs) if len(devs) > 1 else None
+
+
+def _batch_extent(layout: Optional[DeviceMesh]) -> int:
+    """How many ways the batch is sharded (the :func:`_pad_batch` multiple)."""
+    return 1 if layout is None else layout.shape[0]
+
+
+def _row_devices(layout: DeviceMesh) -> list:
+    """Each batch row's first slot: where a row's member chunk runs what is
+    not split along ``dev``."""
+    p = layout.size // layout.shape[0]
+    return [layout.devices[i * p] for i in range(layout.shape[0])]
+
+
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the tensors of a ParticleState, a (named) tuple of them,
+    or None, leaf by leaf across ``tree`` and ``rest``."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, ParticleState):
+        return ParticleState(**{f: fn(getattr(tree, f),
+                                      *(getattr(r, f) for r in rest))
+                                for f in FIELDS})
+    items = [_tree_map(fn, *xs) for xs in zip(tree, *rest)]
+    return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+
+
+def _first_leaf(tree) -> torch.Tensor:
+    if isinstance(tree, torch.Tensor):
+        return tree
+    if isinstance(tree, ParticleState):
+        return tree.pos
+    return next(_first_leaf(x) for x in tree if x is not None)
+
+
+def _pad_batch(tree, extent: int):
+    """Pad B to a multiple of ``extent`` by repeating the first run, on
+    every leaf of ``tree`` (a state, carries, or a tuple of them); returns
+    ``(padded, b)``."""
+    b = _first_leaf(tree).shape[0]
+    if extent <= 1 or b % extent == 0:
+        return tree, b
+    pad = extent - b % extent
+    return _tree_map(lambda x: torch.cat([x] + [x[:1]] * pad), tree), b
+
+
+def _take(tree, b: int):
+    """The first ``b`` members of every leaf (undoes :func:`_pad_batch`)."""
+    if _first_leaf(tree).shape[0] == b:
+        return tree
+    return _tree_map(lambda x: x[:b], tree)
+
+
+def _is_tree(x) -> bool:
+    return isinstance(x, (torch.Tensor, ParticleState, tuple))
+
+
+def _on_rows(layout: Optional[DeviceMesh], fn, *args, members=None,
+             batch: Optional[int] = None):
+    """``fn`` on each batch row's share of ``args`` (the leading entries of
+    every tensor, state or carry) on the row's device, the outputs
+    concatenated back in member order on the arguments' device; other
+    arguments pass whole, and a row with nothing to do is skipped.  The
+    arguments hold every member of the padded batch (equal chunks per
+    row), or ``members``, global indices in order of a ``batch``-member
+    batch.  ``None`` runs ``fn`` once on everything."""
+    if layout is None:
+        return fn(*args)
+    rows = layout.shape[0]
+    dev = _first_leaf(next(a for a in args if _is_tree(a))).device
+    if members is None:
+        b = _first_leaf(next(a for a in args if _is_tree(a))).shape[0]
+        counts = [b // rows] * rows
+    else:
+        bl = batch // rows
+        counts = [sum(1 for m in members if m // bl == i)
+                  for i in range(rows)]
+    outs, lo = [], 0
+    for d, c in zip(_row_devices(layout), counts):
+        if c:
+            outs.append(fn(*(_tree_map(lambda x: x[lo:lo + c].to(d), a)
+                             if _is_tree(a) else a for a in args)))
+        lo += c
+    return _tree_map(lambda *xs: xs[0].to(dev) if len(xs) == 1
+                     else torch.cat([x.to(dev) for x in xs]), *outs)
 
 
 # --------------------------------------------------------------------------
@@ -345,10 +449,19 @@ def ensemble_initialize(
     devices=None,
     mesh=None,
 ) -> ParticleState:
-    """Bootstrap derivatives for every member (one batched t=0 pass)."""
-    _single_card(devices=devices, mesh=mesh)
-    init, _ = _engine(order, eps, dtype, batched.device)
-    return init(batched, _as_n_active(batched, n_active))
+    """Bootstrap derivatives for every member (one batched t=0 pass per
+    slot).  ``devices``/``mesh`` lay the batch out as
+    :func:`ensemble_run_block` does; under a mesh each batch row
+    bootstraps its members on its first slot (the evaluation is row-local,
+    so the bits are the unsharded batch's)."""
+    layout = _layout(devices, mesh, batched.device)
+    (padded, na), b = _pad_batch((batched, _as_n_active(batched, n_active)),
+                                 _batch_extent(layout))
+
+    def init(s, a):
+        return _engine(order, eps, dtype, s.device)[0](s, a)
+
+    return _take(_on_rows(layout, init, padded, na), b)
 
 
 def ensemble_run(
@@ -363,10 +476,16 @@ def ensemble_run(
     devices=None,
 ) -> ParticleState:
     """Advance an initialized batch by ``n_steps`` fixed-dt steps: the
-    arithmetic of ``hermite.evolve_scan`` on every member at once."""
-    _single_card(devices=devices)
-    _, run = _engine(order, eps, dtype, batched.device)
-    return run(batched, _as_n_active(batched, n_active), dt, n_steps)
+    arithmetic of ``hermite.evolve_scan`` on every member at once.  Over
+    ``devices`` of more than one, each slot runs its member chunk."""
+    layout = _layout(devices, None, batched.device)
+    (padded, na), b = _pad_batch((batched, _as_n_active(batched, n_active)),
+                                 _batch_extent(layout))
+
+    def run(s, a):
+        return _engine(order, eps, dtype, s.device)[1](s, a, dt, n_steps)
+
+    return _take(_on_rows(layout, run, padded, na), b)
 
 
 def _step_members(s: ParticleState, h, ev, order: int) -> ParticleState:
@@ -436,16 +555,23 @@ def ensemble_run_adaptive(
     Returns ``(batched, h_prev, n_taken)``; call again with the returned
     carries until ``batched.time.min() >= t_end``.  ``n_taken`` counts the
     productive steps per member.  ``t_end`` is a scalar or a (B,) vector.
+    Over ``devices`` of more than one, each slot runs its member chunk.
     """
-    _single_card(devices=devices)
-    run = _adaptive_engine(order, eps, eta, dt_max, dtype, batched.device)
+    layout = _layout(devices, None, batched.device)
     b = batch_size(batched)
     if h_prev is None:
         h_prev = torch.zeros(b, dtype=batched.dtype, device=batched.device)
     if n_taken is None:
         n_taken = torch.zeros(b, dtype=torch.int32, device=batched.device)
-    return run(batched, h_prev, n_taken, _as_n_active(batched, n_active),
-               _as_t_end(batched, t_end), n_steps)
+    carry, b = _pad_batch((batched, h_prev, n_taken,
+                           _as_n_active(batched, n_active),
+                           _as_t_end(batched, t_end)), _batch_extent(layout))
+
+    def run(s, hp, cnt, na, te):
+        return _adaptive_engine(order, eps, eta, dt_max, dtype, s.device)(
+            s, hp, cnt, na, te, n_steps)
+
+    return _take(_on_rows(layout, run, *carry), b)
 
 
 def evolve_ensemble(
@@ -461,10 +587,11 @@ def evolve_ensemble(
     strategy: str = "single",
 ) -> ParticleState:
     """One-shot convenience: stack (if needed), initialize, evolve."""
-    _single_card(devices=devices, strategy=strategy)
+    _check_labels(strategy=strategy)
     batched = states if isinstance(states, ParticleState) else \
         stack_states(list(states))
-    kw = dict(n_active=n_active, order=order, eps=eps, dtype=dtype)
+    kw = dict(n_active=n_active, order=order, eps=eps, dtype=dtype,
+              devices=devices)
     batched = ensemble_initialize(batched, **kw)
     return ensemble_run(batched, n_steps=n_steps, dt=dt, **kw)
 
@@ -714,11 +841,26 @@ class _BlockEngine:
     corrects it; after correction a particle may move to a finer level at
     once or one level coarser at a doubled-period tick.  The macro boundary
     synchronizes every particle and requantizes the levels.
+
+    ``layout`` (optional, see :func:`_layout`) spreads the launches over
+    devices while the event schedule, the bounds and the one host read per
+    event stay the whole batch's: under the 1-D batch mesh each slot
+    launches its member chunk at the capacity the batch's bucket group
+    chose.  On the fused ``(batch, dev)`` grid every full evaluation is ONE
+    pass of ``strategies.make_fused_block_evaluator``: each member's target
+    rows sharded ``p`` ways, each slot launching once per pass for its
+    members.  With gather its capacity buckets are sized on the host from
+    each member's per-shard analytic bound (:meth:`_bound`), ``n_tiles``
+    sums the shards' tiles and ``bucket_hits`` stays untouched (the switch
+    lives inside the shards), as in the reference's fused engine.  Neighbor
+    sources on the grid send each batch row's members to its slots with
+    their target blocks split ``p`` ways (:meth:`_near`).
     """
 
     def __init__(self, *, order, eps, eta, dt_max, n_levels, compaction,
                  block_i, block_j, groups, dtype, n, device, sources="full",
-                 radius=0.25, refresh_levels=2):
+                 radius=0.25, refresh_levels=2, layout=None):
+        self.layout = layout
         self.order, self.eta, self.dt_max = order, eta, dt_max
         self.n_levels, self.n_sub = n_levels, 2 ** (n_levels - 1)
         self.compaction, self.sources = compaction, sources
@@ -729,7 +871,18 @@ class _BlockEngine:
         plan = ops.CapacityPlan(n, n, block_i, block_j, n_passes=n_passes,
                                 dtype=dtype)
         self.n_caps = len(plan.caps)
-        if compaction == "gather":
+        self.fused = None
+        if layout is not None and len(layout.shape) == 2:
+            self.fused = make_fused_block_evaluator(
+                layout.shape, devices=layout.devices, compaction=compaction,
+                **kw)
+        if compaction != "gather":
+            self.bev = make_block_evaluator(**kw)
+            # the masked dense launch covers the full grid, however many
+            # blocks skip their work
+            self.full_tiles = plan.dense_tiles
+        elif self.fused is None:
+            # the grid sizes its buckets inside the shards (:meth:`_bound`)
             self.groups = []
             for members, n_caps in groups:
                 gplan = plan.restrict(plan.caps[min(n_caps, self.n_caps) - 1])
@@ -744,17 +897,54 @@ class _BlockEngine:
                                             dtype=torch.float64,
                                             device=device)
             self.cap_range = torch.arange(self.n_caps, device=device)
-        else:
-            self.bev = make_block_evaluator(**kw)
-            # the masked dense launch covers the full grid, however many
-            # blocks skip their work
-            self.full_tiles = plan.dense_tiles
         if sources == "neighbor":
             self.near1, self.near2 = make_neighbor_block_evaluator(
                 n=n, eps=eps, block_i=block_i, block_j=block_j, dtype=dtype)
             self.nplan = dataclasses.replace(plan, sources="neighbor")
             self.refresh_period = max(1, self.n_sub >> refresh_levels)
             self.radius = radius
+        self.members = [m for m, _ in groups]
+
+    # -- where the launches go -----------------------------------------------
+    def _full(self, xp, vp, ap, mass, mask) -> Evaluation:
+        """The masked dense evaluation over the layout: per batch row, or
+        domain-sharded on the fused grid."""
+        if self.fused is not None:
+            return self.fused(xp, vp, ap, mass, mask)[0]
+        return _on_rows(self.layout, self.bev, xp, vp, ap, mass, mask)
+
+    def _near(self, fn, *args):
+        """A near pass (``near1``/``near2``) over the layout: per batch row
+        under the 1-D mesh; on the fused grid slot ``(i, k)`` takes row
+        ``i``'s members and the ``k``-th of ``p`` chunks of their target
+        blocks, gathering its own windows from their full source rows."""
+        layout = self.layout
+        if layout is None:
+            return fn(*args)
+        b = args[0].shape[0]
+        if len(layout.shape) == 1:
+            return _on_rows(layout, fn, *args)
+        bdev, p = layout.shape
+        bl, n = b // bdev, args[0].shape[1]
+        nbt = -(-n // self.block_i)
+        step = -(-nbt // p)
+        dev = args[0].device
+        rows = []
+        for i in range(bdev):
+            cols = []
+            for k in range(p):
+                lo, hi = k * step, min(nbt, (k + 1) * step)
+                if lo >= hi:
+                    continue
+                d = layout.devices[i * p + k]
+                out = fn(*(a[i * bl:(i + 1) * bl].to(d)
+                           if isinstance(a, torch.Tensor) else a
+                           for a in args), blocks=(lo, hi))
+                cols.append(out if isinstance(out, tuple) else (out,))
+            rows.append(tuple(torch.cat([c[j].to(dev) for c in cols], dim=1)
+                              for j in range(len(cols[0]))))
+        out = tuple(torch.cat(parts) for parts in zip(*rows))
+        return out if len(out) > 1 else out[0]
 
     def init(self, batched, t_end) -> BlockCarry:
         t_last, levels, dt_macro = _event_init(
@@ -788,11 +978,16 @@ class _BlockEngine:
             return None
         perm = torch.argsort((~act).to(torch.int32), dim=-1, stable=True)
         evs, caps = [], []
-        for (sel, _, gbev), ci, ci_dev in zip(self.groups, host, idx):
+        b = xp.shape[0]
+        for (sel, _, gbev), ci, ci_dev, members in zip(self.groups, host, idx,
+                                                       self.members):
             ops_ = (xp, vp, ap, mass, act, perm)
             if sel is not None:
                 ops_ = tuple(x[sel] for x in ops_)
-            evs.append(gbev(*ops_, ci))
+            # every slot launches its members at the group's one capacity
+            evs.append(_on_rows(
+                self.layout, lambda *a, ci=ci, gbev=gbev: gbev(*a, ci),
+                *ops_, members=members, batch=b))
             n_members = xp.shape[0] if sel is None else sel.shape[0]
             caps.append(ci_dev.expand(n_members))
         cap_idx = torch.cat(caps)
@@ -805,6 +1000,32 @@ class _BlockEngine:
         hits = cap_idx[:, None] == self.cap_range
         return ev, self.tiles_table[cap_idx], hits.to(torch.float64)
 
+    def _bound(self, levels, na, t_next, live):
+        """The fused grid's gather bounds: each member's per-shard analytic
+        ``hermite.block_level_occupancy`` of its contiguous ``N/p`` level
+        chunks at the tick's threshold level, padding rows masked out and
+        dead members at 0, as ``(B, p)`` host lists read with the live flag
+        in one copy of ``B*p + 1`` counts; None when no member is live (the
+        one host read of the event)."""
+        b, n = levels.shape
+        p = self.layout.shape[1]
+        n_pad = -(-n // p) * p
+        thr = hermite.tick_threshold_level(t_next, n_levels=self.n_levels)
+        real = torch.arange(n_pad, device=levels.device)[None, :] \
+            < na[:, None]
+        lev = torch.nn.functional.pad(levels, (0, n_pad - n))
+        occ = hermite.block_level_occupancy(
+            lev.reshape(b, p, -1), n_levels=self.n_levels,
+            mask=real.reshape(b, p, -1))
+        bound = occ.gather(-1, thr.long()[:, None, None].expand(b, p, 1))
+        bound = torch.where(live[:, None], bound[..., 0], 0)
+        host = torch.cat([bound.reshape(-1),
+                          live.any().to(bound.dtype)[None]]).tolist()
+        ensemble_run_block.host_syncs += 1
+        if not host[-1]:
+            return None
+        return [host[m * p:(m + 1) * p] for m in range(b)]
+
     def _near_total(self, pre, nb: NeighborCarry, dt_macro, mass, mask,
                     win_idx, win_cnt, w_idx: int) -> Evaluation:
         """Near force over the given windows plus the far field predicted
@@ -813,8 +1034,8 @@ class _BlockEngine:
         pass's accelerations and the returned evaluation."""
         t_next, xp, vp, ap = pre
         sd = xp.dtype
-        a_n, j_n, p_n = self.near1(xp, vp, mass, mask, win_idx, win_cnt,
-                                   w_idx)
+        a_n, j_n, p_n = self._near(self.near1, xp, vp, mass, mask, win_idx,
+                                   win_cnt, w_idx)
         hf = ((t_next - torch.clamp(nb.t_ref, min=0)).to(sd) * dt_macro
               / self.n_sub)
         h1 = hf[:, None, None]
@@ -822,8 +1043,8 @@ class _BlockEngine:
         acc_t = a_n.to(sd) + a_far
         if self.order >= 6:
             acc_s = torch.where(mask[..., None], acc_t, ap)
-            s_n = self.near2(xp, vp, acc_t, acc_s, mass, mask, win_idx,
-                             win_cnt, w_idx)
+            s_n = self._near(self.near2, xp, vp, acc_t, acc_s, mass, mask,
+                             win_idx, win_cnt, w_idx)
             snp = s_n.to(sd) + nb.snap_far
         else:
             snp = torch.zeros_like(acc_t)
@@ -887,20 +1108,22 @@ class _BlockEngine:
             # positions, new windows from the same positions, far = full -
             # near with the same acc operands in both
             fresh = real & need[:, None]
-            ev_f = self.bev(xp, vp, ap, s.mass, fresh)
-            win_idx_n, win_cnt_n = neighbor.build_windows(
-                xp, real, block_i=bi, block_j=bj, radius=self.radius)
+            ev_f = self._full(xp, vp, ap, s.mass, fresh)
+            win_idx_n, win_cnt_n = _on_rows(
+                self.layout, lambda x, r: neighbor.build_windows(
+                    x, r, block_i=bi, block_j=bj, radius=self.radius),
+                xp, real)
             wmax_n = torch.where(need[:, None], win_cnt_n, 0).amax()
             w_new = int(nplan.source_bucket(wmax_n * bj))
             ensemble_run_block.host_syncs += 1
-            a_nn, j_nn, p_nn = self.near1(xp, vp, s.mass, fresh, win_idx_n,
-                                          win_cnt_n, w_new)
+            a_nn, j_nn, p_nn = self._near(self.near1, xp, vp, s.mass, fresh,
+                                          win_idx_n, win_cnt_n, w_new)
             af, jf, pf = ev_f.acc.to(sd), ev_f.jerk.to(sd), ev_f.pot.to(sd)
             sel3, sel2 = need[:, None, None], need[:, None]
             if self.order >= 6:
                 acc_s = torch.where(real[..., None], af, ap)
-                s_nn = self.near2(xp, vp, af, acc_s, s.mass, fresh,
-                                  win_idx_n, win_cnt_n, w_new)
+                s_nn = self._near(self.near2, xp, vp, af, acc_s, s.mass,
+                                  fresh, win_idx_n, win_cnt_n, w_new)
                 sf = ev_f.snap.to(sd)
                 snapf_n = sf - s_nn.to(sd)
                 snap_ev = torch.where(sel3, sf, ev_o.snap)
@@ -962,13 +1185,21 @@ class _BlockEngine:
             # to the kernels inactive and their blocks skip their work
             act = active & live[:, None]
             hits = None
-            if self.compaction == "gather":
+            if self.fused is not None:
+                bound = None
+                if self.compaction == "gather":
+                    bound = self._bound(c.levels, na, t_next, live)
+                    if bound is None:
+                        break  # every member is past t_end
+                ev, tiles = self.fused(xp, vp, ap, s.mass, act, bound)
+                tiles = tiles.sum(dim=1).to(torch.float64)
+            elif self.compaction == "gather":
                 out = self._gather_eval(xp, vp, ap, s.mass, act, live)
                 if out is None:
                     break  # every member is past t_end
                 ev, tiles, hits = out
             else:
-                ev = self.bev(xp, vp, ap, s.mass, act)
+                ev = self._full(xp, vp, ap, s.mass, act)
                 tiles = torch.full_like(c.n_tiles, self.full_tiles)
             s1, t_last, levels, dt_macro, dp = _event_post(
                 s, ev, live, t_next, active, h, c.t_last, c.levels,
@@ -991,13 +1222,18 @@ def _block_engine(order: int, eps: float, eta: float, dt_max: float,
                   n_levels: int, compaction: str, block_i: int, block_j: int,
                   groups: tuple, dtype: str, n: int, device: torch.device,
                   sources: str = "full", radius: float = 0.25,
-                  refresh_levels: int = 2) -> _BlockEngine:
-    """The cached :class:`_BlockEngine` of one configuration, bucket groups
-    and device: its evaluators and device tables are built once.  The
-    neighbor knobs are part of the key under either source mode, as in the
-    reference."""
-    _count_engine_build("block")
-    if compaction == "gather":
+                  refresh_levels: int = 2,
+                  layout: Optional[DeviceMesh] = None) -> _BlockEngine:
+    """The cached :class:`_BlockEngine` of one configuration, bucket groups,
+    device and batch layout (:func:`_layout`): its evaluators and device
+    tables are built once.  The neighbor knobs are part of the key
+    under either source mode, as in the reference.  A full-source engine
+    on the fused grid counts as a ``block_fused`` build and has no bucket
+    branches of its own (they live inside the shards)."""
+    fused = layout is not None and len(layout.shape) == 2 \
+        and sources == "full"
+    _count_engine_build("block_fused" if fused else "block")
+    if compaction == "gather" and not fused:
         # capacity buckets across the bucket groups: the denominator of the
         # build accounting (engine.cache_miss ticks once per build)
         obs_metrics.registry().counter(
@@ -1008,7 +1244,8 @@ def _block_engine(order: int, eps: float, eta: float, dt_max: float,
                         n_levels=n_levels, compaction=compaction,
                         block_i=block_i, block_j=block_j, groups=groups,
                         dtype=dtype, n=n, device=device, sources=sources,
-                        radius=radius, refresh_levels=refresh_levels)
+                        radius=radius, refresh_levels=refresh_levels,
+                        layout=layout)
 
 
 def ensemble_run_block(
@@ -1060,10 +1297,21 @@ def ensemble_run_block(
     ticks).  The batch should be spatially sorted first
     (:func:`spatial_sort_batched`; the convenience entry points do it).
     ``sources="full"`` ignores the two knobs.
+
+    ``devices`` (a device list, a count, or None for the batch's own
+    device) shards the batch by member over the 1-D batch mesh;
+    ``mesh=(bdev, p)`` over ``bdev * p`` devices fuses batch and domain
+    sharding (full sources: each member's target rows split over its
+    row's slots, where ``bucket_mode`` does not apply; neighbor sources:
+    its target blocks split over them).  A batch
+    that is not a multiple of the batch extent is padded by repeating its
+    first run and sliced back.  Every layout gives the unsharded batch's
+    bits and counts, except that the fused engine counts its shards' tiles
+    and no bucket hits.
     """
     if n_levels < 1:
         raise ValueError(f"n_levels={n_levels} must be >= 1")
-    _single_card(devices=devices, mesh=mesh, sources=sources)
+    _check_labels(sources=sources)
     if sources == "neighbor" and compaction != "none":
         raise ValueError(
             "sources='neighbor' gathers its own per-block source windows; "
@@ -1073,11 +1321,18 @@ def ensemble_run_block(
     if compaction not in COMPACTIONS:
         raise ValueError(
             f"compaction must be one of {COMPACTIONS}; got {compaction!r}")
-    na = _as_n_active(batched, n_active)
-    t_end_ = _as_t_end(batched, t_end)
+    layout = _layout(devices, mesh, batched.device)
+    (batched, na, t_end_, carry), b = _pad_batch(
+        (batched, _as_n_active(batched, n_active),
+         _as_t_end(batched, t_end), carry), _batch_extent(layout))
     bi = block_i or nbody_force.DEFAULT_BLOCK_I
     bj = block_j or nbody_force.DEFAULT_BLOCK_J
     n = batched.pos.shape[1]
+    # groups come from the padded batch: a padding member repeats the first
+    # run, so it lands in that run's group; on the fused grid with full
+    # sources the buckets live inside the shards and the batch is one group
+    if mesh is not None and sources == "full":
+        bucket_mode = "shared"
     if compaction == "gather" and bucket_mode == "member":
         counts = na.tolist()
         ensemble_run_block.host_syncs += 1
@@ -1085,11 +1340,12 @@ def ensemble_run_block(
         counts = [n] * batch_size(batched)
     groups = _bucket_groups(n, counts, bi, bj, compaction, bucket_mode)
     engine = _block_engine(order, eps, eta, dt_max, n_levels, compaction,
-                           bi, bj, groups, dtype, n, batched.device, sources,
-                           float(neighbor_radius), refresh_levels)
+                           bi, bj, groups, dtype, n, batched.device,
+                           sources, float(neighbor_radius), refresh_levels,
+                           layout)
     if carry is None:
         carry = engine.init(batched, t_end_)
-    return engine.run(batched, carry, na, t_end_, n_events)
+    return _take(engine.run(batched, carry, na, t_end_, n_events), b)
 
 
 def block_admit_member(carry: BlockCarry, member: ParticleState, slot: int,
@@ -1163,8 +1419,10 @@ def evolve_ensemble_block(
     ``states`` as a batch that :func:`ensemble_initialize` has already
     bootstrapped and runs no bootstrap evaluation.  ``sources="neighbor"``
     sorts the batch spatially (:func:`spatial_sort_batched`) before the
-    bootstrap; the returned batch is in that sorted order."""
-    _single_card(devices=devices, mesh=mesh, sources=sources)
+    bootstrap; the returned batch is in that sorted order.
+    ``devices``/``mesh`` lay the batch out as :func:`ensemble_run_block`
+    does, the bootstrap included."""
+    _check_labels(sources=sources)
     batched = states if isinstance(states, ParticleState) else \
         stack_states(list(states))
     if sources == "neighbor":
@@ -1172,7 +1430,8 @@ def evolve_ensemble_block(
             batched, n_active,
             leaf=math.gcd(block_i or nbody_force.DEFAULT_BLOCK_I,
                           block_j or nbody_force.DEFAULT_BLOCK_J))
-    kw = dict(n_active=n_active, order=order, eps=eps, dtype=dtype)
+    kw = dict(n_active=n_active, order=order, eps=eps, dtype=dtype,
+              devices=devices, mesh=mesh)
     if not initialized:
         batched = ensemble_initialize(batched, **kw)
     carry = None

@@ -254,13 +254,18 @@ def test_block_refuses_what_is_not_ported():
     state = scenarios.make("plummer", 16, seed=0, device="cpu")
     with pytest.raises(ValueError, match="sources must be"):
         ens.evolve_ensemble_block([state], t_end=0.01, sources="near")
-    for kw in (dict(devices=["cpu", "cpu"]), dict(mesh=(1, 1))):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7b"):
-            ens.evolve_ensemble_block([state], t_end=0.01, **kw)
-    # one device is the batch's own: the run goes on as without it
-    one, _ = ens.evolve_ensemble_block([state], t_end=0.01, devices=["cpu"])
+    # two slots (the batch padded to two by repeating its run) and the
+    # fused 1x1 mesh give the unsharded run's bits; one device is the
+    # batch's own
     plain, _ = ens.evolve_ensemble_block([state], t_end=0.01)
-    assert torch.equal(one.pos, plain.pos)
+    for kw in (dict(devices=["cpu", "cpu"]), dict(mesh=(1, 1)),
+               dict(devices=["cpu"])):
+        out, _ = ens.evolve_ensemble_block([state], t_end=0.01, **kw)
+        assert out.pos.shape == plain.pos.shape
+        assert torch.equal(out.pos, plain.pos), kw
+    with pytest.raises(ValueError, match="needs 4 devices; got 2"):
+        ens.evolve_ensemble_block([state], t_end=0.01, mesh=(2, 2),
+                                  devices=["cpu", "cpu"])
     with pytest.raises(ValueError, match="compaction must be"):
         ens.evolve_ensemble_block([state], t_end=0.01, compaction="scatter")
     with pytest.raises(ValueError, match="bucket_mode"):

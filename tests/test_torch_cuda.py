@@ -709,3 +709,106 @@ def test_server_suspend_resume_is_bit_for_bit_on_the_card(cuda, tmp_path,
     got = {r["request_id"]: (r["steps"], r["e1"], r["t_final"])
            for r in paused.reports + resumed.run_until_drained()}
     assert got == finals
+
+
+def _plummer_batch(dev, b, n, seed=0):
+    from repro_torch.sim import ensemble as ens
+    from repro_torch.sim import scenarios
+    return ens.stack_states([scenarios.make("plummer", n, seed=seed + i,
+                                            device=dev, validate=False)
+                             for i in range(b)])
+
+
+def test_batch_layout_over_card_slots_is_one_slot_bitwise(cuda):
+    """chip_smoke phase 13 (a) at a small N: a batch of three over two
+    slots of the card (padded to four) gives the one-slot run's bits and
+    counters, fixed dt and block gather alike, and launches on each slot."""
+    from repro_torch.sim import ensemble as ens
+    batched = _plummer_batch(cuda, 3, 512)
+    slots = [cuda] * 2
+    one = ens.evolve_ensemble(batched, n_steps=3, dt=2.0 ** -10)
+    two = ens.evolve_ensemble(batched, n_steps=3, dt=2.0 ** -10,
+                              devices=slots)
+    for f in ("pos", "vel", "acc", "jerk", "snap", "pot", "time"):
+        assert torch.equal(getattr(one, f), getattr(two, f)), f
+    kw = dict(t_end=1 / 16, dt_max=1 / 16, n_levels=4, compaction="gather",
+              block_i=64, block_j=128)
+    a, ca = ens.evolve_ensemble_block(batched, **kw)
+    before = nbody_force.acc_jerk_pot_packed.launches
+    b, cb = ens.evolve_ensemble_block(batched, devices=slots, **kw)
+    assert nbody_force.acc_jerk_pot_packed.launches > before
+    for f in ("pos", "vel", "acc", "jerk", "snap", "pot", "time"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    for x, y in zip(ca[:7], cb[:7]):
+        assert torch.equal(x, y)
+
+
+def test_fused_mesh_on_card_slots_is_the_1d_and_solo_runs(cuda):
+    """chip_smoke phase 13 (b) at a small N: the fused 2x2 mesh over four
+    slots of the card equals the 1-D layout over two and each member's
+    solo mesh_sharded run at p = 2, bit for bit, one K1 launch per slot
+    per event."""
+    from repro_torch.sim import ensemble as ens
+    batched = _plummer_batch(cuda, 4, 1024)
+    init = ens.ensemble_initialize(batched, eps=4 / 1024)
+    kw = dict(t_end=1 / 16, dt_max=1 / 16, n_levels=4, eps=4 / 1024,
+              compaction="gather", n_events=64)
+    before = nbody_force.acc_jerk_pot_packed.launches
+    f, cf = ens.ensemble_run_block(init, mesh=(2, 2), devices=[cuda] * 4,
+                                   **kw)
+    launched = nbody_force.acc_jerk_pot_packed.launches - before
+    assert launched == 4 * int(cf.n_events.max())
+    o, co = ens.ensemble_run_block(init, devices=[cuda] * 2, **kw)
+    fields = ("pos", "vel", "acc", "jerk", "snap", "pot", "time")
+    for name in fields:
+        assert torch.equal(getattr(f, name), getattr(o, name)), name
+    assert torch.equal(cf.n_events, co.n_events)
+    for i in range(4):
+        m = type(init)(**{k: getattr(init, k)[i] for k in
+                          ("pos", "vel", "acc", "jerk", "snap", "crackle",
+                           "mass", "pot", "time")})
+        s, cs = ens.strategy_run_block(m, strategy="mesh_sharded",
+                                       devices=[cuda] * 2, **kw)
+        for name in fields:
+            assert torch.equal(getattr(f, name)[i], getattr(s, name)), \
+                (i, name)
+        assert int(cs.n_events) == int(cf.n_events[i])
+
+
+@pytest.mark.parametrize("sources", ("full", "neighbor"))
+def test_mesh_server_on_card_slots_is_one_slot_bitwise(cuda, tmp_path,
+                                                       monkeypatch, sources):
+    """chip_smoke phase 13 (c) at a small N: a server on the fused mesh of
+    four slots of the card ends every request in a one-slot server's
+    state, and a suspend/resume under the mesh continues bit for bit."""
+    from repro_torch.serve import ServerConfig, SimRequest, SimServer
+    from repro_torch.sim.scenarios import ScenarioSpec
+
+    base = dict(slots_per_pod=4, n_max=512, chunk_events=4, block_i=32,
+                block_j=32, sources=sources, neighbor_radius=0.25,
+                eps=4 / 512, devices=4, mesh=(2, 2))
+    # four slots of the one card, where the server would take four cards
+    monkeypatch.setattr(ServerConfig, "slots", lambda self: (
+        None if self.devices == 1 else [cuda] * self.devices))
+
+    def run(cfg, pause=False):
+        s = SimServer(cfg)
+        for seed in (1, 2, 3):
+            s.submit(SimRequest(spec=ScenarioSpec.parse("plummer:512",
+                                                         seed=seed),
+                                stepper="block", t_end=1 / 256), now=0.0)
+        if pause:
+            s.step(now=0.0)
+            s.suspend(str(tmp_path))
+            s = SimServer.resume(str(tmp_path))
+        s.run_until_drained()
+        (pod,) = s.pods.values()
+        return {f: getattr(pod.batched, f) for f in ("pos", "vel", "acc",
+                                                     "snap", "time")}
+
+    mesh = run(ServerConfig(**base))
+    one = run(ServerConfig(**dict(base, devices=1, mesh=None)))
+    resumed = run(ServerConfig(**base), pause=True)
+    for f in mesh:
+        assert torch.equal(mesh[f], one[f]), f
+        assert torch.equal(mesh[f], resumed[f]), f

@@ -234,8 +234,12 @@ def test_inputs_are_validated():
         ens.ensemble_run_adaptive(init, t_end=[0.1, 0.2], n_steps=1)
     with pytest.raises(ValueError, match="unknown strategy"):
         ens.evolve_ensemble(batched, n_steps=1, dt=1e-2, strategy="bogus")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7b"):
-        ens.evolve_ensemble(batched, n_steps=1, dt=1e-2, devices=2)
+    # a batch over two CPU slots (B = 3 padded to 4) gives the one-slot bits
+    two = ens.evolve_ensemble(batched, n_steps=1, dt=1e-2, devices=2)
+    one = ens.evolve_ensemble(batched, n_steps=1, dt=1e-2)
+    assert two.pos.shape == one.pos.shape and torch.equal(two.pos, one.pos)
+    with pytest.raises(ValueError, match="needs 4 devices; got 1"):
+        ens.ensemble_initialize(batched, mesh=(2, 2))
     # a strategy label on a batch only tags it (its members are
     # independent), as in the reference
     tagged = ens.evolve_ensemble(batched, n_steps=1, dt=1e-2,

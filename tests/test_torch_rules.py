@@ -114,9 +114,10 @@ def test_api_entry_points_default_to_cuda_and_raise_without_a_card(no_card):
 
 def test_ensemble_functions_take_no_device_and_refuse_what_is_not_ported():
     """Below the scenario entry points the batch's device decides; the
-    neighbor scheme runs on the CPU, a batch over several devices (and the
-    fused mesh) raise, naming ROADMAP item 7b, and a strategy label on a
-    batch only tags it."""
+    neighbor scheme runs on the CPU, a batch over several CPU slots and the
+    fused mesh run too, a device list naming a card that is not there
+    raises ``ValueError`` (nothing falls back to the batch's own device),
+    and a strategy label on a batch only tags it."""
     for fn in (ensemble.ensemble_initialize, ensemble.ensemble_run,
                ensemble.ensemble_run_adaptive, ensemble.evolve_ensemble,
                ensemble.ensemble_run_block, ensemble.evolve_ensemble_block,
@@ -128,13 +129,23 @@ def test_ensemble_functions_take_no_device_and_refuse_what_is_not_ported():
                                                 sources="neighbor")
     assert out.pos.device.type == "cpu" and carry.nbr is not None
     assert int(carry.nbr.n_refresh[0]) > 0
-    with pytest.raises(NotImplementedError, match="queue 1 item 7b"):
-        ensemble.evolve_ensemble_block([state], t_end=0.01,
-                                       sources="neighbor", devices=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7b"):
-        ensemble.evolve_ensemble_block([state], t_end=0.01, mesh=(1, 1))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7b"):
-        ensemble.evolve_ensemble([state], n_steps=1, dt=0.01, devices=2)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)   # small ops: idle pool threads starve others
+    try:
+        kw = dict(t_end=1 / 64, dt_max=1 / 64, n_levels=2, n_events=8)
+        one, _ = ensemble.evolve_ensemble_block([state], sources="neighbor",
+                                                **kw)
+        two, _ = ensemble.evolve_ensemble_block([state], sources="neighbor",
+                                                devices=2, **kw)
+        assert torch.equal(two.pos, one.pos)
+        fused, _ = ensemble.evolve_ensemble_block([state], mesh=(1, 1), **kw)
+        assert fused.pos.device.type == "cpu"
+    finally:
+        torch.set_num_threads(threads)
+    cards = torch.cuda.device_count()
+    with pytest.raises(ValueError, match="visible"):
+        ensemble.evolve_ensemble([state], n_steps=1, dt=0.01,
+                                 devices=[f"cuda:{cards}"] * 2)
     tagged = ensemble.evolve_ensemble([state], n_steps=1, dt=0.01,
                                       strategy="mesh_sharded")
     plain = ensemble.evolve_ensemble([state], n_steps=1, dt=0.01)
@@ -164,9 +175,15 @@ def test_server_defaults_to_cuda_and_raises_without_a_card(no_card):
     cfg = sim_engine.ServerConfig(n_max=64, block_i=32, block_j=32,
                                   device="cpu")
     assert sim_engine.SimServer(cfg).cfg.device == "cpu"
-    with pytest.raises(NotImplementedError, match="queue 1 item 7b"):
+    two = sim_engine.SimServer(sim_engine.ServerConfig(
+        n_max=64, block_i=32, devices=2, device="cpu"))
+    assert two.cfg.slots() == [torch.device("cpu")] * 2
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         sim_engine.SimServer(sim_engine.ServerConfig(
-            n_max=64, block_i=32, devices=2, device="cpu"))
+            n_max=64, block_i=32, devices=2, mesh=(1, 2)))
+    with pytest.raises(ValueError, match="covers 4 devices"):
+        sim_engine.SimServer(sim_engine.ServerConfig(
+            n_max=64, block_i=32, devices=2, mesh=(2, 2), device="cpu"))
 
 
 def test_neighbor_and_store_functions_take_no_device():

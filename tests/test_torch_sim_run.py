@@ -157,9 +157,10 @@ def test_trace_flag_writes_the_trace(tmp_path, capsys):
 ])
 def test_what_one_card_does_not_run_exits_naming_its_item(argv, item,
                                                           tmp_path):
-    """Item 7b's configurations exit naming it and write no report; the
-    neighbor scheme (item 8, ported) exits 0 and writes the report with its
-    neighbor fields."""
+    """Configurations the port once refused exit 0 and write their report:
+    item 7b's (an ensemble over two CPU slots, the fused mesh) with the
+    one-slot run's steps and energies, the neighbor scheme (item 8) with
+    its neighbor fields."""
     base = ["--scenario", "plummer", "--n", "16", "--t-end", "0.01",
             "--no-validate", "--device", "cpu",
             "--out", str(tmp_path / "r.json")]
@@ -172,10 +173,21 @@ def test_what_one_card_does_not_run_exits_naming_its_item(argv, item,
         assert report["neighbor_overflows"] >= 0
         assert report["runs"][0]["neighbor_refreshes"] > 0
         return
-    with pytest.raises(SystemExit) as info:
-        sim_run.main(base + argv)
-    assert f"ROADMAP.md queue 1 {item}" in str(info.value.code)
-    assert not (tmp_path / "r.json").exists()
+    assert sim_run.main(base + argv) == 0
+    with open(tmp_path / "r.json") as f:
+        report = json.load(f)
+    one_argv = [a for i, a in enumerate(argv)
+                if a not in ("--devices", "--mesh")
+                and (i == 0 or argv[i - 1] not in ("--devices", "--mesh"))]
+    base[-1] = str(tmp_path / "one.json")
+    assert sim_run.main(base + one_argv) == 0
+    with open(tmp_path / "one.json") as f:
+        one = json.load(f)
+    assert report["devices"] == (2 if "--devices" in argv else 1)
+    if "--mesh" in argv:
+        assert report["mesh"] == [1, 1]
+    for k in ("steps", "force_evals_total", "e0", "e1", "de_rel", "runs"):
+        assert report[k] == one[k], k
 
 
 @pytest.mark.parametrize("argv,line", [

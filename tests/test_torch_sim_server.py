@@ -384,8 +384,8 @@ def test_submit_rejects_what_the_reference_rejects(make, exc, match):
     (dict(n_max=65), ValueError, "block_i-aligned"),
     (dict(sources="neighbor", compaction="gather"), ValueError,
      "compaction"),
-    (dict(devices=2), NotImplementedError, "queue 1 item 7b"),
-    (dict(mesh=(1, 1)), NotImplementedError, "queue 1 item 7b"),
+    (dict(devices=3), ValueError, "multiple of the batch extent 3"),
+    (dict(mesh=(2, 2)), ValueError, "covers 4 devices; devices says 1"),
 ])
 def test_config_rejects_what_the_port_does_not_take(kw, exc, match):
     with pytest.raises(exc, match=match):
