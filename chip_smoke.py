@@ -102,6 +102,14 @@ Phases, in order; any failure raises and the script exits nonzero:
    the server on the fused mesh (plummer:8192, full and neighbor pods): no
    engine build and no kernel load after warmup, final rows bit for bit a
    one-slot server's, suspend/resume bit for bit;
+14. training (``train_phase``): qwen3-0.6b as registered (28 layers, bf16
+   activations, fp32 masters, remat full, ``_attn_full``) through
+   ``Trainer`` for 8 steps of one repeated B = 4, S = 2048 batch: finite,
+   falling losses, step ms, tokens/s, TFLOP/s, peak memory and a profiled
+   step; one step at depth 2 on the card against the CPU; a checkpoint
+   restart against an uninterrupted run in a temporary directory; the
+   trained weights prefilled through K3 (28 launches) against the xla
+   route; the flash route refusing a gradient;
 then one ``kernels`` JSON line and ``{"ok": true, "device": {...}}`` as the
 last line.
 
@@ -136,6 +144,9 @@ from repro_torch.core.evaluate import (  # noqa: E402
     make_evaluator, make_neighbor_block_evaluator)
 from repro_torch.kernels import _build, nbody_force, neighbor, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch import tree as tree_util  # noqa: E402
+from repro_torch.checkpoint import store  # noqa: E402
+from repro_torch.data import BatchSpec, SyntheticLM  # noqa: E402
 from repro_torch.launch import nbody_run, sim_run  # noqa: E402
 from repro_torch.models import config as lm_config  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
@@ -143,6 +154,8 @@ from repro_torch.models import params as lm_params  # noqa: E402
 from repro_torch.serve import sim_engine  # noqa: E402
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.obs import energy  # noqa: E402
+from repro_torch.optim import AdamW, warmup_cosine  # noqa: E402
+from repro_torch.train import Trainer, TrainerConfig, make_train_step  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.sim import api, driver  # noqa: E402
 from repro_torch.sim import ensemble as ens  # noqa: E402
@@ -360,6 +373,29 @@ MESH_SERVE_CFG = dict(n_max=8192, slots_per_pod=4, devices=4, mesh=(2, 2),
                       dtype="fp32", eps=4.0 / 8192)
 MESH_SERVE_TRACE = tuple(("plummer:8192", seed) for seed in (1, 2, 3, 4))
 MESH_SERVE_T_END = 2.0 ** -8
+#: phase 14 (a): qwen3-0.6b as registered (bf16 activations, fp32 masters,
+#: remat full, attn_impl xla: the reference trains through _attn_full, its
+#: flash kernel has no VJP), 8 steps of one repeated SyntheticLM batch at a
+#: constant lr, so that learning shows within 8 steps; steps 2 to 7 timed.
+#: The lr is the reference launcher's default: at 1e-3 without warmup the
+#: loss swung up and down (11.95 to 9.26, 10.84, 8.70, 11.23 in one run)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 2048, 8, 3e-4
+#: (b) card against CPU: full width, depth 2, fp32 activations, one step.
+#: Loss and gnorm relative; the parameters to tests/test_substrate.py's
+#: accum bound (rtol, atol) at that lr.  Adam's first step divides m by
+#: sqrt(v), so an element whose gradient lies within fp32 noise of 0 takes
+#: a step of another size, up to 2 lr apart: at most FLIP_SHARE of the
+#: elements may leave the bound (tests/test_torch_train.py's rule), and the
+#: update's norm must agree to UPDATE_NORM_TOL per leaf
+TRAIN_CPU_DEPTH, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 2, 1, 256
+TRAIN_CPU_TOL = 1e-5
+TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL = 1e-3, 5e-5
+TRAIN_FLIP_SHARE = 1e-3
+TRAIN_UPDATE_NORM_TOL = 1e-3
+#: (c) restart: full width, depth 2, bf16, a warmup-cosine lr; steps 0-3
+#: then a resumed 4-5 against an uninterrupted 0-5
+RESTART_BATCH, RESTART_SEQ = 2, 256
+RESTART_TOL = 1e-6
 
 
 def check(ok: bool, msg: str):
@@ -632,7 +668,7 @@ def device_profile(prof, wall_ms):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
     flash_ms = sum(ms for name, ms in by_name.items() if "flash_bf16_kernel" in name)
     return {"device_ms": device_ms, "kernels": n, "busy": device_ms / wall_ms,
-            "top": top, "flash_ms": flash_ms}
+            "top": top, "flash_ms": flash_ms, "by_name": by_name}
 
 
 def counted(fn, all_kernels):
@@ -2540,6 +2576,317 @@ def layout_phase(dev, all_kernels):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 14: training the dense LM
+# --------------------------------------------------------------------------
+#: kernel names of cuBLAS's and CUTLASS's matmuls, for the profile's split
+MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+#: the profiled step's costliest aten ops printed
+TRAIN_PROFILE_OPS = 12
+
+
+def train_flops(cfg, b, s):
+    """Model FLOPs of one train step: 6 N per token, plus _attn_full's two
+    products (scores and p v, every key: it does not skip the causal
+    half) forward and twice backward.  Remat's recompute is not counted."""
+    attn = 3 * 2 * 2 * b * cfg.n_heads * s * s * cfg.head_dim * cfg.n_layers
+    return 6 * lm_params.count_params(cfg) * b * s + attn
+
+
+def train_full(dev, all_kernels, cfg):
+    """Phase 14 (a): ``Trainer`` at full width and depth on one repeated
+    batch.  Returns the readings, the final params and the batch."""
+    spec = BatchSpec(TRAIN_BATCH, TRAIN_SEQ)
+    batch0 = SyntheticLM(cfg, spec, seed=0)(0)
+    opt = AdamW(learning_rate=TRAIN_LR)
+    trainer = Trainer(cfg, opt, lambda step: batch0,
+                      TrainerConfig(steps=TRAIN_STEPS, log_every=1),
+                      device=dev, log=lambda line: print(line, flush=True))
+    torch.cuda.reset_peak_memory_stats(dev)
+    (params, opt_state, hist), counts, _, wall = counted(trainer.run,
+                                                         all_kernels)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [h["loss"] for h in hist]
+    gnorms = [h["gnorm"] for h in hist]
+    step_ms = float(np.median([1e3 * h["step_time"] for h in hist[2:]]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    floor = float(np.log(cfg.padded_vocab))
+    print(f"train {cfg.name}: {lm_params.count_params(cfg)} parameters, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype} "
+          f"activations, fp32 masters, remat {cfg.remat}, attn_impl "
+          f"{cfg.attn_impl}; B={TRAIN_BATCH} S={TRAIN_SEQ}, lr {TRAIN_LR}, "
+          f"{TRAIN_STEPS} steps of step 0's SyntheticLM batch in "
+          f"{wall:.3f} s", flush=True)
+    print(f"  losses {[round(x, 4) for x in losses]}; ln(padded_vocab) "
+          f"{floor:.4f} + z-loss {hist[0]['z']:.4f}; gnorms "
+          f"{[round(x, 4) for x in gnorms]}", flush=True)
+    print(f"  step ms (steps 2-7) median {step_ms:.3f}, min "
+          f"{min(1e3 * h['step_time'] for h in hist[2:]):.3f}, max "
+          f"{max(1e3 * h['step_time'] for h in hist[2:]):.3f}; step 0 "
+          f"{1e3 * hist[0]['step_time']:.3f}; {tokens / step_ms * 1e3:.1f} "
+          f"tokens/s; {flops / 1e12:.3f} TFLOP per step (6 N tokens + "
+          f"attention products) -> {flops / step_ms / 1e9:.2f} TFLOP/s, "
+          f"{flops / step_ms / 1e9 / (PEAK_BF16_FLOPS / 1e12):.3f} of the "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 peak; "
+          f"max_memory_allocated {peak / 2 ** 30:.3f} GiB; launches {counts}",
+          flush=True)
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"train: a loss or gnorm is not finite: {losses} {gnorms}")
+    check(abs(losses[0] - floor - hist[0]["z"]) < 0.5,
+          f"train: step 0 loss {losses[0]:.4f} is not near ln(V) + z "
+          f"{floor + hist[0]['z']:.4f}")
+    check(losses[-1] < losses[0], f"train: the repeated batch was not "
+                                  f"learned: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    check(not any(counts.values()), f"train: a kernel ran on the gradient "
+                                    f"path: {counts}")
+
+    # where a step's time goes: one more step under the profiler
+    batch = {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+             for k, v in batch0.items()}
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, _ = trainer._step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        pwall = 1e3 * (time.perf_counter() - t0)
+    prof_r = device_profile(prof, pwall)
+    if prof_r is None:
+        print(f"profile train step: wall {pwall:.3f} ms; torch.profiler "
+              f"recorded no device time", flush=True)
+    else:
+        mm = sum(ms for name, ms in prof_r["by_name"].items()
+                 if any(t in name.lower() for t in MATMUL_NAMES))
+        prof_r["matmul_ms"] = mm
+        # device time by the aten op that launched it (self time, so each
+        # kernel counts once), the costliest first
+        ops_ms = sorted(((e.key, e.self_device_time_total / 1e3)
+                         for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CPU
+                         and e.self_device_time_total > 0),
+                        key=lambda kv: -kv[1])
+        prof_r["ops"] = ops_ms[:TRAIN_PROFILE_OPS]
+        top = ", ".join(f"{name} {ms:.3f}" for name, ms in prof_r["ops"])
+        print(f"profile train step: wall {pwall:.3f} ms, device kernels "
+              f"{prof_r['device_ms']:.3f} ms in {prof_r['kernels']} launches "
+              f"(busy {100 * prof_r['busy']:.1f}%, idle "
+              f"{100 * (1 - prof_r['busy']):.1f}%); matmuls {mm:.3f} ms "
+              f"({100 * mm / prof_r['device_ms']:.1f}% of the kernels' time, "
+              f"{flops / mm / 1e9:.2f} TFLOP/s in them); device ms by aten "
+              f"op: {top}", flush=True)
+        del prof_r["by_name"]
+    del opt_state, trainer
+    return {"losses": losses, "gnorms": gnorms, "step_ms": step_ms,
+            "tokens_per_s": tokens / step_ms * 1e3, "peak_gib": peak / 2 ** 30,
+            "tflops": flops / step_ms / 1e9, "flops": flops,
+            "profile": prof_r, "profiled_wall_ms": pwall}, params, batch
+
+
+def train_card_vs_cpu(dev, cfg):
+    """Phase 14 (b): one ``make_train_step`` of the same params and batch on
+    the card and on the CPU, at full width, depth 2, fp32 activations."""
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_CPU_DEPTH, dtype="float32")
+    cpu = lm_params.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    card = tree_util.map(lambda x: x.to(dev, copy=True), cpu)
+    start = tree_util.map(torch.clone, cpu)
+    batch = SyntheticLM(cfg, BatchSpec(TRAIN_CPU_BATCH, TRAIN_CPU_SEQ),
+                        seed=1)(0)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v))
+             for k, v in batch.items()}
+    opt = AdamW(learning_rate=TRAIN_LR)
+    step = make_train_step(cfg, opt)
+    t0 = time.perf_counter()
+    cpu, _, mc = step(cpu, opt.init(cpu), batch)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card, _, mg = step(card, opt.init(card),
+                       {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    rel = {k: abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
+           for k in ("loss", "gnorm")}
+    n = out = 0
+    worst_excess, worst_norm = -np.inf, 0.0
+    for g, c, p0 in zip(tree_util.leaves(card), tree_util.leaves(cpu),
+                        tree_util.leaves(start)):
+        g = g.cpu().double()
+        c, p0 = c.double(), p0.double()
+        excess = (g - c).abs() - (TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL * c.abs())
+        out += int((excess > 0).sum())
+        n += excess.numel()
+        worst_excess = max(worst_excess, float(excess.max()))
+        worst_norm = max(worst_norm, float((g - c).norm() / (c - p0).norm()))
+    print(f"card vs CPU, one step, {cfg.name} depth {cfg.n_layers} fp32 "
+          f"B={TRAIN_CPU_BATCH} S={TRAIN_CPU_SEQ}: loss {float(mg['loss']):.6f} "
+          f"(rel {rel['loss']:.3e}), gnorm {float(mg['gnorm']):.6f} (rel "
+          f"{rel['gnorm']:.3e}; tol {TRAIN_CPU_TOL:.0e}); params: {out} of {n} "
+          f"elements outside rtol {TRAIN_PARAM_RTOL:g} atol "
+          f"{TRAIN_PARAM_ATOL:g} (share tol {TRAIN_FLIP_SHARE:g}), worst "
+          f"excess {worst_excess:.3e}, worst leaf update-norm gap "
+          f"{worst_norm:.3e} (tol {TRAIN_UPDATE_NORM_TOL:g}); step {card_s:.3f} "
+          f"s on the card (first call), {cpu_s:.3f} s on the CPU", flush=True)
+    for k, r in rel.items():
+        check(r <= TRAIN_CPU_TOL, f"train card vs CPU: {k} rel {r:.3e}")
+    check(out <= TRAIN_FLIP_SHARE * n, f"train card vs CPU: {out} of {n} "
+                                       f"parameters outside the bound")
+    check(worst_excess <= 2 * TRAIN_LR, f"train card vs CPU: a parameter "
+                                        f"{worst_excess:.3e} past the bound")
+    check(worst_norm <= TRAIN_UPDATE_NORM_TOL,
+          f"train card vs CPU: update norm gap {worst_norm:.3e}")
+    return {"rel": rel, "outside": out, "n": n, "worst_excess": worst_excess,
+            "update_norm_gap": worst_norm}, card
+
+
+def train_restart(dev, cfg):
+    """Phase 14 (c): steps 0-3 and a checkpoint, a new ``Trainer`` resumed to
+    step 6, against an uninterrupted 0-6, in a temporary directory."""
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_CPU_DEPTH)
+    data = SyntheticLM(cfg, BatchSpec(RESTART_BATCH, RESTART_SEQ), seed=2)
+    opt = AdamW(learning_rate=warmup_cosine(TRAIN_LR, warmup=2, total=6))
+    ckpt_bytes = 3 * 4 * lm_params.count_params(cfg) + 4
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        check(free >= 3 * ckpt_bytes, f"train restart: {free / 1e9:.2f} GB "
+                                      f"free under {tmp}, need "
+                                      f"{3 * ckpt_bytes / 1e9:.2f} GB")
+
+        def trainer(steps, ckpt_dir):
+            return Trainer(cfg, opt, data, TrainerConfig(
+                steps=steps, ckpt_every=2, ckpt_dir=ckpt_dir, ckpt_keep=1,
+                log_every=10 ** 9), device=dev, log=lambda line: None)
+
+        t1 = trainer(4, tmp)
+        saves = []
+        plain_save = t1._save
+
+        def timed_save(*args):
+            t0 = time.perf_counter()
+            plain_save(*args)
+            saves.append(time.perf_counter() - t0)
+
+        t1._save = timed_save
+        p1, o1, _ = t1.run()
+        torch.cuda.synchronize()
+        written = sum(os.path.getsize(os.path.join(tmp, "step_00000004", f))
+                      for f in os.listdir(os.path.join(tmp, "step_00000004")))
+        t2 = trainer(6, tmp)
+        t0 = time.perf_counter()
+        step, p2, o2 = t2.restore_or_init()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        saved = store._flatten({"params": p1, "opt": o1})
+        restored = store._flatten({"params": p2, "opt": o2})
+        same = all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(saved.values(), restored.values()))
+        del p1, o1, t1
+        _, _, resumed = t2.run(start_params=p2, start_opt=o2, start_step=step)
+        del p2, o2
+        _, _, straight = trainer(6, None).run()
+        gaps = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                for a, b in zip(resumed, straight[4:])]
+        print(f"restart {cfg.name} depth {cfg.n_layers} B={RESTART_BATCH} "
+              f"S={RESTART_SEQ}: checkpoint {written} bytes ({len(saved)} "
+              f"leaves) in {saves[0]:.3f} s ({len(saves)} saves: "
+              f"{', '.join(f'{x:.3f}' for x in saves)} s), restored in "
+              f"{restore_s:.3f} s; restored state bitwise equal to the saved "
+              f"one: {same}; resumed at step {step}, steps "
+              f"{[h['step'] for h in resumed]}; losses resumed "
+              f"{[round(h['loss'], 6) for h in resumed]} vs uninterrupted "
+              f"{[round(h['loss'], 6) for h in straight[4:]]}, largest "
+              f"relative gap {max(gaps):.3e} (tol {RESTART_TOL:.0e})",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(same, "train restart: the restored state differs from the saved")
+    check(step == 4 and [h["step"] for h in resumed] == [4, 5],
+          f"train restart: resumed at {step}")
+    check(max(gaps) <= RESTART_TOL, f"train restart: loss gap {max(gaps):.3e}")
+    return {"save_s": saves, "restore_s": restore_s, "bytes": written,
+            "gap": max(gaps), "same": same}
+
+
+def serve_trained(dev, all_kernels, cfg, params, batch):
+    """Phase 14 (d): the trained weights, cast to bf16, prefilled through K3
+    and held against the xla route, as phase 7 does."""
+    cfg_flash = dataclasses.replace(cfg, attn_impl="flash")
+    engine = Engine(cfg_flash, lm_params.cast_params(params, "bfloat16"),
+                    ServeConfig(max_len=TRAIN_SEQ))
+    prompt = {"tokens": batch["tokens"]}
+    (lf, _), counts, _, wall = counted(lambda: lm_model.prefill(
+        cfg_flash, engine.params, prompt, max_len=TRAIN_SEQ), all_kernels)
+    lx, _ = lm_model.prefill(dataclasses.replace(cfg, attn_impl="xla"),
+                             engine.params, prompt, max_len=TRAIN_SEQ)
+    torch.cuda.synchronize()
+    a, b = lf.float(), lx.float()
+    check(a.shape == (TRAIN_BATCH, cfg.padded_vocab)
+          and bool(torch.isfinite(a).all()), "trained prefill: bad logits")
+    err = float((a - b).abs().max()) / float(b.abs().max())
+    same = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    print(f"serve the trained weights: prefill B={TRAIN_BATCH} S={TRAIN_SEQ} "
+          f"through K3 in {1e3 * wall:.3f} ms, launches {counts}; last-token "
+          f"logits vs the xla route: max normalised err {err:.3e} (tol "
+          f"{SERVE_TOL:.0e}), same argmax in {100 * same:.0f}% of rows",
+          flush=True)
+    check(counts["flash_attention"] == cfg.n_layers,
+          f"trained prefill: K3 launched {counts['flash_attention']} times, "
+          f"expected {cfg.n_layers}")
+    check(err <= SERVE_TOL, f"trained prefill: flash vs xla {err:.3e}")
+    return {"launches": counts["flash_attention"], "err": err,
+            "prefill_ms": 1e3 * wall}
+
+
+def flash_trap(dev, cfg, params):
+    """Phase 14 (e): a training forward through the flash route raises on
+    the card, before the kernel launches."""
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_CPU_DEPTH, attn_impl="flash",
+                              dtype="bfloat16")
+    batch = SyntheticLM(cfg, BatchSpec(1, 256), seed=3)(0)
+    batch = {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+             for k, v in batch.items()}
+    opt = AdamW(learning_rate=TRAIN_LR)
+    before = fa.flash_attention.launches
+    try:
+        make_train_step(cfg, opt)(params, opt.init(params), batch)
+    except NotImplementedError as e:
+        msg = str(e)
+    else:
+        msg = None
+    print(f"flash route under grad on the card: "
+          f"{'NotImplementedError: ' + msg if msg else 'no error'}; launches "
+          f"{fa.flash_attention.launches - before}", flush=True)
+    check(msg is not None and "attn_impl='xla'" in msg,
+          "train: the flash route took a gradient on the card")
+    check(fa.flash_attention.launches == before,
+          "train: the flash kernel launched under grad")
+
+
+def train_phase(dev, all_kernels):
+    """Phase 14: training qwen3-0.6b at full width.  Returns the readings
+    the JSON line and PERF.md report."""
+    t0 = time.perf_counter()
+    torch.cuda.init()  # run alone, nothing has touched the card yet
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = lm_config.get(LM_ARCH)
+    check(cfg.attn_impl == "xla" and cfg.remat == "full",
+          f"{cfg.name}: registered attn_impl {cfg.attn_impl}, remat "
+          f"{cfg.remat}")
+    out = {}
+    out["full"], params, batch = train_full(dev, all_kernels, cfg)
+    out["serve"] = serve_trained(dev, all_kernels, cfg, params, batch)
+    del params, batch
+    torch.cuda.empty_cache()
+    out["cpu"], small = train_card_vs_cpu(dev, cfg)
+    flash_trap(dev, cfg, small)
+    del small
+    out["restart"] = train_restart(dev, cfg)
+    print(f"phase 14 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no card, "
@@ -2839,6 +3186,9 @@ def main() -> int:
     phase("13. the batch layouts and the fused mesh on the card")
     lay = layout_phase(dev, all_kernels)
 
+    phase("14. training: qwen3-0.6b at full width")
+    train = train_phase(dev, all_kernels)
+
     rows = []
     for name in kernels:
         ms, pms, bms, by = timings[(name, "fp32", N_MAIN)]
@@ -2942,6 +3292,7 @@ def main() -> int:
         "tile_share_tol": TILE_SHARE_TOL,
         "launches_prefill": serve["launches_prefill"],
         "launches_decode": serve["launches_decode"],
+        "launches_train_serve": train["serve"]["launches"],
         "ms_fp32": ms32, "plain_ms_fp32": pms32, "library_ms_fp32": lms32,
         "library_fp32": f"sdpa {lname32}",
         "bound_ms_fp32": bms32,

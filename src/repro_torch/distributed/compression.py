@@ -1,0 +1,68 @@
+"""Gradient compression: int8 quantization with error feedback.
+
+Port of ``repro/distributed/compression.py``.  One fp32 scale per tensor
+(its max |x| / 127) and int8 levels; the error-feedback buffer carries
+each round's quantization residual into the next, so the compressed
+gradients sum to the true ones over time (Seide et al. 2014; Karimireddy
+et al. 2019).  ``compress_tree`` is the in-step form the train step
+applies before the optimizer.
+
+The unkeyed path rounds half to even (``torch.round``, as ``jnp.round``)
+and divides in float32, so on the CPU it gives the reference's bits.
+The keyed path takes a ``torch.Generator`` for its stochastic rounding:
+it has the reference's distribution, not its bits.  The reference's
+``compressed_psum`` runs inside ``shard_map`` and has no caller there; it
+comes with the multi-card mesh (ROADMAP.md queue 1 item 7c).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch import tree as tree_util
+
+_LEVELS = 127.0
+F32 = torch.float32
+
+
+def quantize(x, generator: Optional[torch.Generator] = None):
+    """x (fp) -> (int8 q, fp32 scale).  Stochastic rounding when
+    ``generator`` is given (it must live on x's device)."""
+    xf = x.to(F32)
+    # divide by a tensor on x's device: a CUDA division by a host scalar
+    # multiplies by its reciprocal instead, which is not the eager bits
+    levels = torch.full((), _LEVELS, dtype=F32, device=xf.device)
+    scale = torch.clamp(torch.amax(torch.abs(xf)) / levels, min=1e-30)
+    y = xf / scale
+    if generator is not None:
+        y = torch.floor(y + torch.rand(y.shape, generator=generator,
+                                       dtype=F32, device=y.device))
+    else:
+        y = torch.round(y)
+    return torch.clamp(y, -127, 127).to(torch.int8), scale
+
+
+def dequantize(q, scale):
+    return q.to(F32) * scale
+
+
+def compress_leaf(g, e):
+    """One error-feedback round: returns (g_hat, new_err)."""
+    corrected = g.to(F32) + e
+    q, s = quantize(corrected)
+    g_hat = dequantize(q, s)
+    return g_hat, corrected - g_hat
+
+
+def compress_tree(grads: dict, err: dict):
+    """Error-feedback int8 compression leaf by leaf: (g_hat, new_err)."""
+    out = tree_util.map(compress_leaf, grads, err)
+    return (tree_util.map(lambda t: t[0], out),
+            tree_util.map(lambda t: t[1], out))
+
+
+def zeros_error(params: dict) -> dict:
+    return tree_util.map(lambda p: torch.zeros(p.shape, dtype=F32,
+                                               device=p.device), params)

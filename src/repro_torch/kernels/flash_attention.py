@@ -116,12 +116,22 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Grouped-query flash attention; see the module docstring.
 
     On the card the kernel takes bf16 or float32 and head dimensions 16,
-    32, 64, 96 and 128; a launch it refuses raises.
+    32, 64, 96 and 128; a launch it refuses raises.  It has no backward,
+    as the reference kernel has no VJP: on the card, a call that autograd
+    would record (grad mode on and q, k or v requiring a gradient) raises
+    ``NotImplementedError``.  The CPU's plain version is differentiable,
+    as the reference trains ``attn_impl="flash"`` through ``_attn_full``
+    off the TPU.
     """
     _check(q, k, v, block_q, block_k)
     if q.device.type == "cpu":
         return _flash_plain(q, k, v, causal=causal, block_q=block_q,
                             block_k=block_k)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward: the reference kernel has no "
+            "VJP, so the kernel's output would carry no gradient; train "
+            "with attn_impl='xla' (layers._attn_full)")
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("the kernel loads 16-byte vectors: q, k and v must "
                          "start on a 16-byte boundary")

@@ -1,14 +1,29 @@
-"""Training launcher: only ``scaled_config`` so far.
+"""Training launcher.
 
-Port of ``scaled_config`` from ``repro/launch/train.py``, copied as it is:
-it builds the reduced configs that the tests and ``launch/serve_lm.py
---scale`` run.  The trainer itself (mesh, data pipeline, optimizer,
-checkpoints) arrives with the training slice (ROADMAP.md queue 1 item 11).
+Port of ``repro/launch/train.py``: runs a real (allocating) training job
+for a ported architecture, at its published width (``--scale 1``, on the
+card) or at a reduced width/depth factor (``scaled_config``, the
+CPU-runnable path).  The launcher owns the data pipeline, the optimizer
+and the trainer (checkpoint/restart + straggler monitor).  The reference's
+mesh and sharding rules are a single card's here; ``--device`` (default
+``cuda``; it raises without a card) picks the device.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
+      --scale 0.05 --steps 50 --batch 8 --seq 128 --ckpt-dir ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
+      --scale 0.04 --steps 4 --device cpu
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import sys
+
+from repro_torch.data import SyntheticLM, batch_spec_for
+from repro_torch.models import config as C
+from repro_torch.optim import AdamW, warmup_cosine
+from repro_torch.train import Trainer, TrainerConfig
 
 
 def scaled_config(cfg, scale: float):
@@ -58,3 +73,39 @@ def scaled_config(cfg, scale: float):
         attn_chunked_above=10 ** 9,
         dtype="float32",
     )
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=C.available())
+    ap.add_argument("--scale", type=float, default=1.0)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+
+    cfg = scaled_config(C.get(args.arch), args.scale)
+    spec = batch_spec_for(cfg, args.batch, args.seq)
+    data = SyntheticLM(cfg, spec, seed=args.seed)
+    opt = AdamW(learning_rate=warmup_cosine(
+        args.lr, warmup=max(args.steps // 20, 5), total=args.steps))
+    tcfg = TrainerConfig(steps=args.steps, ckpt_every=args.ckpt_every,
+                         ckpt_dir=args.ckpt_dir, accum=args.accum,
+                         seed=args.seed)
+    trainer = Trainer(cfg, opt, data, tcfg, device=args.device)
+    _, _, history = trainer.run()
+    final = history[-1]
+    print(f"[train.py] done: {len(history)} steps, final loss "
+          f"{final['loss']:.4f}, stragglers flagged: "
+          f"{trainer.monitor.flagged}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -152,9 +152,10 @@ class ArchConfig:
 
 _REGISTRY: dict = {}
 
-#: configs ported to ``repro_torch.configs``; the reference's other nine
-#: arrive with their families (ROADMAP.md queue 1 item 11)
-_PORTED = ("qwen3_0_6b",)
+#: configs ported to ``repro_torch.configs``: the dense family's four; the
+#: reference's other six arrive with their families (ROADMAP.md queue 1
+#: item 11c)
+_PORTED = ("deepseek_67b", "qwen3_0_6b", "stablelm_12b", "stablelm_3b")
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

@@ -1,12 +1,22 @@
-"""Model assembly of the dense family: forward, prefill and single-token
-decode.
+"""Model assembly of the dense family: the training forward and its loss,
+prefill and single-token decode.
 
-Port of ``repro/models/model.py`` (``model.py:53-86, 190-258, 372-455,
+Port of ``repro/models/model.py`` (``model.py:41-86, 190-258, 351-455,
 475-578, 584-714``) for the dense family; every other family raises
 ``NotImplementedError`` (ROADMAP.md queue 1 item 11).  The reference's
 ``MeshRules`` argument is dropped: on one card ``rules.shard`` is the
 identity.  ``lax.scan`` over the stacked layers becomes a Python loop over
-the leading ``n_layers`` axis.
+the leading ``n_layers`` axis; ``forward`` splits each stacked leaf once
+with ``torch.unbind``, so under autograd the per-layer gradients are
+stacked once instead of each layer's ``select`` building a zero gradient
+the size of the whole stack.
+
+Training rematerializes each block as ``cfg.remat`` says, the reference's
+``jax.checkpoint`` of the scan body: ``"full"`` keeps only the block's
+input (``torch.utils.checkpoint``), ``"dots"`` also keeps the outputs of
+the unbatched matmuls (the projections; the attention's batched products
+are recomputed, as ``checkpoint_dots_with_no_batch_dims``), ``"none"``
+keeps everything.  None of them changes a value.
 
 The decode cache is a dict {"layers": {"k", "v": (n_layers, B, max_len,
 KV, hd)}, "len": int, "offset": int}, as in the reference.  ``decode_step``
@@ -16,9 +26,11 @@ cache to the decode step (``engine.py:47``), so it too keeps one copy.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.core.nbody import resolve_device
 from repro_torch.models import layers
@@ -70,23 +82,75 @@ def _logits(cfg, params, x):
 
 
 # ===========================================================================
-# forward (no cache)
+# forward (training / no cache)
 # ===========================================================================
+def _unstack(stacked: dict) -> list:
+    """The stacked ``(n_layers, ...)`` leaves as one dict per layer."""
+    parts = {k: torch.unbind(x, 0) for k, x in stacked.items()}
+    return [{k: xs[i] for k, xs in parts.items()}
+            for i in range(len(next(iter(parts.values()))))]
+
+
+#: ops whose outputs the ``"dots"`` policy keeps: products without a batch
+#: dimension (``x @ W`` lowers to ``mm``); ``bmm`` is recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    policy = torch_checkpoint.CheckpointPolicy
+    return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
+
+
+def _block_out(cfg, p, x, positions):
+    return transformer_block(cfg, p, x, positions=positions)[0]
+
+
+def _maybe_remat(cfg: ArchConfig, p, x, positions, *, train: bool):
+    if not train or cfg.remat == "none":
+        return _block_out(cfg, p, x, positions)
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}: expected none, full or dots")
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _dots_policy)
+    return torch_checkpoint.checkpoint(_block_out, cfg, p, x, positions,
+                                       use_reentrant=False, **kw)
+
+
 def forward(cfg: ArchConfig, params: dict, batch: dict, *, train: bool = False):
     """Returns (logits (B, S, padded_vocab), aux_loss).  The dense family
-    has no router, so aux is 0.  Only inference is ported: ``train=True``
-    (the reference's rematerialised training forward) raises."""
-    if train:
-        raise NotImplementedError("training is not yet ported to repro_torch;"
-                                  " see ROADMAP.md queue 1 item 11")
+    has no router, so aux is 0.  ``train=True`` rematerializes each block
+    as ``cfg.remat`` says (the values are the same)."""
     tokens = batch["tokens"]
     x = layers.embed(tokens, params["embed"], _adt(cfg))
     positions = _positions(cfg, x.shape[1], x.device)
-    stacked = params["blocks"]
-    for i in range(cfg.n_layers):
-        x, _ = transformer_block(cfg, _layer(stacked, i), x,
-                                 positions=positions)
-    return _logits(cfg, params, x), torch.zeros((), device=x.device)
+    for p in _unstack(params["blocks"]):
+        x = _maybe_remat(cfg, p, x, positions, train=train)
+    return (_logits(cfg, params, x),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+# ===========================================================================
+# loss
+# ===========================================================================
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
+            z_coef: float = 1e-4):
+    """Masked CE (fp32) + router aux + z-loss.  labels < 0 are masked out.
+    Returns (loss, {"ce", "aux", "z", "tokens"})."""
+    logits, aux = forward(cfg, params, batch, train=True)
+    labels = batch["labels"].long()
+    lg = logits.to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
+    nll = lse - gold
+    mask = (labels >= 0).to(torch.float32)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = (nll * mask).sum() / denom
+    zl = z_coef * ((lse * mask) ** 2).sum() / denom
+    return ce + zl + aux, {"ce": ce, "aux": aux, "z": zl,
+                           "tokens": mask.sum()}
 
 
 # ===========================================================================

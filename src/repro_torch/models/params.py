@@ -24,6 +24,7 @@ from typing import Mapping, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_util
 from repro_torch.core.nbody import resolve_device
 from repro_torch.models.config import ArchConfig
 
@@ -95,19 +96,8 @@ def param_defs(cfg: ArchConfig) -> dict:
     return tree
 
 
-def _map(fn, tree):
-    """Apply ``fn`` to every leaf of a nested dict."""
-    return {k: _map(fn, x) if isinstance(x, Mapping) else fn(x)
-            for k, x in tree.items()}
-
-
-def _leaves(tree):
-    for x in tree.values():
-        yield from (_leaves(x) if isinstance(x, Mapping) else (x,))
-
-
 def count_params(cfg: ArchConfig) -> int:
-    return sum(math.prod(p.shape) for p in _leaves(param_defs(cfg)))
+    return sum(math.prod(p.shape) for p in tree_util.leaves(param_defs(cfg)))
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
@@ -134,7 +124,7 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                         device=generator.device)
         return (x * std).to(device=dev, dtype=dtype)
 
-    return _map(one, param_defs(cfg))
+    return tree_util.map(one, param_defs(cfg))
 
 
 def params_from_jax(tree: Mapping, device="cuda") -> dict:
@@ -142,7 +132,7 @@ def params_from_jax(tree: Mapping, device="cuda") -> dict:
     port's parameters on ``device``: the same keys, the same stacked
     ``(n_layers, ...)`` leaves, the same values bit for bit."""
     dev = resolve_device(device)
-    return _map(lambda x: torch.from_numpy(np.array(x)).to(dev), tree)
+    return tree_util.map(lambda x: torch.from_numpy(np.array(x)).to(dev), tree)
 
 
 def cast_params(params: Mapping, dtype: str) -> dict:
@@ -152,4 +142,4 @@ def cast_params(params: Mapping, dtype: str) -> dict:
     (``p["q"].astype(dt)``); casting once at load gives the same bits, since
     every use in the dense path casts to that one dtype."""
     dt = getattr(torch, dtype)
-    return _map(lambda x: x.to(dt), params)
+    return tree_util.map(lambda x: x.to(dt), params)

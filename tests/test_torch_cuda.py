@@ -812,3 +812,70 @@ def test_mesh_server_on_card_slots_is_one_slot_bitwise(cuda, tmp_path,
     for f in mesh:
         assert torch.equal(mesh[f], one[f]), f
         assert torch.equal(mesh[f], resumed[f]), f
+
+
+def test_flash_refuses_a_gradient_on_the_card(cuda):
+    """The kernel has no backward (the reference kernel has no VJP): a call
+    autograd would record raises instead of training with a silently zero
+    attention gradient; under no_grad, or with no input requiring a
+    gradient, it launches."""
+    import dataclasses
+
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.models import config as C
+    from repro_torch.models import model, params as P
+    from repro_torch.optim import AdamW
+    from repro_torch.train import make_train_step
+
+    q, k, v = _flash_operands(cuda, 1, 64, 64, 4, 2, 32, torch.bfloat16)
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="attn_impl='xla'"):
+        fa.flash_attention(q, k, v, block_q=64, block_k=64)
+    before = fa.flash_attention.launches
+    with torch.no_grad():
+        fa.flash_attention(q, k, v, block_q=64, block_k=64)
+    fa.flash_attention(q.detach(), k, v, block_q=64, block_k=64)
+    assert fa.flash_attention.launches == before + 2
+    cfg = dataclasses.replace(scaled_config(C.get("qwen3-0.6b"), 0.04),
+                              attn_impl="flash", dtype="bfloat16")
+    pp = P.init_params(cfg, torch.Generator(cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt = AdamW(learning_rate=1e-3)
+    with pytest.raises(NotImplementedError, match="no VJP"):
+        make_train_step(cfg, opt)(pp, opt.init(pp), batch)
+    logits, _ = model.forward(cfg, pp, batch)   # no parameter needs a grad
+    assert bool(torch.isfinite(logits).all())
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """tests/test_substrate.py's TINY config, fp32, one step of the same
+    parameters and batch on the card and on the CPU: the same function
+    summed in other orders (TF32 off).  Loss and gnorm within 1e-5
+    relative, the parameters within test_substrate.py's accum bound."""
+    from repro_torch import tree as tree_util
+    from repro_torch.models import params as P
+    from repro_torch.models.config import ArchConfig
+    from repro_torch.optim import AdamW
+    from repro_torch.train import make_train_step
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = ArchConfig(name="tiny", family="dense", n_layers=2, d_model=64,
+                     n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=256,
+                     attn_chunked_above=10 ** 9, dtype="float32")
+    cpu = P.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    card = tree_util.map(lambda x: x.to(cuda), cpu)
+    toks = np.random.default_rng(0).integers(0, 256, (4, 33), dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+             "labels": torch.from_numpy(toks[:, 1:].copy())}
+    opt = AdamW(learning_rate=1e-3)
+    step = make_train_step(cfg, opt)
+    cpu, _, mc = step(cpu, opt.init(cpu), batch)
+    card, _, mg = step(card, opt.init(card),
+                       {k: v.to(cuda) for k, v in batch.items()})
+    for key in ("loss", "gnorm"):
+        assert abs(float(mg[key]) - float(mc[key])) <= 1e-5 * abs(float(mc[key]))
+    for a, b in zip(tree_util.leaves(card), tree_util.leaves(cpu)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-3,
+                                   atol=5e-5)

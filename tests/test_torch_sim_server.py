@@ -23,6 +23,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from repro.serve import sim_engine as jse
+from repro.sim import ensemble as jens
 from repro.sim.scenarios import ScenarioSpec as JSpec
 from repro_torch.core.nbody import FIELDS
 from repro_torch.kernels import ops
@@ -31,6 +32,18 @@ from repro_torch.serve import (Pod, ServerConfig, SimRequest, SimServer,
 from repro_torch.sim import ensemble as ens
 from repro_torch.sim.scenarios import ScenarioError, ScenarioSpec
 from repro_torch.sim.telemetry import RunReport
+
+
+@pytest.fixture(scope="module", autouse=True)
+def cold_reference_engines():
+    """Leave the JAX package's engine caches empty, as a fresh process has
+    them: this file's replays build the engines of the reference server's
+    own test configs, and tests/test_sim_server.py counts the engines its
+    warmup builds (0 if a file before it in the same process built them)."""
+    yield
+    for fn in (jens._engine, jens._adaptive_engine, jens._block_engine,
+               jens._strategy_block_engine, jens._fused_block_engine):
+        fn.cache_clear()
 
 
 @pytest.fixture(autouse=True)
