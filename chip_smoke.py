@@ -110,6 +110,20 @@ Phases, in order; any failure raises and the script exits nonzero:
    restart against an uninterrupted run in a temporary directory; the
    trained weights prefilled through K3 (28 launches) against the xla
    route; the flash route refusing a gradient;
+15. the moe, vlm and audio families served (``families_phase``): K3 held
+   against its plain version at the shapes they give it (g = 4 and 6 at
+   D = 128, non-causal D = 64 with Sq != Sk, Sq = 1), timed beside its
+   plain version, its bound and SDPA; then phi3.5-moe-42b-a6.6b (8 of 32
+   layers), deepseek-v2-236b (4 of 60: one dense, three MoE; MLA through
+   ``_attn_full``), qwen2-vl-2b (256 patches + 1792 tokens) and
+   seamless-m4t-medium (1024 frames, prompts of 512) at their published
+   widths with seeded random bf16 weights through ``Engine.generate``,
+   launch counts zeroed before each run and read after: K3's launches per
+   prefill and per decode step, prefill and decode ms beside their
+   limits, a profiled prefill and decode step, peak memory; for MoE two
+   prefills bit for bit and the share of slots dropped over capacity; MLA
+   refusing the flash route before any launch; each config at depth 2 on
+   the card against the CPU (MoE: bf16 routing, fp32 logits);
 then one ``kernels`` JSON line and ``{"ok": true, "device": {...}}`` as the
 last line.
 
@@ -124,6 +138,7 @@ import ctypes
 import dataclasses
 import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -149,6 +164,7 @@ from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.data import BatchSpec, SyntheticLM  # noqa: E402
 from repro_torch.launch import nbody_run, sim_run  # noqa: E402
 from repro_torch.models import config as lm_config  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.models import params as lm_params  # noqa: E402
 from repro_torch.serve import sim_engine  # noqa: E402
@@ -525,15 +541,27 @@ def bound_ms(name, dtype, n_t_active, n_t, n_s, batch=1):
 
 
 def flash_bound_ms(b, s, h, kv, d, dtype, exact_fp32=False):
-    """Least time of one causal K3 launch: 4 B H D S (S + 1) / 2 operations
-    (q K^T and P V over the live score pairs, two per multiply-add) over the
-    tensor-core bf16 peak, or for fp32 three times as many (3xTF32: three
-    TF32 products per product) over the TF32 peak, or with ``exact_fp32``
-    the operations as fp32 FMAs over the fp32 peak; or q, k, v read once
-    and the output written once over HBM bandwidth, whichever is larger."""
-    flops = 4 * b * h * d * (s * (s + 1) // 2)
+    """Least time of one causal K3 launch at Sq = Sk = S
+    (``attn_bound_ms``)."""
+    return attn_bound_ms(b, s, s, h, kv, d, dtype, True, exact_fp32)
+
+
+def attn_bound_ms(b, sq, sk, h, kv, d, dtype, causal, exact_fp32=False):
+    """Least time of one K3 launch: 4 B H D P operations (q K^T and P V
+    over the P live score pairs, two per multiply-add; causal, a query at
+    position i sees min(i + 1, Sk) keys) over the tensor-core bf16 peak,
+    or for fp32 three times as many (3xTF32: three TF32 products per
+    product) over the TF32 peak, or with ``exact_fp32`` the operations as
+    fp32 FMAs over the fp32 peak; or q, k, v read once and the output
+    written once over HBM bandwidth, whichever is larger."""
+    if causal:
+        n = min(sq, sk)
+        pairs = n * (n + 1) // 2 + (sq - n) * sk
+    else:
+        pairs = sq * sk
+    flops = 4 * b * h * d * pairs
     size = 2 if dtype == torch.bfloat16 else 4
-    nbytes = size * (2 * b * s * h * d + 2 * b * s * kv * d)
+    nbytes = size * (2 * b * sq * h * d + 2 * b * sk * kv * d)
     if dtype == torch.bfloat16:
         peak = PEAK_BF16_FLOPS
     elif exact_fp32:
@@ -545,7 +573,7 @@ def flash_bound_ms(b, s, h, kv, d, dtype, exact_fp32=False):
                                        else "bytes")
 
 
-def sdpa_calls(q, k, v):
+def sdpa_calls(q, k, v, causal=True):
     """One PyTorch call computing K3's function on the same q, k, v, as a
     yardstick only (the port never calls it): ``enable_gqa=True`` where this
     torch takes it, else k and v repeated G-fold outside the timed call."""
@@ -554,13 +582,13 @@ def sdpa_calls(q, k, v):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     kr, vr = (x.repeat_interleave(g, dim=1) for x in (kt, vt))
     return [("enable_gqa=True",
-             lambda: sdpa(qt, kt, vt, is_causal=True, scale=d ** -0.5,
+             lambda: sdpa(qt, kt, vt, is_causal=causal, scale=d ** -0.5,
                           enable_gqa=True)),
             ("k and v repeated G-fold",
-             lambda: sdpa(qt, kr, vr, is_causal=True, scale=d ** -0.5))]
+             lambda: sdpa(qt, kr, vr, is_causal=causal, scale=d ** -0.5))]
 
 
-def sdpa_backends(q, k, v, reps=10):
+def sdpa_backends(q, k, v, reps=10, causal=True):
     """SDPA's time under each backend that accepts these inputs (flash,
     efficient, cuDNN, each pinned with ``sdpa_kernel``): name -> (ms, how),
     or (None, why) for a backend that refuses them."""
@@ -573,7 +601,7 @@ def sdpa_backends(q, k, v, reps=10):
             continue
         why = "refused"
         with sdpa_kernel(backend):
-            for how, call in sdpa_calls(q, k, v):
+            for how, call in sdpa_calls(q, k, v, causal):
                 try:
                     call()
                     torch.cuda.synchronize()
@@ -1669,7 +1697,16 @@ def serve_path(cfg, dev, all_kernels):
           f"serve main path: tokens {tuple(out.shape)} {out.dtype}")
     print(f"  seq 0: {out[0, :16].tolist()} ...", flush=True)
 
-    # where the time goes: one prefill and one decode step under the profiler
+    profile = serve_profile(cfg_flash, engine.params, batch,
+                            LM_PROMPT + LM_GEN, first)
+    return {"launches": counts["flash_attention"],
+            "launches_prefill": int(n_prefill), "launches_decode": int(n_decode),
+            "stats": stats, "peak": peak, "routes": routes, "profile": profile}
+
+def serve_profile(cfg, params, batch, max_len, first):
+    """Where the time goes: one prefill and one decode step (tokens
+    ``first``) under the profiler, each printed with its launches, the
+    card's busy share, K3's share and the costliest kernels."""
     profile = {}
     cache = None
     for stage in ("prefill", "decode step"):
@@ -1678,10 +1715,10 @@ def serve_path(cfg, dev, all_kernels):
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if cache is None:
-                _, cache = lm_model.prefill(cfg_flash, engine.params, batch,
-                                            max_len=LM_PROMPT + LM_GEN)
+                _, cache = lm_model.prefill(cfg, params, batch,
+                                            max_len=max_len)
             else:
-                lm_model.decode_step(cfg_flash, engine.params, cache, first)
+                lm_model.decode_step(cfg, params, cache, first)
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
         profile[stage] = p = device_profile(prof, wall)
@@ -1697,9 +1734,8 @@ def serve_path(cfg, dev, all_kernels):
               f"({100 * p['flash_ms'] / p['device_ms']:.1f}% of the kernels' "
               f"time); top: {top}", flush=True)
     del cache
-    return {"launches": counts["flash_attention"],
-            "launches_prefill": int(n_prefill), "launches_decode": int(n_decode),
-            "stats": stats, "peak": peak, "routes": routes, "profile": profile}
+    return profile
+
 
 # --------------------------------------------------------------------------
 # phase 11: the Ahmad-Cohen neighbor scheme
@@ -2887,6 +2923,440 @@ def train_phase(dev, all_kernels):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 15: serving the moe, vlm and audio families at full width
+# --------------------------------------------------------------------------
+#: each config at its published width with seeded random bf16 weights,
+#: cut in depth only where one card's 80 GB forces it; attention as the
+#: phase runs it (deepseek-v2's MLA has no flash route); B prompts of
+#: ``prompt`` tokens after ``patches`` patch or ``frames`` frame
+#: embeddings, ``gen`` tokens generated
+FAMILY_RUNS = (
+    dict(arch="phi3.5-moe-42b-a6.6b", cut=dict(n_layers=8), attn="flash",
+         batch=4, prompt=2048, gen=32),
+    dict(arch="deepseek-v2-236b", cut=dict(n_layers=4), attn="xla",
+         batch=1, prompt=2048, gen=16),
+    dict(arch="qwen2-vl-2b", cut={}, attn="flash", batch=4, prompt=1792,
+         patches=256, gen=32),
+    dict(arch="seamless-m4t-medium", cut={}, attn="flash", batch=4,
+         prompt=512, frames=1024, gen=32),
+)
+#: K3 at the shapes these runs give it (b, sq, sk, h, kv, d), causal, and
+#: ``_attn_dispatch``'s blocks min(512, S)
+FAMILY_FLASH = (
+    ("phi3.5 prefill g=4", (4, 2048, 2048, 32, 8, 128), True, (512, 512)),
+    ("qwen2-vl prefill g=6", (4, 2048, 2048, 12, 2, 128), True, (512, 512)),
+    ("seamless encoder", (4, 1024, 1024, 16, 16, 64), False, (512, 512)),
+    ("seamless decoder", (4, 512, 512, 16, 16, 64), True, (512, 512)),
+    ("seamless cross", (4, 512, 1024, 16, 16, 64), False, (512, 512)),
+    ("seamless cross decode", (4, 1, 1024, 16, 16, 64), False, (1, 512)),
+)
+#: card against CPU: full width, depth 2, B = 1, 512 positions (vlm: 256
+#: patches + 256 tokens; audio: 512 frames and 512 tokens), the same
+#: weights on both sides: the forward's logits in bf16 within bf16 TOL
+#: (tests/test_torch_families.py)
+FAMILY_CPU_DEPTH, FAMILY_CPU_LEN = 2, 512
+FAMILY_CPU_TOL = 3e-2
+#: MoE in bf16, card against CPU.  At the first MoE layer the router's
+#: inputs differ by bf16 noise only, so a token may take other experts only
+#: where its k-th and (k+1)-th probabilities lie within that noise: (p_k -
+#: p_(k+1)) / p_k at most this (tests/test_torch_families.py).  The router's
+#: logits are bf16, and p_k / p_(k+1) = exp(l_k - l_(k+1)): logits of
+#: magnitude 2 to 4 have an ulp of 2**-6, and the two contenders each
+#: rounded to the other neighbour part by two of them.  (Set first at
+#: 2**-6: deepseek-v2's first MoE layer, behind a dense layer, showed a
+#: flip at 2.3e-2 on one H100, with fp32 routing equal.)  Such a
+#: token moves its experts' capacity boundaries, so a later token of those
+#: experts is dropped or kept in its place (a slot is its entry's rank
+#: among the expert's entries); every kept-expert change must follow an
+#: earlier change of that expert's entries.  At the next layer those
+#: tokens carry a whole expert's output of difference, which attention,
+#: near uniform under random weights, spreads over every later token: the
+#: bf16 logits are then no longer comparable (phi3.5 at depth 2: 44 of 512
+#: positions moved, the rest 7.4e-2 apart, on one H100).  So the MoE
+#: configs' logits are held in fp32 (activations and weights), where no
+#: token may route otherwise and the dispatch drops the same slots on both
+#: sides
+ROUTE_NOISE = 2.0 ** -5
+#: fp32 card against CPU, max |card - cpu| / max |cpu| over the logits:
+#: sums in other orders through two layers (~1e-6) and fp32 K3 at its
+#: tolerance (2e-5, FLASH_TOL) per layer
+FAMILY_CPU_TOL_FP32 = 1e-4
+
+
+def family_cfg(run, **kw):
+    cfg = lm_config.get(run["arch"])
+    return dataclasses.replace(cfg, param_dtype="bfloat16",
+                               attn_impl=run["attn"], **{**run["cut"], **kw})
+
+
+def family_batch(cfg, b, prompt, patches=0, frames=0):
+    """Seeded numpy prompts and the stub frontend's embeddings."""
+    rng = np.random.default_rng(0)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, prompt)).astype(
+        np.int32)}
+    for key, n in (("patches", patches), ("frames", frames)):
+        if n:
+            out[key] = rng.standard_normal((b, n, cfg.d_model)).astype(
+                np.float32)
+    return out
+
+
+def on(dev, batch):
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def kv_leaves(cache):
+    return [t for v in cache.values() if isinstance(v, dict)
+            for t in v.values()]
+
+
+@contextlib.contextmanager
+def spying(module, name, record):
+    """``module.name`` wrapped so that ``record(args, result)`` sees each
+    call, for the ``with`` block only."""
+    real = getattr(module, name)
+
+    def spy(*args):
+        out = real(*args)
+        record(args, out)
+        return out
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def family_flash_holds(dev):
+    """K3 at the families' shapes against its plain version (phase 6's
+    checks), timed beside its plain version, its bound and SDPA's fastest
+    backend."""
+    out = {}
+    for label, (b, sq, sk, h, kvh, d), causal, (bq, bk) in FAMILY_FLASH:
+        q, k, v = flash_operands(b, sq, sk, h, kvh, d, torch.bfloat16, dev,
+                                 seed=sq + sk + h)
+        r = flash_readings(q, k, v, causal, bq, bk)
+        failed = flash_failures(r, "bf16")
+        r["ms"] = cuda_ms(lambda: fa.flash_attention(
+            q, k, v, causal=causal, block_q=bq, block_k=bk), 10)
+        r["plain_ms"] = cuda_ms(lambda: fa._flash_plain(
+            q, k, v, causal=causal, block_q=bq, block_k=bk), 2, warmup=1)
+        r["bound_ms"], r["bound_by"] = attn_bound_ms(
+            b, sq, sk, h, kvh, d, torch.bfloat16, causal)
+        timed = {n: t for n, t in sdpa_backends(q, k, v, causal=causal).items()
+                 if t[0] is not None}
+        check(bool(timed), f"flash {label}: no SDPA backend takes it")
+        lname = min(timed, key=lambda n: timed[n][0])
+        r["library_ms"], r["library"] = timed[lname][0], (
+            f"sdpa {lname} ({timed[lname][1]})")
+        r.update(shape=dict(zip("b sq sk h kv d".split(), (b, sq, sk, h, kvh,
+                                                            d))),
+                 causal=causal)
+        print(f"flash {label:<22} bf16 B={b} Sq={sq} Sk={sk} H={h} KV={kvh} "
+              f"D={d} causal={causal}: max normalised err "
+              f"{r['norm_err']:.3e}  element-wise {r['elem']:.3f} of the "
+              f"limit  {100 * r['tile_share']:.4f}% differ at the kernel's "
+              f"tile (tol {100 * TILE_SHARE_TOL:g}%)  kernel {r['ms']:.4f} ms"
+              f"  plain {r['plain_ms']:.4f} ms  {r['library']} "
+              f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})  bound/kernel "
+              f"{r['bound_ms'] / r['ms']:.3f}", flush=True)
+        check(not failed, f"flash {label}: {'; '.join(failed)}")
+        out[label] = r
+        del q, k, v
+    return out
+
+
+def route_flips(card, cpu, n_experts, cap):
+    """``card`` and ``cpu``: per MoE layer (probs, top_i, slots) at B = 1.
+    Returns the positions held apart (routed otherwise, or with other kept
+    experts, at some layer), the largest k-th/(k+1)-th gap (the CPU's
+    probabilities) of a token routed otherwise at the first MoE layer, the
+    count routed otherwise at later layers while not yet held, and the
+    count of kept-expert changes that no earlier change of the same
+    expert's entries explains."""
+    held, worst, later, unexplained = None, 0.0, 0, 0
+    for layer, ((_, ic, sc), (pp, ip, sp)) in enumerate(zip(card, cpu)):
+        ic, sc, ip, sp, pp = ic[0].cpu(), sc[0].cpu(), ip[0], sp[0], pp[0]
+        if held is None:
+            held = torch.zeros(ip.shape[0], dtype=torch.bool)
+        routed = torch.zeros(ip.shape[0], n_experts, dtype=torch.bool)
+        rc, rp = routed.scatter(1, ic, True), routed.scatter(1, ip, True)
+        kc = routed.scatter(1, ic, sc < n_experts * cap)
+        kp = routed.scatter(1, ip, sp < n_experts * cap)
+        moved = (rc != rp).any(-1)
+        new = moved & ~held
+        if layer == 0 and new.any():
+            k = ip.shape[-1]
+            ranked = pp.sort(-1, descending=True).values
+            gap = (ranked[:, k - 1] - ranked[:, k]) / ranked[:, k - 1]
+            worst = float(gap[new].max())
+        elif layer:
+            later += int(new.sum())
+        # a kept set changes only after an earlier entry of that expert did
+        pos = torch.arange(ip.shape[0])[:, None].expand(-1, n_experts)
+        first = torch.where(rc != rp, pos, ip.shape[0]).min(0).values
+        shifted = (kc != kp) & ~moved[:, None]
+        unexplained += int((shifted & (pos <= first[None])).sum())
+        held |= moved | shifted.any(-1)
+    return held, worst, later, unexplained
+
+
+def card_and_cpu(cfg, card, cpu, batch, dev):
+    """The forward of ``batch`` on the card and on the CPU; per side the
+    logits (on the host), the seconds, and each MoE layer's (probs, top_i,
+    slots)."""
+    out = {}
+    for side, params, dev_ in (("card", card, dev), ("cpu", cpu, "cpu")):
+        routes, slots = [], []
+        t0 = time.perf_counter()
+        with spying(lm_layers, "route", lambda a, r: routes.append(r)), \
+                spying(lm_layers, "capacity_slots",
+                       lambda a, r: slots.append(r)):
+            logits, _ = lm_model.forward(cfg, params, on(dev_, batch))
+        out[side] = (logits[0].float().cpu(), time.perf_counter() - t0,
+                     [(p, i, sl) for (p, _, i), sl in zip(routes, slots)])
+    return out
+
+
+def family_card_vs_cpu(dev, run):
+    """The same depth-2 weights and inputs through the forward on the card
+    and on the CPU in bf16; for MoE each layer's routing and kept slots in
+    bf16, and the logits in fp32."""
+    cut = dict(n_layers=FAMILY_CPU_DEPTH)
+    if run.get("frames"):
+        cut["encoder_layers"] = FAMILY_CPU_DEPTH
+    cfg = family_cfg(run, **cut)
+    moe = cfg.family == "moe"
+    card = lm_params.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                                 device=dev)
+    cpu = tree_util.map(lambda x: x.cpu(), card)
+    if run.get("patches"):
+        batch = family_batch(cfg, 1, FAMILY_CPU_LEN // 2,
+                             patches=FAMILY_CPU_LEN // 2)
+    else:
+        batch = family_batch(cfg, 1, FAMILY_CPU_LEN,
+                             frames=FAMILY_CPU_LEN if run.get("frames") else 0)
+    out = card_and_cpu(cfg, card, cpu, batch, dev)
+    a, b = out["card"][0], out["cpu"][0]
+    check(bool(torch.isfinite(a).all()), f"{cfg.name} depth 2: bad logits")
+    r = {"cpu_s": out["cpu"][1], "err": float((a - b).abs().max())
+         / float(b.abs().max())}
+    line = (f"  card vs CPU, depth {FAMILY_CPU_DEPTH}, B=1, {FAMILY_CPU_LEN} "
+            f"positions, bf16: forward logits max normalised err "
+            f"{r['err']:.3e}")
+    if not moe:
+        print(f"{line} (tol {FAMILY_CPU_TOL:g}); CPU forward "
+              f"{r['cpu_s']:.3f} s", flush=True)
+        check(r["err"] <= FAMILY_CPU_TOL,
+              f"{cfg.name}: card vs CPU {r['err']:.3e}")
+        return r
+    cap = lm_layers.capacity(cfg, FAMILY_CPU_LEN)
+    held, r["worst_gap"], r["later"], r["unexplained"] = route_flips(
+        out["card"][2], out["cpu"][2], cfg.n_experts, cap)
+    r["held"] = int(held.sum())
+    r["err_kept"] = float((a - b)[~held].abs().max()) / float(b.abs().max())
+    print(f"{line}, {r['err_kept']:.3e} at the {int((~held).sum())} positions "
+          f"not moved (not checked: MoE at bf16 is compared by its routing); "
+          f"{r['held']} positions moved (routed otherwise or other kept "
+          f"experts at some layer); the first MoE layer's largest "
+          f"k-th/(k+1)-th gap of a token routed otherwise "
+          f"{r['worst_gap']:.3e} (bf16 noise {ROUTE_NOISE:.3e}); "
+          f"{r['later']} routed otherwise first at a later layer; "
+          f"{r['unexplained']} kept-expert changes without an earlier change "
+          f"of that expert's entries; CPU forward {r['cpu_s']:.3f} s",
+          flush=True)
+    check(r["worst_gap"] <= ROUTE_NOISE,
+          f"{cfg.name}: a token routed otherwise on the card than on the "
+          f"CPU with a probability gap of {r['worst_gap']:.3e}")
+    check(r["unexplained"] == 0, f"{cfg.name}: {r['unexplained']} "
+          f"kept-expert changes without a routing change before them")
+
+    # fp32: the same weights and inputs, the same routing and slots
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    del out
+    card = tree_util.map(lambda x: x.float(), card)
+    cpu = tree_util.map(lambda x: x.float(), cpu)
+    out = card_and_cpu(cfg32, card, cpu, batch, dev)
+    a, b = out["card"][0], out["cpu"][0]
+    held, _, _, _ = route_flips(out["card"][2], out["cpu"][2],
+                                cfg.n_experts, cap)
+    r["err_fp32"] = float((a - b).abs().max()) / float(b.abs().max())
+    r["held_fp32"] = int(held.sum())
+    dropped = sum(int((sl == cfg.n_experts * cap).sum())
+                  for _, _, sl in out["cpu"][2])
+    print(f"  card vs CPU, fp32: forward logits max normalised err "
+          f"{r['err_fp32']:.3e} (tol {FAMILY_CPU_TOL_FP32:g}); "
+          f"{r['held_fp32']} positions routed otherwise or with other kept "
+          f"experts (must be 0); {dropped} token slots dropped on both "
+          f"sides; CPU forward {out['cpu'][1]:.3f} s", flush=True)
+    check(r["held_fp32"] == 0, f"{cfg.name}: fp32 routing differs")
+    check(r["err_fp32"] <= FAMILY_CPU_TOL_FP32,
+          f"{cfg.name}: fp32 card vs CPU {r['err_fp32']:.3e}")
+    return r
+
+
+def family_limits(cfg, run):
+    """The end-to-end limits of a config's serve path: prefill FLOPs (2 per
+    active parameter per position, the routed experts' top-k, and each
+    attention's q K^T and P V over its live pairs) over the bf16 peak, and
+    the bytes of one decode step (every weight read once: the dense
+    combine reads every expert) over HBM bandwidth."""
+    b, s = run["batch"], run["prompt"] + run.get("patches", 0)
+    hd = cfg.head_dim + cfg.rope_head_dim if cfg.uses_mla else cfg.head_dim
+    per_pair = 4 * b * cfg.n_heads * hd
+    if cfg.family == "audio":
+        f = run["frames"]
+        enc = sum(math.prod(p.shape) for p in
+                  lm_params.param_defs(cfg)["enc_blocks"].values())
+        flops = (2 * enc * b * f + 2 * (lm_params.count_active(cfg) - enc)
+                 * b * s + per_pair * (f * f + s * (s + 1) // 2 + s * f)
+                 * cfg.n_layers)
+    else:
+        flops = (2 * lm_params.count_active(cfg) * b * s
+                 + per_pair * s * (s + 1) // 2 * cfg.n_layers)
+    nbytes = 2 * lm_params.count_params(cfg)
+    return flops, 1e3 * flops / PEAK_BF16_FLOPS, nbytes, (
+        1e3 * nbytes / PEAK_HBM_BYTES)
+
+
+def family_run(dev, all_kernels, run):
+    """One config through ``Engine.generate`` at full width, its K3 launches
+    per prefill and decode step, a profiled prefill and decode step; for
+    MoE two prefills bit for bit and the share of dropped slots; for MLA
+    the flash route refused."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = family_cfg(run)
+    full = lm_config.get(run["arch"])
+    params = lm_params.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                   device=dev)
+    n_params = lm_params.count_params(cfg)
+    b, gen = run["batch"], run["gen"]
+    max_len = run["prompt"] + run.get("patches", 0) + gen
+    engine = Engine(cfg, params, ServeConfig(max_len=max_len))
+    del params
+    prompts = family_batch(cfg, b, run["prompt"], run.get("patches", 0),
+                           run.get("frames", 0))
+    cut = ", ".join(f"{k} {v} of {getattr(full, k)}"
+                    for k, v in run["cut"].items()) or "no cut"
+    front = "".join(f", {run[k]} {k}" for k in ("patches", "frames")
+                    if run.get(k))
+    print(f"{cfg.name} ({cfg.family}): {n_params} parameters ({cut}; "
+          f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size}), bf16 weights and "
+          f"activations, attn_impl {cfg.attn_impl}; B={b}, prompts of "
+          f"{run['prompt']} tokens{front}, {gen} generated", flush=True)
+    flops, flops_ms, nbytes, bytes_ms = family_limits(cfg, run)
+    print(f"  limits: prefill {flops:.4e} FLOPs, {flops_ms:.3f} ms at the "
+          f"bf16 peak; decode step {nbytes / 1e9:.3f} GB of weights, "
+          f"{bytes_ms:.3f} ms at HBM bandwidth", flush=True)
+
+    totals = {}
+    for n_tokens in (1, gen):
+        for k in all_kernels.values():
+            k.launches = 0
+        out, stats = engine.generate(prompts, n_tokens)
+        counts = {name: k.launches for name, k in all_kernels.items()}
+        totals[n_tokens] = counts["flash_attention"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_decode = (totals[gen] - totals[1]) / (gen - 1)
+    n_prefill = totals[1] - n_decode
+    want = (0, 0)
+    if cfg.attn_impl == "flash":
+        want = ((cfg.encoder_layers + 2 * cfg.n_layers, cfg.n_layers)
+                if cfg.family == "audio" else (cfg.n_layers, 0))
+    r = {"prefill_ms": 1e3 * stats["prefill_s"],
+         "decode_ms": 1e3 * stats["decode_s"] / gen,
+         "tok_per_s": stats["tok_per_s"], "peak_gib": peak / 2 ** 30,
+         "launches": counts, "k3_prefill": n_prefill, "k3_decode": n_decode,
+         "n_params": n_params, "prefill_bound_ms": flops_ms,
+         "decode_bound_ms": bytes_ms}
+    print(f"  Engine.generate: prefill {r['prefill_ms']:.3f} ms, decode "
+          f"{r['decode_ms']:.3f} ms per token step ({r['tok_per_s']:.1f} "
+          f"tok/s); K3 launches {n_prefill:g} per prefill (expected "
+          f"{want[0]}), {n_decode:g} per decode step (expected {want[1]}); "
+          f"launches {counts}; max_memory_allocated {r['peak_gib']:.3f} GiB",
+          flush=True)
+    check((n_prefill, n_decode) == want, f"{cfg.name}: K3 launched "
+          f"{n_prefill:g} per prefill, {n_decode:g} per decode step")
+    check(counts["acc_jerk_pot"] == 0 and counts["snap"] == 0,
+          f"{cfg.name}: N-body kernels ran")
+    check(tuple(out.shape) == (b, gen) and not out.is_floating_point()
+          and bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
+          f"{cfg.name}: tokens {tuple(out.shape)} {out.dtype}")
+    print(f"  seq 0: {out[0, :16].tolist()} ...", flush=True)
+
+    batch = on(dev, prompts)
+    first = out[:, :1].to(dev)
+    r["profile"] = serve_profile(cfg, engine.params, batch, max_len, first)
+
+    if cfg.family == "moe":
+        # two prefills of one batch: the same bits, the same slots
+        runs, tally = [], []
+        with spying(lm_layers, "capacity_slots", lambda a, slots: tally.append(
+                (slots == a[1] * a[2]).sum())):
+            for _ in range(2):
+                logits, cache = lm_model.prefill(cfg, engine.params, batch,
+                                                 max_len=max_len)
+                runs.append((logits, cache))
+        same = torch.equal(runs[0][0], runs[1][0]) and all(
+            torch.equal(x, y) for x, y in zip(kv_leaves(runs[0][1]),
+                                              kv_leaves(runs[1][1])))
+        slots = b * run["prompt"] * cfg.top_k * (cfg.n_layers
+                                                 - cfg.first_k_dense)
+        dropped = [int(x) for x in tally]
+        r["dropped_share"] = sum(dropped[:len(dropped) // 2]) / slots
+        r["deterministic"] = same
+        print(f"  MoE: two prefills bit for bit: {same} (logits and every "
+              f"cache leaf); capacity {lm_layers.capacity(cfg, run['prompt'])}"
+              f" slots per expert per sequence; token slots dropped over "
+              f"capacity {sum(dropped[:len(dropped) // 2])} of {slots} "
+              f"({100 * r['dropped_share']:.3f}%), per layer "
+              f"{dropped[:len(dropped) // 2]}", flush=True)
+        check(same, f"{cfg.name}: two prefills differ")
+        check(dropped[:len(dropped) // 2] == dropped[len(dropped) // 2:],
+              f"{cfg.name}: two prefills dropped other slots")
+        del runs
+    if cfg.uses_mla:
+        before = fa.flash_attention.launches
+        try:
+            lm_model.prefill(dataclasses.replace(cfg, attn_impl="flash"),
+                             engine.params, batch, max_len=max_len)
+        except NotImplementedError as e:
+            msg = str(e)
+        else:
+            msg = None
+        print(f"  under attn_impl='flash': "
+              f"{'NotImplementedError: ' + msg if msg else 'no error'}; K3 "
+              f"launches {fa.flash_attention.launches - before}", flush=True)
+        check(msg is not None and "attn_impl='xla'" in msg,
+              f"{cfg.name}: the flash route did not refuse MLA")
+        check(fa.flash_attention.launches == before,
+              f"{cfg.name}: K3 launched on the refused route")
+    del engine, batch
+    torch.cuda.empty_cache()
+    r["cpu"] = family_card_vs_cpu(dev, run)
+    torch.cuda.empty_cache()
+    return r
+
+
+def families_phase(dev, all_kernels):
+    """Phase 15: the moe, vlm and audio families served at full width, and
+    K3 at their shapes.  Returns the readings the JSON line and PERF.md
+    report."""
+    t0 = time.perf_counter()
+    torch.cuda.init()  # run alone, nothing has touched the card yet
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"flash": family_flash_holds(dev), "runs": {}}
+    for run in FAMILY_RUNS:
+        out["runs"][run["arch"]] = family_run(dev, all_kernels, run)
+    print(f"phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no card, "
@@ -3189,6 +3659,9 @@ def main() -> int:
     phase("14. training: qwen3-0.6b at full width")
     train = train_phase(dev, all_kernels)
 
+    phase("15. serving the moe, vlm and audio families at full width")
+    fam = families_phase(dev, all_kernels)
+
     rows = []
     for name in kernels:
         ms, pms, bms, by = timings[(name, "fp32", N_MAIN)]
@@ -3305,6 +3778,15 @@ def main() -> int:
                               in rows_sum.items() if tag == "fp32"},
         "rows_sum_err_bf16": {label: err for (label, tag), err
                               in rows_sum.items() if tag == "bf16"},
+        "launches_families": {
+            arch: {"prefill": r["k3_prefill"], "decode_step": r["k3_decode"]}
+            for arch, r in fam["runs"].items()},
+        "family_shapes": {
+            label: {k: r[k] for k in (
+                "shape", "causal", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library", "abs_err", "norm_err", "elem",
+                "tile_share")}
+            for label, r in fam["flash"].items()},
     })
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -5,7 +5,11 @@ Port of ``examples/serve_lm.py``, with the same flags, plus ``--device``
 (default ``cuda``; it raises without a card) and ``--attn-impl`` (default
 ``flash``: each layer's prefill attention launches the flash kernel on the
 card).  ``--scale`` defaults to 1.0, the model's published width.  The
-weights are random, drawn from a seeded generator.
+weights are random, drawn from a seeded generator.  ``--arch`` takes every
+ported config.  As in the reference, the prompts are tokens only: a vlm
+config serves them as text (M-RoPE over text positions), and an audio
+config raises ``KeyError`` for want of the frames its encoder runs on;
+deepseek-v2 (MLA) serves with ``--attn-impl xla`` only.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_lm --batch 4 \
       --prompt-len 2048 --gen 32

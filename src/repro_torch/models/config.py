@@ -4,7 +4,7 @@ Port of ``repro/models/config.py``: ``ArchConfig`` is the reference's
 dataclass, copied whole (every family's fields, ``padded_vocab`` and
 ``param_count``), so a config compares field for field with the
 reference's.  The registry loads only the configs ported so far
-(``repro_torch.configs``); the port runs the dense family only.
+(``repro_torch.configs``): the dense, moe, vlm and audio families.
 """
 
 from __future__ import annotations
@@ -152,10 +152,13 @@ class ArchConfig:
 
 _REGISTRY: dict = {}
 
-#: configs ported to ``repro_torch.configs``: the dense family's four; the
-#: reference's other six arrive with their families (ROADMAP.md queue 1
+#: configs ported to ``repro_torch.configs``: the dense family's four, the
+#: moe family's two, the vlm's and the audio's; the ssm and hybrid configs
+#: (xlstm_1_3b, zamba2_7b) arrive with ``models/ssm.py`` (ROADMAP.md queue 1
 #: item 11c)
-_PORTED = ("deepseek_67b", "qwen3_0_6b", "stablelm_12b", "stablelm_3b")
+_PORTED = ("deepseek_67b", "qwen3_0_6b", "stablelm_12b", "stablelm_3b",
+           "phi35_moe", "deepseek_v2_236b", "qwen2_vl_2b",
+           "seamless_m4t_medium")
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

@@ -1,19 +1,25 @@
-"""Model layers of the dense family: RMS norm, embeddings, RoPE, grouped-query
-attention with a KV cache, and the gated FFN.
+"""Model layers: RMS norm, embeddings, RoPE and M-RoPE, grouped-query
+attention with a KV cache and cross-attention, multi-head latent attention
+(MLA), the gated FFN and the top-k MoE FFN.
 
 Port of ``repro/models/layers.py``.  Numerics as in the reference:
-activations in ``cfg.dtype``; softmax, norm statistics and the rotary
-rotation in fp32.  The reference's ``MeshRules`` argument is dropped: on
-one card ``rules.shard`` is the identity (``shardings.py:108-113``).
+activations in ``cfg.dtype``; softmax, router probabilities, norm
+statistics and the rotary rotation in fp32.  The reference's
+``MeshRules`` argument is dropped: on one card ``rules.shard`` is the
+identity (``shardings.py:108-113``).
 
-The other families' layers (M-RoPE, cross-attention, MLA, MoE, the SSM
-blocks) are not here: their configs raise ``NotImplementedError`` in
-``params.param_defs``.  ``_attn_streamed`` (the xla route at S >=
-``attn_chunked_above``) raises too; both name their ROADMAP item.
+The SSM blocks (``models/ssm.py``) are not here: their families raise
+``NotImplementedError`` in ``params.param_defs``.  ``_attn_streamed`` (the
+xla route at S >= ``attn_chunked_above``) raises too; both name their
+ROADMAP item.  MLA's prefill has no flash route: its q and k heads are
+wider than its v heads, which the flash kernel does not take, so it
+raises under ``attn_impl="flash"`` (the reference's registered
+``attn_impl`` for deepseek-v2 is ``"xla"``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -49,7 +55,7 @@ def unembed(x, table_or_head, *, tied: bool):
 
 
 # --------------------------------------------------------------------------
-# RoPE
+# RoPE / M-RoPE
 # --------------------------------------------------------------------------
 def rope_freqs(head_dim: int, theta: float, device=None):
     half = head_dim // 2
@@ -67,6 +73,59 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_select(ang_all, sections):
+    """The angles of M-RoPE's bands: band i of ``ang_all`` (3, ..., half)
+    from position stream ``sec_id[i]``, ``sections`` bands per stream.
+
+    The reference sums the three streams against a one-hot in fp32
+    (``layers.py:76-80``); a gather gives the same bits, since x * 1 +
+    0 * y + 0 * z is x exactly for finite y and z."""
+    half = ang_all.shape[-1]
+    if len(sections) != 3 or sum(sections) != half:
+        raise ValueError(f"mrope_sections {tuple(sections)} must be three "
+                         f"counts summing to head_dim / 2 = {half}")
+    # sec_id from the bands' index alone: a tensor built from the host
+    # list would be a copy that waits for the card at every call
+    band = torch.arange(half, device=ang_all.device)
+    sec_id = (band >= sections[0]).long() + (band >= sections[0]
+                                             + sections[1]).long()
+    idx = sec_id.view((1,) * (ang_all.dim() - 1) + (half,))
+    return torch.take_along_dim(ang_all, idx, dim=0)[0]
+
+
+def apply_mrope(x, positions3, sections, theta: float):
+    """M-RoPE (qwen2-vl): ``positions3`` (3, ..., S) holds the (t, h, w)
+    streams, and ``sections`` split the hd/2 frequency bands over them."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    ang_all = positions3[..., None].to(torch.float32) * freqs  # (3,...,S,half)
+    ang = mrope_select(ang_all, sections)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def text_mrope_positions(positions):
+    """Text-only M-RoPE: all three streams equal the 1-D positions."""
+    return positions[None].expand((3,) + tuple(positions.shape))
+
+
+def vlm_mrope_positions(batch: int, n_patches: int, n_text: int, grid: int,
+                        device=None):
+    """(t, h, w) streams, (3, batch, n_patches + n_text), for [image patches
+    | text] sequences: one image of ``grid``-wide raster-ordered patches at
+    t = 0, then text at 1, 2, ... on all three streams."""
+    i32 = torch.int32
+    idx = torch.arange(n_patches, dtype=i32, device=device)
+    hh, ww = idx // grid, idx % grid
+    t_img = torch.zeros((n_patches,), dtype=i32, device=device)
+    t_txt = torch.arange(1, n_text + 1, dtype=i32, device=device)
+    pos3 = torch.stack([torch.cat([t_img, t_txt]), torch.cat([hh, t_txt]),
+                        torch.cat([ww, t_txt])])               # (3, S)
+    return pos3[:, None, :].expand(3, batch, pos3.shape[-1])
 
 
 # --------------------------------------------------------------------------
@@ -117,46 +176,52 @@ def _attn_dispatch(cfg: ArchConfig, q, k, v, *, causal: bool):
         raise NotImplementedError(
             f"_attn_streamed (S={q.shape[1]} >= attn_chunked_above="
             f"{cfg.attn_chunked_above}) is not yet ported to repro_torch; "
-            f"use attn_impl='flash', see ROADMAP.md queue 1 item 11")
+            f"use attn_impl='flash', see ROADMAP.md queue 1 item 11d")
     return _attn_full(q, k, v, causal=causal)
 
 
 def attention(cfg: ArchConfig, p: dict, x, *, positions, causal: bool = True,
-              cache: Optional[dict] = None,
+              memory=None, cache: Optional[dict] = None, prefix: str = "",
               prefill_len: Optional[int] = None):
-    """GQA self-attention with optional qk-norm and KV cache.
+    """GQA attention with optional qk-norm, (M-)RoPE, cross-attention and
+    KV cache.
 
-    ``cache`` (decode): {"k", "v": (B, max_len, KV, hd), "len": int}.  This
-    step's k/v are written into the cache IN PLACE at ``len`` and the query
-    attends over the cache with a ``kv_len`` mask.
+    ``memory`` (B, S_mem, d): cross-attention (the encoder-decoder's); k
+    and v come from the memory, the leaves are ``prefix``-ed ("x"), and
+    neither RoPE nor qk-norm applies.  A cross call always takes the
+    ``_attn_dispatch`` route, in decode too.
+    ``cache`` (self-attention decode): {"k", "v": (B, max_len, KV, hd),
+    "len": int}.  This step's k/v are written into the cache IN PLACE at
+    ``len`` and the query attends over the cache with a ``kv_len`` mask.
     ``prefill_len``: plain causal attention, and also return the post-RoPE
     k/v padded to that length (the prefill cache fill).
 
     Returns (out, new_cache_slice | None).
     """
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE is not yet ported to repro_torch; "
-                                  "see ROADMAP.md queue 1 item 11")
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
+    src = memory if memory is not None else x
 
-    q = (x @ p["q"].to(dt)).reshape(b, s, h, hd)
-    k = (x @ p["k"].to(dt)).reshape(b, s, kv, hd)
-    v = (x @ p["v"].to(dt)).reshape(b, s, kv, hd)
+    q = (x @ p[prefix + "q"].to(dt)).reshape(b, s, h, hd)
+    k = (src @ p[prefix + "k"].to(dt)).reshape(b, src.shape[1], kv, hd)
+    v = (src @ p[prefix + "v"].to(dt)).reshape(b, src.shape[1], kv, hd)
 
-    if cfg.qk_norm:
+    if cfg.qk_norm and not prefix:
         q = rms_norm(q, p["qn"], cfg.norm_eps)
         k = rms_norm(k, p["kn"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if memory is None:  # self-attention: rotary embedding
+        if cfg.mrope:
+            q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+            k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
 
     new_cache = None
-    if cache is not None:
+    if cache is not None and memory is None:
         ck, cv, cur = cache["k"], cache["v"], cache["len"]
-        if cur + s > ck.shape[1]:
-            raise ValueError(f"KV cache full: {cur} + {s} > max_len "
-                             f"{ck.shape[1]}")
+        _check_room(cur, s, ck.shape[1])
         ck[:, cur:cur + s] = k.to(ck.dtype)
         cv[:, cur:cur + s] = v.to(cv.dtype)
         new_cache = {"k": ck, "v": cv}
@@ -164,21 +229,219 @@ def attention(cfg: ArchConfig, p: dict, x, *, positions, causal: bool = True,
         out = _attn_full(q, ck.to(dt), cv.to(dt), causal=False,
                          kv_len=cur + s)
     else:
-        if prefill_len is not None:
+        if prefill_len is not None and memory is None:
             pad = prefill_len - k.shape[1]
             new_cache = {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
                          "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
         out = _attn_dispatch(cfg, q, k, v, causal=causal)
 
     out = out.reshape(b, s, h * hd)
+    return out @ p[prefix + "o"].to(dt), new_cache
+
+
+def _check_room(cur: int, s: int, max_len: int):
+    if cur + s > max_len:
+        raise ValueError(f"KV cache full: {cur} + {s} > max_len {max_len}")
+
+
+# --------------------------------------------------------------------------
+# MLA (deepseek-v2)
+# --------------------------------------------------------------------------
+def mla_attention(cfg: ArchConfig, p: dict, x, *, positions,
+                  cache: Optional[dict] = None,
+                  prefill_len: Optional[int] = None):
+    """Multi-head latent attention.  The cache holds only (c_kv, k_rope):
+    {"c_kv": (B, max_len, kv_lora_rank), "k_rope": (B, max_len,
+    rope_head_dim), "len": int}, written IN PLACE at ``len``; decode uses
+    the absorbed-projection form, with the scores in the latent space.
+
+    Prefill attends over [q_nope | q_rope] against [k_nope | k_rope]: q and
+    k heads of hd + rhd, v heads of vhd.  The flash kernel takes one head
+    dimension for q, k and v, so under ``attn_impl="flash"`` prefill raises
+    ``NotImplementedError`` before any launch; nothing pads the heads or
+    falls back to ``_attn_full`` behind the caller's back.
+
+    Returns (out, new_cache_slice | None).
+    """
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    hd, vhd, rhd = cfg.head_dim, cfg.v_head_dim, cfg.rope_head_dim
+    kvlr = cfg.kv_lora_rank
+    dt = x.dtype
+    if cache is None and cfg.attn_impl == "flash":
+        raise NotImplementedError(
+            f"{cfg.name}: MLA's prefill has q and k heads of {hd + rhd} and "
+            f"v heads of {vhd}; the flash kernel takes one head dimension "
+            f"for q, k and v (16 to 128), so MLA has no flash route: use "
+            f"attn_impl='xla' (layers._attn_full)")
+
+    # --- queries ---
+    cq = rms_norm(x @ p["q_a"].to(dt), p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["q_b"].to(dt)).reshape(b, s, h, hd + rhd)
+    q_nope, q_rope = q[..., :hd], q[..., hd:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    # --- latent kv ---
+    ckv_full = x @ p["kv_a"].to(dt)
+    c_kv, k_rope = ckv_full[..., :kvlr], ckv_full[..., kvlr:]
+    c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+
+    wkv_b = p["kv_b"].to(dt).reshape(kvlr, h, hd + vhd)
+    w_uk, w_uv = wkv_b[..., :hd], wkv_b[..., hd:]
+    scale = (hd + rhd) ** -0.5
+
+    if cache is not None:
+        ckv_c, krope_c, cur = cache["c_kv"], cache["k_rope"], cache["len"]
+        _check_room(cur, s, ckv_c.shape[1])
+        ckv_c[:, cur:cur + s] = c_kv.to(ckv_c.dtype)
+        krope_c[:, cur:cur + s] = k_rope[:, :, 0, :].to(krope_c.dtype)
+        new_cache = {"c_kv": ckv_c, "k_rope": krope_c}
+        # absorbed form: q_eff = q_nope @ W_uk -> scores in latent space
+        q_eff = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)
+        s_lat = torch.einsum("bshr,bkr->bhsk", q_eff, ckv_c.to(dt))
+        s_rope = torch.einsum("bshd,bkd->bhsk", q_rope, krope_c.to(dt))
+        scores = (s_lat + s_rope).to(torch.float32) * scale
+        valid = torch.arange(ckv_c.shape[1], device=x.device) < cur + s
+        scores = torch.where(valid, scores, NEG_INF)
+        pr = torch.softmax(scores, dim=-1).to(dt)
+        o_lat = torch.einsum("bhsk,bkr->bshr", pr, ckv_c.to(dt))
+        out = torch.einsum("bshr,rhd->bshd", o_lat, w_uv)
+    else:
+        new_cache = None
+        if prefill_len is not None:
+            pad = prefill_len - s
+            new_cache = {"c_kv": F.pad(c_kv, (0, 0, 0, pad)),
+                         "k_rope": F.pad(k_rope[:, :, 0, :], (0, 0, 0, pad))}
+        k_nope = torch.einsum("bkr,rhd->bkhd", c_kv, w_uk)
+        v = torch.einsum("bkr,rhd->bkhd", c_kv, w_uv)
+        qf = torch.cat([q_nope, q_rope], dim=-1)
+        kf = torch.cat([k_nope, k_rope.expand(b, s, h, rhd)], dim=-1)
+        out = _attn_dispatch(cfg, qf, kf, v, causal=True)
+
+    out = out.reshape(b, s, h * vhd)
     return out @ p["o"].to(dt), new_cache
 
 
 # --------------------------------------------------------------------------
 # FFN
 # --------------------------------------------------------------------------
-def ffn(cfg: ArchConfig, p: dict, x):
+def ffn(cfg: ArchConfig, p: dict, x, *, keys=("wg", "wu", "wd")):
     dt = x.dtype
-    g = x @ p["wg"].to(dt)
-    u = x @ p["wu"].to(dt)
-    return (F.silu(g) * u) @ p["wd"].to(dt)
+    g = x @ p[keys[0]].to(dt)
+    u = x @ p[keys[1]].to(dt)
+    return (F.silu(g) * u) @ p[keys[2]].to(dt)
+
+
+def top_k(probs, k: int):
+    """``jax.lax.top_k`` along the last axis: the k largest, largest first,
+    equal values in index order (a tie goes to the lower index).
+    ``torch.topk`` promises no order among equal values, so this takes a
+    stable descending sort.  Returns (values, indices)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(cfg: ArchConfig, p: dict, x):
+    """The MoE router: logits in the activation dtype, probabilities in
+    fp32, the top-k experts and their renormalised weights.  Returns
+    (probs (B, S, E), top_p (B, S, k), top_i (B, S, k))."""
+    logits = x @ p["router"].to(x.dtype)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    top_p, top_i = top_k(probs, cfg.top_k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_p, top_i
+
+
+def capacity(cfg: ArchConfig, s: int) -> int:
+    """Expert slots per sequence of ``s`` tokens (the reference's cap)."""
+    return max(8, int(math.ceil(s * cfg.top_k / cfg.n_experts
+                                * cfg.capacity_factor)))
+
+
+def capacity_slots(top_i, n_experts: int, cap: int):
+    """The reference's sort-based dispatch (``dispatch_one``), per
+    sequence: the (token, choice) entries in flat order t * k + j are
+    sorted stably by expert, and the first ``cap`` of each expert take the
+    slots e * cap + pos.  Returns (B, S, k) slots; an entry over capacity
+    gets ``n_experts * cap`` (dropped)."""
+    b, s, k = top_i.shape
+    flat = top_i.reshape(b, s * k)
+    order = torch.argsort(flat, dim=-1, stable=True)  # jnp.argsort is stable
+    sorted_e = torch.gather(flat, 1, order)
+    counts = torch.zeros((b, n_experts), dtype=flat.dtype, device=flat.device)
+    counts.scatter_add_(1, flat, torch.ones_like(flat))
+    starts = torch.cumsum(counts, dim=1) - counts
+    pos = (torch.arange(s * k, device=flat.device)[None]
+           - torch.gather(starts, 1, sorted_e))
+    slot = torch.where(pos < cap, sorted_e * cap + pos, n_experts * cap)
+    return torch.empty_like(slot).scatter_(1, order, slot).reshape(b, s, k)
+
+
+def moe_ffn(cfg: ArchConfig, p: dict, x):
+    """Top-k MoE with sort-based capacity dispatch; returns (out, aux_loss).
+
+    Each sequence is a dispatch group (``capacity_slots``); the experts
+    run as three batched products over every sequence's slots at once, and
+    each token sums its slots' weighted outputs in ascending slot order in
+    the activation dtype, the order of the reference's segment sum, with
+    no atomics, so two runs give the same bits.  Entries over capacity are
+    dropped (GShard).  A single-token step (``s == 1``, decode) takes the
+    exact dense combine instead: every expert runs on the token.
+    """
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    dt = x.dtype
+    probs, top_p, top_i = route(cfg, p, x)
+
+    # load-balancing aux loss (Switch-style: f_i * P_i)
+    me = probs.mean(dim=(0, 1))
+    ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add_(
+        0, top_i.reshape(-1),
+        torch.full((b * s * k,), 1.0 / (b * s * k), device=x.device))
+    aux = e * torch.sum(me * ce) * cfg.router_aux_coef
+
+    we_g, we_u, we_d = (p[key].to(dt) for key in ("we_g", "we_u", "we_d"))
+    if s == 1:
+        # exact dense combine for decode (weights of unselected experts 0)
+        w_full = torch.zeros((b * s, e), dtype=torch.float32,
+                             device=x.device).scatter(
+            -1, top_i.reshape(b * s, k), top_p.reshape(b * s, k))
+        xt = x.reshape(b * s, d)
+        hx = torch.matmul(xt, we_g)                        # (e, b*s, f)
+        ux = torch.matmul(xt, we_u)
+        yx = torch.matmul(F.silu(hx) * ux, we_d)           # (e, b*s, d)
+        out = torch.einsum("etd,te->td", yx, w_full.to(dt)).reshape(b, s, d)
+    else:
+        cap = capacity(cfg, s)
+        n_slots = e * cap
+        slots = capacity_slots(top_i, e, cap)              # (b, s, k)
+        # dispatch: each slot's token, s (a zero row) where empty; the
+        # dropped entries all land in one spare column, sliced off
+        tok = torch.arange(s, device=x.device).view(1, s, 1).expand(b, s, k)
+        slot_tok = torch.full((b, n_slots + 1), s, dtype=tok.dtype,
+                              device=x.device)
+        slot_tok.scatter_(1, slots.reshape(b, s * k), tok.reshape(b, s * k))
+        rows = slot_tok[:, :n_slots] + (
+            torch.arange(b, device=x.device) * (s + 1))[:, None]
+        x_pad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
+        xe = x_pad.reshape(b * (s + 1), d)[
+            rows.view(b, e, cap).transpose(0, 1).reshape(e, b * cap)]
+        hh = torch.bmm(xe, we_g)                           # (e, b*cap, f)
+        uu = torch.bmm(xe, we_u)
+        ye = torch.bmm(F.silu(hh) * uu, we_d)              # (e, b*cap, d)
+        # combine: each token's kept slots, in ascending slot order
+        ye = torch.cat([ye.reshape(e * b * cap, d), ye.new_zeros((1, d))])
+        slots, perm = torch.sort(slots, dim=-1)
+        kept = slots < n_slots
+        bi = torch.arange(b, device=x.device).view(b, 1, 1)
+        row = torch.where(kept, (slots // cap) * (b * cap) + bi * cap
+                          + slots % cap, e * b * cap)
+        w = torch.where(kept, torch.gather(top_p, -1, perm), 0.0).to(dt)
+        out = torch.zeros_like(x)
+        for j in range(k):
+            out = out + ye[row[..., j]] * w[..., j, None]
+
+    if cfg.n_shared_experts:
+        out = out + ffn(cfg, p, x, keys=("ws_g", "ws_u", "ws_d"))
+    return out, aux

@@ -53,15 +53,20 @@ class Engine:
     def generate(self, batch: dict, n_tokens: int):
         """Greedy/temperature generation; returns (tokens (B, n), stats).
 
+        ``batch`` holds the prompts' ``tokens`` and, for the vlm and audio
+        families, the stub frontends' ``patches`` or ``frames``; every
+        entry goes to ``model.prefill`` on the engine's device, as the
+        reference passes the whole batch.
+
         The first token comes from the prefill logits and ``n_tokens``
         decode steps follow; the result holds the prefill token and leaves
         out the token sampled from the last step's logits, as the
         reference does.  Times are host-clock seconds, each phase ending in
         a device synchronise."""
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        batch = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in batch.items()}
         t0 = time.perf_counter()
-        logits, cache = model.prefill(self.cfg, self.params,
-                                      {"tokens": tokens},
+        logits, cache = model.prefill(self.cfg, self.params, batch,
                                       max_len=self.scfg.max_len)
         self._sync()
         t_prefill = time.perf_counter() - t0

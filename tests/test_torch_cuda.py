@@ -326,6 +326,11 @@ FLASH_SHAPES = [  # b, sq, sk, h, kv, d, block_q, block_k, causal
     (1, 1024, 1024, 16, 8, 128, 512, 512, True),  # the model's heads
     (1, 8192, 8192, 16, 8, 128, 512, 512, True),    # long rows: the error
     (1, 32768, 32768, 16, 8, 128, 512, 512, True),  # grows with the keys
+    (1, 2048, 2048, 32, 8, 128, 512, 512, True),    # phi3.5-moe: g=4
+    (1, 2048, 2048, 12, 2, 128, 512, 512, True),    # qwen2-vl-2b: g=6
+    (1, 1024, 1024, 16, 16, 64, 512, 512, False),   # seamless: encoder,
+    (1, 512, 1024, 16, 16, 64, 512, 512, False),    # cross-attention,
+    (1, 1, 1024, 16, 16, 64, 1, 512, False),        # its decode step
 ]
 
 
@@ -879,3 +884,30 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
     for a, b in zip(tree_util.leaves(card), tree_util.leaves(cpu)):
         np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-3,
                                    atol=5e-5)
+
+
+def test_moe_prefill_and_decode_give_the_same_bits_twice(cuda):
+    """The MoE combine sums each token's slots in a fixed order (no
+    atomics): two prefills of one batch, and two decode steps from equal
+    caches, give the same bits on the card."""
+    import dataclasses
+
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.models import config as C
+    from repro_torch.models import model, params as P
+
+    cfg = dataclasses.replace(
+        scaled_config(C.get("phi3.5-moe-42b-a6.6b"), 0.25),
+        dtype="bfloat16", param_dtype="bfloat16", attn_impl="flash")
+    pp = P.init_params(cfg, torch.Generator(cuda).manual_seed(0), device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 512), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    runs = [model.prefill(cfg, pp, {"tokens": toks}, max_len=520)
+            for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    for name in runs[0][1]["layers"]:
+        assert torch.equal(runs[0][1]["layers"][name],
+                           runs[1][1]["layers"][name])
+    nxt = runs[0][0].argmax(-1)[:, None]
+    steps = [model.decode_step(cfg, pp, cache, nxt)[0] for _, cache in runs]
+    assert torch.equal(steps[0], steps[1])
