@@ -124,6 +124,20 @@ Phases, in order; any failure raises and the script exits nonzero:
    prefills bit for bit and the share of slots dropped over capacity; MLA
    refusing the flash route before any launch; each config at depth 2 on
    the card against the CPU (MoE: bf16 routing, fp32 logits);
+16. the ssm and hybrid families served (``ssm_phase``): K3 at D = 112
+   (zamba2's heads; B = 4, S = 2048 and B = 1, S = 8192, H = KV = 32, bf16
+   and fp32) against its plain version, timed beside it, its bound and
+   SDPA; xlstm-1.3b (48 layers) and zamba2-7b (81 layers) whole, as
+   registered (fp32 masters; the engine keeps the fp32 leaves), B = 4,
+   prompts of 2048, 32 generated, zamba2 under the flash route; zamba2 at
+   B = 1, a prompt of 8192, 16 generated, under the xla route, which runs
+   ``_attn_streamed``; launch counts zeroed before each run and read
+   after (K3: 13 per zamba2 flash prefill, none in decode), prefill and
+   decode ms beside their limits, a profiled decode step (and zamba2's
+   prefill), every cache leaf finite; zamba2's routes against each other
+   (bf16 read, fp32 held at B = 1); each config cut in depth (8 and 9
+   layers) on the card against the CPU (fp32 logits, bf16's first block),
+   and prefill(255) + one decode step against prefill(256);
 then one ``kernels`` JSON line and ``{"ok": true, "device": {...}}`` as the
 last line.
 
@@ -1703,13 +1717,19 @@ def serve_path(cfg, dev, all_kernels):
             "launches_prefill": int(n_prefill), "launches_decode": int(n_decode),
             "stats": stats, "peak": peak, "routes": routes, "profile": profile}
 
-def serve_profile(cfg, params, batch, max_len, first):
+#: the profiled prefill's and decode step's costliest aten ops printed
+SERVE_PROFILE_OPS = 6
+
+
+def serve_profile(cfg, params, batch, max_len, first, cache=None):
     """Where the time goes: one prefill and one decode step (tokens
     ``first``) under the profiler, each printed with its launches, the
-    card's busy share, K3's share and the costliest kernels."""
+    card's busy share, K3's share and the costliest kernels.  Given a
+    prefill's ``cache``, only the decode step is profiled, on it (a prefill
+    of hundreds of thousands of launches takes the profiler longer than
+    the run)."""
     profile = {}
-    cache = None
-    for stage in ("prefill", "decode step"):
+    for stage in ("prefill", "decode step")[0 if cache is None else 1:]:
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1727,12 +1747,20 @@ def serve_profile(cfg, params, batch, max_len, first):
                   f"recorded no device time", flush=True)
             continue
         top = ", ".join(f"{name[:48]} {ms:.3f} ms" for name, ms in p["top"])
+        # device time by the aten op that launched it (self time, so each
+        # kernel counts once), the costliest first
+        p["ops"] = sorted(((e.key, e.self_device_time_total / 1e3)
+                           for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CPU
+                           and e.self_device_time_total > 0),
+                          key=lambda kv: -kv[1])[:SERVE_PROFILE_OPS]
+        ops = ", ".join(f"{name} {ms:.3f}" for name, ms in p["ops"])
         print(f"profile {stage}: wall {wall:.3f} ms, device kernels "
               f"{p['device_ms']:.3f} ms in {p['kernels']} launches (busy "
               f"{100 * p['busy']:.1f}%, idle {100 * (1 - p['busy']):.1f}%); "
               f"K3 {p['flash_ms']:.3f} ms "
               f"({100 * p['flash_ms'] / p['device_ms']:.1f}% of the kernels' "
-              f"time); top: {top}", flush=True)
+              f"time); top: {top}; device ms by aten op: {ops}", flush=True)
     del cache
     return profile
 
@@ -3357,6 +3385,422 @@ def families_phase(dev, all_kernels):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 16: serving the ssm and hybrid families at full width
+# --------------------------------------------------------------------------
+#: each config whole, as registered (fp32 masters, bf16 activations; the
+#: engine casts each leaf once to the dtype its every use casts it to),
+#: seeded random weights, greedy; (a) xlstm-1.3b (no attention), (b)
+#: zamba2-7b under the flash route, (c) zamba2-7b's long prompt under the
+#: registered xla route, which runs _attn_streamed at S >= 8192
+SSM_RUNS = (
+    dict(label="xlstm-1.3b", arch="xlstm-1.3b", attn="xla", batch=4,
+         prompt=2048, gen=32),
+    dict(label="zamba2-7b", arch="zamba2-7b", attn="flash", batch=4,
+         prompt=2048, gen=32),
+    dict(label="zamba2-7b long", arch="zamba2-7b", attn="xla", batch=1,
+         prompt=8192, gen=16),
+)
+#: (d) K3 at zamba2's shapes (b, sq, sk, h, kv, d): the shared block's
+#: prefill in (b) and in (c)'s flash comparison, D = 112
+SSM_FLASH = (("zamba2 prefill", (4, 2048, 2048, 32, 32, 112)),
+             ("zamba2 long prefill", (1, 8192, 8192, 32, 32, 112)))
+#: bf16 K3's tile share was set on rows of at most 2048 keys; longer rows
+#: are held to the element-wise limit only (ROADMAP queue 3 A4,
+#: tests/test_torch_cuda.py TILE_SHARE_MAX_KEYS)
+TILE_SHARE_MAX_KEYS = 2048
+#: (e) card against CPU: full width, B = 1, SSM_CPU_LEN positions, the same
+#: weights on both sides; xlstm cut to one group (7 mLSTM + 1 sLSTM), zamba2
+#: to one group of 6 Mamba2 layers, the shared block and a tail of 3
+SSM_CPU_CUT = {"xlstm-1.3b": dict(n_layers=8), "zamba2-7b": dict(n_layers=9)}
+SSM_CPU_LEN = 512
+#: bf16 card against CPU, max |card - cpu| / max |cpu|: the first block's
+#: output (the same embedding bits enter it on both sides) within bf16's
+#: tier for card against CPU (FAMILY_CPU_TOL).  The logits are read, not
+#: held: through 8 or 9 layers of random weights bf16 rounding alone moves
+#: them by tens of percent (xlstm-1.3b cut to 8 layers: 0.36 between the
+#: CPU's own bf16 and fp32 logits, on an H100 machine's host), so two bf16
+#: runs that round in other places lie that far apart; the phase prints
+#: that own effect beside them
+#: fp32 card against CPU: the scans' decays are exp of differences of
+#: cumulative log sums over a chunk of 256 (mLSTM: F_t - F_s of the log
+#: forget gates, |F| up to a few hundred; SSD: G_t - G_s), which the card
+#: and the CPU add in other orders.  One such 256-term fp32 sum is off by
+#: up to 256 half-ulps of |F| (about 2e-3 at |F| ~ 256), typically sqrt(256)
+#: of them (2e-4), and exp turns that absolute error into a relative error
+#: of every weight; the CPU tests saw 2.8e-5 at a chunk of 64
+#: (tests/test_torch_ssm.py MLSTM_TOL)
+SSM_CPU_TOL_FP32 = 1e-3
+#: prefill(S) and one decode step against prefill(S + 1), fp32 on the card:
+#: S + 1 = 256 is one chunk (chunk = min(chunk_size 256, S) must divide
+#: S), so both forms run.  The parallel form's decays carry its
+#: cumulative sums' rounding over the chunk (SSM_CPU_TOL_FP32's reason),
+#: the step form takes one decay a step
+SSM_STEP_LEN = 255
+SSM_STEP_TOL = SSM_CPU_TOL_FP32
+#: zamba2's flash route against its xla route (``_attn_full`` at 2048,
+#: ``_attn_streamed`` at 8192) on the same weights, held in fp32, max |a -
+#: b| / max |b| over the prefill logits: fp32 K3 (3xTF32) is held to 2e-5
+#: of its plain version (FLASH_TOL), the xla routes sum in other orders,
+#: and a perturbation may grow tenfold through 81 layers, so 2e-4, with
+#: room.  In bf16 the routes are other functions (the xla routes round the
+#: scores to bf16 before the softmax; over 13 applications and 81 layers
+#: the logits moved 9.3e-2 on an H100), so bf16 is read, not held
+SSM_ROUTE_TOL = 5e-4
+
+
+def ssm_flash_holds(dev):
+    """(d): K3 at D = 112 against its plain version, bf16 and fp32, timed
+    beside its plain version, its bound and SDPA's fastest backend."""
+    out = {}
+    for label, (b, sq, sk, h, kvh, d) in SSM_FLASH:
+        for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            q, k, v = flash_operands(b, sq, sk, h, kvh, d, dtype, dev,
+                                     seed=sq + h + d)
+            r = flash_readings(q, k, v, True, 512, 512)
+            failed = flash_failures(r, tag)
+            if tag == "bf16" and sk > TILE_SHARE_MAX_KEYS:
+                failed = [f for f in failed if "kernel's key tile" not in f]
+            r["ms"] = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                              10)
+            r["plain_ms"] = cuda_ms(lambda: fa._flash_plain(
+                q, k, v, causal=True, block_q=512, block_k=512), 1, warmup=1)
+            r["bound_ms"], r["bound_by"] = flash_bound_ms(b, sq, h, kvh, d,
+                                                          dtype)
+            timed = {n: t for n, t in sdpa_backends(q, k, v).items()
+                     if t[0] is not None}
+            check(bool(timed), f"flash {label} {tag}: no SDPA backend")
+            lname = min(timed, key=lambda n: timed[n][0])
+            r["library_ms"], r["library"] = timed[lname][0], (
+                f"sdpa {lname} ({timed[lname][1]})")
+            r.update(shape=dict(zip("b sq sk h kv d".split(),
+                                    (b, sq, sk, h, kvh, d))), causal=True)
+            more = ""
+            if tag == "bf16":
+                share = ("held" if sk <= TILE_SHARE_MAX_KEYS else
+                         "not held past 2048 keys, A4")
+                more = (f"  element-wise {r['elem']:.3f} of the limit  "
+                        f"{100 * r['tile_share']:.4f}% differ at the "
+                        f"kernel's tile ({share}; tol "
+                        f"{100 * TILE_SHARE_TOL:g}%)")
+            print(f"flash {label:<20} {tag} B={b} S={sq} H={h} KV={kvh} D={d}"
+                  f" causal: max normalised err {r['norm_err']:.3e}{more}  "
+                  f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+                  f"{r['library']} {r['library_ms']:.4f} ms  bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})  bound/kernel "
+                  f"{r['bound_ms'] / r['ms']:.3f}", flush=True)
+            check(not failed, f"flash {label} {tag}: {'; '.join(failed)}")
+            out[f"{label} {tag}"] = r
+            del q, k, v
+    return out
+
+
+def ssm_limits(cfg, params, b, s, gen):
+    """The end-to-end limits of a config's serve path.  Prefill: 2 FLOPs
+    per parameter per position (the unembedding at the last position
+    only), bf16 leaves at the bf16 peak and the fp32 leaves (mLSTM q/k/v
+    maps, the sLSTM's R) at the fp32 peak, plus the fp32 scans' chunk
+    products (mLSTM: q K^T, P V, q C and the C update; SSD: C B^T, the
+    decayed intra product, the state's read and update, every (t, s) pair
+    of a chunk as both compute it) at the fp32 peak and each attention's
+    live pairs at the bf16 peak, the two parts' times added.  Decode step:
+    every weight at its served width (an untied embedding: its B rows),
+    the recurrent state read and written, and the KV cache's live
+    positions at the step halfway read, over HBM bandwidth."""
+    flops16 = flops32 = 0
+    nbytes = 0
+    for key, sub in params.items():
+        leaves = sub.items() if isinstance(sub, dict) else ((key, sub),)
+        for name, x in leaves:
+            n, size = x.numel(), x.element_size()
+            if key == "embed" and not cfg.tie_embeddings:
+                nbytes += b * cfg.d_model * size  # a gather of B rows
+                continue
+            nbytes += n * size
+            if key in ("embed", "lm_head"):
+                flops16 += 2 * n * b              # the last position's logits
+            elif name in lm_params.FP32_LEAVES:
+                flops32 += 2 * n * b * s
+            else:
+                flops16 += 2 * n * b * s
+    chunk = min(cfg.chunk_size, s)
+    if cfg.family == "ssm":
+        n_g, m_per = lm_model._xlstm_groups(cfg)
+        h, dk = cfg.n_heads, 2 * cfg.d_model // cfg.n_heads
+        flops32 += n_g * m_per * b * h * s * (4 * chunk * dk + 4 * dk * dk)
+    else:
+        nh, p, n = (cfg.d_inner // cfg.ssm_head_dim, cfg.ssm_head_dim,
+                    cfg.ssm_state)
+        flops32 += cfg.n_layers * b * s * (2 * chunk * n + 2 * chunk * nh * p
+                                           + 4 * n * nh * p)
+        flops16 += (cfg.n_layers // cfg.attn_every) * 4 * b * cfg.n_heads \
+            * cfg.head_dim * s * (s + 1) // 2
+    cache = lm_model.cache_layout(cfg, b, s + gen)
+    for key, entry in cache.items():
+        if key in ("len", "offset"):
+            continue
+        if isinstance(entry, dict):     # the KV cache: live positions read
+            for shape, dt in entry.values():
+                nbytes += (math.prod(shape) * dt.itemsize
+                           * (s + gen // 2) // (s + gen))
+        else:                           # a recurrent state: read, written
+            shape, dt = entry
+            nbytes += 2 * math.prod(shape) * dt.itemsize
+    t16, t32 = flops16 / PEAK_BF16_FLOPS, flops32 / PEAK_FP32_FLOPS
+    return {"flops_bf16": flops16, "flops_fp32": flops32,
+            "prefill_bound_ms": 1e3 * (t16 + t32), "decode_bytes": nbytes,
+            "decode_bound_ms": 1e3 * nbytes / PEAK_HBM_BYTES}
+
+
+def ssm_routes(dev, cfg, params, batch, max_len, label):
+    """The route of ``cfg`` against the other (flash against ``_attn_full``
+    or ``_attn_streamed``) on the same weights and prompts: both prefills
+    timed as served (bf16, the whole batch) and the gap of their logits
+    read; then held in fp32 at B = 1 on the weights before the serving
+    cast (drawn again from the seed).  Returns the readings."""
+    other = "xla" if cfg.attn_impl == "flash" else "flash"
+    r = {}
+    for dtype, p, bt in (("bfloat16", params, batch),
+                         ("float32", None, {"tokens": batch["tokens"][:1]})):
+        if p is None:
+            p = lm_params.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        out = {}
+        for impl in (cfg.attn_impl, other):
+            c = dataclasses.replace(cfg, attn_impl=impl, dtype=dtype)
+            before = fa.flash_attention.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = lm_model.prefill(c, p, bt, max_len=max_len)
+            torch.cuda.synchronize()
+            out[impl] = (logits.float(), time.perf_counter() - t0,
+                         fa.flash_attention.launches - before)
+            del cache
+        del p
+        a, b = out[cfg.attn_impl][0], out[other][0]
+        check(bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all()),
+              f"{label}: non-finite prefill logits")
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        r[dtype] = {"err": err, "s": {k: v[1] for k, v in out.items()},
+                    "k3": {k: v[2] for k, v in out.items()}}
+        held = (f"tol {SSM_ROUTE_TOL:g}" if dtype == "float32" else
+                "not held: the xla routes round the scores to bf16, the "
+                "flash route does not")
+        print(f"  prefill logits, {dtype}, B={a.shape[0]}: attn_impl "
+              f"{cfg.attn_impl} against {other} on the same weights: max "
+              f"normalised err {err:.3e} ({held}), same argmax in "
+              f"{100 * float((a.argmax(-1) == b.argmax(-1)).float().mean()):.0f}"
+              f"% of rows; prefill {cfg.attn_impl} "
+              f"{1e3 * out[cfg.attn_impl][1]:.3f} ms, {other} "
+              f"{1e3 * out[other][1]:.3f} ms; K3 launches "
+              f"{out[cfg.attn_impl][2]} and {out[other][2]}", flush=True)
+        check(sorted((out[cfg.attn_impl][2], out[other][2])) == [
+            0, cfg.n_layers // cfg.attn_every], f"{label}: K3 launches "
+            f"{out[cfg.attn_impl][2]}, {out[other][2]} in the two prefills")
+        torch.cuda.empty_cache()
+    check(r["float32"]["err"] <= SSM_ROUTE_TOL, f"{label}: {cfg.attn_impl} "
+          f"vs {other} route in fp32 {r['float32']['err']:.3e} > "
+          f"{SSM_ROUTE_TOL}")
+    return r
+
+
+def ssm_run(dev, all_kernels, run, engine=None):
+    """One config through ``Engine.generate`` at full width: K3's launches
+    per prefill and decode step (zeroed before, read after), prefill and
+    decode ms beside the limits, a profiled decode step (and prefill where
+    it has few launches), the cache finite, and for zamba2 its two routes
+    against each other (``ssm_routes``).  Returns the readings and the
+    engine (whose weights (c) reuses)."""
+    cfg = dataclasses.replace(lm_config.get(run["arch"]), attn_impl=run["attn"])
+    b, prompt, gen = run["batch"], run["prompt"], run["gen"]
+    max_len = prompt + gen
+    if engine is None:
+        torch.cuda.empty_cache()
+        params = lm_params.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        engine = Engine(cfg, params, ServeConfig(max_len=max_len))
+        del params
+    else:
+        engine = Engine(cfg, engine.params, ServeConfig(max_len=max_len))
+    torch.cuda.reset_peak_memory_stats(dev)
+    n_params = lm_params.count_params(cfg)
+    fp32 = {n: x.numel() for sub in engine.params.values()
+            if isinstance(sub, dict) for n, x in sub.items()
+            if n in lm_params.FP32_LEAVES}
+    prompts = family_batch(cfg, b, prompt)
+    print(f"{run['label']} ({cfg.family}): {n_params} parameters, "
+          f"{cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}; served bf16, {sum(fp32.values())} parameters "
+          f"kept fp32 ({', '.join(sorted(fp32))}); attn_impl "
+          f"{cfg.attn_impl}, chunk {min(cfg.chunk_size, prompt)}; B={b}, "
+          f"prompts of {prompt} tokens, {gen} generated, greedy", flush=True)
+    lim = ssm_limits(cfg, engine.params, b, prompt, gen)
+    print(f"  limits: prefill {lim['flops_bf16']:.4e} FLOPs at the bf16 peak "
+          f"+ {lim['flops_fp32']:.4e} at the fp32 peak, "
+          f"{lim['prefill_bound_ms']:.3f} ms; decode step "
+          f"{lim['decode_bytes'] / 1e9:.3f} GB (weights, state read and "
+          f"written, live KV), {lim['decode_bound_ms']:.3f} ms at HBM "
+          f"bandwidth", flush=True)
+
+    totals = {}
+    for n_tokens in (1, gen):
+        for k in all_kernels.values():
+            k.launches = 0
+        out, stats = engine.generate(prompts, n_tokens)
+        counts = {name: k.launches for name, k in all_kernels.items()}
+        totals[n_tokens] = counts["flash_attention"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_decode = (totals[gen] - totals[1]) / (gen - 1)
+    n_prefill = totals[1] - n_decode
+    want = ((cfg.n_layers // cfg.attn_every, 0)
+            if cfg.family == "hybrid" and cfg.attn_impl == "flash" else (0, 0))
+    r = {"prefill_ms": 1e3 * stats["prefill_s"],
+         "decode_ms": 1e3 * stats["decode_s"] / gen,
+         "tok_per_s": stats["tok_per_s"], "peak_gib": peak / 2 ** 30,
+         "launches": counts, "k3_prefill": n_prefill, "k3_decode": n_decode,
+         "n_params": n_params, **lim}
+    print(f"  Engine.generate: prefill {r['prefill_ms']:.3f} ms (bound/"
+          f"measured {lim['prefill_bound_ms'] / r['prefill_ms']:.3f}), decode "
+          f"{r['decode_ms']:.3f} ms per token step (bound/measured "
+          f"{lim['decode_bound_ms'] / r['decode_ms']:.3f}; "
+          f"{r['tok_per_s']:.1f} tok/s); K3 launches {n_prefill:g} per "
+          f"prefill (expected {want[0]}), {n_decode:g} per decode step "
+          f"(expected {want[1]}); launches {counts}; max_memory_allocated "
+          f"{r['peak_gib']:.3f} GiB", flush=True)
+    check((n_prefill, n_decode) == want, f"{run['label']}: K3 launched "
+          f"{n_prefill:g} per prefill, {n_decode:g} per decode step")
+    check(counts["acc_jerk_pot"] == 0 and counts["snap"] == 0,
+          f"{run['label']}: N-body kernels ran")
+    check(tuple(out.shape) == (b, gen) and not out.is_floating_point()
+          and bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
+          f"{run['label']}: tokens {tuple(out.shape)} {out.dtype}")
+    print(f"  seq 0: {out[0, :16].tolist()} ...", flush=True)
+
+    batch = on(dev, prompts)
+    first = out[:, :1].to(dev)
+    # the cache after a prefill: every leaf finite
+    logits, cache = lm_model.prefill(cfg, engine.params, batch,
+                                     max_len=max_len)
+    leaves = [v for v in cache.values() if isinstance(v, torch.Tensor)]
+    leaves += kv_leaves(cache)
+    check(bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(t).all()) for t in leaves),
+        f"{run['label']}: non-finite prefill logits or cache")
+    if run["prompt"] <= 2048:
+        # a profiled decode step on that cache; a hybrid prefill profiled
+        # too (xlstm's sLSTM prefill makes hundreds of thousands of
+        # launches, more than the profiler takes in good time)
+        r["profile"] = serve_profile(
+            cfg, engine.params, batch, max_len, first,
+            cache=None if cfg.family == "hybrid" else cache)
+    del cache, logits
+    if cfg.family == "hybrid":
+        r["routes"] = ssm_routes(dev, cfg, engine.params, batch, max_len,
+                                 run["label"])
+    del batch
+    torch.cuda.empty_cache()
+    return r, engine
+
+
+def ssm_card_vs_cpu(dev, arch):
+    """(e): the same weights at full width, cut in depth, through the
+    forward on the card and on the CPU, in fp32 and served in bf16: the
+    first block's output and the logits; then on the card in fp32,
+    prefill(S) and one decode step against prefill(S + 1)'s last logits."""
+    cfg = dataclasses.replace(lm_config.get(arch), **SSM_CPU_CUT[arch])
+    first = "mlstm_block" if cfg.family == "ssm" else "mamba_block"
+    card = lm_params.init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                                 device=dev)
+    cpu = tree_util.map(lambda x: x.cpu(), card)
+    toks = family_batch(cfg, 1, SSM_CPU_LEN + 1)["tokens"]
+    batch = {"tokens": toks[:, :SSM_CPU_LEN]}
+    r, out = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        for side, params, dev_ in (("card", card, dev), ("cpu", cpu, "cpu")):
+            blocks = []
+            t0 = time.perf_counter()
+            with spying(lm_model, first, lambda a, res: blocks.append(
+                    res[0][0].float().cpu()) if not blocks else None):
+                logits, _ = lm_model.forward(
+                    c, lm_params.cast_params(params, dtype), on(dev_, batch))
+            out[side, dtype] = (logits[0].float().cpu(), blocks[0],
+                                time.perf_counter() - t0)
+        check(bool(torch.isfinite(out["card", dtype][0]).all()),
+              f"{arch} {dtype}: bad logits")
+        errs = [float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(out["card", dtype][:2], out["cpu", dtype][:2])]
+        r[dtype] = dict(zip(("logits", "first_block"), errs))
+    own = out["cpu", "bfloat16"][0], out["cpu", "float32"][0]
+    r["bf16_own"] = float((own[0] - own[1]).abs().max()) / float(
+        own[1].abs().max())
+    for dtype, tol, held in (
+            ("float32", SSM_CPU_TOL_FP32, "held"),
+            ("bfloat16", FAMILY_CPU_TOL, "the first block held, the logits "
+             "read: bf16 rounding alone moves them")):
+        print(f"  card vs CPU, {cfg.n_layers} layers, B=1, {SSM_CPU_LEN} "
+              f"positions, {dtype}: the first {first}'s output max "
+              f"normalised err {r[dtype]['first_block']:.3e}, the forward "
+              f"logits' {r[dtype]['logits']:.3e} (tol {tol:g}; {held}); CPU "
+              f"forward {out['cpu', dtype][2]:.3f} s", flush=True)
+    print(f"  bf16 rounding's own effect: the CPU's bf16 logits against its "
+          f"fp32 logits, max normalised err {r['bf16_own']:.3e}", flush=True)
+    check(max(r["float32"].values()) <= SSM_CPU_TOL_FP32,
+          f"{arch} float32: card vs CPU {r['float32']}")
+    check(r["bfloat16"]["first_block"] <= FAMILY_CPU_TOL,
+          f"{arch} bfloat16: card vs CPU, first block "
+          f"{r['bfloat16']['first_block']:.3e}")
+    del out
+    # prefill(S) + one decode step against prefill(S + 1), fp32, on the card
+    s = SSM_STEP_LEN
+    t = torch.as_tensor(toks, device=dev)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    _, cache = lm_model.prefill(cfg32, card, {"tokens": t[:, :s]},
+                                max_len=s + 1)
+    step, _ = lm_model.decode_step(cfg32, card, cache, t[:, s:s + 1])
+    whole, _ = lm_model.prefill(cfg32, card, {"tokens": t[:, :s + 1]})
+    err = float((step - whole).abs().max()) / float(whole.abs().max())
+    r["step_vs_prefill"] = err
+    print(f"  prefill({s}) + one decode step against prefill({s + 1}), fp32 "
+          f"on the card: last logits max normalised err {err:.3e} (tol "
+          f"{SSM_STEP_TOL:g})", flush=True)
+    check(err <= SSM_STEP_TOL, f"{arch}: decode step vs prefill {err:.3e}")
+    return r
+
+
+def ssm_phase(dev, all_kernels):
+    """Phase 16: the ssm and hybrid families served whole at full width,
+    K3 at zamba2's head dim of 112, _attn_streamed at 8192 positions.
+    Returns the readings the JSON line and PERF.md report."""
+    t0 = time.perf_counter()
+    torch.cuda.init()  # run alone, nothing has touched the card yet
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"flash": ssm_flash_holds(dev), "runs": {}, "cpu": {}}
+    print(f"  (d) took {time.perf_counter() - t0:.1f} s", flush=True)
+    engine = None
+    for run in SSM_RUNS:
+        t1 = time.perf_counter()
+        reuse = engine if run["arch"] == "zamba2-7b" else None
+        out["runs"][run["label"]], engine = ssm_run(dev, all_kernels, run,
+                                                    reuse)
+        if run["arch"] == "xlstm-1.3b":
+            engine = None
+            torch.cuda.empty_cache()
+        print(f"  {run['label']} took {time.perf_counter() - t1:.1f} s",
+              flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    for arch in SSM_CPU_CUT:
+        t1 = time.perf_counter()
+        out["cpu"][arch] = ssm_card_vs_cpu(dev, arch)
+        torch.cuda.empty_cache()
+        print(f"  {arch} card vs CPU took {time.perf_counter() - t1:.1f} s",
+              flush=True)
+    print(f"phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no card, "
@@ -3662,6 +4106,9 @@ def main() -> int:
     phase("15. serving the moe, vlm and audio families at full width")
     fam = families_phase(dev, all_kernels)
 
+    phase("16. serving the ssm and hybrid families at full width")
+    ssm_r = ssm_phase(dev, all_kernels)
+
     rows = []
     for name in kernels:
         ms, pms, bms, by = timings[(name, "fp32", N_MAIN)]
@@ -3787,6 +4234,15 @@ def main() -> int:
                 "library_ms", "library", "abs_err", "norm_err", "elem",
                 "tile_share")}
             for label, r in fam["flash"].items()},
+        "launches_ssm": {
+            label: {"prefill": r["k3_prefill"], "decode_step": r["k3_decode"]}
+            for label, r in ssm_r["runs"].items()},
+        "ssm_shapes": {
+            label: {k: r.get(k) for k in (
+                "shape", "causal", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library", "abs_err", "norm_err", "elem",
+                "tile_share")}
+            for label, r in ssm_r["flash"].items()},
     })
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

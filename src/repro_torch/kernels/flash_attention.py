@@ -116,7 +116,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Grouped-query flash attention; see the module docstring.
 
     On the card the kernel takes bf16 or float32 and head dimensions 16,
-    32, 64, 96 and 128; a launch it refuses raises.  It has no backward,
+    32, 64, 96, 112 and 128; a launch it refuses raises.  It has no backward,
     as the reference kernel has no VJP: on the card, a call that autograd
     would record (grad mode on and q, k or v requiring a gradient) raises
     ``NotImplementedError``.  The CPU's plain version is differentiable,

@@ -9,10 +9,15 @@ weights are random, drawn from a seeded generator.  ``--arch`` takes every
 ported config.  As in the reference, the prompts are tokens only: a vlm
 config serves them as text (M-RoPE over text positions), and an audio
 config raises ``KeyError`` for want of the frames its encoder runs on;
-deepseek-v2 (MLA) serves with ``--attn-impl xla`` only.
+deepseek-v2 (MLA) serves with ``--attn-impl xla`` only.  The ssm and
+hybrid configs (xlstm-1.3b, zamba2-7b) scan prompts in chunks of
+min(chunk_size, prompt length), which must divide the prompt length (a
+``ValueError`` says so); their fp32 leaves stay fp32.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_lm --batch 4 \
       --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch zamba2-7b \
+      --batch 4 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve_lm --scale 0.04 \
       --device cpu
 """

@@ -3,8 +3,8 @@
 Port of ``repro/models/config.py``: ``ArchConfig`` is the reference's
 dataclass, copied whole (every family's fields, ``padded_vocab`` and
 ``param_count``), so a config compares field for field with the
-reference's.  The registry loads only the configs ported so far
-(``repro_torch.configs``): the dense, moe, vlm and audio families.
+reference's.  The registry loads the reference's ten configs from the
+port's own copies (``repro_torch.configs``).
 """
 
 from __future__ import annotations
@@ -152,13 +152,11 @@ class ArchConfig:
 
 _REGISTRY: dict = {}
 
-#: configs ported to ``repro_torch.configs``: the dense family's four, the
-#: moe family's two, the vlm's and the audio's; the ssm and hybrid configs
-#: (xlstm_1_3b, zamba2_7b) arrive with ``models/ssm.py`` (ROADMAP.md queue 1
-#: item 11c)
+#: the configs of ``repro_torch.configs``: the dense family's four, the moe
+#: family's two, the vlm's, the audio's, the hybrid's and the ssm's
 _PORTED = ("deepseek_67b", "qwen3_0_6b", "stablelm_12b", "stablelm_3b",
            "phi35_moe", "deepseek_v2_236b", "qwen2_vl_2b",
-           "seamless_m4t_medium")
+           "seamless_m4t_medium", "zamba2_7b", "xlstm_1_3b")
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

@@ -1,6 +1,7 @@
 """Model layers: RMS norm, embeddings, RoPE and M-RoPE, grouped-query
-attention with a KV cache and cross-attention, multi-head latent attention
-(MLA), the gated FFN and the top-k MoE FFN.
+attention (full, and streamed over KV blocks for long prompts) with a KV
+cache and cross-attention, multi-head latent attention (MLA), the gated
+FFN and the top-k MoE FFN.
 
 Port of ``repro/models/layers.py``.  Numerics as in the reference:
 activations in ``cfg.dtype``; softmax, router probabilities, norm
@@ -8,13 +9,10 @@ statistics and the rotary rotation in fp32.  The reference's
 ``MeshRules`` argument is dropped: on one card ``rules.shard`` is the
 identity (``shardings.py:108-113``).
 
-The SSM blocks (``models/ssm.py``) are not here: their families raise
-``NotImplementedError`` in ``params.param_defs``.  ``_attn_streamed`` (the
-xla route at S >= ``attn_chunked_above``) raises too; both name their
-ROADMAP item.  MLA's prefill has no flash route: its q and k heads are
-wider than its v heads, which the flash kernel does not take, so it
-raises under ``attn_impl="flash"`` (the reference's registered
-``attn_impl`` for deepseek-v2 is ``"xla"``).
+The SSM cells are in ``models/ssm.py``.  MLA's prefill has no flash
+route: its q and k heads are wider than its v heads, which the flash
+kernel does not take, so it raises under ``attn_impl="flash"`` (the
+reference's registered ``attn_impl`` for deepseek-v2 is ``"xla"``).
 """
 
 from __future__ import annotations
@@ -161,22 +159,81 @@ def _attn_full(q, k, v, *, causal: bool, kv_len=None):
     return out.reshape(b, sq, h, vd)
 
 
+def _attn_streamed(q, k, v, *, causal: bool, q_chunk: int):
+    """Memory-efficient attention: resident query blocks of ``q_chunk``,
+    streamed KV blocks of ``min(Sk, max(q_chunk, 512))`` with a running
+    (m, l, o) softmax state in fp32; grouped-query form (k/v carry the KV
+    heads, never repeated).  Scores come out of the einsum in q's dtype
+    and are then taken to fp32, and p is rounded to q's dtype for P V, as
+    in the reference (``layers.py:138-187``).
+
+    The reference reshapes the queries into blocks (failing inside the
+    reshape when ``q_chunk`` does not divide Sq) and runs ``Sk // kv_chunk``
+    KV blocks, silently dropping the keys past the last whole block; both
+    raise ``ValueError`` here.  Under ``causal`` a KV block wholly above a
+    query block's last query is skipped: every row of that query block has
+    already met key 0, so its m is finite, alpha is exactly 1, p exactly 0,
+    and l and o are unchanged (tests/test_torch_streamed.py holds the bits
+    against the loop that runs every block).
+    """
+    b, sq, h, hd = q.shape
+    sk, kv, vd = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // kv
+    scale = hd ** -0.5
+    kv_chunk = min(sk, max(q_chunk, 512))
+    if sq % q_chunk or sk % kv_chunk:
+        raise ValueError(
+            f"_attn_streamed: query block {q_chunk} must divide Sq={sq} and "
+            f"KV block {kv_chunk} must divide Sk={sk} (the reference drops "
+            f"the keys past the last whole KV block)")
+    nq, nk = sq // q_chunk, sk // kv_chunk
+    f32 = torch.float32
+    outs = []
+    for qi in range(nq):
+        q_off = qi * q_chunk
+        qb = q[:, q_off:q_off + q_chunk].reshape(b, q_chunk, kv, g, hd)
+        m = torch.full((b, kv, g, q_chunk), NEG_INF, dtype=f32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        o = torch.zeros((b, kv, g, q_chunk, vd), dtype=f32, device=q.device)
+        for ki in range(nk):
+            k_off = ki * kv_chunk
+            if causal and k_off > q_off + q_chunk - 1:
+                break  # this and every later block lies above the diagonal
+            kb = k[:, k_off:k_off + kv_chunk]
+            vb = v[:, k_off:k_off + kv_chunk]
+            s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb).to(f32) * scale
+            if causal:
+                qp = q_off + torch.arange(q_chunk, device=q.device)
+                kp = k_off + torch.arange(kv_chunk, device=q.device)
+                s = torch.where((qp[:, None] >= kp[None, :])[None, None, None],
+                                s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            o = o * alpha[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p.to(q.dtype), vb).to(f32)
+            m = m_new
+        out = o / torch.clamp(l[..., None], min=1e-30)
+        outs.append(out.movedim(3, 1).reshape(b, q_chunk, h, vd).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
 def _attn_dispatch(cfg: ArchConfig, q, k, v, *, causal: bool):
     """Route to the configured attention implementation.
 
     ``flash``: the flash kernel on a CUDA tensor, its plain version on a
     CPU tensor, with the reference's blocks ``min(512, S)``.  ``xla``:
-    ``_attn_full``.
+    ``_attn_streamed`` with query blocks of ``cfg.attn_chunk`` at S >=
+    ``cfg.attn_chunked_above``, else ``_attn_full``.
     """
     if cfg.attn_impl == "flash":
         bq = min(512, q.shape[1])
         bk = min(512, k.shape[1])
         return flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
     if q.shape[1] >= cfg.attn_chunked_above:
-        raise NotImplementedError(
-            f"_attn_streamed (S={q.shape[1]} >= attn_chunked_above="
-            f"{cfg.attn_chunked_above}) is not yet ported to repro_torch; "
-            f"use attn_impl='flash', see ROADMAP.md queue 1 item 11d")
+        return _attn_streamed(q, k, v, causal=causal, q_chunk=cfg.attn_chunk)
     return _attn_full(q, k, v, causal=causal)
 
 
@@ -321,6 +378,15 @@ def mla_attention(cfg: ArchConfig, p: dict, x, *, positions,
 
     out = out.reshape(b, s, h * vhd)
     return out @ p["o"].to(dt), new_cache
+
+
+def silu(x):
+    """``jax.nn.silu`` op by op in x's dtype: x * (1 / (1 + exp(-x))), each
+    op rounded to that dtype, as the reference's bf16 graph rounds them.
+    ``F.silu`` rounds once; in bf16 it moved about 30% of a Mamba2 block's
+    activations by an ulp from the reference's.  The SSM blocks use this
+    form; ``ffn`` keeps ``F.silu``."""
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 # --------------------------------------------------------------------------

@@ -1,12 +1,10 @@
-"""Model assembly of the dense, moe, vlm and audio families: the training
-forward and its loss, prefill and single-token decode.
+"""Model assembly of every LM family: the training forward and its loss,
+prefill and single-token decode.
 
-Port of ``repro/models/model.py`` (``model.py:41-86, 190-280, 351-456,
-475-581, 584-714``) for those families; the ssm and hybrid families raise
-``NotImplementedError`` (ROADMAP.md queue 1 item 11c).  The reference's
-``MeshRules`` argument is dropped: on one card ``rules.shard`` is the
-identity.  ``lax.scan`` over the stacked layers becomes a Python loop over
-the leading ``n_layers`` axis; ``forward`` splits each stacked leaf once
+Port of ``repro/models/model.py``.  The reference's ``MeshRules``
+argument is dropped: on one card ``rules.shard`` is the identity.
+``lax.scan`` over the stacked layers becomes a Python loop over the
+leading ``n_layers`` axis; ``forward`` splits each stacked leaf once
 with ``torch.unbind``, so under autograd the per-layer gradients are
 stacked once instead of each layer's ``select`` building a zero gradient
 the size of the whole stack.
@@ -18,20 +16,34 @@ Families, as in the reference:
                leading dense layers (``dense_blocks``);
   audio        encoder-decoder: a stub frontend's frame embeddings run
                through the non-causal encoder into the memory that every
-               decoder layer cross-attends.
+               decoder layer cross-attends;
+  hybrid       zamba2: a Mamba2 (SSD) backbone with ONE shared-weight
+               attention + FFN block applied after every ``attn_every``
+               Mamba2 layers; the layers past the last whole group (the
+               tail) run after it;
+  ssm          xLSTM: groups of (slstm_every - 1) mLSTM blocks and one
+               sLSTM block.
 
 Training rematerializes each block as ``cfg.remat`` says, the reference's
-``jax.checkpoint`` of the scan body: ``"full"`` keeps only the block's
-input (``torch.utils.checkpoint``), ``"dots"`` also keeps the outputs of
-the unbatched matmuls (the projections; the attention's and the experts'
-batched products are recomputed, as ``checkpoint_dots_with_no_batch_dims``),
-``"none"`` keeps everything.  None of them changes a value.
+``jax.checkpoint`` of the scan body (the reference remats a hybrid or
+xLSTM group as a whole, the port each block of it): ``"full"`` keeps only
+the block's input (``torch.utils.checkpoint``), ``"dots"`` also keeps the
+outputs of the unbatched matmuls (the projections; the attention's and
+the experts' batched products are recomputed, as
+``checkpoint_dots_with_no_batch_dims``), ``"none"`` keeps everything.
+None of them changes a value.
 
 The decode cache is a dict as in the reference: {"layers": {"k", "v": (L,
 B, max_len, KV, hd)} (MLA: {"c_kv": (L, B, max_len, kv_lora_rank),
 "k_rope": (L, B, max_len, rope_head_dim)}), ["dense_layers": the same for
 the leading dense layers,] ["memory": (B, enc_len, d),] "len": int,
-"offset": int}, ``offset`` being the frontend (patch) span.
+"offset": int}, ``offset`` being the frontend (patch) span.  The hybrid
+family's holds {"ssm": (L, B, nh, N, P) fp32, "conv": (L, B, W - 1,
+d_inner) in the activation dtype, "attn": {"k", "v"} with one entry per
+application of the shared block}, the ssm family's {"mlstm_C": (G, M, B,
+H, dk, dk), "mlstm_n": (G, M, B, H, dk), "mlstm_m": (G, M, B, H),
+"slstm": (G, 4, B, H, hd)}, all fp32, for G groups of M mLSTM blocks
+(the sLSTM's c, n, h and m stacked on the second axis).
 ``decode_step`` updates it IN PLACE and returns it: the reference's engine
 donates the cache to the decode step (``engine.py:47``), so it too keeps
 one copy.
@@ -46,9 +58,12 @@ import torch
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.core.nbody import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, ssm
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import check_ported
+
+
+F32 = torch.float32
 
 
 def _adt(cfg: ArchConfig):
@@ -94,6 +109,95 @@ def transformer_block(cfg, p, x, *, positions, causal=True, memory=None,
         out, aux = layers.moe_ffn(cfg, p, xf)
         return x + out, kv, aux
     return x + layers.ffn(cfg, p, xf), kv, _zero(x.device)
+
+
+def mamba_block(cfg, p, x, *, state=None, conv_cache=None):
+    """Mamba2 block (SSD mixer).  A single token with a ``state`` takes the
+    step form; otherwise the chunked scan over chunks of ``min(chunk_size,
+    S)``.  With ``conv_cache`` the convolution streams from it.  Returns
+    (x, state, conv_cache)."""
+    b, s, _ = x.shape
+    dt = x.dtype
+    di = cfg.d_inner
+    nh, hp = di // cfg.ssm_head_dim, cfg.ssm_head_dim
+
+    xn = layers.rms_norm(x, p["ln"], cfg.norm_eps)
+    xi = xn @ p["wx"].to(dt)
+    if conv_cache is not None:
+        xi, conv_cache = ssm.causal_conv(xi, p["conv"].to(dt),
+                                         cache=conv_cache)
+    else:
+        xi = ssm.causal_conv(xi, p["conv"].to(dt))
+    xi = layers.silu(xi)
+
+    b_mat = (xn @ p["wB"].to(dt)).to(F32)
+    c_mat = (xn @ p["wC"].to(dt)).to(F32)
+    dtv = ssm.softplus((xn @ p["wdt"].to(dt)).to(F32) + p["dt_bias"].to(F32))
+    a_neg = -torch.exp(p["a_log"].to(F32))
+    xh = xi.reshape(b, s, nh, hp).to(F32)
+
+    if s == 1 and state is not None:
+        y, state = ssm.ssd_step(xh[:, 0], dtv[:, 0], a_neg, b_mat[:, 0],
+                                c_mat[:, 0], state)
+        y = y[:, None]
+    else:
+        y, state = ssm.ssd_chunked(xh, dtv, a_neg, b_mat, c_mat,
+                                   chunk=min(cfg.chunk_size, s), state0=state)
+    y = y + p["d_skip"].to(F32)[:, None] * xh
+    y = y.reshape(b, s, di).to(dt)
+    gate = layers.silu(xn @ p["wz"].to(dt))
+    y = layers.rms_norm(y * gate, p["gnorm"], cfg.norm_eps)
+    return x + y @ p["wo"].to(dt), state, conv_cache
+
+
+def mlstm_block(cfg, p, x, *, carry=None):
+    """xLSTM mLSTM block (factor-2 up-projection, per-head cell); the
+    per-head q/k/v maps run in fp32.  Returns (x, (C, n, m))."""
+    b, s, d = x.shape
+    dt = x.dtype
+    di = 2 * d
+    nh = cfg.n_heads
+    dk = di // nh
+
+    xn = layers.rms_norm(x, p["ln"], cfg.norm_eps)
+    xm, zg = torch.chunk(xn @ p["w_up"].to(dt), 2, dim=-1)
+    xh = xm.reshape(b, s, nh, dk).to(F32)
+    q, k, v = (torch.einsum("bshk,hkl->bshl", xh, p[name].to(F32))
+               for name in ("wq", "wk", "wv"))
+    gates = (xm @ p["w_if"].to(dt)).to(F32)
+    gi, gf = gates[..., :nh], gates[..., nh:]
+
+    if s == 1 and carry is not None:
+        h, carry = ssm.mlstm_step(q[:, 0], k[:, 0], v[:, 0], gi[:, 0],
+                                  gf[:, 0], carry)
+        h = h[:, None]
+    else:
+        h, carry = ssm.mlstm_chunked(q, k, v, gi, gf,
+                                     chunk=min(cfg.chunk_size, s),
+                                     carry0=carry)
+    h = h.reshape(b, s, di).to(dt)
+    h = layers.rms_norm(h, p["onorm"], cfg.norm_eps) * layers.silu(zg)
+    return x + h @ p["w_down"].to(dt), carry
+
+
+def slstm_block(cfg, p, x, *, carry=None):
+    """xLSTM sLSTM block (a true time recurrence, R in fp32).  Returns (x,
+    (c, n, h, m))."""
+    b, s, d = x.shape
+    dt = x.dtype
+    nh = cfg.n_heads
+
+    xn = layers.rms_norm(x, p["ln"], cfg.norm_eps)
+    gx = (xn @ p["w_in"].to(dt) + p["b"].to(dt)).to(F32)
+    gx = gx.reshape(b, s, nh, 4, d // nh)
+    if s == 1 and carry is not None:
+        h, carry = ssm.slstm_step(gx[:, 0], p["r"].to(F32), carry)
+        h = h[:, None]
+    else:
+        h, carry = ssm.slstm_scan(gx, p["r"].to(F32), n_heads=nh,
+                                  carry0=carry)
+    h = layers.rms_norm(h.reshape(b, s, d).to(dt), p["onorm"], cfg.norm_eps)
+    return x + h @ p["w_down"].to(dt), carry
 
 
 # ===========================================================================
@@ -170,10 +274,22 @@ def _block_out(cfg, p, x, positions, memory, causal):
     return x, aux
 
 
-def _maybe_remat(cfg: ArchConfig, p, x, positions, memory, causal, *,
-                 train: bool):
+def _mamba_out(cfg, p, x):
+    return mamba_block(cfg, p, x)[0]
+
+
+def _mlstm_out(cfg, p, x):
+    return mlstm_block(cfg, p, x)[0]
+
+
+def _slstm_out(cfg, p, x):
+    return slstm_block(cfg, p, x)[0]
+
+
+def _maybe_remat(cfg: ArchConfig, fn, *args, train: bool):
+    """``fn(*args)``, rematerialized as ``cfg.remat`` says when ``train``."""
     if not train or cfg.remat == "none":
-        return _block_out(cfg, p, x, positions, memory, causal)
+        return fn(*args)
     if cfg.remat not in ("full", "dots"):
         raise ValueError(f"remat {cfg.remat!r}: expected none, full or dots")
     kw = {}
@@ -181,9 +297,7 @@ def _maybe_remat(cfg: ArchConfig, p, x, positions, memory, causal, *,
         kw["context_fn"] = functools.partial(
             torch_checkpoint.create_selective_checkpoint_contexts,
             _dots_policy)
-    return torch_checkpoint.checkpoint(_block_out, cfg, p, x, positions,
-                                       memory, causal, use_reentrant=False,
-                                       **kw)
+    return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 def _run_blocks(cfg, stacked, x, positions, *, train, memory=None,
@@ -192,9 +306,51 @@ def _run_blocks(cfg, stacked, x, positions, *, train, memory=None,
     summed from 0 in layer order, as the reference's scan carry)."""
     aux = _zero(x.device)
     for p in _unstack(stacked):
-        x, a = _maybe_remat(cfg, p, x, positions, memory, causal, train=train)
+        x, a = _maybe_remat(cfg, _block_out, cfg, p, x, positions, memory,
+                            causal, train=train)
         aux = aux + a
     return x, aux
+
+
+def _application(cfg, i):
+    """zamba2's layout: the index of the shared block's application that
+    follows Mamba2 layer ``i``, or None.  It follows every ``attn_every``-th
+    layer; the layers past the last whole group (the tail) have none."""
+    every = cfg.attn_every
+    if i % every == every - 1 and i < cfg.n_layers // every * every:
+        return i // every
+    return None
+
+
+def _xlstm_groups(cfg):
+    """xLSTM's layout: (groups, mLSTM blocks per group)."""
+    k = cfg.slstm_every
+    if cfg.n_layers % k:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not whole "
+                         f"groups of slstm_every {k}")
+    return cfg.n_layers // k, k - 1
+
+
+def _hybrid_forward(cfg, params, x, positions, train):
+    """Groups of ``attn_every`` Mamba2 layers, each followed by the ONE
+    shared attention + FFN block, then the tail's Mamba2 layers."""
+    for i, p in enumerate(_unstack(params["blocks"])):
+        x = _maybe_remat(cfg, _mamba_out, cfg, p, x, train=train)
+        if _application(cfg, i) is not None:
+            x, _ = _maybe_remat(cfg, _block_out, cfg, params["shared_attn"], x,
+                                positions, None, True, train=train)
+    return x
+
+
+def _xlstm_forward(cfg, params, x, train):
+    """Groups of (slstm_every - 1) mLSTM blocks and one sLSTM block."""
+    n_g, m_per = _xlstm_groups(cfg)
+    mlstm, slstm = _unstack(params["blocks"]), _unstack(params["slstm_blocks"])
+    for gi in range(n_g):
+        for p in mlstm[gi * m_per:(gi + 1) * m_per]:
+            x = _maybe_remat(cfg, _mlstm_out, cfg, p, x, train=train)
+        x = _maybe_remat(cfg, _slstm_out, cfg, slstm[gi], x, train=train)
+    return x
 
 
 def _audio_encoder(cfg, params, batch, train):
@@ -214,6 +370,12 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, train: bool = False):
     x = _embed_inputs(cfg, params, batch)
     b, s = x.shape[:2]
     positions = _positions(cfg, batch, s, b, x.device)
+    if cfg.family == "hybrid":
+        x = _hybrid_forward(cfg, params, x, positions, train)
+        return _logits(cfg, params, x), _zero(x.device)
+    if cfg.family == "ssm":
+        x = _xlstm_forward(cfg, params, x, train)
+        return _logits(cfg, params, x), _zero(x.device)
     aux = _zero(x.device)
     memory = None
     if cfg.family == "audio":
@@ -271,10 +433,26 @@ def cache_layout(cfg: ArchConfig, b: int, max_len: int, enc_len: int = 0):
     ``len`` and ``offset`` are ints.  The reference's logical sharding
     axes are dropped with the mesh."""
     check_ported(cfg)
-    n_layers = cfg.n_layers
-    if cfg.family == "moe":
-        n_layers -= cfg.first_k_dense
-    lay = {"layers": _kv_entry(cfg, b, max_len, n_layers)}
+    if cfg.family == "hybrid":
+        di, nh = cfg.d_inner, cfg.d_inner // cfg.ssm_head_dim
+        lay = {"ssm": ((cfg.n_layers, b, nh, cfg.ssm_state, cfg.ssm_head_dim),
+                       F32),
+               "conv": ((cfg.n_layers, b, cfg.conv_width - 1, di), _adt(cfg)),
+               "attn": _kv_entry(cfg, b, max_len,
+                                 cfg.n_layers // cfg.attn_every)}
+    elif cfg.family == "ssm":
+        n_g, m_per = _xlstm_groups(cfg)
+        h = cfg.n_heads
+        dk, hd = 2 * cfg.d_model // h, cfg.d_model // h
+        lay = {"mlstm_C": ((n_g, m_per, b, h, dk, dk), F32),
+               "mlstm_n": ((n_g, m_per, b, h, dk), F32),
+               "mlstm_m": ((n_g, m_per, b, h), F32),
+               "slstm": ((n_g, 4, b, h, hd), F32)}
+    else:
+        n_layers = cfg.n_layers
+        if cfg.family == "moe":
+            n_layers -= cfg.first_k_dense
+        lay = {"layers": _kv_entry(cfg, b, max_len, n_layers)}
     if cfg.family == "moe" and cfg.first_k_dense:
         lay["dense_layers"] = _kv_entry(cfg, b, max_len, cfg.first_k_dense)
     if cfg.family == "audio":
@@ -312,6 +490,44 @@ def _fill(cfg, stacked, kvs, x, positions, memory, max_len):
     return x
 
 
+def _hybrid_fill(cfg, params, cache, x, positions, max_len):
+    """The hybrid prefill: each Mamba2 layer from a zero state through the
+    chunked scan and from a zero conv cache (the reference's prefill,
+    ``model.py:513-543``), filling its state and conv cache; the shared
+    block's k/v of each application."""
+    conv0 = torch.zeros(cache["conv"].shape[1:], dtype=x.dtype,
+                        device=x.device)
+    for i in range(cfg.n_layers):
+        x, st, cc = mamba_block(cfg, _layer(params["blocks"], i), x,
+                                conv_cache=conv0)
+        cache["ssm"][i] = st
+        cache["conv"][i] = cc
+        app = _application(cfg, i)
+        if app is not None:
+            x, kv, _ = transformer_block(cfg, params["shared_attn"], x,
+                                         positions=positions,
+                                         prefill_len=max_len)
+            for name, t in kv.items():
+                cache["attn"][name][app] = t
+    return x
+
+
+def _xlstm_fill(cfg, params, cache, x):
+    """The xLSTM prefill: every block through its parallel form from a zero
+    carry, filling its final carry."""
+    n_g, m_per = _xlstm_groups(cfg)
+    for gi in range(n_g):
+        for j in range(m_per):
+            x, carry = mlstm_block(cfg, _layer(params["blocks"],
+                                                gi * m_per + j), x)
+            for name, t in zip(("mlstm_C", "mlstm_n", "mlstm_m"), carry):
+                cache[name][gi, j] = t
+        x, carry = slstm_block(cfg, _layer(params["slstm_blocks"], gi), x)
+        for i, t in enumerate(carry):
+            cache["slstm"][gi, i] = t
+    return x
+
+
 def prefill(cfg: ArchConfig, params: dict, batch: dict, *,
             max_len: Optional[int] = None):
     """Run the full prompt; returns (last-token logits (B, padded_vocab),
@@ -335,11 +551,17 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, *,
     cache = init_cache(cfg, b, max_len, x.device, enc_len)
     if memory is not None:
         cache["memory"].copy_(memory)
-    if cfg.family == "moe" and cfg.first_k_dense:
-        x = _fill(cfg, params["dense_blocks"], cache["dense_layers"], x,
-                  positions, None, max_len)
-    key = "dec_blocks" if cfg.family == "audio" else "blocks"
-    x = _fill(cfg, params[key], cache["layers"], x, positions, memory, max_len)
+    if cfg.family == "hybrid":
+        x = _hybrid_fill(cfg, params, cache, x, positions, max_len)
+    elif cfg.family == "ssm":
+        x = _xlstm_fill(cfg, params, cache, x)
+    else:
+        if cfg.family == "moe" and cfg.first_k_dense:
+            x = _fill(cfg, params["dense_blocks"], cache["dense_layers"], x,
+                      positions, None, max_len)
+        key = "dec_blocks" if cfg.family == "audio" else "blocks"
+        x = _fill(cfg, params[key], cache["layers"], x, positions, memory,
+                  max_len)
     logits = _logits(cfg, params, x[:, -1:])
     cache["len"] = s
     cache["offset"] = s - s_tok
@@ -367,10 +589,53 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens):
                                         cache=dict(_layer(kvs, i), len=cur))
         return x
 
-    if cfg.family == "moe" and cfg.first_k_dense:
-        x = run(params["dense_blocks"], cache["dense_layers"], x)
-    key = "dec_blocks" if cfg.family == "audio" else "blocks"
-    x = run(params[key], cache["layers"], x)
+    if cfg.family == "hybrid":
+        x = _hybrid_step(cfg, params, cache, x, positions, cur)
+    elif cfg.family == "ssm":
+        x = _xlstm_step(cfg, params, cache, x)
+    else:
+        if cfg.family == "moe" and cfg.first_k_dense:
+            x = run(params["dense_blocks"], cache["dense_layers"], x)
+        key = "dec_blocks" if cfg.family == "audio" else "blocks"
+        x = run(params[key], cache["layers"], x)
     logits = _logits(cfg, params, x)
     cache["len"] = cur + 1
     return logits[:, 0], cache
+
+
+def _hybrid_step(cfg, params, cache, x, positions, cur):
+    """One token through the hybrid stack: each Mamba2 layer's step form
+    from its state and conv cache (stored in the activation dtype, cast at
+    use), the shared block against its application's KV cache."""
+    for i in range(cfg.n_layers):
+        x, st, cc = mamba_block(cfg, _layer(params["blocks"], i), x,
+                                state=cache["ssm"][i],
+                                conv_cache=cache["conv"][i].to(x.dtype))
+        cache["ssm"][i] = st
+        cache["conv"][i] = cc
+        app = _application(cfg, i)
+        if app is not None:
+            kv = {name: t[app] for name, t in cache["attn"].items()}
+            x, _, _ = transformer_block(cfg, params["shared_attn"], x,
+                                        positions=positions,
+                                        cache=dict(kv, len=cur))
+    return x
+
+
+def _xlstm_step(cfg, params, cache, x):
+    """One token through the xLSTM stack, each block's step form from its
+    carry."""
+    n_g, m_per = _xlstm_groups(cfg)
+    names = ("mlstm_C", "mlstm_n", "mlstm_m")
+    for gi in range(n_g):
+        for j in range(m_per):
+            x, carry = mlstm_block(cfg, _layer(params["blocks"],
+                                                gi * m_per + j), x,
+                                   carry=tuple(cache[n][gi, j] for n in names))
+            for name, t in zip(names, carry):
+                cache[name][gi, j] = t
+        x, carry = slstm_block(cfg, _layer(params["slstm_blocks"], gi), x,
+                               carry=tuple(cache["slstm"][gi].unbind(0)))
+        for i, t in enumerate(carry):
+            cache["slstm"][gi, i] = t
+    return x

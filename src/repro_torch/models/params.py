@@ -1,5 +1,5 @@
-"""Parameter definitions and initialisation of the LM stack: the dense,
-moe, vlm and audio families.
+"""Parameter definitions and initialisation of the LM stack: every family
+(dense, moe, vlm, audio, hybrid and ssm).
 
 Port of ``repro/models/params.py``.  Every parameter is declared once as a
 ``ParamDef`` (shape and initialiser); per-layer blocks are stacked along
@@ -14,10 +14,10 @@ The moe family's blocks hold the router and the stacked experts
 (``we_*``, plus ``ws_*`` for shared experts), ``dense_blocks`` its
 leading dense layers; MLA replaces q/k/v/o by the latent projections;
 the audio family has ``enc_blocks`` and ``dec_blocks``, the latter with
-the cross-attention's ``x``-prefixed leaves.  The reference's logical
-sharding axes and its SSM initialisers are left out; they come back with
-the mesh and with the ssm and hybrid families, which raise
-``NotImplementedError`` here (ROADMAP.md queue 1 item 11c).
+the cross-attention's ``x``-prefixed leaves; the hybrid family has
+``blocks`` of Mamba2 leaves and ONE ``shared_attn`` block, the ssm family
+``blocks`` of mLSTM and ``slstm_blocks`` of sLSTM leaves.  The reference's
+logical sharding axes are left out; they come back with the mesh.
 """
 
 from __future__ import annotations
@@ -34,13 +34,18 @@ from repro_torch.core.nbody import resolve_device
 from repro_torch.models.config import ArchConfig
 
 #: the families the port runs
-PORTED_FAMILIES = ("dense", "moe", "vlm", "audio")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
+#: leaves that every use casts to fp32, whatever the activation dtype: the
+#: mLSTM's per-head q/k/v maps (``model.py:139-141``), the sLSTM's recurrent
+#: R (:176, :179) and Mamba2's decay, skip and step bias (:107-110, :122)
+FP32_LEAVES = frozenset({"wq", "wk", "wv", "r", "a_log", "d_skip",
+                         "dt_bias"})
 
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
-    init: str = "normal"          # normal | ones
+    init: str = "normal"          # normal | zeros | ones | a_log | dt_bias
     scale: float = 0.02
 
     def stacked(self, n: int) -> "ParamDef":
@@ -48,12 +53,10 @@ class ParamDef:
 
 
 def check_ported(cfg: ArchConfig):
-    """Raise ``NotImplementedError`` for a family the port does not run."""
+    """Raise ``ValueError`` for a family that is none of the reference's."""
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family}): not yet ported to "
-            f"repro_torch: the port runs the {', '.join(PORTED_FAMILIES)} "
-            f"families; see ROADMAP.md queue 1 item 11c")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; "
+                         f"expected one of {', '.join(PORTED_FAMILIES)}")
 
 
 def _attn_defs(cfg: ArchConfig, *, cross: bool = False) -> dict:
@@ -109,10 +112,67 @@ def _moe_defs(cfg: ArchConfig) -> dict:
     return out
 
 
+def _mamba_defs(cfg: ArchConfig) -> dict:
+    d, di, ns = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    nh = di // cfg.ssm_head_dim
+    return {
+        "ln": ParamDef((d,), "ones"),
+        "wz": ParamDef((d, di)),
+        "wx": ParamDef((d, di)),
+        "wB": ParamDef((d, ns)),
+        "wC": ParamDef((d, ns)),
+        "wdt": ParamDef((d, nh)),
+        "conv": ParamDef((cfg.conv_width, di)),
+        "a_log": ParamDef((nh,), "a_log"),
+        "d_skip": ParamDef((nh,), "ones"),
+        "dt_bias": ParamDef((nh,), "dt_bias"),
+        "gnorm": ParamDef((di,), "ones"),
+        "wo": ParamDef((di, d)),
+    }
+
+
+def _mlstm_defs(cfg: ArchConfig) -> dict:
+    d = cfg.d_model
+    di = 2 * d
+    nh = cfg.n_heads
+    dk = di // nh
+    return {
+        "ln": ParamDef((d,), "ones"),
+        "w_up": ParamDef((d, 2 * di)),
+        # q/k/v are block-diagonal per head (the mLSTM cell's layout)
+        "wq": ParamDef((nh, dk, dk)),
+        "wk": ParamDef((nh, dk, dk)),
+        "wv": ParamDef((nh, dk, dk)),
+        "w_if": ParamDef((di, 2 * nh)),
+        "onorm": ParamDef((di,), "ones"),
+        "w_down": ParamDef((di, d)),
+    }
+
+
+def _slstm_defs(cfg: ArchConfig) -> dict:
+    d = cfg.d_model
+    nh = cfg.n_heads
+    hd = d // nh
+    return {
+        "ln": ParamDef((d,), "ones"),
+        "w_in": ParamDef((d, 4 * d)),
+        "r": ParamDef((nh, hd, 4 * hd)),
+        "b": ParamDef((4 * d,), "zeros"),
+        "onorm": ParamDef((d,), "ones"),
+        "w_down": ParamDef((d, d)),
+    }
+
+
 def _block_defs(cfg: ArchConfig, kind: str) -> dict:
-    """One pre-norm block of kind "attn" (attention + FFN), "moe"
-    (attention + MoE FFN) or "cross_attn" (self-, then cross-attention +
-    FFN); attention is MLA where the config says so."""
+    """One block of kind "attn" (attention + FFN), "moe" (attention + MoE
+    FFN), "cross_attn" (self-, then cross-attention + FFN), "mamba",
+    "mlstm" or "slstm"; attention is MLA where the config says so."""
+    if kind == "mamba":
+        return _mamba_defs(cfg)
+    if kind == "mlstm":
+        return _mlstm_defs(cfg)
+    if kind == "slstm":
+        return _slstm_defs(cfg)
     d = cfg.d_model
     out = {"ln1": ParamDef((d,), "ones")}
     out.update(_mla_defs(cfg) if cfg.uses_mla else _attn_defs(cfg))
@@ -149,6 +209,13 @@ def param_defs(cfg: ArchConfig) -> dict:
         if cfg.first_k_dense:
             tree["dense_blocks"] = _stack(_block_defs(cfg, "attn"),
                                           cfg.first_k_dense)
+    elif cfg.family == "hybrid":
+        tree["blocks"] = _stack(_block_defs(cfg, "mamba"), cfg.n_layers)
+        tree["shared_attn"] = _block_defs(cfg, "attn")  # ONE shared block
+    elif cfg.family == "ssm":
+        n_s = cfg.n_layers // cfg.slstm_every
+        tree["blocks"] = _stack(_block_defs(cfg, "mlstm"), cfg.n_layers - n_s)
+        tree["slstm_blocks"] = _stack(_block_defs(cfg, "slstm"), n_s)
     else:  # audio
         tree["enc_blocks"] = _stack(_block_defs(cfg, "attn"),
                                     cfg.encoder_layers)
@@ -182,12 +249,15 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device="cuda") -> dict:
     """Random parameters in ``cfg.param_dtype`` on ``device``.
 
-    The reference's law (``params.py:223-241``): norms are ones, every other
-    leaf is normal with ``std = min(scale, fan_in ** -0.5)``, ``fan_in =
-    shape[-2]``.  The draws come from ``generator`` on its own device, so
-    they have the reference's distribution but not its bits; to compute
-    what the reference computes, carry its parameters over with
-    ``params_from_jax``.  Each leaf is drawn in fp32 and cast on its own,
+    The reference's law (``params.py:221-241``): norms and Mamba2's skip
+    are ones, the sLSTM's bias zeros, Mamba2's ``a_log`` the log of
+    ``linspace(1, 16, nh)`` and ``dt_bias`` softplus^-1 of step sizes
+    log-spaced over [1e-3, 1e-1] (both computed in fp32 and broadcast over
+    the layers), every other leaf normal with ``std = min(scale, fan_in **
+    -0.5)``, ``fan_in = shape[-2]``.  The draws come from ``generator`` on
+    its own device, so they have the reference's distribution but not its
+    bits; to compute what the reference computes, carry its parameters
+    over with ``params_from_jax``.  Each leaf is drawn in fp32 and cast on its own,
     so no fp32 copy of the whole tree exists.  ``device`` defaults to
     ``cuda`` and raises without a card.
     """
@@ -195,8 +265,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     dtype = getattr(torch, cfg.param_dtype)
 
     def one(p: ParamDef):
-        if p.init == "ones":
-            return torch.ones(p.shape, dtype=dtype, device=dev)
+        if p.init in ("zeros", "ones"):
+            fill = torch.zeros if p.init == "zeros" else torch.ones
+            return fill(p.shape, dtype=dtype, device=dev)
+        if p.init in ("a_log", "dt_bias"):
+            return _ssm_init(p, dev).to(dtype)
         fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
         std = min(p.scale, fan_in ** -0.5)
         x = torch.randn(p.shape, generator=generator, dtype=torch.float32,
@@ -204,6 +277,19 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
         return x.mul_(std).to(device=dev, dtype=dtype)
 
     return tree_util.map(one, param_defs(cfg))
+
+
+def _ssm_init(p: ParamDef, dev):
+    """Mamba2's ``a_log`` or ``dt_bias`` in fp32, as ``_init_one``."""
+    nh = p.shape[-1]
+    f32 = torch.float32
+    if p.init == "a_log":
+        base = torch.log(torch.linspace(1.0, 16.0, nh, dtype=f32, device=dev))
+    else:  # softplus^-1 of dt in [1e-3, 1e-1], log-spaced
+        dt = torch.exp(torch.linspace(math.log(1e-3), math.log(1e-1), nh,
+                                      dtype=f32, device=dev))
+        base = torch.log(torch.expm1(dt))
+    return base.expand(p.shape).clone()
 
 
 def params_from_jax(tree: Mapping, device="cuda") -> dict:
@@ -215,10 +301,19 @@ def params_from_jax(tree: Mapping, device="cuda") -> dict:
 
 
 def cast_params(params: Mapping, dtype: str) -> dict:
-    """Every leaf cast to ``dtype`` once, as a serving checkpoint is cast.
+    """Every leaf cast once, as a serving checkpoint is cast: to fp32 for
+    the leaves of ``FP32_LEAVES``, to ``dtype`` for every other.
 
-    The reference casts each weight to the activation dtype at every use
-    (``p["q"].astype(dt)``); casting once at load gives the same bits, since
-    every use in the ported families casts to that one dtype."""
+    The reference casts each weight at every use, to the activation dtype
+    (``p["q"].astype(dt)``) or, for the ``FP32_LEAVES``, to fp32; casting
+    once at load gives the same bits, since every use of a leaf casts it to
+    that one dtype.  (A fp32 leaf rounded to bf16 first would give another
+    function: ``a_log`` rounded to 2**-8 moves every decay.)"""
     dt = getattr(torch, dtype)
-    return tree_util.map(lambda x: x.to(dt), params)
+
+    def cast(tree):
+        return {k: cast(x) if isinstance(x, Mapping)
+                else x.to(torch.float32 if k in FP32_LEAVES else dt)
+                for k, x in tree.items()}
+
+    return cast(params)

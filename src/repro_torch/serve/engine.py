@@ -1,13 +1,15 @@
-"""Batched serving engine: prefill + lock-step decode with a shared KV cache.
+"""Batched serving engine: prefill + lock-step decode with a shared cache.
 
 Port of ``repro/serve/engine.py`` (``ServeConfig`` and ``Engine.generate``).
 Requests are aligned into one (B, S_prompt) block; ``generate`` prefills
 it once and then advances every sequence one token per decode step.
 
-The weights are cast to ``cfg.dtype`` once, when the engine is built (the
-inference checkpoint cast); the reference casts them at every use, which
-gives the same bits.  The cache is updated in place, as the reference's
-donated cache is.
+The weights are cast once, when the engine is built (the inference
+checkpoint cast): to ``cfg.dtype``, or to fp32 for the leaves that every
+use casts to fp32 (``params.FP32_LEAVES``: the ssm and hybrid families'
+recurrent weights); the reference casts them at every use, which gives
+the same bits.  The cache (KV, or the recurrent state) is updated in
+place, as the reference's donated cache is.
 """
 
 from __future__ import annotations

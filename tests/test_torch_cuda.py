@@ -331,6 +331,9 @@ FLASH_SHAPES = [  # b, sq, sk, h, kv, d, block_q, block_k, causal
     (1, 1024, 1024, 16, 16, 64, 512, 512, False),   # seamless: encoder,
     (1, 512, 1024, 16, 16, 64, 512, 512, False),    # cross-attention,
     (1, 1, 1024, 16, 16, 64, 1, 512, False),        # its decode step
+    (2, 200, 200, 6, 2, 112, 200, 40, True),        # d=112, ragged, g=3
+    (1, 2048, 2048, 32, 32, 112, 512, 512, True),   # zamba2-7b: d=112,
+    (1, 8192, 8192, 32, 32, 112, 512, 512, True),   # and its long prompt
 ]
 
 

@@ -37,6 +37,7 @@ SHAPES = [  # b, sq, sk, h, kv, d, bq, bk: the grid of test_flash_attention.py
     (1, 512, 512, 4, 4, 64, 256, 128),    # MHA (g=1)
     (2, 128, 512, 8, 1, 32, 64, 256),     # MQA, rectangular
     (1, 256, 256, 16, 2, 128, 128, 64),   # wide heads
+    (1, 256, 256, 4, 4, 112, 128, 128),   # zamba2-7b's head dim (not there)
 ]
 CASES = [(*s, causal) for s in SHAPES for causal in (True, False)
          if not causal or s[1] == s[2]]  # causal needs square, as there

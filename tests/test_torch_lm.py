@@ -97,12 +97,9 @@ def test_full_config_and_parameter_count_equal_the_reference():
     assert P.count_params(cfg) == JP.count_params(jcfg) == 596_180_992
     assert cfg.param_count() == jcfg.param_count()
     assert cfg.padded_vocab == jcfg.padded_vocab == 152_064
-    # the registry holds the configs of the ported families (dense, moe,
-    # vlm, audio), ARCH among them; the ssm and hybrid configs wait
-    assert C.available() == sorted(
-        n for n in JC.available()
-        if JC.get(n).family in ("dense", "moe", "vlm", "audio"))
-    assert ARCH in C.available()
+    # the registry holds the reference's ten configs, ARCH among them
+    assert C.available() == JC.available()
+    assert len(C.available()) == 10 and ARCH in C.available()
 
 
 def test_params_from_jax_keeps_the_tree_and_the_bits():
@@ -245,19 +242,23 @@ def test_decode_refuses_a_full_cache():
         model.decode_step(cfg, pp, cache, toks[:, :1])
 
 
-def test_routes_not_ported_raise_naming_the_roadmap():
-    for family, kw in (("ssm", dict(slstm_every=2)),
-                       ("hybrid", dict(attn_every=2, ssm_state=16))):
-        other = dataclasses.replace(scaled_config(C.get(ARCH), SCALE),
-                                    family=family, **kw)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 11"):
-            P.param_defs(other)
+def test_routes_still_refused_raise():
+    """Every family and ``_attn_streamed`` are ported; what the port still
+    refuses raises before any work: MLA under the flash route (its q/k and
+    v heads differ, ``tests/test_torch_mla.py``), and a prompt whose keys
+    the streamed route's KV block does not divide (the reference drops the
+    keys past the last whole block)."""
+    mla = dataclasses.replace(scaled_config(C.get("deepseek-v2-236b"), SCALE),
+                              attn_impl="flash")
+    pm = P.init_params(mla, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(_prompts(mla.vocab_size))
+    with pytest.raises(NotImplementedError, match="attn_impl='xla'"):
+        model.prefill(mla, pm, {"tokens": toks})
     cfg = dataclasses.replace(scaled_config(C.get(ARCH), SCALE),
-                              attn_chunked_above=16)
+                              attn_chunked_above=16, attn_chunk=128)
     pp = P.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    toks = torch.from_numpy(_prompts(cfg.vocab_size))
-    with pytest.raises(NotImplementedError, match="_attn_streamed"):
+    toks = torch.from_numpy(_prompts(cfg.vocab_size, s=640))
+    with pytest.raises(ValueError, match="KV block 512 must divide Sk=640"):
         model.forward(cfg, pp, {"tokens": toks})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.forward(cfg, pp, {"tokens": toks}, train=True)
+    with pytest.raises(ValueError, match="KV block 512 must divide Sk=640"):
+        model.prefill(cfg, pp, {"tokens": toks})
