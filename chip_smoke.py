@@ -138,6 +138,15 @@ Phases, in order; any failure raises and the script exits nonzero:
    (bf16 read, fp32 held at B = 1); each config cut in depth (8 and 9
    layers) on the card against the CPU (fp32 logits, bf16's first block),
    and prefill(255) + one decode step against prefill(256);
+17. the dry-run (``repro_torch.launch.dryrun``, ``dryrun_phase``) against
+   real steps: qwen3-0.6b's train step at B = 4, S = 2048, its prefill and
+   one decode step at phase 7's shapes, and one Plummer N = 16384 fp32
+   Hermite step, each run on meta through ``lower_cell`` or
+   ``run_nbody_cell`` with single-device rules: (a) the dry-run's product
+   FLOPs (N-body: FLOPs) against FlopCounterMode on the real step plus the
+   kernel formulas times the launches, within 0.1%; (b) its peak bytes
+   within 0.8 to 1.25 of max_memory_allocated over the step; (c) the
+   step's median ms at least 0.95 of the dry-run's roofline;
 then one ``kernels`` JSON line and ``{"ok": true, "device": {...}}`` as the
 last line.
 
@@ -150,6 +159,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -163,6 +173,7 @@ import warnings
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -172,11 +183,17 @@ from repro_torch.core import strategies  # noqa: E402
 from repro_torch.core.evaluate import (  # noqa: E402
     make_evaluator, make_neighbor_block_evaluator)
 from repro_torch.kernels import _build, nbody_force, neighbor, ops  # noqa: E402
+from repro_torch.kernels.bounds import (  # noqa: E402
+    FLOPS_PER_PAIR, PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_HBM_BYTES,
+    attn_bound_ms, attn_flops, bound_ms, flash_bound_ms, window_bound_ms)
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch import tree as tree_util  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.data import BatchSpec, SyntheticLM  # noqa: E402
+from repro_torch.distributed.shardings import MeshRules  # noqa: E402
+from repro_torch.launch import dryrun as lm_dryrun  # noqa: E402
 from repro_torch.launch import nbody_run, sim_run  # noqa: E402
+from repro_torch.launch import shapes as lm_shapes  # noqa: E402
 from repro_torch.models import config as lm_config  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
@@ -213,15 +230,6 @@ DE_TIERS = {"fp32": 1e-4, "mixed": 1e-3}
 #: golden-trajectory tiers (tests/test_golden_trajectories.py TOL)
 GOLDEN_TOL = {"fp32": 1e-7, "mixed": 1e-3}
 
-#: H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-#: cores and HBM3 bandwidth, at the full 700 W limit
-PEAK_FP32_FLOPS = 67e12
-PEAK_HBM_BYTES = 3.35e12
-
-#: operations per pair, counted from src/repro_torch/csrc/nbody_force.cu
-#: (FMA = 2, rsqrtf = 1); mixed replaces each accumulate-add by a two-sum
-FLOPS_PER_PAIR = {("acc_jerk_pot", "fp32"): 43, ("acc_jerk_pot", "mixed"): 85,
-                  ("snap", "fp32"): 62, ("snap", "mixed"): 80}
 REPLACES = {
     "acc_jerk_pot": "src/repro/kernels/nbody_force.py:146",
     "snap": "src/repro/kernels/nbody_force.py:189",
@@ -270,9 +278,6 @@ ROWS_TOL = {"fp32": 1e-5, "bf16": 2.0 ** -7}
 #: each layer's attention differs by a few bf16 ulps (2**-8); a 28-layer
 #: narrow model with the same heads showed 1.0e-2 to 1.2e-2 on the CPU.
 SERVE_TOL = 5e-2
-#: H100 SXM dense bf16 and TF32 tensor-core peaks (NVIDIA data sheet, 700 W)
-PEAK_BF16_FLOPS = 989e12
-PEAK_TF32_FLOPS = 495e12
 
 #: the block path (phase 8): binary_plummer at the main path's width, one
 #: macro-step of dt_max split into 2**(n_levels-1) ticks.  10 levels, not
@@ -540,51 +545,6 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def bound_ms(name, dtype, n_t_active, n_t, n_s, batch=1):
-    """Least time for the work: flops of the active pairs (``n_t_active``
-    over all members) over the fp32 peak, or each operand read once and
-    the output written once over HBM bandwidth, whichever is larger."""
-    flops = FLOPS_PER_PAIR[(name, dtype)] * n_t_active * n_s
-    operands = 2 if name == "acc_jerk_pot" else 4
-    nbytes = batch * (4 * 8 * (n_t + n_s) * (operands // 2) + 4 * 8 * n_t)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-def flash_bound_ms(b, s, h, kv, d, dtype, exact_fp32=False):
-    """Least time of one causal K3 launch at Sq = Sk = S
-    (``attn_bound_ms``)."""
-    return attn_bound_ms(b, s, s, h, kv, d, dtype, True, exact_fp32)
-
-
-def attn_bound_ms(b, sq, sk, h, kv, d, dtype, causal, exact_fp32=False):
-    """Least time of one K3 launch: 4 B H D P operations (q K^T and P V
-    over the P live score pairs, two per multiply-add; causal, a query at
-    position i sees min(i + 1, Sk) keys) over the tensor-core bf16 peak,
-    or for fp32 three times as many (3xTF32: three TF32 products per
-    product) over the TF32 peak, or with ``exact_fp32`` the operations as
-    fp32 FMAs over the fp32 peak; or q, k, v read once and the output
-    written once over HBM bandwidth, whichever is larger."""
-    if causal:
-        n = min(sq, sk)
-        pairs = n * (n + 1) // 2 + (sq - n) * sk
-    else:
-        pairs = sq * sk
-    flops = 4 * b * h * d * pairs
-    size = 2 if dtype == torch.bfloat16 else 4
-    nbytes = size * (2 * b * sq * h * d + 2 * b * sk * kv * d)
-    if dtype == torch.bfloat16:
-        peak = PEAK_BF16_FLOPS
-    elif exact_fp32:
-        peak = PEAK_FP32_FLOPS
-    else:
-        flops, peak = 3 * flops, PEAK_TF32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
 
 
 def sdpa_calls(q, k, v, causal=True):
@@ -1831,23 +1791,6 @@ def plain_kernels():
         yield
     finally:
         nbody_force.acc_jerk_pot_packed, nbody_force.snap_packed = real
-
-
-def window_bound_ms(name, dtype, x):
-    """Least time of one launch on window operands ``x`` (batched packed
-    K1 or K2 operands): the operations of the pairs this data needs
-    (active targets against the sources of nonzero mass, per member) over
-    the fp32 peak, or each operand read once and the output written once
-    over HBM bandwidth, whichever is larger."""
-    tgt, src = x[0], x[1]
-    act = (tgt[..., 3] != 0).sum(-1).to(torch.float64)
-    real = (src[:, 3, :] != 0).sum(-1).to(torch.float64)
-    pairs = float((act * real).sum())
-    flops = FLOPS_PER_PAIR[(name, dtype)] * pairs
-    nbytes = sum(t.numel() * 4 for t in x) + tgt.numel() * 4
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", pairs)
 
 
 def launch_readings(name, x, kw, kern):
@@ -3540,11 +3483,11 @@ def ssm_limits(cfg, params, b, s, gen):
         if key in ("len", "offset"):
             continue
         if isinstance(entry, dict):     # the KV cache: live positions read
-            for shape, dt in entry.values():
+            for shape, dt, _ in entry.values():
                 nbytes += (math.prod(shape) * dt.itemsize
                            * (s + gen // 2) // (s + gen))
         else:                           # a recurrent state: read, written
-            shape, dt = entry
+            shape, dt, _ = entry
             nbytes += 2 * math.prod(shape) * dt.itemsize
     t16, t32 = flops16 / PEAK_BF16_FLOPS, flops32 / PEAK_FP32_FLOPS
     return {"flops_bf16": flops16, "flops_fp32": flops32,
@@ -3798,6 +3741,193 @@ def ssm_phase(dev, all_kernels):
         print(f"  {arch} card vs CPU took {time.perf_counter() - t1:.1f} s",
               flush=True)
     print(f"phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+#: phase 17: the dry-run (``launch.dryrun``) against real steps of
+#: qwen3-0.6b at full width (phase 14's train step at B = 4, S = 2048,
+#: phase 7's prefill and one decode step) and one Plummer N = 16384 fp32
+#: Hermite step at a fixed step of DRY_DT.  (a) the dry-run's dot_flops
+#: (N-body: flops) against FlopCounterMode on the real step plus the
+#: kernel formulas (``kernels.bounds``) times the launches counted;
+#: (b) the dry-run's peak bytes against max_memory_allocated over the step
+#: (the bytes live before its arguments were made taken off); (c) the
+#: step's median ms against the dry-run's roofline, which the card must
+#: not beat.
+DRY_FLOP_TOL = 1e-3
+DRY_PEAK_RANGE = (0.8, 1.25)
+DRY_TIME_FLOOR = 0.95
+DRY_REPS = 5
+DRY_DT = 1.0 / 1024
+#: the decode step's cache: phase 7's (prompt + generated tokens)
+DRY_DECODE_LEN = LM_PROMPT + LM_GEN
+
+
+def dry_card(fn, dev, all_kernels, m0):
+    """One call of ``fn`` under FlopCounterMode (its product FLOPs and every
+    kernel's launches), one for max_memory_allocated above ``m0`` (the
+    bytes live before the step's arguments were made), then DRY_REPS timed
+    calls; returns those readings."""
+    gc.collect()
+    torch.cuda.synchronize()
+    for k in all_kernels.values():
+        k.launches = 0
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in all_kernels.items()}
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    times = []
+    for _ in range(DRY_REPS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return {"flop_counter": float(fc.get_total_flops()), "launches": launches,
+            "peak_bytes": peak - m0, "max_memory_allocated": peak, "m0": m0,
+            "ms": float(np.median(times)), "times": times}
+
+
+def dry_hold(label, rec, card, kernel_flops, key):
+    """Checks (a), (b) and (c) of one step, each pair on its own line."""
+    pd, rl = rec["per_device"], rec["roofline"]
+    want = card["flop_counter"] + kernel_flops
+    got = pd[key]
+    rel = abs(got - want) / want
+    print(f"dryrun {label}: (a) {key} dry-run {got:.6e} vs card {want:.6e} "
+          f"(FlopCounterMode {card['flop_counter']:.6e} + kernel formulas x "
+          f"launches {kernel_flops:.6e}, launches {card['launches']}, "
+          f"dry-run's {pd['kernel_launches']}): rel diff {rel:.3e} (tol "
+          f"{DRY_FLOP_TOL:g})", flush=True)
+    ratio = pd["peak_bytes"] / card["peak_bytes"]
+    print(f"dryrun {label}: (b) peak dry-run {pd['peak_bytes'] / 2 ** 30:.4f}"
+          f" GiB (arguments {pd['argument_bytes'] / 2 ** 30:.4f}, step "
+          f"{pd['temp_bytes'] / 2 ** 30:.4f}) vs card "
+          f"{card['peak_bytes'] / 2 ** 30:.4f} GiB (max_memory_allocated "
+          f"{card['max_memory_allocated'] / 2 ** 30:.4f} less "
+          f"{card['m0'] / 2 ** 30:.4f} live before): dry-run/card "
+          f"{ratio:.4f} (range {DRY_PEAK_RANGE})", flush=True)
+    floor = 1e3 * rl["step_time_s"]
+    print(f"dryrun {label}: (c) step median {card['ms']:.3f} ms over "
+          f"{DRY_REPS} calls {[round(t, 3) for t in card['times']]} vs "
+          f"roofline {floor:.3f} ms ({rl['bottleneck']}-bound; "
+          f"{pd['flops']:.4e} FLOPs, {pd['bytes_accessed']:.4e} bytes, "
+          f"trace {rec['timings']['trace_s']:.2f} s): card/roofline "
+          f"{card['ms'] / floor:.3f} (floor {DRY_TIME_FLOOR})", flush=True)
+    check(rel <= DRY_FLOP_TOL, f"dryrun {label}: (a) {key} {got:.6e} vs "
+                               f"{want:.6e}, rel {rel:.3e}")
+    check(DRY_PEAK_RANGE[0] <= ratio <= DRY_PEAK_RANGE[1],
+          f"dryrun {label}: (b) peak ratio {ratio:.4f}")
+    check(card["ms"] >= DRY_TIME_FLOOR * floor,
+          f"dryrun {label}: (c) the card ({card['ms']:.3f} ms) beat the "
+          f"roofline ({floor:.3f} ms)")
+    return {"dry": got, "card": want, "rel": rel, "peak_dry": pd["peak_bytes"],
+            "peak_card": card["peak_bytes"], "peak_ratio": ratio,
+            "ms": card["ms"], "roofline_ms": floor,
+            "bottleneck": rl["bottleneck"]}
+
+
+def dryrun_phase(dev, all_kernels):
+    """Phase 17: the dry-run held against real steps on the card (see
+    DRY_FLOP_TOL).  Each step goes to ``lower_cell`` or ``run_nbody_cell``
+    as a ``ShapeCase`` with ``MeshRules.single_device()`` rules."""
+    single = MeshRules.single_device()
+    cfg = lm_config.get(LM_ARCH)
+    cfg_flash = dataclasses.replace(cfg, attn_impl="flash")
+    out = {}
+
+    def k3_flops(b, s, launches):
+        return launches * attn_flops(b, s, s, cfg.n_heads, cfg.head_dim, True)
+
+    # the train step (phase 14's shape), the xla route as phase 14 trains
+    gc.collect()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated(dev)
+    params = lm_params.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt = AdamW(learning_rate=TRAIN_LR)
+    opt_state = opt.init(params)
+    batch = {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+             for k, v in SyntheticLM(cfg, BatchSpec(TRAIN_BATCH, TRAIN_SEQ),
+                                     seed=0)(0).items()}
+    step = make_train_step(cfg, opt)
+    step(params, opt_state, batch)      # warm-up
+    card = dry_card(lambda: step(params, opt_state, batch), dev, all_kernels,
+                    m0)
+    rec, _ = lm_dryrun.lower_cell(
+        cfg, lm_shapes.ShapeCase("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        rules=single, accum=1)
+    out["train"] = dry_hold("train", rec, card, 0.0, "dot_flops")
+    del params, opt_state, step, batch
+
+    # the prefill and one decode step (phase 7's shapes, the flash route)
+    gc.collect()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated(dev)
+    params = lm_params.cast_params(lm_params.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev),
+        "bfloat16")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+
+    def prefill():
+        lm_model.prefill(cfg_flash, params, batch)
+
+    prefill()                           # warm-up
+    card = dry_card(prefill, dev, all_kernels, m0)
+    rec, _ = lm_dryrun.lower_cell(
+        cfg_flash, lm_shapes.ShapeCase("prefill", LM_PROMPT, LM_BATCH,
+                                       "prefill"), rules=single)
+    out["prefill"] = dry_hold(
+        "prefill", rec, card,
+        k3_flops(LM_BATCH, LM_PROMPT, card["launches"]["flash_attention"]),
+        "dot_flops")
+    check(card["launches"]["flash_attention"] == cfg.n_layers
+          and rec["per_device"]["kernel_launches"].get("flash_attention")
+          == cfg.n_layers, "dryrun prefill: K3 launches per prefill")
+
+    logits, cache = lm_model.prefill(cfg_flash, params, batch,
+                                     max_len=DRY_DECODE_LEN)
+    tokens = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    del logits, batch
+    gc.collect()
+
+    def decode():
+        lm_model.decode_step(cfg_flash, params, cache, tokens)
+
+    decode()                            # warm-up
+    card = dry_card(decode, dev, all_kernels, m0)
+    rec, _ = lm_dryrun.lower_cell(
+        cfg_flash, lm_shapes.ShapeCase("decode", DRY_DECODE_LEN, LM_BATCH,
+                                       "decode"), rules=single)
+    out["decode"] = dry_hold("decode", rec, card, 0.0, "dot_flops")
+    del params, cache, tokens
+
+    # one Plummer N = 16384 fp32 Hermite step at a fixed step
+    gc.collect()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated(dev)
+    evaluate = make_evaluator(order=6, dtype="fp32")
+    state = hermite.initialize(nbody.plummer(N_MAIN, seed=0, device=dev),
+                               evaluate)
+
+    def nbody_step():
+        hermite.step(state, DRY_DT, evaluate)
+
+    nbody_step()                        # warm-up
+    card = dry_card(nbody_step, dev, all_kernels, m0)
+    rec = lm_dryrun.run_nbody_cell(
+        "single", n_particles=N_MAIN, rules=single, dt=DRY_DT,
+        state_dtype=state.pos.dtype, write=False, verbose=False)
+    pairs = sum(FLOPS_PER_PAIR[(name, "fp32")] * card["launches"][name]
+                for name in ("acc_jerk_pot", "snap")) * N_MAIN * N_MAIN
+    out["nbody"] = dry_hold("nbody step", rec, card, pairs, "flops")
+    del state
     return out
 
 
@@ -4108,6 +4238,9 @@ def main() -> int:
 
     phase("16. serving the ssm and hybrid families at full width")
     ssm_r = ssm_phase(dev, all_kernels)
+
+    phase("17. the dry-run against real steps on the card")
+    dryrun_phase(dev, all_kernels)
 
     rows = []
     for name in kernels:

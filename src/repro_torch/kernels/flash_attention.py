@@ -10,7 +10,11 @@ hand-written kernel of ``csrc/flash_attention.cu`` on the current stream,
 or raises; a CPU tensor runs the plain PyTorch version beside it
 (``_flash_plain``), which computes the Pallas function block by block in
 the reference's (block_q, block_k) order.  ``flash_attention.launches``
-counts the kernel's launches.
+counts the kernel's launches.  A ``meta`` tensor (the dry-run,
+``launch.dryrun``) launches nothing: the wrapper reports the kernel's
+work to the op counter (``kernels.bounds.meta_launch``) and returns an
+empty result of the kernel's shape, or the plain version run on ``meta``
+when the counter asks for it.
 
 The reference computes ``grid = Sq // block_q`` and so leaves rows
 unwritten, silently, when block_q does not divide Sq.  This wrapper raises
@@ -24,7 +28,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, bounds
 
 DEFAULT_BLOCK_Q = 512
 DEFAULT_BLOCK_K = 512
@@ -101,7 +105,7 @@ def _check(q, k, v, block_q, block_k):
     for x in (k, v):
         if x.device != q.device:
             raise ValueError(f"operands on {q.device} and {x.device}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     if not all(x.is_contiguous() for x in (q, k, v)):
         raise ValueError("q, k and v must be contiguous")
@@ -132,6 +136,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
             "flash_attention has no backward: the reference kernel has no "
             "VJP, so the kernel's output would carry no gradient; train "
             "with attn_impl='xla' (layers._attn_full)")
+    if q.device.type == "meta":
+        return _meta_launch(q, k, v, causal=causal, block_q=block_q,
+                            block_k=block_k)
     if any(x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError("the kernel loads 16-byte vectors: q, k and v must "
                          "start on a 16-byte boundary")
@@ -151,3 +158,19 @@ def flash_attention(q, k, v, *, causal: bool = True,
 
 
 flash_attention.launches = 0
+
+
+def _meta_launch(q, k, v, *, causal, block_q, block_k):
+    """The launch's work reported to the op counter (the kernel table's
+    formulas, ``kernels.bounds``): both products in ``dot_flops``."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    dots = bounds.attn_flops(b, sq, sk, h, d, causal)
+    out = bounds.meta_launch(
+        "flash_attention", dot_flops=dots,
+        flops=dots + bounds.ATTN_SOFTMAX_FLOPS * b * h
+        * bounds.attn_pairs(sq, sk, causal),
+        nbytes=bounds.attn_bytes(b, sq, sk, h, kvh, d, q.element_size()),
+        plain=lambda: _flash_plain(q, k, v, causal=causal, block_q=block_q,
+                                   block_k=block_k))
+    return torch.empty_like(q) if out is None else out

@@ -22,7 +22,11 @@ function: per (i-block, j-block) tile a float32 sum over the block's
 sources, accumulated across j-blocks, with a two-sum compensation in mixed
 mode folded in at the end.  Each wrapper counts its kernel launches in its
 ``launches`` attribute, and in ``blocks`` (``{CUDA blocks of the grid:
-launches}``) the grid size that the kernel's launcher reports.
+launches}``) the grid size that the kernel's launcher reports.  A ``meta``
+tensor (the dry-run, ``launch.dryrun``) launches nothing: the wrapper
+reports the kernel's work to the op counter
+(``kernels.bounds.meta_launch``) and returns an empty result, or the plain
+version run on ``meta`` when the counter asks for it.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, bounds
 
 # Logical tile shape of the reference.  The CUDA kernels pick their own
 # tiling; BI and BJ remain the units of grid_tiles, of the alignment the
@@ -226,7 +230,7 @@ def _check(tgt_like, src_like, block_i, block_j, compute_dtype):
             raise ValueError("packed operands must be contiguous")
         if x.device != t0.device:
             raise ValueError(f"operands on {t0.device} and {x.device}")
-    if t0.device.type not in ("cpu", "cuda"):
+    if t0.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {t0.device}")
     if n_t % block_i or n_s % block_j:
         raise ValueError(f"N_t={n_t} and N_s={n_s} must be multiples of "
@@ -253,6 +257,21 @@ def _count(wrapper, blocks: ctypes.c_int):
     wrapper.blocks[blocks.value] = wrapper.blocks.get(blocks.value, 0) + 1
 
 
+def _meta_launch(name, plain, operands, batch, n_t, n_s, compute_dtype,
+                 **kw):
+    """The launch's work reported to the op counter (``kernels.bounds``):
+    the kernel table's operations, every target row against every source,
+    in ``flops`` only; the bytes as the kernel streams them."""
+    dtype = "fp32" if compute_dtype is None else "mixed"
+    out = bounds.meta_launch(
+        name, dot_flops=0,
+        flops=bounds.FLOPS_PER_PAIR[(name, dtype)] * max(batch, 1) * n_t * n_s,
+        nbytes=bounds.nbody_stream_bytes(name, n_t, n_s, max(batch, 1)),
+        plain=lambda: _plain(plain, operands, batch,
+                             compute_dtype=compute_dtype, **kw))
+    return torch.empty_like(operands[0]) if out is None else out
+
+
 def acc_jerk_pot_packed(
     tgt,
     src,
@@ -275,6 +294,10 @@ def acc_jerk_pot_packed(
         return _plain(_acc_jerk_plain, (tgt, src), batch, eps=eps,
                       block_i=block_i, block_j=block_j,
                       compute_dtype=compute_dtype)
+    if tgt.device.type == "meta":
+        return _meta_launch("acc_jerk_pot", _acc_jerk_plain, (tgt, src),
+                            batch, n_t, n_s, compute_dtype, eps=eps,
+                            block_i=block_i, block_j=block_j)
     out = torch.empty_like(tgt)
     blocks = ctypes.c_int(0)
     with torch.cuda.device(tgt.device):
@@ -310,6 +333,11 @@ def snap_packed(
         return _plain(_snap_plain, (tgt, src, tgt_acc, src_acc), batch,
                       eps=eps, block_i=block_i, block_j=block_j,
                       compute_dtype=compute_dtype)
+    if tgt.device.type == "meta":
+        return _meta_launch("snap", _snap_plain,
+                            (tgt, src, tgt_acc, src_acc), batch, n_t, n_s,
+                            compute_dtype, eps=eps, block_i=block_i,
+                            block_j=block_j)
     out = torch.empty_like(tgt)
     blocks = ctypes.c_int(0)
     with torch.cuda.device(tgt.device):

@@ -421,33 +421,41 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
 # ===========================================================================
 def _kv_entry(cfg, b, max_len, n):
     dt = _adt(cfg)
+    seq = (None, "cache_batch", "cache_seq")
     if cfg.uses_mla:
-        return {"c_kv": ((n, b, max_len, cfg.kv_lora_rank), dt),
-                "k_rope": ((n, b, max_len, cfg.rope_head_dim), dt)}
+        return {"c_kv": ((n, b, max_len, cfg.kv_lora_rank), dt, seq + (None,)),
+                "k_rope": ((n, b, max_len, cfg.rope_head_dim), dt,
+                           seq + (None,))}
     shape = (n, b, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": (shape, dt), "v": (shape, dt)}
+    logical = seq + ("kv_heads", None)
+    return {"k": (shape, dt, logical), "v": (shape, dt, logical)}
 
 
 def cache_layout(cfg: ArchConfig, b: int, max_len: int, enc_len: int = 0):
-    """(shape, dtype) of each cache leaf, stacked over the layers;
-    ``len`` and ``offset`` are ints.  The reference's logical sharding
-    axes are dropped with the mesh."""
+    """(shape, dtype, logical axes) of each cache leaf, stacked over the
+    layers; ``len`` and ``offset`` are ints.  The logical axes are the
+    reference's, for ``cache_spec``."""
     check_ported(cfg)
     if cfg.family == "hybrid":
         di, nh = cfg.d_inner, cfg.d_inner // cfg.ssm_head_dim
         lay = {"ssm": ((cfg.n_layers, b, nh, cfg.ssm_state, cfg.ssm_head_dim),
-                       F32),
-               "conv": ((cfg.n_layers, b, cfg.conv_width - 1, di), _adt(cfg)),
+                       F32, (None, "cache_batch", "heads", None, None)),
+               "conv": ((cfg.n_layers, b, cfg.conv_width - 1, di), _adt(cfg),
+                        (None, "cache_batch", None, "d_ff")),
                "attn": _kv_entry(cfg, b, max_len,
                                  cfg.n_layers // cfg.attn_every)}
     elif cfg.family == "ssm":
         n_g, m_per = _xlstm_groups(cfg)
         h = cfg.n_heads
         dk, hd = 2 * cfg.d_model // h, cfg.d_model // h
-        lay = {"mlstm_C": ((n_g, m_per, b, h, dk, dk), F32),
-               "mlstm_n": ((n_g, m_per, b, h, dk), F32),
-               "mlstm_m": ((n_g, m_per, b, h), F32),
-               "slstm": ((n_g, 4, b, h, hd), F32)}
+        lay = {"mlstm_C": ((n_g, m_per, b, h, dk, dk), F32,
+                           (None, None, "cache_batch", "heads", None, None)),
+               "mlstm_n": ((n_g, m_per, b, h, dk), F32,
+                           (None, None, "cache_batch", "heads", None)),
+               "mlstm_m": ((n_g, m_per, b, h), F32,
+                           (None, None, "cache_batch", "heads")),
+               "slstm": ((n_g, 4, b, h, hd), F32,
+                         (None, None, "cache_batch", "heads", None))}
     else:
         n_layers = cfg.n_layers
         if cfg.family == "moe":
@@ -456,10 +464,16 @@ def cache_layout(cfg: ArchConfig, b: int, max_len: int, enc_len: int = 0):
     if cfg.family == "moe" and cfg.first_k_dense:
         lay["dense_layers"] = _kv_entry(cfg, b, max_len, cfg.first_k_dense)
     if cfg.family == "audio":
-        lay["memory"] = ((b, enc_len or max_len, cfg.d_model), _adt(cfg))
-    lay["len"] = ((), int)
-    lay["offset"] = ((), int)              # frontend (patch) span
+        lay["memory"] = ((b, enc_len or max_len, cfg.d_model), _adt(cfg),
+                         ("cache_batch", "cache_seq", "d_model"))
+    lay["len"] = ((), int, ())
+    lay["offset"] = ((), int, ())          # frontend (patch) span
     return lay
+
+
+def _make_cache(lay, leaf):
+    return {k: _make_cache(e, leaf) if isinstance(e, dict) else leaf(*e)
+            for k, e in lay.items()}
 
 
 def init_cache(cfg: ArchConfig, b: int, max_len: int, device="cuda",
@@ -468,13 +482,25 @@ def init_cache(cfg: ArchConfig, b: int, max_len: int, device="cuda",
     card)."""
     dev = resolve_device(device)
 
-    def make(entry):
-        if isinstance(entry, dict):
-            return {k: make(e) for k, e in entry.items()}
-        shape, dt = entry
+    def leaf(shape, dt, _logical):
         return 0 if dt is int else torch.zeros(shape, dtype=dt, device=dev)
 
-    return make(cache_layout(cfg, b, max_len, enc_len))
+    return _make_cache(cache_layout(cfg, b, max_len, enc_len), leaf)
+
+
+def cache_spec(cfg: ArchConfig, b: int, max_len: int, rules=None,
+               enc_len: int = 0):
+    """The cache as ``meta`` tensors for the dry-run, ``len`` and
+    ``offset`` int32 scalars as in the reference; with ``rules`` (a
+    ``MeshRules``) each leaf holds one device's local shape."""
+
+    def leaf(shape, dt, logical):
+        if rules is not None:
+            shape = rules.local_shape(shape, logical)
+        return torch.empty(shape, dtype=torch.int32 if dt is int else dt,
+                           device="meta")
+
+    return _make_cache(cache_layout(cfg, b, max_len, enc_len), leaf)
 
 
 # ===========================================================================

@@ -16,15 +16,17 @@ leading dense layers; MLA replaces q/k/v/o by the latent projections;
 the audio family has ``enc_blocks`` and ``dec_blocks``, the latter with
 the cross-attention's ``x``-prefixed leaves; the hybrid family has
 ``blocks`` of Mamba2 leaves and ONE ``shared_attn`` block, the ssm family
-``blocks`` of mLSTM and ``slstm_blocks`` of sLSTM leaves.  The reference's
-logical sharding axes are left out; they come back with the mesh.
+``blocks`` of mLSTM and ``slstm_blocks`` of sLSTM leaves.  Each
+``ParamDef`` carries the reference's logical sharding axes, which
+``distributed.shardings.MeshRules`` maps onto a mesh for the dry-run
+(``abstract_params``, ``param_specs``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping, Tuple
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,11 +47,13 @@ FP32_LEAVES = frozenset({"wq", "wk", "wv", "r", "a_log", "d_skip",
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
+    logical: Tuple[Optional[str], ...]
     init: str = "normal"          # normal | zeros | ones | a_log | dt_bias
     scale: float = 0.02
 
     def stacked(self, n: int) -> "ParamDef":
-        return dataclasses.replace(self, shape=(n,) + self.shape)
+        return dataclasses.replace(self, shape=(n,) + self.shape,
+                                   logical=("layers",) + self.logical)
 
 
 def check_ported(cfg: ArchConfig):
@@ -64,14 +68,16 @@ def _attn_defs(cfg: ArchConfig, *, cross: bool = False) -> dict:
     h, kv = cfg.n_heads, cfg.n_kv_heads
     pre = "x" if cross else ""
     out = {
-        f"{pre}q": ParamDef((d, h * hd)),
-        f"{pre}k": ParamDef((d, kv * hd)),
-        f"{pre}v": ParamDef((d, kv * hd)),
-        f"{pre}o": ParamDef((h * hd, d)),
+        f"{pre}q": ParamDef((d, h * hd), ("fsdp_d_model", "heads")),
+        f"{pre}k": ParamDef((d, kv * hd),
+                            ("fsdp_d_model", "kv_heads")),
+        f"{pre}v": ParamDef((d, kv * hd),
+                            ("fsdp_d_model", "kv_heads")),
+        f"{pre}o": ParamDef((h * hd, d), ("heads", "fsdp_d_model")),
     }
     if cfg.qk_norm and not cross:
-        out["qn"] = ParamDef((hd,), "ones")
-        out["kn"] = ParamDef((hd,), "ones")
+        out["qn"] = ParamDef((hd,), ("head_dim",), "ones")
+        out["kn"] = ParamDef((hd,), ("head_dim",), "ones")
     return out
 
 
@@ -80,31 +86,34 @@ def _mla_defs(cfg: ArchConfig) -> dict:
     h, hd, vhd, rhd = cfg.n_heads, cfg.head_dim, cfg.v_head_dim, cfg.rope_head_dim
     qlr, kvlr = cfg.q_lora_rank, cfg.kv_lora_rank
     return {
-        "q_a": ParamDef((d, qlr)),
-        "q_norm": ParamDef((qlr,), "ones"),
-        "q_b": ParamDef((qlr, h * (hd + rhd))),
-        "kv_a": ParamDef((d, kvlr + rhd)),
-        "kv_norm": ParamDef((kvlr,), "ones"),
-        "kv_b": ParamDef((kvlr, h * (hd + vhd))),
-        "o": ParamDef((h * vhd, d)),
+        "q_a": ParamDef((d, qlr), ("fsdp_d_model", None)),
+        "q_norm": ParamDef((qlr,), (None,), "ones"),
+        "q_b": ParamDef((qlr, h * (hd + rhd)), (None, "heads")),
+        "kv_a": ParamDef((d, kvlr + rhd), ("fsdp_d_model", None)),
+        "kv_norm": ParamDef((kvlr,), (None,), "ones"),
+        "kv_b": ParamDef((kvlr, h * (hd + vhd)), (None, "heads")),
+        "o": ParamDef((h * vhd, d), ("heads", "fsdp_d_model")),
     }
 
 
 def _ffn_defs(d: int, f: int) -> dict:
     return {
-        "wg": ParamDef((d, f)),
-        "wu": ParamDef((d, f)),
-        "wd": ParamDef((f, d)),
+        "wg": ParamDef((d, f), ("fsdp_d_model", "d_ff")),
+        "wu": ParamDef((d, f), ("fsdp_d_model", "d_ff")),
+        "wd": ParamDef((f, d), ("d_ff", "fsdp_d_model")),
     }
 
 
 def _moe_defs(cfg: ArchConfig) -> dict:
     d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
     out = {
-        "router": ParamDef((d, e)),
-        "we_g": ParamDef((e, d, f)),
-        "we_u": ParamDef((e, d, f)),
-        "we_d": ParamDef((e, f, d)),
+        "router": ParamDef((d, e), ("fsdp_d_model", None)),
+        "we_g": ParamDef((e, d, f),
+                         ("experts", "fsdp_d_model", None)),
+        "we_u": ParamDef((e, d, f),
+                         ("experts", "fsdp_d_model", None)),
+        "we_d": ParamDef((e, f, d),
+                         ("experts", None, "fsdp_d_model")),
     }
     if cfg.n_shared_experts:
         fs = cfg.n_shared_experts * f
@@ -116,18 +125,18 @@ def _mamba_defs(cfg: ArchConfig) -> dict:
     d, di, ns = cfg.d_model, cfg.d_inner, cfg.ssm_state
     nh = di // cfg.ssm_head_dim
     return {
-        "ln": ParamDef((d,), "ones"),
-        "wz": ParamDef((d, di)),
-        "wx": ParamDef((d, di)),
-        "wB": ParamDef((d, ns)),
-        "wC": ParamDef((d, ns)),
-        "wdt": ParamDef((d, nh)),
-        "conv": ParamDef((cfg.conv_width, di)),
-        "a_log": ParamDef((nh,), "a_log"),
-        "d_skip": ParamDef((nh,), "ones"),
-        "dt_bias": ParamDef((nh,), "dt_bias"),
-        "gnorm": ParamDef((di,), "ones"),
-        "wo": ParamDef((di, d)),
+        "ln": ParamDef((d,), ("d_model",), "ones"),
+        "wz": ParamDef((d, di), ("fsdp_d_model", "d_ff")),
+        "wx": ParamDef((d, di), ("fsdp_d_model", "d_ff")),
+        "wB": ParamDef((d, ns), ("fsdp_d_model", None)),
+        "wC": ParamDef((d, ns), ("fsdp_d_model", None)),
+        "wdt": ParamDef((d, nh), ("fsdp_d_model", "heads")),
+        "conv": ParamDef((cfg.conv_width, di), (None, "d_ff")),
+        "a_log": ParamDef((nh,), ("heads",), "a_log"),
+        "d_skip": ParamDef((nh,), ("heads",), "ones"),
+        "dt_bias": ParamDef((nh,), ("heads",), "dt_bias"),
+        "gnorm": ParamDef((di,), ("d_ff",), "ones"),
+        "wo": ParamDef((di, d), ("d_ff", "fsdp_d_model")),
     }
 
 
@@ -137,15 +146,15 @@ def _mlstm_defs(cfg: ArchConfig) -> dict:
     nh = cfg.n_heads
     dk = di // nh
     return {
-        "ln": ParamDef((d,), "ones"),
-        "w_up": ParamDef((d, 2 * di)),
+        "ln": ParamDef((d,), ("d_model",), "ones"),
+        "w_up": ParamDef((d, 2 * di), ("fsdp_d_model", "d_ff")),
         # q/k/v are block-diagonal per head (the mLSTM cell's layout)
-        "wq": ParamDef((nh, dk, dk)),
-        "wk": ParamDef((nh, dk, dk)),
-        "wv": ParamDef((nh, dk, dk)),
-        "w_if": ParamDef((di, 2 * nh)),
-        "onorm": ParamDef((di,), "ones"),
-        "w_down": ParamDef((di, d)),
+        "wq": ParamDef((nh, dk, dk), ("heads", None, None)),
+        "wk": ParamDef((nh, dk, dk), ("heads", None, None)),
+        "wv": ParamDef((nh, dk, dk), ("heads", None, None)),
+        "w_if": ParamDef((di, 2 * nh), ("fsdp_d_model", None)),
+        "onorm": ParamDef((di,), ("d_ff",), "ones"),
+        "w_down": ParamDef((di, d), ("d_ff", "fsdp_d_model")),
     }
 
 
@@ -154,12 +163,12 @@ def _slstm_defs(cfg: ArchConfig) -> dict:
     nh = cfg.n_heads
     hd = d // nh
     return {
-        "ln": ParamDef((d,), "ones"),
-        "w_in": ParamDef((d, 4 * d)),
-        "r": ParamDef((nh, hd, 4 * hd)),
-        "b": ParamDef((4 * d,), "zeros"),
-        "onorm": ParamDef((d,), "ones"),
-        "w_down": ParamDef((d, d)),
+        "ln": ParamDef((d,), ("d_model",), "ones"),
+        "w_in": ParamDef((d, 4 * d), ("fsdp_d_model", "d_ff")),
+        "r": ParamDef((nh, hd, 4 * hd), ("heads", None, None)),
+        "b": ParamDef((4 * d,), ("d_ff",), "zeros"),
+        "onorm": ParamDef((d,), ("d_model",), "ones"),
+        "w_down": ParamDef((d, d), ("fsdp_d_model", "d_model")),
     }
 
 
@@ -174,14 +183,14 @@ def _block_defs(cfg: ArchConfig, kind: str) -> dict:
     if kind == "slstm":
         return _slstm_defs(cfg)
     d = cfg.d_model
-    out = {"ln1": ParamDef((d,), "ones")}
+    out = {"ln1": ParamDef((d,), ("d_model",), "ones")}
     out.update(_mla_defs(cfg) if cfg.uses_mla else _attn_defs(cfg))
-    out["ln2"] = ParamDef((d,), "ones")
+    out["ln2"] = ParamDef((d,), ("d_model",), "ones")
     if kind == "moe":
         out.update(_moe_defs(cfg))
     elif kind == "cross_attn":
         out.update(_attn_defs(cfg, cross=True))
-        out["lnx"] = ParamDef((d,), "ones")
+        out["lnx"] = ParamDef((d,), ("d_model",), "ones")
         out.update(_ffn_defs(d, cfg.d_ff))
     else:
         out.update(_ffn_defs(d, cfg.d_ff))
@@ -196,11 +205,11 @@ def param_defs(cfg: ArchConfig) -> dict:
     check_ported(cfg)
     d, v = cfg.d_model, cfg.padded_vocab
     tree: dict = {
-        "embed": ParamDef((v, d)),
-        "final_norm": ParamDef((d,), "ones"),
+        "embed": ParamDef((v, d), ("vocab", "fsdp_d_model")),
+        "final_norm": ParamDef((d,), ("d_model",), "ones"),
     }
     if not cfg.tie_embeddings:
-        tree["lm_head"] = ParamDef((d, v))
+        tree["lm_head"] = ParamDef((d, v), ("fsdp_d_model", "vocab"))
     if cfg.family in ("dense", "vlm"):
         tree["blocks"] = _stack(_block_defs(cfg, "attn"), cfg.n_layers)
     elif cfg.family == "moe":
@@ -243,6 +252,29 @@ def count_active(cfg: ArchConfig) -> int:
                 n = n * cfg.top_k // cfg.n_experts
             total += n
     return total
+
+
+def _leaf_shape(p: ParamDef, rules) -> tuple:
+    return tuple(p.shape) if rules is None else rules.local_shape(
+        p.shape, p.logical)
+
+
+def abstract_params(cfg: ArchConfig, rules=None, dtype=None) -> dict:
+    """The parameter tree as ``meta`` tensors: no allocation.  With
+    ``rules`` (a ``MeshRules``) each leaf holds one device's local shape.
+
+    ``dtype`` overrides ``cfg.param_dtype``: serving runs bf16 weights
+    (the inference checkpoint's cast), training the fp32 masters."""
+    dt = getattr(torch, dtype or cfg.param_dtype)
+    return tree_util.map(
+        lambda p: torch.empty(_leaf_shape(p, rules), dtype=dt, device="meta"),
+        param_defs(cfg))
+
+
+def param_specs(cfg: ArchConfig, rules) -> dict:
+    """Each leaf's partition spec under ``rules`` (``MeshRules.spec``)."""
+    return tree_util.map(lambda p: rules.spec(p.shape, p.logical),
+                         param_defs(cfg))
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,

@@ -1,6 +1,6 @@
 """repro_torch.obs — observability substrate for the ensemble engine.
 
-Port of ``repro/obs``.  Three small, dependency-free modules every other
+Port of ``repro/obs``.  Four small modules every other
 layer reports through:
 
 * :mod:`repro_torch.obs.trace`   — nestable host-side spans exported as
@@ -14,8 +14,8 @@ layer reports through:
   H100's constants (single source of truth for ``P_CHIP`` / ``P_HOST`` /
   ``IDLE_FRAC``).
 
-The reference's fourth module, the CI perf-regression gate
-(``repro/obs/regress.py``), is ROADMAP.md queue 1 item 10.
+* :mod:`repro_torch.obs.regress` — the perf-regression gate over a bench
+  trajectory (``python -m repro_torch.obs.regress``).
 
 Submodules are imported explicitly (``from repro_torch.obs import
 metrics``) — no eager re-exports here.

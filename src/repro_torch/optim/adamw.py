@@ -16,8 +16,8 @@ stacked tensors, as ``models.params`` builds them, to keep that rule.
 ``update`` writes the new moments into the state's tensors and
 ``apply_updates`` adds the updates into the parameters, in place and under
 ``torch.no_grad()``: the counterpart of the reference's donated
-``(params, opt_state)``.  The reference's ``abstract_state`` (dry-run
-shapes) is not ported (ROADMAP.md queue 1 item 12).
+``(params, opt_state)``.  ``abstract_state`` gives the state as ``meta``
+tensors for the dry-run.
 """
 
 from __future__ import annotations
@@ -130,3 +130,16 @@ def apply_updates(params: dict, updates: dict) -> dict:
     """``params + updates``, added into ``params`` in place; returns it."""
     tree_util.map(lambda p, u: p.add_(u.to(p.dtype)), params, updates)
     return params
+
+
+def abstract_state(params_abstract: dict) -> AdamWState:
+    """The state as ``meta`` tensors, each moment fp32 at its parameter's
+    (local) shape (``models.params.abstract_params``): no allocation."""
+
+    def moments():
+        return tree_util.map(lambda p: torch.empty(p.shape, dtype=F32,
+                                                   device="meta"),
+                             params_abstract)
+
+    return AdamWState(count=torch.empty((), dtype=torch.int32, device="meta"),
+                      m=moments(), v=moments())

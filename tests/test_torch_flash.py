@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.models import layers as jlayers
@@ -114,9 +115,17 @@ def test_flash_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                            k, v, block_q=64, block_k=64)
-    meta = tuple(x.to("meta") for x in (q, k, v))
+    with FakeTensorMode():   # a device the wrapper has no path for
+        other = tuple(torch.empty(x.shape, device="xla") for x in (q, k, v))
     with pytest.raises(ValueError, match="unsupported device"):
-        fa.flash_attention(*meta, block_q=64, block_k=64)
+        fa.flash_attention(*other, block_q=64, block_k=64)
+    # meta is the dry-run's: an empty result of the kernel's shape, and no
+    # launch counted
+    launches = fa.flash_attention.launches
+    meta = tuple(x.to("meta") for x in (q, k, v))
+    out = fa.flash_attention(*meta, block_q=64, block_k=64)
+    assert out.device.type == "meta" and out.shape == q.shape
+    assert fa.flash_attention.launches == launches
 
 
 def test_cpu_path_leaves_the_launch_counter_at_zero(monkeypatch):

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.kernels import nbody_force as jnf
 from repro.kernels import ops as jops
@@ -289,8 +290,9 @@ def test_packed_wrapper_rejects_bad_operands(bad):
         ts = ts.T.contiguous().T
     elif bad == "compute_dtype":
         kw["compute_dtype"] = "float16"
-    elif bad == "device":
-        tt, ts = tt.to("meta"), ts.to("meta")
+    elif bad == "device":       # a device the wrapper has no path for
+        with FakeTensorMode():
+            tt, ts = (torch.empty(x.shape, device="xla") for x in (tt, ts))
     with pytest.raises((ValueError, TypeError)):
         nbody_force.acc_jerk_pot_packed(tt, ts, **kw)
 

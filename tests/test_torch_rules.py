@@ -12,6 +12,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.checkpoint import store
 from repro_torch.core import evaluate, nbody, strategies
@@ -277,10 +278,18 @@ def test_cpu_tensors_leave_the_launch_counters_at_zero(counts):
 
 
 def test_wrappers_refuse_devices_they_have_no_path_for():
-    tgt = torch.zeros(8, 8, device="meta")
-    src = torch.zeros(8, 32, device="meta")
+    with FakeTensorMode():
+        tgt = torch.empty(8, 8, device="xla")
+        src = torch.empty(8, 32, device="xla")
     with pytest.raises(ValueError, match="unsupported device"):
         nbody_force.acc_jerk_pot_packed(tgt, src, block_i=8, block_j=32)
+    # meta is the dry-run's path: an empty result, no launch counted
+    launches = nbody_force.acc_jerk_pot_packed.launches
+    out = nbody_force.acc_jerk_pot_packed(
+        torch.zeros(8, 8, device="meta"), torch.zeros(8, 32, device="meta"),
+        block_i=8, block_j=32)
+    assert out.device.type == "meta" and out.shape == (8, 8)
+    assert nbody_force.acc_jerk_pot_packed.launches == launches
 
 
 def test_build_command_targets_sm_90a():
