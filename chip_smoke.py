@@ -147,6 +147,27 @@ Phases, in order; any failure raises and the script exits nonzero:
    kernel formulas times the launches, within 0.1%; (b) its peak bytes
    within 0.8 to 1.25 of max_memory_allocated over the step; (c) the
    step's median ms at least 0.95 of the dry-run's roofline;
+18. training the other families (``train_families_phase``): qwen2-vl-2b,
+   seamless-m4t-medium and xlstm-1.3b (S = 128) whole, phi3.5-moe-42b-a6.6b
+   (1 of 32 layers), deepseek-v2-236b (1 of 60, and its first MoE layer's
+   loss and gradients at depth 2) and zamba2-7b (30 of 81) at their
+   published widths, each cut the deepest that the dry-run puts at 72 GB
+   or less:
+   ``Trainer`` over one warm-up and three timed steps of one repeated
+   batch (finite, falling losses, step ms, tokens/s, TFLOP/s, peak memory,
+   a profiled step), each step held against the dry-run as phase 17 holds
+   qwen3's; each family at depth 2 (xlstm 8, zamba2 9) in fp32 on the card
+   against the CPU (the loss and every gradient leaf; the scans' families
+   at the tolerance ``ssm_grad_witness.py`` sets), two gradient calls bit
+   for bit; then
+   ``launch.train.main`` for seamless-m4t-medium;
+19. the examples (``examples_phase``): ``launch/cluster_simulation.py`` at
+   the example's defaults single and replicated over four slots of the
+   card (bit for bit, the Fig. 4 overlap against the reference example's)
+   and at N = 16384; ``launch/ensemble_scenarios.py`` at the example's
+   defaults against the port's steps and |dE/E| there on the CPU (the
+   reference example's printed beside), and on the card against the CPU
+   in this process at a smaller size;
 then one ``kernels`` JSON line and ``{"ok": true, "device": {...}}`` as the
 last line.
 
@@ -156,14 +177,18 @@ exits nonzero without a card.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
 import gc
+import io
 import itertools
 import json
 import math
+import multiprocessing
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -189,11 +214,14 @@ from repro_torch.kernels.bounds import (  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch import tree as tree_util  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
-from repro_torch.data import BatchSpec, SyntheticLM  # noqa: E402
+from repro_torch.data import BatchSpec, SyntheticLM, batch_spec_for  # noqa: E402
 from repro_torch.distributed.shardings import MeshRules  # noqa: E402
 from repro_torch.launch import dryrun as lm_dryrun  # noqa: E402
+from repro_torch.launch import cluster_simulation  # noqa: E402
+from repro_torch.launch import ensemble_scenarios  # noqa: E402
 from repro_torch.launch import nbody_run, sim_run  # noqa: E402
 from repro_torch.launch import shapes as lm_shapes  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.models import config as lm_config  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
@@ -203,6 +231,7 @@ from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.obs import energy  # noqa: E402
 from repro_torch.optim import AdamW, warmup_cosine  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig, make_train_step  # noqa: E402
+from repro_torch.train.step import _value_and_grad  # noqa: E402
 from repro_torch.obs import metrics as obs_metrics  # noqa: E402
 from repro_torch.sim import api, driver  # noqa: E402
 from repro_torch.sim import ensemble as ens  # noqa: E402
@@ -653,24 +682,63 @@ def flash_failures(r, tag):
     return out
 
 
+def profile_readings(prof):
+    """``(device, by_op)`` of a ``torch.profiler`` window, read from its
+    kineto events as torch's own parse (``_parse_kineto_results``) reads
+    them, without building torch's event tree, which takes tens of seconds
+    at tens of thousands of launches.  ``device`` lists each device event's
+    (name, microseconds) in the profiler's order, an asynchronous one at 0
+    as ``device_time_total`` counts it; ``by_op`` maps the name of a CPU op
+    to the device microseconds of the kernels it launched itself (its self
+    device time, as ``key_averages`` sums it)."""
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    device, ops = [], {}
+    for e in res.events():
+        name = e.name()
+        if _filter_name(name) or getattr(e, "is_hidden_event",
+                                         lambda: False)():
+            continue
+        kind = e.device_type()
+        is_async = e.is_async() or e.start_thread_id() != e.end_thread_id()
+        if kind == cuda:
+            us = (e.end_ns() - t0) / 1000 - (e.start_ns() - t0) / 1000
+            device.append((_rewrite_name(name, with_wildcard=True), us,
+                           0.0 if is_async else us,
+                           e.linked_correlation_id()))
+        elif kind == cpu and not is_async and e.linked_correlation_id() == 0:
+            ops.setdefault(e.correlation_id(), []).append(
+                _rewrite_name(name, with_wildcard=True))
+    by_op = {}
+    for _, us, _, corr in device:
+        for op in ops.get(corr, ()):
+            by_op[op] = by_op.get(op, 0.0) + us
+    return [(name, us) for name, _, us, _ in device], by_op
+
+
 def device_profile(prof, wall_ms):
     """Kernel time, launch count and the three costliest kernels of a
-    ``torch.profiler`` window, and the device's busy share of ``wall_ms``
-    (one stream, so kernels do not overlap).  None if it saw no device
-    activity."""
+    ``torch.profiler`` window, the device's busy share of ``wall_ms`` (one
+    stream, so kernels do not overlap), and the device ms by the aten op
+    that launched each kernel (self time, so each kernel counts once), the
+    costliest first.  None if it saw no device activity."""
+    device, by_op = profile_readings(prof)
     by_name = {}
-    n = 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
-            n += 1
+    for name, us in device:
+        by_name[name] = by_name.get(name, 0.0) + us / 1e3
+    n = len(device)
     if not n:
         return None  # the profiler saw no device activity
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
     flash_ms = sum(ms for name, ms in by_name.items() if "flash_bf16_kernel" in name)
+    ops = sorted(((op, us / 1e3) for op, us in by_op.items() if us > 0),
+                 key=lambda kv: -kv[1])
     return {"device_ms": device_ms, "kernels": n, "busy": device_ms / wall_ms,
-            "top": top, "flash_ms": flash_ms, "by_name": by_name}
+            "top": top, "flash_ms": flash_ms, "by_name": by_name,
+            "ops": ops}
 
 
 def counted(fn, all_kernels):
@@ -728,13 +796,12 @@ def kernel_profile(fn):
         wall = 1e3 * (time.perf_counter() - t0)
     syncs = sum("synchronizing" in str(w.message) for w in caught)
     total, nbody_ms, n = 0.0, 0.0, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms = e.device_time_total / 1e3
-            total += ms
-            n += 1
-            if "acc_jerk_pot_kernel" in e.name or "snap_kernel" in e.name:
-                nbody_ms += ms
+    for name, us in profile_readings(prof)[0]:
+        ms = us / 1e3
+        total += ms
+        n += 1
+        if "acc_jerk_pot_kernel" in name or "snap_kernel" in name:
+            nbody_ms += ms
     if not n:
         return None
     return {"wall_ms": wall, "device_ms": total, "kernels": n,
@@ -1707,13 +1774,7 @@ def serve_profile(cfg, params, batch, max_len, first, cache=None):
                   f"recorded no device time", flush=True)
             continue
         top = ", ".join(f"{name[:48]} {ms:.3f} ms" for name, ms in p["top"])
-        # device time by the aten op that launched it (self time, so each
-        # kernel counts once), the costliest first
-        p["ops"] = sorted(((e.key, e.self_device_time_total / 1e3)
-                           for e in prof.key_averages()
-                           if e.device_type == torch.autograd.DeviceType.CPU
-                           and e.self_device_time_total > 0),
-                          key=lambda kv: -kv[1])[:SERVE_PROFILE_OPS]
+        p["ops"] = p["ops"][:SERVE_PROFILE_OPS]
         ops = ", ".join(f"{name} {ms:.3f}" for name, ms in p["ops"])
         print(f"profile {stage}: wall {wall:.3f} ms, device kernels "
               f"{p['device_ms']:.3f} ms in {p['kernels']} launches (busy "
@@ -2106,7 +2167,8 @@ def serve_run(server, trace, *, stop_after=None):
 
 def serve_phase(dev, all_kernels):
     """Phase 12: the simulation server at full size.  Returns the readings
-    the JSON line and PERF.md report."""
+    the JSON line and PERF.md report.  Each server builds and validates
+    its requests' initial conditions on the host, as a server does."""
     trace = serve_trace()
     out = {}
     lib = nbody_force._library
@@ -2600,6 +2662,40 @@ def train_flops(cfg, b, s):
     return 6 * lm_params.count_params(cfg) * b * s + attn
 
 
+def profiled_step(label, step_fn, params, opt_state, batch, flops, n_ops):
+    """One more train step under ``torch.profiler``: its wall, device time,
+    launches, busy share, matmul time and the ``n_ops`` costliest aten ops
+    by device time, printed; returns (params, opt_state, readings or None,
+    wall ms)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, _ = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        pwall = 1e3 * (time.perf_counter() - t0)
+    prof_r = device_profile(prof, pwall)
+    if prof_r is None:
+        print(f"profile {label}: wall {pwall:.3f} ms; torch.profiler "
+              f"recorded no device time", flush=True)
+        return params, opt_state, None, pwall
+    mm = sum(ms for name, ms in prof_r["by_name"].items()
+             if any(t in name.lower() for t in MATMUL_NAMES))
+    prof_r["matmul_ms"] = mm
+    prof_r["ops"] = prof_r["ops"][:n_ops]
+    top = ", ".join(f"{name} {ms:.3f}" for name, ms in prof_r["ops"])
+    print(f"profile {label}: wall {pwall:.3f} ms, device kernels "
+          f"{prof_r['device_ms']:.3f} ms in {prof_r['kernels']} launches "
+          f"(busy {100 * prof_r['busy']:.1f}%, idle "
+          f"{100 * (1 - prof_r['busy']):.1f}%); matmuls {mm:.3f} ms "
+          f"({100 * mm / prof_r['device_ms']:.1f}% of the kernels' time, "
+          f"{flops / mm / 1e9:.2f} TFLOP/s in them); device ms by aten "
+          f"op: {top}", flush=True)
+    del prof_r["by_name"]
+    return params, opt_state, prof_r, pwall
+
+
 def train_full(dev, all_kernels, cfg):
     """Phase 14 (a): ``Trainer`` at full width and depth on one repeated
     batch.  Returns the readings, the final params and the batch."""
@@ -2651,39 +2747,9 @@ def train_full(dev, all_kernels, cfg):
     # where a step's time goes: one more step under the profiler
     batch = {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
              for k, v in batch0.items()}
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        params, opt_state, _ = trainer._step_fn(params, opt_state, batch)
-        torch.cuda.synchronize()
-        pwall = 1e3 * (time.perf_counter() - t0)
-    prof_r = device_profile(prof, pwall)
-    if prof_r is None:
-        print(f"profile train step: wall {pwall:.3f} ms; torch.profiler "
-              f"recorded no device time", flush=True)
-    else:
-        mm = sum(ms for name, ms in prof_r["by_name"].items()
-                 if any(t in name.lower() for t in MATMUL_NAMES))
-        prof_r["matmul_ms"] = mm
-        # device time by the aten op that launched it (self time, so each
-        # kernel counts once), the costliest first
-        ops_ms = sorted(((e.key, e.self_device_time_total / 1e3)
-                         for e in prof.key_averages()
-                         if e.device_type == torch.autograd.DeviceType.CPU
-                         and e.self_device_time_total > 0),
-                        key=lambda kv: -kv[1])
-        prof_r["ops"] = ops_ms[:TRAIN_PROFILE_OPS]
-        top = ", ".join(f"{name} {ms:.3f}" for name, ms in prof_r["ops"])
-        print(f"profile train step: wall {pwall:.3f} ms, device kernels "
-              f"{prof_r['device_ms']:.3f} ms in {prof_r['kernels']} launches "
-              f"(busy {100 * prof_r['busy']:.1f}%, idle "
-              f"{100 * (1 - prof_r['busy']):.1f}%); matmuls {mm:.3f} ms "
-              f"({100 * mm / prof_r['device_ms']:.1f}% of the kernels' time, "
-              f"{flops / mm / 1e9:.2f} TFLOP/s in them); device ms by aten "
-              f"op: {top}", flush=True)
-        del prof_r["by_name"]
+    params, opt_state, prof_r, pwall = profiled_step(
+        "train step", trainer._step_fn, params, opt_state, batch, flops,
+        TRAIN_PROFILE_OPS)
     del opt_state, trainer
     return {"losses": losses, "gnorms": gnorms, "step_ms": step_ms,
             "tokens_per_s": tokens / step_ms * 1e3, "peak_gib": peak / 2 ** 30,
@@ -2988,8 +3054,8 @@ def spying(module, name, record):
     call, for the ``with`` block only."""
     real = getattr(module, name)
 
-    def spy(*args):
-        out = real(*args)
+    def spy(*args, **kw):
+        out = real(*args, **kw)
         record(args, out)
         return out
 
@@ -3813,7 +3879,7 @@ def dry_hold(label, rec, card, kernel_flops, key):
           f"{ratio:.4f} (range {DRY_PEAK_RANGE})", flush=True)
     floor = 1e3 * rl["step_time_s"]
     print(f"dryrun {label}: (c) step median {card['ms']:.3f} ms over "
-          f"{DRY_REPS} calls {[round(t, 3) for t in card['times']]} vs "
+          f"{len(card['times'])} calls {[round(t, 3) for t in card['times']]} vs "
           f"roofline {floor:.3f} ms ({rl['bottleneck']}-bound; "
           f"{pd['flops']:.4e} FLOPs, {pd['bytes_accessed']:.4e} bytes, "
           f"trace {rec['timings']['trace_s']:.2f} s): card/roofline "
@@ -3928,6 +3994,536 @@ def dryrun_phase(dev, all_kernels):
                 for name in ("acc_jerk_pot", "snap")) * N_MAIN * N_MAIN
     out["nbody"] = dry_hold("nbody step", rec, card, pairs, "flops")
     del state
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 18: training the moe, MLA, vlm, audio, ssm and hybrid families
+# --------------------------------------------------------------------------
+#: each config at its published width (fp32 masters, bf16 activations,
+#: remat full, attn_impl xla: training keeps _attn_full's function), seeded
+#: random weights, through the port's own pieces as ``launch/train.py``
+#: builds them (``batch_spec_for``, ``SyntheticLM``, ``AdamW`` with
+#: ``warmup_cosine``, ``Trainer`` over ``make_train_step``), on one
+#: repeated batch of B x S as ``batch_spec_for`` gives it.  Depth is cut
+#: only where one card's 80 GB forces it, each cut the deepest whose
+#: dry-run peak (``lower_cell`` at single-device rules, accum 1, this
+#: B x S; read on meta before the first run) is at most
+#: FAMILY_TRAIN_PEAK_MAX: phi3.5-moe 1 of 32 layers (2 layers: 74.41e9
+#: bytes); deepseek-v2 1 of 60, its dense first layer with MLA (depth 2
+#: holds 5.36e9 parameters, 85.7e9 bytes with AdamW's state), so its first
+#: MoE layer's loss and gradients run at depth 2 without the optimizer
+#: (``grads``: 47.52e9 bytes); zamba2-7b 30 of 81, a multiple of
+#: attn_every (71.00e9 at 4 x 2048; 36 layers: 83.46e9).  The script's
+#: time limit then cuts xlstm's S alone: xlstm-1.3b runs whole at S = 128:
+#: its sLSTM's steps run in turn, some 550 launches per position and step
+#: (at S = 1024 18.9 s a step and 565678 launches, busy 11.7%; at 128 3.1
+#: s; H100 runs).  Each config's card-against-CPU check runs before its
+#: steps, deepseek-v2's first: its CPU work covers the worker processes'
+#: start and their traces of the others' steps
+FAMILY_TRAIN_RUNS = (
+    dict(arch="deepseek-v2-236b", cut=dict(n_layers=1), batch=1, seq=2048,
+         grads=dict(n_layers=2)),
+    dict(arch="phi3.5-moe-42b-a6.6b", cut=dict(n_layers=1), batch=4,
+         seq=2048),
+    dict(arch="qwen2-vl-2b", cut={}, batch=4, seq=2048),
+    dict(arch="seamless-m4t-medium", cut={}, batch=4, seq=2048),
+    dict(arch="zamba2-7b", cut=dict(n_layers=30), batch=4, seq=2048),
+    dict(arch="xlstm-1.3b", cut={}, batch=4, seq=128),
+)
+FAMILY_TRAIN_PEAK_MAX = 72e9
+#: (a) one warm-up step, then FAMILY_TRAIN_TIMED timed steps; the lr is
+#: warmup_cosine(TRAIN_LR) with one warm-up step over the run
+FAMILY_TRAIN_TIMED = 3
+FAMILY_TRAIN_OPS = 6
+#: (c) card against CPU: full width, fp32 activations, B = 1 and 256
+#: positions (a vlm's 128 patches and 128 tokens), so that MoE routing is
+#: the same on both; depth 2 (seamless: 2 encoder and 2 decoder layers),
+#: xlstm and zamba2 phase 16's 8 and 9 (an sLSTM block, a shared attention
+#: block).  The tolerance is tests/test_torch_train_families.py's and
+#: test_torch_train_ssm.py's fp32 one: the loss within 1e-6 relative, each
+#: gradient leaf within 1e-5 of its largest element (the CPU's)
+FAMILY_GRAD_CUT = {
+    "qwen2-vl-2b": dict(n_layers=2),
+    "seamless-m4t-medium": dict(n_layers=2, encoder_layers=2),
+    "phi3.5-moe-42b-a6.6b": dict(n_layers=2),
+    "deepseek-v2-236b": dict(n_layers=2),
+    "xlstm-1.3b": dict(n_layers=8),
+    "zamba2-7b": dict(n_layers=9),
+}
+FAMILY_GRAD_BATCH, FAMILY_GRAD_SEQ = 1, 256
+FAMILY_LOSS_TOL, FAMILY_GRAD_TOL = 1e-6, 1e-5
+#: except the ssm and hybrid families' gradient leaves.  At full width
+#: their fp32 gradients move with the order of the sums alone, so each
+#: takes a limit between the largest such reading and a real loss of
+#: precision, from ``ssm_grad_witness.py`` at these inputs (NVIDIA H100
+#: 80GB HBM3, 700 W): card64 and cpu64 (every op in float64) agree to
+#: 4.8e-13 on every leaf, so both sides compute one function.  xlstm-1.3b:
+#: the card against the CPU 7.3e-4 (onorm), the CPU on one thread against
+#: itself on eight 5.2e-4, each fp32 side against float64 up to 6.3e-4;
+#: the error grows through the mLSTM stack (6.5e-6 after the first block,
+#: 1.4e-4 after the sixth) and along the sLSTM's positions (its h 7.5e-5
+#: over the first 32, 4.3e-4 over the last), which the sLSTM's w_down
+#: reads.  bf16 activations move its leaves 0.18 to 0.79.  zamba2-7b: the
+#: card against the CPU 4.0e-5 (a_log), one thread against eight 5.2e-5;
+#: bf16 0.045 to 0.10.  So 1e-2 (14x the largest fp32 reading, 18x under
+#: bf16's least) and 1e-3 (19x, 45x)
+FAMILY_GRAD_TOL_SCAN = {"xlstm-1.3b": 1e-2, "zamba2-7b": 1e-3}
+#: the training launcher itself on the card, once
+LAUNCHER_ARGS = ["--arch", "seamless-m4t-medium", "--steps", "2", "--batch",
+                 "2", "--seq", "512"]
+
+
+def _family_dry_record(job):
+    """Phase 18 (b)'s dry-run of one step on meta, run in a worker process
+    beside the card's work (a trace takes seconds, xlstm's a minute):
+    ``job`` is (cfg, B, S, grads_only); returns the record."""
+    cfg, b, s, grads_only = job
+    torch.set_num_threads(1)
+    rec, _ = lm_dryrun.lower_cell(
+        cfg, lm_shapes.ShapeCase("train", s, b, "train"),
+        rules=MeshRules.single_device(), accum=1, grads_only=grads_only)
+    return rec
+
+
+def family_label(cfg):
+    enc = f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers else ""
+    return f"{cfg.name} ({cfg.n_layers}{enc} layers)"
+
+
+def leaf_names(tree, prefix=""):
+    """A tree's leaf paths (``blocks/we_g``) in ``tree_util.leaves`` order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from leaf_names(tree[k], f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}"
+
+
+def grads_twice(cfg, params, batch):
+    """(d): two ``_value_and_grad`` calls from the same parameters and
+    batch, compared leaf by leaf on the card.  Returns (same loss, the
+    leaves whose bits differ, the leaf count, the first loss and
+    gradient leaves)."""
+    l1, _, g1 = _value_and_grad(cfg, params, batch)
+    g1 = list(tree_util.leaves(g1))
+    l2, _, g2 = _value_and_grad(cfg, params, batch)
+    names = list(leaf_names(params))
+    diff = [names[i] for i, (a, b) in enumerate(zip(g1, tree_util.leaves(g2)))
+            if not torch.equal(a, b)]
+    same_loss = torch.equal(l1, l2)
+    del g2
+    return same_loss, diff, len(g1), l1, g1
+
+
+def family_train_step(dev, all_kernels, run, record):
+    """Phase 18 (a) and (b) of one config: the trainer's steps, one more
+    under FlopCounterMode and one profiled, held against the dry-run's
+    record (``record()`` waits for it); for MoE also (d) at this step's
+    shape."""
+    cfg = dataclasses.replace(lm_config.get(run["arch"]), **run["cut"])
+    label = family_label(cfg)
+    spec = batch_spec_for(cfg, run["batch"], run["seq"])
+    t_start = time.perf_counter()
+    batch0 = SyntheticLM(cfg, spec, seed=0)(0)
+    steps = 1 + FAMILY_TRAIN_TIMED
+    opt = AdamW(learning_rate=warmup_cosine(TRAIN_LR, warmup=1, total=steps))
+    trainer = Trainer(cfg, opt, lambda step: batch0,
+                      TrainerConfig(steps=steps, log_every=10 ** 9),
+                      device=dev, log=lambda line: print(line, flush=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    (params, opt_state, hist), counts, _, wall = counted(trainer.run,
+                                                         all_kernels)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [h["loss"] for h in hist]
+    times = [1e3 * h["step_time"] for h in hist[1:]]
+    ms = float(np.median(times))
+    batch = {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+             for k, v in batch0.items()}
+    for k in all_kernels.values():
+        k.launches = 0
+    with FlopCounterMode(display=False) as fc:
+        params, opt_state, _ = trainer._step_fn(params, opt_state, batch)
+    torch.cuda.synchronize()
+    t_flops = time.perf_counter()
+    launches = {name: k.launches for name, k in all_kernels.items()}
+    rec = record()
+    pd = rec["per_device"]
+    check(pd["peak_bytes"] <= FAMILY_TRAIN_PEAK_MAX,
+          f"train {label}: the dry-run's peak {pd['peak_bytes']:.4e} bytes "
+          f"is over the cut's {FAMILY_TRAIN_PEAK_MAX:.0e}")
+    dot = pd["dot_flops"]
+    tokens = spec.batch * spec.seq
+    print(f"train {label}: {lm_params.count_params(cfg)} parameters, "
+          f"B={spec.batch} S={spec.seq} (+{spec.patch_len} patches, "
+          f"{spec.enc_len} frames), {steps} steps of one SyntheticLM batch in "
+          f"{wall:.3f} s; losses {[round(x, 4) for x in losses]}; step ms "
+          f"(steps 1-{steps - 1}) {[round(t, 3) for t in times]}, median "
+          f"{ms:.3f}; {tokens / ms * 1e3:.1f} tokens/s; {dot / 1e12:.3f} "
+          f"TFLOP of products per step (dry-run) -> {dot / ms / 1e9:.2f} "
+          f"TFLOP/s; max_memory_allocated {peak / 2 ** 30:.3f} GiB; kernel "
+          f"launches {counts}", flush=True)
+    check(all(np.isfinite(losses)), f"train {label}: losses {losses}")
+    check(losses[-1] < losses[0], f"train {label}: the repeated batch was "
+                                  f"not learned: {losses}")
+    check(not any(counts.values()) and not any(launches.values()),
+          f"train {label}: a kernel ran on the gradient path: {counts} "
+          f"{launches}")
+    card = {"flop_counter": float(fc.get_total_flops()),
+            "launches": launches, "peak_bytes": peak - m0,
+            "max_memory_allocated": peak, "m0": m0, "ms": ms, "times": times}
+    held = dry_hold(f"train {label}", rec, card, 0.0, "dot_flops")
+    t_wait = time.perf_counter()
+    params, opt_state, prof_r, pwall = profiled_step(
+        f"train {label}", trainer._step_fn, params, opt_state, batch, dot,
+        FAMILY_TRAIN_OPS)
+    t_prof = time.perf_counter()
+    print(f"train {label}: seconds: trainer {wall:.1f} (init and "
+          f"{steps} steps), FlopCounterMode step "
+          f"{t_flops - t_start - wall:.1f}, waiting for the dry-run "
+          f"{t_wait - t_flops:.1f}, profiled step and its parsing "
+          f"{t_prof - t_wait:.1f}", flush=True)
+    out = {"cfg": label, "losses": losses, "times": times, "ms": ms,
+           "tokens_per_s": tokens / ms * 1e3, "tflops": dot / ms / 1e9,
+           "peak_gib": peak / 2 ** 30, "profile": prof_r,
+           "profiled_wall_ms": pwall, "dry": held}
+    del opt_state, trainer
+    if cfg.n_experts and cfg.n_layers > cfg.first_k_dense:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["twice"] = bits_twice_report(f"train {label} bf16", cfg, params,
+                                         batch)
+    del params, batch
+    return out
+
+
+def bits_twice_report(label, cfg, params, batch):
+    same_loss, diff, n, _, _ = grads_twice(cfg, params, batch)
+    print(f"{label}: two _value_and_grad calls give the same loss: "
+          f"{same_loss}, the same bits in {n - len(diff)} of {n} gradient "
+          f"leaves{'' if not diff else f' (differ: {diff})'}", flush=True)
+    check(same_loss and not diff, f"{label}: two gradient calls differ")
+    return {"same_loss": same_loss, "leaves": n, "differ": diff}
+
+
+def family_grads_step(dev, all_kernels, run, record):
+    """Phase 18 for a config whose full step does not fit at the depth
+    that holds every block kind (deepseek-v2 at depth 2): the loss and
+    gradients alone, timed and held against the dry-run's ``grads_only``
+    record, and (d) at this shape."""
+    cfg = dataclasses.replace(lm_config.get(run["arch"]), **run["grads"])
+    label = family_label(cfg) + " loss and gradients"
+    spec = batch_spec_for(cfg, run["batch"], run["seq"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated(dev)
+    params = lm_params.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    batch = {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+             for k, v in SyntheticLM(cfg, spec, seed=0)(0).items()}
+    out = {"cfg": label}
+    out["twice"] = bits_twice_report(label, cfg, params, batch)
+    card = dry_card(lambda: _value_and_grad(cfg, params, batch), dev,
+                    all_kernels, m0)
+    check(not any(card["launches"].values()),
+          f"{label}: a kernel ran on the gradient path")
+    rec = record()
+    check(rec["per_device"]["peak_bytes"] <= FAMILY_TRAIN_PEAK_MAX,
+          f"{label}: the dry-run's peak is over the cut's")
+    out["dry"] = dry_hold(label, rec, card, 0.0, "dot_flops")
+    out["ms"] = card["ms"]
+    del params, batch
+    return out
+
+
+def family_grads_vs_cpu(dev, arch):
+    """Phase 18 (c) and (d): ``_value_and_grad`` of the same parameters and
+    batch (full width, fp32, FAMILY_GRAD_CUT's depth) on the CPU and twice
+    on the card."""
+    cfg = dataclasses.replace(lm_config.get(arch), dtype="float32",
+                              **FAMILY_GRAD_CUT[arch])
+    grad_tol = FAMILY_GRAD_TOL_SCAN.get(arch, FAMILY_GRAD_TOL)
+    label = family_label(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = lm_params.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    spec = batch_spec_for(cfg, FAMILY_GRAD_BATCH, FAMILY_GRAD_SEQ)
+    nb = SyntheticLM(cfg, spec, seed=1)(0)
+    t0 = time.perf_counter()
+    cpu = tree_util.map(lambda x: x.cpu(), card)
+    lc, _, gcpu = _value_and_grad(cfg, cpu, {
+        k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in nb.items()})
+    del cpu
+    cpu_s = time.perf_counter() - t0
+    batch = {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+             for k, v in nb.items()}
+    t0 = time.perf_counter()
+    same_loss, diff, n, lg, g1 = grads_twice(cfg, card, batch)
+    card_s = time.perf_counter() - t0
+    del card, batch
+    lg = lg.cpu()
+    loss_rel = abs(float(lg) - float(lc)) / abs(float(lc))
+    worst, worst_leaf, n_el = 0.0, None, 0
+    for i, (g, c) in enumerate(zip(g1, tree_util.leaves(gcpu))):
+        if c.numel() == 0:
+            continue
+        c = c.to(dev)
+        n_el += c.numel()
+        scale = float(c.abs().max())
+        err = float((g - c).abs().max()) / scale if scale else \
+            float(g.abs().max())
+        if err > worst:
+            worst, worst_leaf = err, i
+    del g1
+    where = None if worst_leaf is None else list(leaf_names(gcpu))[worst_leaf]
+    print(f"card vs CPU, {label}, fp32 B={spec.batch} S={spec.seq} "
+          f"(+{spec.patch_len} patches, {spec.enc_len} frames): loss "
+          f"{float(lg):.6f} vs {float(lc):.6f} (rel {loss_rel:.3e}, tol "
+          f"{FAMILY_LOSS_TOL:g}); {n} gradient leaves, {n_el} elements, "
+          f"worst leaf {where} at {worst:.3e} of its largest element (tol "
+          f"{grad_tol:g}); two card calls: same loss {same_loss}, "
+          f"same bits in {n - len(diff)} of {n} leaves; {cpu_s:.1f} s on "
+          f"the CPU, {card_s:.1f} s on the card (two calls)", flush=True)
+    check(loss_rel <= FAMILY_LOSS_TOL,
+          f"card vs CPU {label}: loss rel {loss_rel:.3e}")
+    check(worst <= grad_tol,
+          f"card vs CPU {label}: gradient leaf {where} at {worst:.3e}")
+    check(same_loss and not diff,
+          f"{label}: two gradient calls on the card differ: {diff}")
+    return {"loss_rel": loss_rel, "worst_grad": worst, "worst_leaf": where,
+            "grad_tol": grad_tol,
+            "leaves": n, "same_loss": same_loss, "differ": diff,
+            "cpu_s": cpu_s, "card_s": card_s}
+
+
+def launcher_run():
+    """``launch.train.main`` on the card at LAUNCHER_ARGS: it must end with
+    a finite final loss."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = lm_train.main(LAUNCHER_ARGS)
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    print(text.rstrip(), flush=True)
+    m = re.search(r"final loss (\S+),", text)
+    final = float(m.group(1)) if m else float("nan")
+    print(f"launch.train.main({LAUNCHER_ARGS}) returned {rc} in {wall:.1f} s, "
+          f"final loss {final}", flush=True)
+    check(rc == 0 and np.isfinite(final),
+          f"launch.train.main: rc {rc}, final loss {final}")
+    return {"rc": rc, "final_loss": final, "wall_s": wall}
+
+
+def train_families_phase(dev, all_kernels):
+    """Phase 18: the moe (with MLA), vlm, audio, ssm and hybrid families
+    trained on the card at their published widths, each step held against
+    the dry-run, the card against the CPU, two gradient calls bit for bit,
+    and the launcher's own run.  Returns the readings."""
+    t0 = time.perf_counter()
+    torch.cuda.init()  # run alone, nothing has touched the card yet
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"runs": {}, "grads": {}, "cpu": {}}
+    jobs = {}
+    # the slowest trace first: xlstm's sLSTM steps
+    order = sorted(FAMILY_TRAIN_RUNS, key=lambda r: r["arch"] != "xlstm-1.3b")
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=2,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        for run in order:
+            for key, grads_only in (("cut", False), ("grads", True)):
+                if key in run:
+                    cfg = dataclasses.replace(lm_config.get(run["arch"]),
+                                              **run[key])
+                    jobs[(run["arch"], key)] = pool.submit(
+                        _family_dry_record,
+                        (cfg, run["batch"], run["seq"], grads_only))
+        for run in FAMILY_TRAIN_RUNS:
+            # (c) and (d) first: their CPU work covers the workers' start
+            arch = run["arch"]
+            out["cpu"][arch] = family_grads_vs_cpu(dev, arch)
+            out["runs"][arch] = family_train_step(
+                dev, all_kernels, run, jobs[(arch, "cut")].result)
+            if "grads" in run:
+                out["grads"][arch] = family_grads_step(
+                    dev, all_kernels, run, jobs[(arch, "grads")].result)
+            print(f"  {arch} done at {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launcher"] = launcher_run()
+    print(f"phase 18 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 19: the examples, ported as launchers
+# --------------------------------------------------------------------------
+#: launch/cluster_simulation.py at the example's defaults (Plummer N = 2048,
+#: t_end 0.5, dt 1/256: 128 steps), single and replicated over
+#: CLUSTER_SLOTS slots of the card, bit for bit; its Fig. 4 overlap within
+#: CLUSTER_OVERLAP_TOL of the reference example's at the same defaults,
+#: which printed 1.000 (|dE/E| 2.601e-02: a close encounter at eps 1e-7)
+#: running ``python examples/cluster_simulation.py`` on a CPU host
+CLUSTER_SLOTS = 4
+CLUSTER_REF_OVERLAP = 1.000
+CLUSTER_OVERLAP_TOL = 0.02
+#: one single run at N = 16384 to t = 1/16 (16 steps), with the FP64
+#: oracle's seconds
+CLUSTER_LARGE = dict(n=16384, t_end=1.0 / 16)
+
+#: launch/ensemble_scenarios.py at the example's defaults (n = 128, an
+#: ensemble of 4, t_end 0.125, every scenario) on the card.  (steps, max
+#: |dE/E|) by scenario of the port on the CPU (``python -m
+#: repro_torch.launch.ensemble_scenarios --device cpu``, 11 minutes on one
+#: thread of a CPU host: too long for this script) and of the reference
+#: example (``python examples/ensemble_scenarios.py``, same host).  A run
+#: inside the fp32 tier must take the CPU's steps on the card and stay in
+#: the tier; the reference's steps are printed beside (kepler_disk: 1818,
+#: the port's 1819 on the CPU as on the card; in fp64 both take 1820,
+#: tests/witness_tour_steps.py: rounding moves a step, ROADMAP queue 3
+#: A5).  cold_collapse's singular collapse
+#: (eps 1e-7) leaves every tier on both hosts (3474 and 3470 steps), so
+#: its step count is no stable reading: it must finish
+ENSEMBLE_CPU_DEFAULTS = {
+    "binary_plummer": (476, 3.83e-08), "cold_collapse": (3474, 2.42e+02),
+    "kepler_disk": (1819, 4.81e-08), "king": (1086, 5.38e-07),
+    "merger": (807, 5.57e-08), "plummer": (293, 1.76e-08),
+    "two_body": (5, 1.20e-09)}
+ENSEMBLE_REF = {"binary_plummer": (476, 3.44e-08),
+                "cold_collapse": (3470, 2.43e+02),
+                "kepler_disk": (1818, 1.89e-07), "king": (1086, 4.70e-07),
+                "merger": (807, 6.61e-08), "plummer": (293, 2.95e-08),
+                "two_body": (5, 7.04e-10)}
+#: and the card against the port on the CPU in this process, at
+#: tests/test_torch_ensemble_scenarios.py's size
+ENSEMBLE_CPU_KW = dict(n=32, ensemble=2, t_end=1.0 / 32)
+
+
+def cluster_runs(dev, all_kernels):
+    """Phase 19 (a): the cluster simulation on the card."""
+    out = {}
+    for label, kw in (("single", {}),
+                      (f"replicated x{CLUSTER_SLOTS}",
+                       dict(strategy="replicated", devices=CLUSTER_SLOTS))):
+        lines = []
+        r, counts, _, wall = counted(
+            lambda: cluster_simulation.run(device=dev, out=lines.append,
+                                           validate=label == "single", **kw),
+            all_kernels)
+        print(f"cluster_simulation {label}: " + "; ".join(lines[:2]),
+              flush=True)
+        print(f"  {wall:.3f} s (evolve {r['wall_s']:.3f} s"
+              + (f", FP64 oracle {r['golden_s']:.3f} s" if "golden_s" in r
+                 else "") + f"), launches {counts}", flush=True)
+        check(all(counts[k] > 0 for k in ("acc_jerk_pot", "snap")),
+              f"cluster_simulation {label}: K1/K2 never launched")
+        check(np.isfinite(r["de_rel"]) and abs(
+            float(r["state"].time) - 0.5) < 1e-12,
+            f"cluster_simulation {label}: |dE/E| {r['de_rel']}, t "
+            f"{float(r['state'].time)}")
+        out[label] = r
+    single, rep = out["single"], out[f"replicated x{CLUSTER_SLOTS}"]
+    same = bitwise_same(single["state"], rep["state"])
+    gap = abs(single["overlap"] - CLUSTER_REF_OVERLAP)
+    print(f"cluster_simulation defaults: replicated over {CLUSTER_SLOTS} "
+          f"slots bitwise equal to single: {same}; overlap {single['overlap']:.6f}"
+          f" vs the reference example's {CLUSTER_REF_OVERLAP:.3f} (gap "
+          f"{gap:.4f}, tol {CLUSTER_OVERLAP_TOL}); |dE/E| single "
+          f"{single['de_rel']:.3e}, replicated {rep['de_rel']:.3e}", flush=True)
+    check(same, "cluster_simulation: replicated differs from single")
+    check(gap <= CLUSTER_OVERLAP_TOL, f"cluster_simulation: overlap gap {gap}")
+
+    lines = []
+    r, counts, _, wall = counted(
+        lambda: cluster_simulation.run(device=dev, out=lines.append,
+                                       **CLUSTER_LARGE), all_kernels)
+    print(f"cluster_simulation N={CLUSTER_LARGE['n']} t_end="
+          f"{CLUSTER_LARGE['t_end']}: " + "; ".join(lines[:2]) + f"; evolve "
+          f"{r['wall_s']:.3f} s, FP64 oracle {r['golden_s']:.3f} s, launches "
+          f"{counts}", flush=True)
+    check(np.isfinite(r["de_rel"]),
+          f"cluster_simulation N={CLUSTER_LARGE['n']}: |dE/E| {r['de_rel']}")
+    check(r["overlap"] >= 1 - CLUSTER_OVERLAP_TOL,
+          f"cluster_simulation N={CLUSTER_LARGE['n']}: overlap {r['overlap']}")
+    return {"single": {k: single[k] for k in ("de_rel", "overlap", "wall_s",
+                                               "golden_s")},
+            "replicated": {k: rep[k] for k in ("de_rel", "wall_s")},
+            "bitwise": same,
+            "large": {k: r[k] for k in ("de_rel", "overlap", "wall_s",
+                                        "golden_s")}}
+
+
+def ensemble_tour(dev, all_kernels):
+    """Phase 19 (b): the scenario tour on the card at the example's
+    defaults against the port's CPU readings there, then on the card and
+    the CPU at ENSEMBLE_CPU_KW."""
+    lines = []
+    card, counts, _, wall = counted(
+        lambda: ensemble_scenarios.run(device=dev, out=lines.append),
+        all_kernels)
+    print("\n".join(lines), flush=True)
+    print(f"ensemble_scenarios defaults on the card: {wall:.3f} s, launches "
+          f"{counts}", flush=True)
+    check(tuple(card) == tuple(ENSEMBLE_CPU_DEFAULTS),
+          f"ensemble_scenarios: scenarios {tuple(card)}")
+    out = {"defaults": {}, "small": {}}
+    for name, (steps, de) in ENSEMBLE_CPU_DEFAULTS.items():
+        r = card[name]
+        ref_steps, ref_de = ENSEMBLE_REF[name]
+        in_tier = max(de, ref_de) <= DE_TIERS["fp32"]
+        out["defaults"][name] = {"steps": r["steps"], "de_rel": r["de_rel"],
+                                 "wall_s": r["wall_s"], "cpu_steps": steps,
+                                 "ref_steps": ref_steps}
+        print(f"  {name:<16} card steps {r['steps']:>5} |dE/E| "
+              f"{r['de_rel']:.3e}; CPU steps {steps:>5} |dE/E| {de:.2e}; "
+              f"reference steps {ref_steps:>5} |dE/E| {ref_de:.2e}"
+              + ("" if in_tier else " (outside every tier: not held)"),
+              flush=True)
+        check(np.isfinite(r["de_rel"]), f"ensemble_scenarios {name}: "
+                                        f"|dE/E| {r['de_rel']}")
+        if in_tier:
+            check(r["steps"] == steps, f"ensemble_scenarios {name}: "
+                                       f"{r['steps']} steps, CPU {steps}")
+            check(r["de_rel"] <= DE_TIERS["fp32"], f"ensemble_scenarios "
+                                                   f"{name}: |dE/E| {r['de_rel']}")
+    check(counts["acc_jerk_pot"] > 0 and counts["snap"] > 0,
+          "ensemble_scenarios: K1/K2 never launched")
+
+    small = {}
+    for where in (dev, "cpu"):
+        t0 = time.perf_counter()
+        small[str(where)] = ensemble_scenarios.run(
+            device=where, out=lambda line: None, **ENSEMBLE_CPU_KW)
+        print(f"ensemble_scenarios {ENSEMBLE_CPU_KW} on {where}: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name in ENSEMBLE_CPU_DEFAULTS:
+        a, b = small[str(dev)][name], small["cpu"][name]
+        out["small"][name] = {"card_steps": a["steps"], "cpu_steps": b["steps"],
+                              "card_de_rel": a["de_rel"],
+                              "cpu_de_rel": b["de_rel"]}
+        print(f"  {name:<16} steps card {a['steps']} cpu {b['steps']}; "
+              f"|dE/E| card {a['de_rel']:.3e} cpu {b['de_rel']:.3e} (tier "
+              f"{DE_TIERS['fp32']:.0e})", flush=True)
+        check(a["steps"] == b["steps"], f"ensemble_scenarios {name}: card "
+                                        f"{a['steps']} steps, CPU {b['steps']}")
+        check(max(a["de_rel"], b["de_rel"]) <= DE_TIERS["fp32"],
+              f"ensemble_scenarios {name}: |dE/E| {a['de_rel']} "
+              f"{b['de_rel']}")
+    return out
+
+
+def examples_phase(dev, all_kernels):
+    """Phase 19: the two example launchers on the card."""
+    t0 = time.perf_counter()
+    torch.cuda.init()  # run alone, nothing has touched the card yet
+    out = {"cluster": cluster_runs(dev, all_kernels)}
+    out["ensemble"] = ensemble_tour(dev, all_kernels)
+    print(f"phase 19 took {time.perf_counter() - t0:.1f} s", flush=True)
     return out
 
 
@@ -4241,6 +4837,12 @@ def main() -> int:
 
     phase("17. the dry-run against real steps on the card")
     dryrun_phase(dev, all_kernels)
+
+    phase("18. training the moe, MLA, vlm, audio, ssm and hybrid families")
+    train_families_phase(dev, all_kernels)
+
+    phase("19. the examples: cluster simulation and scenario tour")
+    examples_phase(dev, all_kernels)
 
     rows = []
     for name in kernels:

@@ -68,6 +68,7 @@ from repro_torch.models import params as P
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim import AdamW, abstract_state
 from repro_torch.train import make_train_step
+from repro_torch.train.step import _value_and_grad
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun_torch")
@@ -278,14 +279,18 @@ def _step_inputs(cfg, cfg_l, case, rules):
 
 def lower_cell(arch: str, shape, *, multi_pod: bool = False,
                rule_overrides: dict | None = None, accum: int = 0,
-               flash: bool = False, accum_dtype="float32", rules=None):
+               flash: bool = False, accum_dtype="float32", rules=None,
+               grads_only: bool = False):
     """Run one cell's per-device step on meta; returns (record, counter).
 
     ``shape`` is a name of ``shapes.SHAPES`` or a ``ShapeCase``.
     ``accum=0`` selects the per-arch default microbatching
     (``shapes.TRAIN_ACCUM``) for train cells.  Serve cells run bf16
     weights.  ``rules`` (a ``MeshRules``) replaces the production mesh's,
-    e.g. ``MeshRules.single_device()`` for one card.
+    e.g. ``MeshRules.single_device()`` for one card.  ``grads_only`` runs
+    a train cell's loss and gradients (``train.step._value_and_grad``)
+    without the optimizer: no optimizer state is stored or updated, as a
+    step that fits only without it runs on one card.
     """
     cfg = C.get(arch) if isinstance(arch, str) else arch
     if flash:
@@ -315,7 +320,15 @@ def lower_cell(arch: str, shape, *, multi_pod: bool = False,
     else:
         accum = 1
     a, b, c, stored = _step_inputs(cfg, cfg_l, case, rules)
-    if case.kind == "train":
+    if grads_only:
+        if case.kind != "train" or accum != 1:
+            raise ValueError("grads_only takes a train cell at accum 1")
+        b, stored = None, (stored[0], stored[2])
+
+        def step(params, _, batch):
+            return _value_and_grad(cfg_l, params, batch)
+        tokens = c["tokens"].numel()
+    elif case.kind == "train":
         step = make_train_step(cfg_l, AdamW(learning_rate=1e-3), accum=accum,
                                accum_dtype=getattr(torch, accum_dtype))
         tokens = c["tokens"].numel() // accum

@@ -1,4 +1,9 @@
-from repro_torch.serve.engine import Engine, ServeConfig  # noqa: F401
+from repro_torch.serve.engine import (  # noqa: F401
+    Engine,
+    ServeConfig,
+    decode_step,
+    prefill_step,
+)
 from repro_torch.serve.sim_engine import (  # noqa: F401
     SERVABLE_STEPPERS,
     Pod,

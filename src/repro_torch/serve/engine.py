@@ -91,3 +91,23 @@ class Engine:
             "decode_s": t_decode,
             "tok_per_s": b * n_tokens / max(t_decode, 1e-9),
         }
+
+
+def prefill_step(cfg: ArchConfig):
+    """Bare prefill ``fn(params, batch) -> (logits, cache)``, the
+    reference's dry-run target; the tensors' device picks the route."""
+
+    def step(params, batch):
+        return model.prefill(cfg, params, batch)
+
+    return step
+
+
+def decode_step(cfg: ArchConfig):
+    """Bare decode ``fn(params, cache, tokens) -> (logits, cache)``: one new
+    token per sequence against the cache."""
+
+    def step(params, cache, tokens):
+        return model.decode_step(cfg, params, cache, tokens)
+
+    return step

@@ -30,6 +30,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, \
     Tuple
 
@@ -46,6 +48,9 @@ Generator = Callable[..., Arrays]
 #: Virial-ratio window accepted for equilibrium models (T/|U| should be 0.5;
 #: finite-N sampling noise widens it).
 VIRIAL_TOL = 0.15
+#: threads of the blocked O(N^2) potential (each holds a few (1024, N)
+#: float64 blocks: 0.6 GB at N = 16384)
+_POTENTIAL_THREADS = min(8, os.cpu_count() or 1)
 
 
 class ScenarioError(ValueError):
@@ -209,26 +214,46 @@ class ScenarioSpec:
 # --------------------------------------------------------------------------
 # diagnostics (pure numpy; FP64 host precision, blocked O(N^2) potential)
 # --------------------------------------------------------------------------
+def _block_potential(pos: np.ndarray, mass: np.ndarray, lo: int,
+                     hi: int) -> float:
+    """Rows ``lo:hi``'s share of the potential, summed as the reference
+    sums one block."""
+    # the reference's sum over the (dx, dy, dz) axis, one component at a
+    # time in place: the same bits without the (block, n, 3) temporary,
+    # about three times faster at n = 16384
+    r = np.subtract.outer(pos[lo:hi, 0], pos[:, 0])
+    r *= r
+    for k in (1, 2):
+        dk = np.subtract.outer(pos[lo:hi, k], pos[:, k])
+        dk *= dk
+        r += dk
+    np.sqrt(r, out=r)
+    inv = np.zeros_like(r)
+    np.divide(1.0, r, out=inv, where=r > 0)
+    del r
+    mm = np.multiply.outer(mass[lo:hi], mass)
+    mm *= inv
+    return 0.5 * mm.sum()
+
+
 def _pairwise_potential(pos: np.ndarray, mass: np.ndarray,
                         block: int = 1024) -> float:
-    """Total potential energy, blocked so N~10^4 stays in memory."""
+    """Total potential energy, blocked so N~10^4 stays in memory.  The
+    blocks run on up to ``_POTENTIAL_THREADS`` threads (numpy lets go of
+    the GIL in each array operation); their shares are added in block
+    order, so the bits are those of the serial loop."""
     n = pos.shape[0]
+    spans = [(lo, min(lo + block, n)) for lo in range(0, n, block)]
+    workers = min(len(spans), _POTENTIAL_THREADS)
+    if workers > 1:
+        with ThreadPoolExecutor(workers) as pool:
+            shares = list(pool.map(
+                lambda span: _block_potential(pos, mass, *span), spans))
+    else:
+        shares = [_block_potential(pos, mass, *span) for span in spans]
     u = 0.0
-    for lo in range(0, n, block):
-        hi = min(lo + block, n)
-        # the reference's sum over the (dx, dy, dz) axis, one component at
-        # a time in place: the same bits without the (block, n, 3)
-        # temporary, about three times faster at n = 16384
-        r = np.subtract.outer(pos[lo:hi, 0], pos[:, 0])
-        r *= r
-        for k in (1, 2):
-            dk = np.subtract.outer(pos[lo:hi, k], pos[:, k])
-            dk *= dk
-            r += dk
-        np.sqrt(r, out=r)
-        inv = np.zeros_like(r)
-        np.divide(1.0, r, out=inv, where=r > 0)
-        u -= 0.5 * (mass[lo:hi, None] * mass[None, :] * inv).sum()
+    for share in shares:
+        u -= share
     return float(u)
 
 

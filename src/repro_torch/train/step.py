@@ -31,11 +31,15 @@ F32 = torch.float32
 
 
 def _value_and_grad(cfg: ArchConfig, params: dict, batch: dict):
-    """(loss, metrics, grads) of ``model.loss_fn`` at ``params``."""
+    """(loss, metrics, grads) of ``model.loss_fn`` at ``params``.  A leaf
+    the loss does not read (a stack of zero layers, as deepseek-v2's MoE
+    blocks at ``n_layers = first_k_dense``) gets a zero gradient, as
+    ``jax.grad`` gives it."""
     live = tree_util.map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
         loss, metrics = model.loss_fn(cfg, live, batch)
-        grads = torch.autograd.grad(loss, list(tree_util.leaves(live)))
+        grads = torch.autograd.grad(loss, list(tree_util.leaves(live)),
+                                    allow_unused=True, materialize_grads=True)
     it = iter(grads)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_util.map(lambda _: next(it), live))

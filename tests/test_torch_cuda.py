@@ -914,3 +914,82 @@ def test_moe_prefill_and_decode_give_the_same_bits_twice(cuda):
     nxt = runs[0][0].argmax(-1)[:, None]
     steps = [model.decode_step(cfg, pp, cache, nxt)[0] for _, cache in runs]
     assert torch.equal(steps[0], steps[1])
+
+
+FAMILY_ARCHS = ("phi3.5-moe-42b-a6.6b", "deepseek-v2-236b", "qwen2-vl-2b",
+                "seamless-m4t-medium", "xlstm-1.3b", "zamba2-7b")
+
+
+def _family_batch(cfg, b, s, seed):
+    from repro_torch.data import SyntheticLM, batch_spec_for
+
+    nb = SyntheticLM(cfg, batch_spec_for(cfg, b, s), seed=seed)(0)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in nb.items()}
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch,
+                                                       arch):
+    """Each non-dense family at scale 0.04 (fp32, a few layers), at the
+    CPU parity tests' size (B = 2, S = 32; the scans in chunks of 8, as
+    tests/test_torch_train_ssm.py runs them): the loss and every gradient
+    leaf of the same parameters and batch on the card and on the CPU,
+    within those tests' fp32 tolerance (the loss to 1e-6 relative, a leaf
+    to 1e-5 of its largest element; TF32 off), then one whole train step
+    on each, whose loss and gnorm agree to 1e-5 relative."""
+    import dataclasses
+
+    from repro_torch import tree as tree_util
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.models import config as C
+    from repro_torch.models import params as P
+    from repro_torch.optim import AdamW
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import _value_and_grad
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = scaled_config(C.get(arch), 0.04)
+    if cfg.family in ("ssm", "hybrid"):
+        cfg = dataclasses.replace(cfg, chunk_size=8)
+    cpu = P.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    card = tree_util.map(lambda x: x.to(cuda), cpu)
+    batch = _family_batch(cfg, 2, 32, seed=1)
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    lc, _, gc = _value_and_grad(cfg, cpu, batch)
+    lg, _, gg = _value_and_grad(cfg, card, on_card)
+    assert abs(float(lg) - float(lc)) <= 1e-6 * abs(float(lc))
+    for g, c in zip(tree_util.leaves(gg), tree_util.leaves(gc)):
+        if c.numel():
+            scale = max(float(c.abs().max()), 1e-30)
+            assert float((g.cpu() - c).abs().max()) <= 1e-5 * scale
+    opt = AdamW(learning_rate=1e-3)
+    step = make_train_step(cfg, opt)
+    _, _, mc = step(cpu, opt.init(cpu), batch)
+    _, _, mg = step(card, opt.init(card), on_card)
+    for key in ("loss", "gnorm"):
+        assert abs(float(mg[key]) - float(mc[key])) <= 1e-5 * abs(float(mc[key]))
+
+
+@pytest.mark.parametrize("arch", ("phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"))
+def test_moe_gradients_give_the_same_bits_twice(cuda, arch):
+    """The MoE dispatch gathers each token into up to top_k slots; the
+    gather's backward adds those slots' gradients into one row.  Two
+    gradient calls from the same parameters and batch (bf16 activations)
+    give the same loss and the same bits in every leaf on the card."""
+    import dataclasses
+
+    from repro_torch import tree as tree_util
+    from repro_torch.launch.train import scaled_config
+    from repro_torch.models import config as C
+    from repro_torch.models import params as P
+    from repro_torch.train.step import _value_and_grad
+
+    cfg = dataclasses.replace(scaled_config(C.get(arch), 0.25),
+                              dtype="bfloat16")
+    pp = P.init_params(cfg, torch.Generator(cuda).manual_seed(0), device=cuda)
+    batch = {k: v.to(cuda) for k, v in _family_batch(cfg, 2, 512, 2).items()}
+    l1, _, g1 = _value_and_grad(cfg, pp, batch)
+    l2, _, g2 = _value_and_grad(cfg, pp, batch)
+    assert torch.equal(l1, l2)
+    for a, b in zip(tree_util.leaves(g1), tree_util.leaves(g2)):
+        assert torch.equal(a, b)

@@ -473,3 +473,29 @@ def test_kernel_meta_launches_count_their_formulas():
     plain = H.analyze(nbody_force.acc_jerk_pot_packed, tgt, src,
                       expand_kernels=True)
     assert plain["kernels"] == {} and plain["ops"] > 10
+
+
+@pytest.mark.parametrize("arch", ("deepseek-v2-236b", "zamba2-7b"))
+def test_grads_only_cell_is_the_step_without_the_optimizer(arch):
+    """``lower_cell(..., grads_only=True)`` counts ``_value_and_grad``
+    alone: the train step's products (AdamW has none), none of the
+    optimizer state in the stored bytes, a lower peak; a serve cell or
+    microbatching is refused."""
+    cfg = scaled_config(C.get(arch), 0.04)
+    case = S.ShapeCase("small", 64, 2, "train")
+    single = MeshRules.single_device()
+    full, _ = D.lower_cell(cfg, case, rules=single, accum=1)
+    alone, _ = D.lower_cell(cfg, case, rules=single, accum=1,
+                            grads_only=True)
+    fp, gp = full["per_device"], alone["per_device"]
+    assert gp["dot_flops"] == fp["dot_flops"]
+    assert gp["flops"] < fp["flops"]
+    opt_bytes = H.tensor_bytes(abstract_state(P.abstract_params(cfg)))
+    assert gp["argument_bytes"] == fp["argument_bytes"] - opt_bytes
+    assert gp["peak_bytes"] < fp["peak_bytes"]
+    _record_ok(alone)
+    with pytest.raises(ValueError, match="grads_only"):
+        D.lower_cell(cfg, S.ShapeCase("small", 64, 2, "prefill"),
+                     rules=single, grads_only=True)
+    with pytest.raises(ValueError, match="grads_only"):
+        D.lower_cell(cfg, case, rules=single, accum=2, grads_only=True)

@@ -24,6 +24,9 @@ from repro.models import model as JM
 from repro.models import params as JP
 from repro.serve import Engine as JEngine
 from repro.serve import ServeConfig as JServeConfig
+from repro.serve.engine import decode_step as jdecode_step
+from repro.serve.engine import prefill_step as jprefill_step
+from repro_torch import serve
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch.train import scaled_config
 from repro_torch.models import config as C
@@ -176,6 +179,38 @@ def test_serve_slice_matches_the_reference(dtype, impl):
             {"tokens": toks}, N_GEN)
         np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
         assert stats["prefill_s"] > 0 and stats["tok_per_s"] > 0
+
+
+
+def test_bare_prefill_and_decode_steps_match_the_reference():
+    """``serve.prefill_step(cfg)`` and ``serve.decode_step(cfg)``, the bare
+    closures of the reference's ``serve/engine.py``, on the same qwen3 smoke
+    weights: the prefill's logits and cache, then three decode steps."""
+    jcfg, cfg = _configs("float32", "xla")
+    jp, pp = _ref_params(jcfg)
+    toks = _prompts(cfg.vocab_size)
+    jprefill, jdecode = jprefill_step(jcfg, RULES), jdecode_step(jcfg, RULES)
+    prefill, decode = serve.prefill_step(cfg), serve.decode_step(cfg)
+    jlog, jc = jprefill(jp, {"tokens": jnp.asarray(toks)})
+    tlog, tc = prefill(pp, {"tokens": torch.from_numpy(toks)})
+    assert tlog.shape == (B, cfg.padded_vocab)
+    assert _rel(tlog, jlog) <= TOL["float32"]
+    for name in ("k", "v"):
+        assert _rel(tc["layers"][name], jc["layers"][name]) <= TOL["float32"]
+    # the bare prefill's cache is the prompt's length, full (the port
+    # refuses a step there, the reference clamps); decode from a cache
+    # with room for the steps
+    jlog, jc = JM.prefill(jcfg, RULES, jp, {"tokens": jnp.asarray(toks)},
+                          max_len=MAX_LEN)
+    _, tc = model.prefill(cfg, pp, {"tokens": torch.from_numpy(toks)},
+                          max_len=MAX_LEN)
+    nxt = np.argmax(_f32(jlog), axis=-1).astype(np.int32)
+    for _ in range(3):
+        jlog, jc = jdecode(jp, jc, jnp.asarray(nxt[:, None]))
+        tlog, tc = decode(pp, tc, torch.from_numpy(nxt[:, None]))
+        assert _rel(tlog, jlog) <= TOL["float32"]
+        assert tc["len"] == int(jc["len"])
+        nxt = np.argmax(_f32(jlog), axis=-1).astype(np.int32)
 
 
 @pytest.mark.parametrize("tiny", (False, True), ids=("qwen3-x0.04", "tiny-g2"))

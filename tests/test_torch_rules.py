@@ -27,7 +27,8 @@ from repro_torch.sim import api, ensemble, scenarios
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "flash_mutants.py",
-    ROOT / "flash_long_rows.py"]
+    ROOT / "flash_long_rows.py", ROOT / "ssm_grad_witness.py",
+    ROOT / "profile_parity.py"]
 
 
 def _imported_modules(path):

@@ -89,6 +89,21 @@ def test_diagnostics_match(name):
     assert got == want
 
 
+@pytest.mark.parametrize("threads", [1, 3, 8])
+def test_threaded_potential_is_the_reference_loop_bit_for_bit(
+        threads, monkeypatch):
+    """The blocks run on threads and their shares are added in block
+    order: the bits of the reference's serial loop, at three blocks (the
+    last one partial) with two bodies at one point (r = 0)."""
+    rng = np.random.default_rng(5)
+    pos = rng.normal(size=(2500, 3))
+    pos[7] = pos[1900]
+    mass = rng.uniform(0.5, 1.5, size=2500) / 2500
+    monkeypatch.setattr(scenarios, "_POTENTIAL_THREADS", threads)
+    assert scenarios._pairwise_potential(pos, mass) == \
+        jscenarios._pairwise_potential(pos, mass)
+
+
 @pytest.mark.parametrize("token", ["king:256", "king", "plummer:1",
                                    "nope:12", "king:abc", "king:",
                                    "merger:8", "two_body:2", ":4"])

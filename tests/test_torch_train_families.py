@@ -30,6 +30,8 @@ from repro_torch import tree as tree_util
 from repro_torch.launch.train import scaled_config
 from repro_torch.models import config as C
 from repro_torch.models import params as P
+from repro_torch.optim import AdamW
+from repro_torch.train import make_train_step
 from repro_torch.train.step import _value_and_grad
 
 RULES = MeshRules.single_device()
@@ -104,3 +106,37 @@ def test_moe_remat_modes_give_the_same_loss_and_gradients():
         assert torch.equal(out[remat][0], out["none"][0])
         for a, b in zip(out[remat][1], out["none"][1]):
             assert torch.equal(a, b)
+
+
+def test_a_stack_of_zero_layers_takes_a_zero_gradient_as_in_the_reference():
+    """deepseek-v2 cut to its dense first layer (``n_layers ==
+    first_k_dense``): the MoE stack holds zero layers, which the loss never
+    reads.  ``jax.grad`` gives those leaves empty gradients and trains the
+    rest; the port's loss and every leaf match it, and a whole train step
+    (AdamW included) runs at that depth."""
+    arch = "deepseek-v2-236b"
+    jcfg = dataclasses.replace(jscaled_config(JC.get(arch), SCALE), n_layers=1)
+    cfg = dataclasses.replace(scaled_config(C.get(arch), SCALE), n_layers=1)
+    assert cfg.n_layers == cfg.first_k_dense
+    jp = JP.init_params(jcfg, jax.random.PRNGKey(1))
+    nb = JSyntheticLM(jcfg, batch_spec_for(jcfg, B, S), seed=1)(0)
+    jb = {k: jnp.asarray(v) for k, v in nb.items()}
+    tb = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in nb.items()}
+    (jl, _), jg = jax.value_and_grad(
+        lambda p: JM.loss_fn(jcfg, RULES, p, jb), has_aux=True)(jp)
+    tp = P.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    tl, _, tg = _value_and_grad(cfg, tp, tb)
+    assert _rel(tl, jl) <= LOSS_TOL
+    empty = 0
+    for t, j in zip(tree_util.leaves(tg), jax.tree.leaves(jg)):
+        assert tuple(t.shape) == tuple(j.shape)
+        if t.numel() == 0:
+            empty += 1
+            continue
+        assert _rel(t, j) <= TOL
+    assert empty == len(tp["blocks"])
+
+    opt = AdamW(learning_rate=1e-3)
+    params, _, metrics = make_train_step(cfg, opt)(tp, opt.init(tp), tb)
+    assert bool(torch.isfinite(metrics["loss"]))
+    assert all(bool(torch.isfinite(x).all()) for x in tree_util.leaves(params))
