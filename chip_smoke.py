@@ -168,6 +168,24 @@ Phases, in order; any failure raises and the script exits nonzero:
    defaults against the port's steps and |dE/E| there on the CPU (the
    reference example's printed beside), and on the card against the CPU
    in this process at a smaller size;
+20. the strategies over a process mesh (``process_mesh_phase``: one OS
+   process per shard over ``torch.distributed``,
+   ``repro_torch.distributed.process_mesh``): (a) Table 1's Plummer
+   N = 409600 fp32, a bootstrap and one step under every strategy (the
+   ring in both schedules) on four gloo ranks, every rank on ``cuda:0``
+   with its tensors staged through host memory: every rank's bootstrap
+   and final state bit for bit each other's and the in-process ``[cuda:0]
+   * 4`` run's, K1/K2 launches per rank (1 per evaluation resident, p
+   ring) and shift rounds per rank; (b) one block event of phase 8's
+   binary_plummer N = 16384 through each strategy's block evaluator on two
+   ranks, gather == none bit for bit and the tiles per shard the
+   in-process run's; (c) nccl at one rank on ``cuda:0`` bit for bit the
+   one-slot in-process mesh; (d) nccl refusing two ranks on one card
+   before any group exists; (e) ``compressed_psum`` on four ranks against
+   the int32 sum of the levels times the shared scale computed in this
+   process; the wall per step of each run beside the in-process run's,
+   with the transport (the cost of host staging on one card, not a
+   scaling result);
 then one ``kernels`` JSON line and ``{"ok": true, "device": {...}}`` as the
 last line.
 
@@ -215,6 +233,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch import tree as tree_util  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.data import BatchSpec, SyntheticLM, batch_spec_for  # noqa: E402
+from repro_torch.distributed import mesh_runs, process_mesh  # noqa: E402
 from repro_torch.distributed.shardings import MeshRules  # noqa: E402
 from repro_torch.launch import dryrun as lm_dryrun  # noqa: E402
 from repro_torch.launch import cluster_simulation  # noqa: E402
@@ -375,6 +394,14 @@ STRATEGY_TOL = {"fp32": 1e-5, "mixed": 1e-3}
 #: phase 10 (b): phase 8's block run under each strategy over this many
 #: slots of the one card
 BLOCK_P = 2
+#: phase 20: the strategies over a process mesh, one rank per shard, at
+#: phase 10 (a)'s Table 1 size and (b)'s block shape; the ring in both
+#: schedules; gloo ranks all on the one card; one step after the
+#: bootstrap keeps the phase near 50 s (it took 63.5 s at two steps)
+PM_RUNS = [(s_, "overlap") for s_ in strategies.STRATEGIES] + [("ring", "sync")]
+PM_STEPS = 1
+#: (e): compressed_psum's length per rank (a 4 MB fp32 gradient bucket)
+PM_PSUM_LEN = 1 << 20
 #: phase 10 (c): the CLI under a strategy on one card
 API_STRATEGY_SINGLE_ARGS = ["--scenario", "plummer", "--n", str(N_MAIN),
                             "--t-end", "0.0078125", "--dtype", "fp32",
@@ -4527,6 +4554,240 @@ def examples_phase(dev, all_kernels):
     return out
 
 
+def pm_label(job):
+    return job["strategy"] + (" " + job["ring_mode"]
+                              if job["strategy"] == "ring" else "") + (
+        f" {job['compaction']}" if "compaction" in job else "")
+
+
+def pm_spawn(world, backend, device, jobs, keep=False):
+    """``jobs`` on ``world`` ranks (``mesh_runs.strategy_rank``; digests,
+    and the tensors when ``keep``); returns the ranks' results and the
+    spawn's wall seconds."""
+    with tempfile.TemporaryDirectory(prefix="pm_") as tmp:
+        t0 = time.perf_counter()
+        process_mesh.spawn(mesh_runs.strategy_rank, world, backend, device,
+                           jobs, tmp, keep)
+        wall = time.perf_counter() - t0
+        return mesh_runs.load_ranks(tmp, world), wall
+
+
+def pm_hold(tag, ranks, ref, jobs, per_rank):
+    """Every rank's digests against each other's and the in-process run's
+    (``ref``), and each rank's K1/K2 launches against ``per_rank(job)``;
+    returns the launches by label."""
+    launches = {}
+    for i, job in enumerate(jobs):
+        label = pm_label(job)
+        want = {k: mesh_runs.digest(t) for k, t in ref[i]["tensors"].items()}
+        same = all(r[i]["digests"] == want for r in ranks)
+        counts = [{k: r[i]["counts"][k] for k in ("acc_jerk_pot", "snap")}
+                  for r in ranks]
+        launches[label] = counts
+        print(f"{tag} {label:<22}: {len(ranks)} ranks bit for bit each "
+              f"other and the in-process mesh: {same} ({len(want)} "
+              f"tensors); launches per rank {counts[0]} (in-process "
+              f"{ {k: ref[i]['counts'][k] for k in ('acc_jerk_pot', 'snap')} }"
+              f"), shift rounds per rank {ranks[0][i]['counts']['shifts']} "
+              f"(in-process {ref[i]['counts']['shifts']})", flush=True)
+        check(same, f"{tag} {label}: a rank differs from the in-process mesh")
+        for c in counts:
+            for name, n in c.items():
+                check(n == per_rank(job), f"{tag} {label}: {name} launched "
+                      f"{n} times on a rank, expected {per_rank(job)}")
+        check(all(r[i]["counts"]["shifts"] == ranks[0][i]["counts"]["shifts"]
+                  for r in ranks), f"{tag} {label}: shift counts differ")
+    return launches
+
+
+def pm_table1(dev, p):
+    """Phase 20 (a) and (e): Table 1's size under every strategy on ``p``
+    gloo ranks of the one card, and compressed_psum on the same ranks."""
+    jobs = [dict(kind="lockstep", strategy=s_, ring_mode=m_, n=TABLE1_N,
+                 seed=0, steps=PM_STEPS, dt=TABLE1_DT, dtype="fp32",
+                 chips_per_card=2) for s_, m_ in PM_RUNS]
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.standard_normal((p, PM_PSUM_LEN)).astype(np.float32))
+    x[1, 7] = 40.0  # one rank's entry sets the shared scale
+    ranks, spawn_s = pm_spawn(p, "gloo", dev, jobs + [dict(kind="psum", x=x)])
+    torch.cuda.synchronize()
+    ref = mesh_runs.in_process([dev] * p, jobs)
+    evals = PM_STEPS + 1
+    launches = pm_hold("process mesh (a)", ranks, ref, jobs,
+                       lambda j: evals * (p if j["strategy"] == "ring" else 1))
+    steps = {}
+    for i, job in enumerate(jobs):
+        label = pm_label(job)
+        want = evals * 2 * (p - 1 if job["ring_mode"] == "overlap" else p) \
+            if job["strategy"] == "ring" else 0
+        check(ranks[0][i]["counts"]["shifts"] == want,
+              f"process mesh (a) {label}: {ranks[0][i]['counts']['shifts']} "
+              f"shift rounds per rank, expected {want}")
+        pm_ms = 1e3 * ranks[0][i]["times"]["step_s"]
+        ip_ms = 1e3 * ref[i]["times"]["step_s"]
+        steps[label] = {"process_mesh_ms": pm_ms, "in_process_ms": ip_ms,
+                        "boot_process_mesh_ms":
+                            1e3 * ranks[0][i]["times"]["boot_s"],
+                        "boot_in_process_ms": 1e3 * ref[i]["times"]["boot_s"]}
+        print(f"process mesh (a) {label:<22} N={TABLE1_N} p={p}: "
+              f"{pm_ms:.3f} ms per step over {p} gloo ranks "
+              f"({ranks[0][i]['times']['boot_s'] * 1e3:.3f} ms bootstrap; "
+              f"{process_mesh.transport('gloo', dev)}) vs {ip_ms:.3f} ms "
+              f"in-process [{dev}] * {p} ({ref[i]['times']['boot_s'] * 1e3:.3f}"
+              f" ms bootstrap): {pm_ms / ip_ms:.3f}x", flush=True)
+    s = ref[0]["tensors"]
+    check(all(bool(torch.isfinite(s[f"state.{f}"]).all())
+              for f in ("pos", "vel", "acc"))
+          and tuple(s["state.pos"].shape) == (TABLE1_N, 3),
+          "process mesh (a): bad state")
+    # (e): the int32 sum of every rank's levels at the shared scale, here
+    xd = x.to(dev)
+    levels = torch.full((), 127.0, dtype=torch.float32, device=dev)
+    scale = torch.clamp(torch.amax(torch.abs(xd)) / levels, min=1e-30)
+    q = torch.clamp(torch.round(xd / scale), -127, 127).to(torch.int8)
+    total = q.to(torch.int32).sum(dim=0, dtype=torch.int32)
+    want = mesh_runs.digest(total.to(torch.float32) * scale)
+    same = all(r[-1]["digests"]["sum"] == want for r in ranks)
+    err = float((total.to(torch.float64) * scale.double()
+                 - xd.double().sum(0)).abs().max())
+    print(f"process mesh (e) compressed_psum, {p} ranks x {PM_PSUM_LEN} fp32: "
+          f"every rank equals the int32 sum of the levels times the shared "
+          f"scale {float(scale):.6e} computed in one process: {same}; max "
+          f"|sum - exact sum| {err:.3e} (<= {p} x scale / 2 = "
+          f"{p * float(scale) / 2:.3e})", flush=True)
+    check(same, "process mesh (e): compressed_psum differs from the levels' "
+          "int32 sum at the shared scale")
+    check(err <= p * float(scale) / 2 * (1 + 1e-6),
+          f"process mesh (e): compressed_psum off by {err:.3e}")
+    return {"launches": launches, "steps": steps, "spawn_s": spawn_s}
+
+
+def pm_block_inputs(dev):
+    """Phase 8's binary_plummer N = 16384 at its first block event: the
+    predicted (pos, vel, acc) at the event's time, the mass and the
+    active mask, on the host."""
+    st = scenarios.make(BLOCK_SCENARIO, N_MAIN, seed=0, device=dev,
+                        validate=False)
+    st = hermite.initialize(st, make_evaluator())
+    n_levels, dt_max = BLOCK_KW["n_levels"], BLOCK_KW["dt_max"]
+    levels = hermite.quantize_block_levels(
+        hermite.aarseth_dt_particles(st, eta=BLOCK_KW["eta"], dt_max=dt_max),
+        dt_max=dt_max, n_levels=n_levels)
+    k = 2 ** (n_levels - 1 - int(levels.max()))
+    mask = hermite.block_active_mask(levels, k, n_levels=n_levels)
+    dt = k * dt_max / 2 ** (n_levels - 1)
+    pos, vel = hermite.predict(st, dt)
+    acc = hermite.predict_acc(st, dt)
+    return tuple(t.cpu() for t in (pos, vel, acc, st.mass, mask))
+
+
+def pm_block(dev, p):
+    """Phase 20 (b): one block event through each strategy's block
+    evaluator on ``p`` gloo ranks of the one card.  gather == none is
+    ``torch.equal`` on every row, as the block runs hold it (a masked row
+    is a zero of either sign); the bytes are compared and printed too."""
+    inputs = pm_block_inputs(dev)
+    jobs = [dict(kind="block", strategy=s_, ring_mode=m_, compaction=c_,
+                 inputs=inputs, dtype="fp32", chips_per_card=2)
+            for s_, m_ in PM_RUNS for c_ in strategies.COMPACTIONS]
+    # the first job once more in front: its times carry each rank's first
+    # collective and launch
+    ranks, spawn_s = pm_spawn(p, "gloo", dev, jobs[:1] + jobs, keep=True)
+    ranks = [r[1:] for r in ranks]
+    torch.cuda.synchronize()
+    ref = mesh_runs.in_process([dev] * p, jobs)
+    launches = pm_hold("process mesh (b)", ranks, ref, jobs,
+                       lambda j: p if j["strategy"] == "ring" else 1)
+    mask = inputs[4]
+    active = int(mask.sum())
+    tiles = {}
+    for i in range(0, len(jobs), 2):
+        label = pm_label(jobs[i])[:-len(" none")]
+        tn_, tg_ = ranks[0][i]["tensors"], ranks[0][i + 1]["tensors"]
+        same = all(torch.equal(tn_[f"eval.{f}"], tg_[f"eval.{f}"])
+                   for f in mesh_runs.EVAL_FIELDS)
+        differ = {f: int((tn_[f"eval.{f}"].view(torch.int32)
+                          != tg_[f"eval.{f}"].view(torch.int32)).sum())
+                  for f in mesh_runs.EVAL_FIELDS}
+        signed_zeros = all(
+            bool((tn_[f"eval.{f}"] == 0)[tn_[f"eval.{f}"].view(torch.int32)
+                                         != tg_[f"eval.{f}"].view(
+                                             torch.int32)].all())
+            for f in mesh_runs.EVAL_FIELDS)
+        active_bytes = all(
+            torch.equal(tn_[f"eval.{f}"][mask].view(torch.int32),
+                        tg_[f"eval.{f}"][mask].view(torch.int32))
+            for f in mesh_runs.EVAL_FIELDS)
+        tn = ref[i]["tensors"]["tiles"].tolist()
+        tg = ref[i + 1]["tensors"]["tiles"].tolist()
+        tiles[label] = {"none": tn, "gather": tg}
+        print(f"process mesh (b) {label:<12} binary_plummer N={N_MAIN}, "
+              f"{active} active, p={p}: gather == none (torch.equal) {same}"
+              f"; active rows' bytes equal {active_bytes}; elements whose "
+              f"bytes differ {differ}, all zeros of either sign "
+              f"{signed_zeros}; tiles per shard gather {tg} none {tn} (every rank the "
+              f"in-process run's); eval {1e3 * ranks[0][i + 1]['times']['eval_s']:.3f}"
+              f" ms gather, {1e3 * ranks[0][i]['times']['eval_s']:.3f} ms "
+              f"none over ranks vs {1e3 * ref[i + 1]['times']['eval_s']:.3f}"
+              f" / {1e3 * ref[i]['times']['eval_s']:.3f} ms in-process",
+              flush=True)
+        check(same and active_bytes,
+              f"process mesh (b) {label}: gather and none differ")
+        check(all(a <= b for a, b in zip(tg, tn)) and tg != tn,
+              f"process mesh (b) {label}: gather tiles {tg} vs none {tn}")
+    return {"launches": launches, "tiles": tiles, "spawn_s": spawn_s}
+
+
+def pm_nccl(dev):
+    """Phase 20 (c) and (d): nccl at one rank, and refused at more ranks
+    than cards."""
+    jobs = [dict(kind="lockstep", strategy="replicated", n=N_MAIN, seed=0,
+                 steps=PM_STEPS, dt=TABLE1_DT, dtype="fp32")]
+    # the job twice, the first to load the rank's kernels and set up the
+    # communicator: the second's step is timed
+    ranks, spawn_s = pm_spawn(1, "nccl", "cuda", jobs * 2)
+    ranks = [r[1:] for r in ranks]
+    ref = mesh_runs.in_process([dev], jobs)
+    launches = pm_hold("process mesh (c) nccl", ranks, ref, jobs,
+                       lambda j: PM_STEPS + 1)
+    pm_ms = 1e3 * ranks[0][0]["times"]["step_s"]
+    ip_ms = 1e3 * ref[0]["times"]["step_s"]
+    print(f"process mesh (c) replicated N={N_MAIN} on one nccl rank "
+          f"({process_mesh.transport('nccl', dev)}): {pm_ms:.4f} ms per "
+          f"step vs {ip_ms:.4f} ms in-process", flush=True)
+    world = torch.cuda.device_count() + 1
+    try:
+        process_mesh.spawn(mesh_runs.strategy_rank, world, "nccl", "cuda",
+                           jobs, "unused")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    print(f"process mesh (d) nccl at {world} ranks on "
+          f"{torch.cuda.device_count()} card(s): refused before any group "
+          f"({refused!r}); a process group exists: "
+          f"{torch.distributed.is_initialized()}", flush=True)
+    check(refused is not None and "cards visible" in refused
+          and not torch.distributed.is_initialized(),
+          f"process mesh (d): nccl at {world} ranks was not refused")
+    return {"launches": launches, "step_ms": pm_ms, "in_process_ms": ip_ms,
+            "spawn_s": spawn_s}
+
+
+def process_mesh_phase(dev, all_kernels):
+    """Phase 20: the strategies over a process mesh."""
+    t0 = time.perf_counter()
+    torch.cuda.init()  # run alone, nothing has touched the card yet
+    torch.cuda.empty_cache()  # the ranks hold their own memory
+    out = {"table1": pm_table1(dev, TABLE1_P)}
+    out["block"] = pm_block(dev, BLOCK_P)
+    out["nccl"] = pm_nccl(dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 20 took {out['seconds']:.1f} s (spawns "
+          f"{out['table1']['spawn_s']:.1f} + {out['block']['spawn_s']:.1f} + "
+          f"{out['nccl']['spawn_s']:.1f} s)", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no card, "
@@ -4844,6 +5105,9 @@ def main() -> int:
     phase("19. the examples: cluster simulation and scenario tour")
     examples_phase(dev, all_kernels)
 
+    phase("20. the strategies over a process mesh")
+    pm = process_mesh_phase(dev, all_kernels)
+
     rows = []
     for name in kernels:
         ms, pms, bms, by = timings[(name, "fp32", N_MAIN)]
@@ -4874,6 +5138,10 @@ def main() -> int:
             "launches_api_mixed": api_r["mixed"]["counts"][name],
             "blocks_per_launch_block_gather":
                 block["runs"]["gather"]["blocks"],
+            "launches_process_mesh": {
+                f"{part} {label}": [c[name] for c in per_rank]
+                for part in ("table1", "block", "nccl")
+                for label, per_rank in pm[part]["launches"].items()},
             "launches_table1": {
                 f"{s_} {d_}" + (f" {m_}" if m_ else ""): r["counts"][name]
                 for (s_, d_, m_), r in strat["table1"].items()},

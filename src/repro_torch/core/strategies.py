@@ -33,6 +33,17 @@ strategy the port keeps the reference's bitwise contracts: the ring's
 ``overlap`` schedule equals ``sync`` bit for bit, and each block evaluator's
 ``compaction="gather"`` equals ``"none"`` bit for bit.
 
+**The process mesh.**  :class:`ProcessMesh` (``distributed.process_mesh``)
+is the same interface as one OS process per shard over
+``torch.distributed``, the reference's SPMD form: each rank holds only its
+own slot (per-slot lists of one entry) and the collectives are
+``torch.distributed`` calls.  The evaluators below take either mesh
+(``mesh=``); a list that names every shard (the gather bounds) reaches the
+per-slot code through ``mesh.local``, which picks this rank's entry there
+and is the identity on a ``DeviceMesh``.  Each rank takes the whole
+``(N, ...)`` inputs and returns the whole ``Evaluation``, so a rank's
+result is the in-process mesh's, bit for bit.
+
 **The batch axis.**  :func:`make_batch_mesh` is the 1-D ``("batch",)``
 view an ensemble shards its members over (``sim.ensemble``), and
 :func:`make_fused_mesh` the 2-D ``("batch", "dev")`` grid of
@@ -52,6 +63,7 @@ import torch
 from repro_torch.core.evaluate import shared_cap_index
 from repro_torch.core.hermite import Evaluation, Evaluator
 from repro_torch.core.nbody import resolve_device
+from repro_torch.distributed.process_mesh import ProcessMesh
 from repro_torch.kernels import nbody_force, ops
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.trace import named_scope
@@ -141,6 +153,15 @@ class DeviceMesh:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    def reshape(self, shape: tuple, axis_names: tuple) -> "DeviceMesh":
+        """The same slots under another view."""
+        return DeviceMesh(self.devices, shape, axis_names)
+
+    def local(self, seq: Sequence) -> Sequence:
+        """The per-slot entries of a list that names every shard: all of
+        them (a :class:`ProcessMesh` rank holds one)."""
+        return seq
 
     def shard(self, x: torch.Tensor) -> list:
         """``x``'s rows split into ``size`` equal blocks, block i on slot i
@@ -271,18 +292,21 @@ def make_fused_mesh(devices: Sequence, *, mesh_shape: Sequence[int]
     return DeviceMesh(devices, (bdev, p), ("batch", "dev"))
 
 
-def make_mesh(strategy: str, devices: Sequence,
-              chips_per_card: int = 2) -> DeviceMesh:
-    """The strategy's view of ``devices``: ``("card", "chip")`` for
-    two_level (``ValueError`` when the count is not a multiple of
-    ``chips_per_card``), 1-D ``("dev",)`` otherwise."""
-    p = len(devices)
+def make_mesh(strategy: str, devices, chips_per_card: int = 2):
+    """The strategy's view of ``devices``, a device list or a ready mesh (a
+    :class:`DeviceMesh` or a :class:`ProcessMesh`, viewed anew as the same
+    kind): ``("card", "chip")`` for two_level (``ValueError`` when the
+    count is not a multiple of ``chips_per_card``), 1-D ``("dev",)``
+    otherwise."""
+    mesh = devices if isinstance(devices, (DeviceMesh, ProcessMesh)) \
+        else DeviceMesh(devices)
+    p = mesh.size
     if strategy == "two_level":
         if p % chips_per_card:
             raise ValueError(f"{p} devices not divisible by {chips_per_card=}")
-        return DeviceMesh(devices, (p // chips_per_card, chips_per_card),
-                          ("card", "chip"))
-    return DeviceMesh(devices)
+        return mesh.reshape((p // chips_per_card, chips_per_card),
+                            ("card", "chip"))
+    return mesh.reshape((p,), ("dev",))
 
 
 def _round_up(n: int, m: int) -> int:
@@ -330,6 +354,7 @@ def make_strategy_evaluator(
     strategy: str,
     *,
     devices: Optional[Sequence] = None,
+    mesh=None,
     chips_per_card: int = 2,
     eps: float = 1e-7,
     order: int = 6,
@@ -342,9 +367,11 @@ def make_strategy_evaluator(
 
     ``devices`` is the mesh's device list, one per shard (``None``: every
     visible card, :func:`mesh_devices`); a card may appear several times.
-    The evaluator takes whole (N, ...) tensors on any device, shards them
-    over the mesh and returns the whole float32 ``Evaluation`` on the
-    inputs' device.
+    ``mesh`` is a ready :class:`DeviceMesh` or :class:`ProcessMesh`
+    instead (exclusive with ``devices``).  The evaluator takes whole (N,
+    ...) tensors on any device, shards them over the mesh and returns the
+    whole float32 ``Evaluation`` on the inputs' device (on every rank of a
+    process mesh).
 
     ``dtype`` is the kernel precision axis (``"fp32"`` or ``"mixed"``); the
     strategies keep float32 state and collectives either way.
@@ -358,7 +385,8 @@ def make_strategy_evaluator(
     read.
     """
     block_eval = make_strategy_block_evaluator(
-        strategy, devices=devices, chips_per_card=chips_per_card, eps=eps,
+        strategy, devices=devices, mesh=mesh,
+        chips_per_card=chips_per_card, eps=eps,
         order=order, block_i=block_i, block_j=block_j, dtype=dtype,
         ring_mode=ring_mode)
 
@@ -453,6 +481,14 @@ def _shard_plan(n_local: int, n_sources: int, kw, n_passes: int):
                             n_passes=n_passes, dtype=kw["dtype"])
 
 
+def _plan_tiles(plan, compaction: str, bounds: Sequence) -> list:
+    """The tiles every shard enqueues, from the host-side bounds alone (no
+    collective): the gather bucket's, or the dense extent's."""
+    if compaction == "gather":
+        return [plan.tiles(_shard_bucket(plan, b)) for b in bounds]
+    return [plan.dense_tiles] * len(bounds)
+
+
 def _shard_bucket(plan, bound) -> int:
     """Bucket index from a shard's host-side active-count bound: one int,
     or the bounds of the shard's local members, which share one launch and
@@ -538,20 +574,18 @@ def _shard_block_body(pos, vel, ap, mask, bound, src, *, kw, order,
 
     ``bound`` is the shard's host-side active-count bound, or its local
     members' bounds (gather only).  Returns ``(acc, jerk, pot, acc_s,
-    compacted, tiles)`` in the local layout: ``compacted`` carries pass
-    1's permutation and bucket to the snap pass (:func:`_resident_snap`),
-    ``tiles`` the tiles both passes enqueue.
+    compacted)`` in the local layout: ``compacted`` carries pass 1's
+    permutation and bucket to the snap pass (:func:`_resident_snap`).
     """
     plan = _shard_plan(pos.shape[-2], src[0].shape[-2], kw, n_passes)
     if compaction == "gather":
         perm = _local_perm(mask)
-        idx = _shard_bucket(plan, bound)
-        cap = plan.caps[idx]
+        cap = plan.caps[_shard_bucket(plan, bound)]
         acc, jerk, pot, acc_s = _shard_pass1(pos, vel, ap, mask, perm, cap,
                                              plan, kw, src, order)
-        return acc, jerk, pot, acc_s, (perm, cap, plan), plan.tiles(idx)
+        return acc, jerk, pot, acc_s, (perm, cap, plan)
     acc, jerk, pot, acc_s = _dense_pass1(pos, vel, ap, mask, kw, src, order)
-    return acc, jerk, pot, acc_s, None, plan.dense_tiles
+    return acc, jerk, pot, acc_s, None
 
 
 def _resident_snap(pos, vel, acc, mask, src, ga, compacted, kw):
@@ -614,6 +648,7 @@ def make_strategy_block_evaluator(
     strategy: str,
     *,
     devices: Optional[Sequence] = None,
+    mesh=None,
     chips_per_card: int = 2,
     eps: float = 1e-7,
     order: int = 6,
@@ -636,7 +671,9 @@ def make_strategy_block_evaluator(
     inactive rows).  ``n_bound`` bounds each shard's active count for the
     gather bucket (see :func:`_wrap_block`).  ``tiles`` is the ``(P,)``
     int64 vector of the kernel grid tiles each shard enqueued (both
-    passes), on the inputs' device.
+    passes), on the inputs' device; a process mesh's rank computes every
+    shard's from the bounds, which every rank holds.  ``devices`` and
+    ``mesh`` are :func:`make_strategy_evaluator`'s.
 
     With an all-ones mask and ``compaction="none"`` this is the lockstep
     :func:`make_strategy_evaluator` math; ``"gather"`` gives the masked
@@ -658,8 +695,11 @@ def make_strategy_block_evaluator(
             "sources only")
     kw = _force_kw(block_i, block_j, eps, dtype)
     n_passes = 2 if order >= 6 else 1
-    mesh = make_mesh(strategy, mesh_devices() if devices is None
-                     else list(devices), chips_per_card)
+    if mesh is not None and devices is not None:
+        raise ValueError("name the devices or a ready mesh, not both")
+    if mesh is None:
+        mesh = mesh_devices() if devices is None else list(devices)
+    mesh = make_mesh(strategy, mesh, chips_per_card)
     if strategy == "replicated":
         body = _gathered_block(mesh, order, kw, compaction, n_passes,
                                mesh.all_gather)
@@ -678,12 +718,16 @@ def _resident_block(mesh, order, kw, compaction, n_passes, targets, src,
     """Shared body of the resident-source strategies: per-shard pass 1,
     the gather of the blended acc (the one collective between the passes),
     per-shard snap.  ``targets`` is the per-slot (pos, vel, mask) and
-    ``src`` the per-slot (gp, gv, gm)."""
+    ``src`` the per-slot (gp, gv, gm); ``bound`` names every shard."""
     bounds = bound if bound is not None else [None] * mesh.size
     body = [_shard_block_body(pt, vt, a, mk, b, s, kw=kw, order=order,
                               compaction=compaction, n_passes=n_passes)
-            for (pt, vt, mk), a, b, s in zip(targets, ap, bounds, src)]
-    acc, jerk, pot, acc_s, compacted, tiles = _unzip(body)
+            for (pt, vt, mk), a, b, s
+            in zip(targets, ap, mesh.local(bounds), src, strict=True)]
+    acc, jerk, pot, acc_s, compacted = _unzip(body)
+    tiles = _plan_tiles(_shard_plan(targets[0][0].shape[-2],
+                                    src[0][0].shape[-2], kw, n_passes),
+                        compaction, bounds)
     if order >= 6:
         ga = gather_acc(acc_s)
         snp = [_resident_snap(pt, vt, at, mk, s, g, c, kw)
@@ -746,9 +790,9 @@ def _ring_block(mesh, order, kw, compaction, n_passes, ring_mode):
             # stream rotates sources, the compacted target block stays, and
             # partial sums accumulate in the window layout
             cap_max = plan.caps[-1]
-            idx = [_shard_bucket(plan, b) for b in bound]
-            caps = [plan.caps[i] for i in idx]
-            tiles = [plan.tiles(i) for i in idx]
+            caps = [plan.caps[_shard_bucket(plan, b)]
+                    for b in mesh.local(bound)]
+            tiles = _plan_tiles(plan, compaction, bound)
             perm = [_local_perm(mk) for mk in mask]
             window = [ops.compact_targets(pe, cap_max, pt, vt, mk)
                       for pe, pt, vt, mk in zip(perm, pos, vel, mask)]
@@ -762,7 +806,7 @@ def _ring_block(mesh, order, kw, compaction, n_passes, ring_mode):
 
             def compute1(srcs):
                 return [_window_launch(c, launch1, w, s)
-                        for c, w, s in zip(caps, window, srcs)]
+                        for c, w, s in zip(caps, window, srcs, strict=True)]
 
             a_w, j_w, pt_w = _unzip(_ring_sweep(p, shift, ring_mode, zw,
                                                 src1, compute1))

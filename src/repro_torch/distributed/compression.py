@@ -10,9 +10,11 @@ applies before the optimizer.
 The unkeyed path rounds half to even (``torch.round``, as ``jnp.round``)
 and divides in float32, so on the CPU it gives the reference's bits.
 The keyed path takes a ``torch.Generator`` for its stochastic rounding:
-it has the reference's distribution, not its bits.  The reference's
-``compressed_psum`` runs inside ``shard_map`` and has no caller there; it
-comes with the multi-card mesh (ROADMAP.md queue 1 item 7c).
+it has the reference's distribution, not its bits.
+:func:`compressed_psum` is the reference's int8-on-the-wire all-reduce
+(there inside ``shard_map``; nothing in the reference calls it) over a
+``torch.distributed`` process group, one rank per shard, as
+``distributed.process_mesh`` runs them.
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as tree_util
+from repro_torch.distributed.process_mesh import all_reduce
 
 _LEVELS = 127.0
 F32 = torch.float32
@@ -66,3 +70,24 @@ def compress_tree(grads: dict, err: dict):
 def zeros_error(params: dict) -> dict:
     return tree_util.map(lambda p: torch.zeros(p.shape, dtype=F32,
                                                device=p.device), params)
+
+
+def compressed_psum(x, group=None):
+    """int8-on-the-wire all-reduce over ``group`` (default: the whole
+    process group): ``x``'s sum over the ranks, each rank's share
+    quantized with one shared scale.
+
+    The scale is the ranks' largest ``max |x|`` over 127 (at least
+    1e-30); each rank's levels ``clip(round(x / scale), -127, 127)`` are
+    int8, widened to int32 and summed exactly (up to ~16M ranks fit), and
+    the sum is dequantized as ``float32(total) * scale``.  The reference's
+    steps, in its order, so a rank's result is its bits on the same
+    inputs.
+    """
+    xf = x.to(F32)
+    amax = all_reduce(torch.amax(torch.abs(xf)), dist.ReduceOp.MAX, group)
+    levels = torch.full((), _LEVELS, dtype=F32, device=xf.device)
+    scale = torch.clamp(amax / levels, min=1e-30)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    total = all_reduce(q.to(torch.int32), dist.ReduceOp.SUM, group)
+    return total.to(F32) * scale

@@ -1,0 +1,295 @@
+"""A device mesh of processes: one OS process per shard over
+``torch.distributed``.
+
+The reference's strategies are SPMD programs: ``shard_map`` runs one body
+per device and the devices meet in ``all_gather``, ``ppermute`` and
+``psum``.  :class:`repro_torch.core.strategies.DeviceMesh` keeps the
+reference's single controller, one process making every cross-device copy.
+:class:`ProcessMesh` is the SPMD form: each rank runs the same program and
+holds only its own slot, and the collectives are ``torch.distributed``
+calls.  It has ``DeviceMesh``'s interface, so the strategies' evaluators
+run on either unchanged, and a rank's result equals the in-process mesh's
+bit for bit: every collective only moves blocks, and the blocks meet in
+slot order.
+
+Per-slot lists hold one entry, this rank's slot; :meth:`ProcessMesh.local`
+picks this rank's entry of a list that names every shard (the gather
+bounds of a block evaluation), where ``DeviceMesh.local`` is the identity.
+
+**The backend is the caller's to name; the mesh never picks one.**
+
+* ``nccl`` sends CUDA tensors directly and needs one card per rank (rank r
+  on ``cuda:r``): a world larger than the visible cards raises
+  ``ValueError`` before ``init_process_group`` (NCCL refuses two ranks on
+  one card).
+* ``gloo`` sends CPU tensors as they are.  CUDA tensors it stages through
+  host memory here, in the mesh's own code: each is copied to the host,
+  sent, and copied back to its card (gloo's point-to-point calls do not
+  take device memory).  That is how several ranks share one card.
+
+:func:`spawn` starts the ranks (``torch.multiprocessing``, a ``file://``
+store in a fresh temporary directory: no port is fixed, so concurrent
+runs cannot collide) and rank 0 prints the transport.  A rank function
+must be importable by name, as every spawned child imports it afresh.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import tempfile
+from typing import Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.nbody import resolve_device
+from repro_torch.obs.trace import named_scope
+
+BACKENDS = ("nccl", "gloo")
+#: a collective that waits this long raises in its rank (a rank that died
+#: leaves its peers waiting)
+TIMEOUT_S = 600.0
+
+
+def transport(backend: str, device) -> str:
+    """How a collective's bytes travel for ``backend`` and tensors on
+    ``device``."""
+    dev = torch.device(device)
+    if backend == "nccl":
+        return "nccl, card to card"
+    if dev.type == "cuda":
+        return f"gloo, staged through host memory from {dev}"
+    return "gloo, host memory"
+
+
+def check_backend(backend: str, world: int, device) -> None:
+    """Refuse a backend that cannot serve ``world`` ranks on ``device``,
+    before any process group exists; ``cuda`` without a card raises as
+    ``nbody.resolve_device`` does."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}; got {backend!r}")
+    if int(world) < 1:
+        raise ValueError(f"a mesh needs at least one rank; got {world}")
+    dev = torch.device(device)
+    if backend != "nccl":
+        resolve_device(dev)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"nccl sends CUDA tensors; got device {dev} (name "
+                         "gloo for ranks on the CPU)")
+    visible = torch.cuda.device_count()
+    if world > visible:
+        raise ValueError(
+            f"nccl needs one card per rank: {world} ranks, {visible} cards "
+            "visible (NCCL refuses two ranks on one card; name gloo to run "
+            "several ranks on one card through host memory)")
+    if dev.index is not None and world > 1:
+        raise ValueError(f"nccl puts rank r on cuda:r; name the device "
+                         f"'cuda', not {dev}")
+
+
+def rank_device(device, rank: int) -> torch.device:
+    """Rank ``rank``'s device: ``cpu`` as named; ``cuda`` without an index
+    is card ``rank mod visible`` (``cuda:r`` under nccl, every rank on
+    ``cuda:0`` of a one-card host under gloo); ``cuda:i`` pins every rank
+    to card i."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    return dev
+
+
+class ProcessMesh:
+    """This rank's view of a mesh of ``world`` processes, one slot each.
+
+    Built after ``init_process_group``; ``backend`` must be the group's.
+    ``shape`` views the ranks as a 1-D ``("dev",)`` mesh or, for
+    two_level, a ``("card", "chip")`` grid (rank ``card * chips + chip``);
+    the grid's sub-groups are made here, every group on every rank in one
+    order, as ``dist.new_group`` requires.  ``device`` is where this
+    rank's slot lives.
+    """
+
+    def __init__(self, backend: str, *, shape: Optional[tuple] = None,
+                 axis_names: tuple = ("dev",), device):
+        if not dist.is_initialized():
+            raise RuntimeError("a ProcessMesh is built after "
+                               "torch.distributed.init_process_group")
+        if backend != dist.get_backend():
+            raise ValueError(f"the process group runs "
+                             f"{dist.get_backend()!r}, not {backend!r}")
+        self.backend = backend
+        self.device = torch.device(device)
+        check_backend(backend, 1, self.device)
+        self.rank, self.size = dist.get_rank(), dist.get_world_size()
+        self.shape = tuple(shape) if shape else (self.size,)
+        self.axis_names = tuple(axis_names)
+        prod = 1
+        for e in self.shape:
+            prod *= e
+        if prod != self.size or len(self.shape) != len(self.axis_names):
+            raise ValueError(f"mesh shape {self.shape} over "
+                             f"{self.axis_names} does not tile "
+                             f"{self.size} ranks")
+        self.transport = transport(backend, self.device)
+        # host staging: gloo's send/recv would read a device pointer as
+        # host memory
+        self._staged = backend == "gloo" and self.device.type == "cuda"
+        self._card = self._chip = None
+        if len(self.shape) == 2:
+            cards, chips = self.shape
+            card_groups = [dist.new_group(list(range(c * chips,
+                                                     (c + 1) * chips)))
+                           for c in range(cards)]
+            chip_groups = [dist.new_group(list(range(k, self.size, chips)))
+                           for k in range(chips)]
+            self._card = card_groups[self.rank // chips]
+            self._chip = chip_groups[self.rank % chips]
+
+    def reshape(self, shape: tuple, axis_names: tuple) -> "ProcessMesh":
+        """The same ranks under another view (a collective when it makes
+        sub-groups: every rank calls it)."""
+        if (tuple(shape), tuple(axis_names)) == (self.shape, self.axis_names):
+            return self
+        return ProcessMesh(self.backend, shape=shape, axis_names=axis_names,
+                           device=self.device)
+
+    def local(self, seq: Sequence) -> list:
+        """This rank's entry of a per-shard list."""
+        if len(seq) != self.size:
+            raise ValueError(f"{len(seq)} entries for a {self.size}-rank "
+                             "mesh")
+        return [seq[self.rank]]
+
+    # -- the wire ----------------------------------------------------------
+    def _wire(self, x: torch.Tensor) -> torch.Tensor:
+        return (x.cpu() if self._staged else x).contiguous()
+
+    def _gather(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """``x`` of every rank of ``group`` concatenated in rank order on
+        this rank's device."""
+        w = self._wire(x)
+        parts = [torch.empty_like(w)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, w, group=group)
+        return torch.cat(parts).to(self.device)
+
+    # -- DeviceMesh's interface -------------------------------------------
+    def shard(self, x: torch.Tensor) -> list:
+        """This rank's block of ``x``'s rows (``size`` equal blocks)."""
+        return [x.chunk(self.size)[self.rank].to(self.device)]
+
+    def unshard(self, parts: Sequence, device) -> torch.Tensor:
+        """Every rank's block concatenated in slot order on ``device``."""
+        (part,) = parts
+        return self._gather(part).to(device)
+
+    def all_gather(self, parts: Sequence) -> list:
+        """Tiled all-gather over the whole mesh."""
+        (part,) = parts
+        with named_scope("collective.all_gather"):
+            return [self._gather(part)]
+
+    def all_gather2(self, parts: Sequence) -> list:
+        """Two-stage gather over the ``("card", "chip")`` view: within this
+        rank's card first, then across cards among the ranks of its chip
+        index; the source order is the 1-D gather's."""
+        if self._card is None:
+            raise ValueError("all_gather2 needs a ('card', 'chip') mesh")
+        (part,) = parts
+        with named_scope("collective.all_gather2"):
+            return [self._gather(self._gather(part, self._card), self._chip)]
+
+    def place(self, x, placement: str) -> list:
+        """``x`` (the whole tensor, or this rank's block of a sharded one)
+        laid out as ``placement`` names it: ``"sharded"``, this rank's row
+        block; ``"replicated"``, the whole, gathered when ``x`` is a
+        block."""
+        if placement not in ("sharded", "replicated"):
+            raise ValueError(f"placement must be 'sharded' or 'replicated'; "
+                             f"got {placement!r}")
+        if placement == "sharded":
+            if isinstance(x, torch.Tensor):
+                return self.shard(x)
+            return [q.to(self.device) for q in x]
+        with named_scope("collective.replicate"):
+            if isinstance(x, torch.Tensor):
+                return [x.to(self.device)]
+            (part,) = x
+            return [self._gather(part)]
+
+    def ppermute(self, window: Sequence) -> list:
+        """One ring round: this rank sends its window (a tuple of tensors)
+        to rank ``r + 1`` and receives rank ``r - 1``'s, all sends and
+        receives posted in one batch (blocking pairs around a ring
+        deadlock)."""
+        (win,) = window
+        p = self.size
+        with named_scope("collective.ppermute"):
+            if p == 1:
+                return [tuple(a.to(self.device) for a in win)]
+            send = [self._wire(a) for a in win]
+            recv = [torch.empty_like(s) for s in send]
+            nxt, prv = (self.rank + 1) % p, (self.rank - 1) % p
+            ops = [dist.P2POp(dist.isend, s, nxt, tag=i)
+                   for i, s in enumerate(send)]
+            ops += [dist.P2POp(dist.irecv, r, prv, tag=i)
+                    for i, r in enumerate(recv)]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            return [tuple(r.to(self.device) for r in recv)]
+
+
+def all_reduce(x: torch.Tensor, op, group=None) -> torch.Tensor:
+    """``x`` reduced over ``group`` with ``op``, returned on ``x``'s device
+    (through host memory for CUDA tensors under gloo, as the mesh
+    stages them)."""
+    if dist.get_backend(group) == "gloo" and x.device.type == "cuda":
+        w = x.cpu()
+        dist.all_reduce(w, op=op, group=group)
+        return w.to(x.device)
+    w = x.contiguous().clone()
+    dist.all_reduce(w, op=op, group=group)
+    return w
+
+
+# --------------------------------------------------------------------------
+# the rank launcher
+# --------------------------------------------------------------------------
+def spawn(fn, world: int, backend: str, device, *args) -> None:
+    """Run ``fn(device, *args)`` in ``world`` new processes, one rank each,
+    with the default process group initialized over ``backend``.
+
+    ``device`` is resolved per rank by :func:`rank_device`.  Each rank on
+    the CPU runs one torch thread.  ``fn`` must be importable by name.  A
+    rank that raises makes this raise (the others are stopped); a
+    collective that waits longer than ``TIMEOUT_S`` raises in its rank.
+    """
+    check_backend(backend, world, device)
+    with tempfile.TemporaryDirectory(prefix="process_mesh_") as tmp:
+        init = "file://" + os.path.join(tmp, "store")
+        torch.multiprocessing.spawn(
+            _rank_main, args=(fn, int(world), backend, str(device), init,
+                              args),
+            nprocs=int(world), join=True)
+
+
+def _rank_main(rank, fn, world, backend, device, init, args):
+    dev = rank_device(device, rank)
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    else:
+        torch.cuda.set_device(dev)
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=TIMEOUT_S),
+                            **kw)
+    try:
+        if rank == 0:
+            print(f"[process_mesh] world={world} backend={backend} "
+                  f"transport: {transport(backend, dev)}", flush=True)
+        fn(dev, *args)
+    finally:
+        dist.destroy_process_group()

@@ -10,7 +10,16 @@ evaluation on the card's CUDA kernels:
 ``--device cpu`` runs the plain PyTorch versions instead; the default,
 ``cuda``, refuses to start without a card.  ``--strategy`` distributes the
 force evaluation over ``--devices k`` shards (``core.strategies``): k CPU
-slots with ``--device cpu``, the first k cards on ``cuda``.
+slots with ``--device cpu``, the first k cards on ``cuda``.  With
+``--backend nccl|gloo`` the k shards are k processes over
+``torch.distributed`` (``distributed.process_mesh``), each rank running
+the whole loop on its slot; rank 0 prints the lines the in-process run
+prints.  nccl takes one card per rank; gloo runs on the CPU, or stages
+the card's tensors through host memory (every rank on ``cuda:0`` of a
+one-card host):
+
+  PYTHONPATH=src python -m repro_torch.launch.nbody_run --n 512 \
+      --t-end 0.0625 --strategy ring --devices 4 --backend gloo --device cpu
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import torch
 
 from repro_torch.core import hermite, nbody, strategies
 from repro_torch.core.evaluate import make_evaluator
+from repro_torch.distributed import process_mesh
 from repro_torch.kernels import ops
 
 STRATEGIES = ("single",) + strategies.STRATEGIES
@@ -30,15 +40,20 @@ STRATEGIES = ("single",) + strategies.STRATEGIES
 
 def run(*, n: int, t_end: float, dt=None, eta: float = 0.02, order: int = 6,
         seed: int = 0, dtype: str = "fp32", device="cuda",
-        strategy: str = "single", devices: int = 1) -> dict:
+        strategy: str = "single", devices: int = 1, mesh=None) -> dict:
     """Plummer(n, seed) evolved to ``t_end``; returns the energy drift, the
     number of force evaluations (each launches both kernels once per shard
     at order 6, p times per shard under the ring) and the wall time of the
-    evolution."""
+    evolution.  ``mesh`` (a rank's ``ProcessMesh``) takes the place of
+    ``devices`` slots."""
     dev = nbody.resolve_device(device)
     state = nbody.plummer(n, seed=seed, device=dev)
     if strategy == "single":
         evaluate = make_evaluator(order=order, dtype=dtype)
+    elif mesh is not None:
+        devices = mesh.size
+        evaluate = strategies.make_strategy_evaluator(
+            strategy, mesh=mesh, order=order, dtype=dtype)
     else:
         evaluate = strategies.make_strategy_evaluator(
             strategy, devices=strategies.mesh_devices(devices, dev),
@@ -65,6 +80,23 @@ def run(*, n: int, t_end: float, dt=None, eta: float = 0.02, order: int = 6,
             "de_rel": abs((e1 - e0) / e0), "state": out}
 
 
+def _print(r):
+    print(f"[nbody] N={r['n']} strategy={r['strategy']} "
+          f"devices={r['devices']} device={r['device']} "
+          f"dtype={r['dtype']} order={r['order']} steps={r['steps']}")
+    print(f"[nbody] t={r['t']:.4f} wall={r['wall_s']:.2f}s "
+          f"E0={r['e0']:.6f} E1={r['e1']:.6f} |dE/E0|={r['de_rel']:.3e}",
+          flush=True)
+
+
+def _rank_run(device, backend, kw):
+    """One rank of a process-mesh run (``process_mesh.spawn``)."""
+    mesh = process_mesh.ProcessMesh(backend, device=device)
+    r = run(device=device, mesh=mesh, **kw)
+    if mesh.rank == 0:
+        _print(r)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=4096)
@@ -77,20 +109,24 @@ def main(argv=None):
     ap.add_argument("--devices", type=int, default=1,
                     help="shards under --strategy: CPU slots with --device "
                          "cpu, the first cards on cuda")
+    ap.add_argument("--backend", default=None, choices=process_mesh.BACKENDS,
+                    help="run the --devices shards as processes over "
+                         "torch.distributed with this backend")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dtype", default="fp32", choices=ops.DTYPES)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
 
-    r = run(n=args.n, t_end=args.t_end, dt=args.dt, eta=args.eta,
-            order=args.order, seed=args.seed, dtype=args.dtype,
-            device=args.device, strategy=args.strategy,
-            devices=args.devices)
-    print(f"[nbody] N={r['n']} strategy={r['strategy']} "
-          f"devices={r['devices']} device={r['device']} "
-          f"dtype={r['dtype']} order={r['order']} steps={r['steps']}")
-    print(f"[nbody] t={r['t']:.4f} wall={r['wall_s']:.2f}s "
-          f"E0={r['e0']:.6f} E1={r['e1']:.6f} |dE/E0|={r['de_rel']:.3e}")
+    kw = dict(n=args.n, t_end=args.t_end, dt=args.dt, eta=args.eta,
+              order=args.order, seed=args.seed, dtype=args.dtype,
+              strategy=args.strategy)
+    if args.backend is not None:
+        if args.strategy == "single":
+            ap.error("--backend shards a --strategy over --devices processes")
+        process_mesh.spawn(_rank_run, args.devices, args.backend,
+                           args.device, args.backend, kw)
+        return 0
+    _print(run(device=args.device, devices=args.devices, **kw))
     return 0
 
 

@@ -32,10 +32,11 @@ from repro_torch.sim import ensemble as ens
 from repro_torch.sim.telemetry import REPORT_SCHEMA_VERSION, RunReport
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_thread():
-    """Many small tensor operations: one thread per test worker, so idle
-    pool threads do not starve the other workers."""
+    """Many small tensor operations: one thread per test worker, for the
+    module's fixtures too (idle pool threads spin and starve the other
+    workers)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

@@ -993,3 +993,74 @@ def test_moe_gradients_give_the_same_bits_twice(cuda, arch):
     assert torch.equal(l1, l2)
     for a, b in zip(tree_util.leaves(g1), tree_util.leaves(g2)):
         assert torch.equal(a, b)
+
+
+def _spawned(world, backend, device, jobs, out):
+    from repro_torch.distributed import mesh_runs, process_mesh
+
+    process_mesh.spawn(mesh_runs.strategy_rank, world, backend, device, jobs,
+                       str(out))
+    return mesh_runs.load_ranks(str(out), world)
+
+
+def _assert_in_process_bits(ranks, ref):
+    """Every rank's tensors are the in-process mesh's; each rank launches
+    its one slot's share of the mesh's launches and issues its shifts."""
+    for res in ranks:
+        for got, want in zip(res, ref, strict=True):
+            for name, t in want["tensors"].items():
+                assert torch.equal(got["tensors"][name], t), name
+            c, w = got["counts"], want["counts"]
+            assert c["shifts"] == w["shifts"]
+            for k in ("acc_jerk_pot", "snap"):
+                assert len(ranks) * c[k] == w[k], k
+
+
+def test_nccl_at_one_rank_gives_the_one_slot_bits(cuda, tmp_path):
+    """One nccl rank on the card (``chip_smoke.py`` phase 20 (c)): the
+    bootstrap, two steps and the launches equal the one-slot in-process
+    mesh's."""
+    from repro_torch.distributed import mesh_runs
+
+    jobs = [dict(kind="lockstep", strategy="replicated", n=1000, seed=3,
+                 steps=2)]
+    ranks = _spawned(1, "nccl", "cuda", jobs, tmp_path)
+    _assert_in_process_bits(ranks, mesh_runs.in_process([cuda], jobs))
+    assert ranks[0][0]["counts"]["acc_jerk_pot"] == 3
+
+
+def test_nccl_refuses_two_ranks_on_one_card(cuda):
+    """Phase 20 (d): more nccl ranks than cards raise ``ValueError``
+    naming the visible count, before any process group exists."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import mesh_runs, process_mesh
+
+    visible = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"{visible} cards visible"):
+        process_mesh.spawn(mesh_runs.strategy_rank, visible + 1, "nccl",
+                           "cuda", [], "unused")
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("strategy,mode", [("two_level", "overlap"),
+                                           ("ring", "sync")])
+def test_gloo_ranks_on_one_card_give_the_in_process_bits(cuda, tmp_path,
+                                                         strategy, mode):
+    """Two gloo ranks on ``cuda:0``, their tensors staged through host
+    memory, against ``[cuda:0] * 2`` in this process: a bootstrap and a
+    step, and one block evaluation in each compaction."""
+    from repro_torch.core import hermite, nbody
+    from repro_torch.core.evaluate import make_evaluator
+    from repro_torch.distributed import mesh_runs
+
+    st = hermite.initialize(nbody.plummer(999, seed=4, device=cuda),
+                            make_evaluator())
+    mask = torch.arange(999, device=cuda) % 3 == 0
+    inputs = tuple(t.cpu() for t in (st.pos, st.vel, st.acc, st.mass, mask))
+    kw = dict(strategy=strategy, ring_mode=mode)
+    jobs = [dict(kind="lockstep", n=999, steps=1, **kw)] + [
+        dict(kind="block", compaction=c, inputs=inputs, **kw)
+        for c in ("none", "gather")]
+    ranks = _spawned(2, "gloo", cuda, jobs, tmp_path)
+    _assert_in_process_bits(ranks, mesh_runs.in_process([cuda] * 2, jobs))

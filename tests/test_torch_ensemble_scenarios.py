@@ -23,10 +23,11 @@ N, ENSEMBLE, T_END = 32, 2, 1.0 / 32
 DE_TIER_FP32 = 1e-4
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_thread():
-    """Many small tensor operations: one thread per test worker, as
-    tests/test_torch_quickstart.py."""
+    """Many small tensor operations: one thread per test worker, for the
+    module's fixtures too (idle pool threads spin and starve the other
+    workers)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

@@ -5,8 +5,20 @@ worker (the bf16 cases run the reference eagerly to record its routing).
 """
 
 import pytest
+import torch
 
 from test_torch_families import cases, serve_parity
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Many small tensor operations: one thread per test worker, for the
+    module's fixtures too (idle pool threads spin and starve the other
+    workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("arch,dtype,impl",

@@ -55,6 +55,17 @@ CASES = [(run, dtype, impl) for run in RUNS
          if not (run == "xlstm" and impl == "flash")]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Many small tensor operations: one thread per test worker, for the
+    module's fixtures too (idle pool threads spin and starve the other
+    workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs(run, dtype="float32", impl="xla"):
     arch, kw = RUNS[run]
     kw = dict(kw, dtype=dtype, attn_impl=impl, chunk_size=CHUNK)

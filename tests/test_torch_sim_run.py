@@ -24,9 +24,11 @@ from repro_torch.sim import ensemble as ens
 from repro_torch.sim.telemetry import RunReport
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_thread():
-    """Many small tensor operations: one thread per test worker."""
+    """Many small tensor operations: one thread per test worker, for the
+    module's fixtures too (idle pool threads spin and starve the other
+    workers)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

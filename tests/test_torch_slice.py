@@ -28,6 +28,17 @@ TOL = {"fp64": 1e-12, "fp32": 1e-7, "mixed": 1e-3}
 DE_TIERS = {"fp64": 1e-6, "fp32": 1e-4, "mixed": 1e-3}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Many small tensor operations: one thread per test worker, for the
+    module's fixtures too (idle pool threads spin and starve the other
+    workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x, dtype=torch.float64):
     return torch.tensor(np.asarray(x), dtype=dtype)
 

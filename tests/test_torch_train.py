@@ -50,6 +50,18 @@ TINY = dict(name="tiny", family="dense", n_layers=2, d_model=64, n_heads=4,
 SCALE = 0.04
 B, S = 4, 32
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Many small tensor operations: one thread per test worker, for the
+    module's fixtures too (idle pool threads spin and starve the other
+    workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 #: loss, logits and every gradient leaf, port vs reference.  fp32: the same
 #: fp32 arithmetic, matmul sums, exp/log and sin/cos from other libraries,
 #: through two layers and back (measured <= 1.4e-6 over the leaves of four
