@@ -186,6 +186,21 @@ Phases, in order; any failure raises and the script exits nonzero:
    process; the wall per step of each run beside the in-process run's,
    with the transport (the cost of host staging on one card, not a
    scaling result);
+21. the dense LM over a device mesh (``mesh_lm_phase``: ``MeshRules`` on a
+   ``DeviceMesh`` of ranks, parameters and activations as ``DTensor``s):
+   K3 at the mesh's local prefill shape (B 2, S 2048, H 8, KV 4, D 128,
+   bf16) against its plain version, timed beside its bound and SDPA;
+   four gloo ranks on ``cuda:0`` as a (data, model) = (2, 2) mesh: (a)
+   the four collectives DTensor issues, each checked; (b) qwen3-0.6b at
+   full width cut to 2 layers, a bf16 prefill of 4 x 2048 through the
+   flash route and 4 greedy decode steps (logits against the one-device
+   run of the same code, tokens equal or near-ties, K3 launches per rank
+   per prefill), two fp32 ``Trainer`` steps of 4 x 256 against the
+   one-device run (phase 14 (b)'s rule), the moments placed as the
+   parameters; (c) the mesh's checkpoint restored on one nccl rank (a
+   process group of this process alone), every parameter and moment bit
+   for bit; (d) per rank ms per prefill, decode
+   step and train step beside the one-device run's;
 then one ``kernels`` JSON line and ``{"ok": true, "device": {...}}`` as the
 last line.
 
@@ -402,6 +417,27 @@ PM_RUNS = [(s_, "overlap") for s_ in strategies.STRATEGIES] + [("ring", "sync")]
 PM_STEPS = 1
 #: (e): compressed_psum's length per rank (a 4 MB fp32 gradient bucket)
 PM_PSUM_LEN = 1 << 20
+#: phase 21: the dense LM over a (data, model) = (2, 2) mesh of four gloo
+#: ranks on the one card (NCCL refuses two ranks on one card), qwen3-0.6b at
+#: full width cut to MESH_DEPTH layers: a bf16 prefill of MESH_SERVE_B x
+#: MESH_SERVE_S through the flash route (K3 at the local shape B 2, S 2048,
+#: H 8, KV 4, D 128) and MESH_GEN greedy decode steps, two Trainer steps
+#: of MESH_TRAIN_B x MESH_TRAIN_S (xla route, remat full) in fp32
+#: activations, held to phase 14 (b)'s rule (TRAIN_CPU_TOL on the losses,
+#: TRAIN_PARAM_RTOL / ATOL per element but for TRAIN_FLIP_SHARE, each
+#: within 2 lr per step, TRAIN_UPDATE_NORM_TOL per leaf)
+MESH_SHAPE, MESH_DEPTH = (2, 2), 2
+MESH_SERVE_B, MESH_SERVE_S, MESH_GEN = 4, 2048, 4
+MESH_TRAIN_B, MESH_TRAIN_S, MESH_TRAIN_STEPS = 4, 256, 2
+#: mesh against one device, bf16 activations: max |mesh - one| / max |one|
+#: over the prefill logits.  The mesh rounds each rank's partial products
+#: (the output projections' heads, the FFN's d_ff halves) to bf16 before
+#: summing them, one more rounding (2**-9 relative) per layer and sum
+MESH_LOGITS_TOL = 3e-2
+#: a mesh greedy token that differs from the one-device run's must be a
+#: near-tie there: within this share of the step's largest |logit| of the
+#: one-device run's largest logit (the same bf16 roundings)
+MESH_TIE_TOL = 3e-2
 #: phase 10 (c): the CLI under a strategy on one card
 API_STRATEGY_SINGLE_ARGS = ["--scenario", "plummer", "--n", str(N_MAIN),
                             "--t-end", "0.0078125", "--dtype", "fp32",
@@ -4788,6 +4824,220 @@ def process_mesh_phase(dev, all_kernels):
     return out
 
 
+def mesh_lm_jobs(tmp):
+    """Phase 21's jobs: the collective probe, the serve and train jobs
+    (the train job writes its checkpoint to ``tmp``)."""
+    cfg = dataclasses.replace(lm_config.get(LM_ARCH), n_layers=MESH_DEPTH)
+    rng = np.random.default_rng(21)
+    tokens = rng.integers(0, cfg.vocab_size, (MESH_SERVE_B, MESH_SERVE_S))
+    data = [{k: rng.integers(0, cfg.vocab_size,
+                             (MESH_TRAIN_B, MESH_TRAIN_S)).astype(np.int32)
+             for k in ("tokens", "labels")} for _ in range(MESH_TRAIN_STEPS)]
+    return [
+        dict(kind="probe"),
+        dict(kind="serve", cfg=dataclasses.replace(cfg, attn_impl="flash"),
+             seed=21, tokens=tokens, max_len=MESH_SERVE_S + MESH_GEN,
+             gen=MESH_GEN),
+        dict(kind="train", cfg=dataclasses.replace(cfg, dtype="float32"),
+             seed=21, steps=MESH_TRAIN_STEPS,
+             data=data, opt={"learning_rate": TRAIN_LR}, ckpt_dir=tmp,
+             moments=True, keep=("params.", "loss")),
+    ]
+
+
+def mesh_lm_spawn(world, backend, jobs, device="cuda"):
+    """``jobs`` on ``world`` ranks (``mesh_runs.lm_rank``); the ranks'
+    results and the spawn's wall seconds.  Prints rank 0's breakdown: its
+    start, each job's end and the spawn's end, in seconds after the
+    spawn began."""
+    with tempfile.TemporaryDirectory(prefix="mesh_lm_") as tmp:
+        t0, at0 = time.perf_counter(), time.time()
+        process_mesh.spawn(mesh_runs.lm_rank, world, backend, device, jobs,
+                           tmp)
+        wall = time.perf_counter() - t0
+        ranks = mesh_runs.load_ranks(tmp, world)
+    times = [r["times"] for r in ranks[0]]
+    print(f"mesh spawn of {world} {backend} ranks: rank 0 started at "
+          f"{times[0]['rank_start_at'] - at0:.1f} s, its jobs "
+          f"({', '.join(j['kind'] for j in jobs)}) ended at "
+          f"{[round(t['done_at'] - at0, 1) for t in times]} s, the spawn at "
+          f"{wall:.1f} s", flush=True)
+    return ranks, wall
+
+
+def mesh_lm_serve(ranks, one, i):
+    """(b) serving: every rank's tokens equal; the prefill logits within
+    MESH_LOGITS_TOL of the one-device run's; a token that differs from it
+    a near-tie there."""
+    want = one[i]["tensors"]
+    lg, toks = want["logits"].float(), want["tokens"]
+    steps = want["step_logits"].float()
+    for r, res in enumerate(ranks):
+        check(res[i]["digests"]["tokens"] == ranks[0][i]["digests"]["tokens"],
+              f"phase 21: rank {r}'s greedy tokens differ from rank 0's")
+    got = ranks[0][i]["tensors"]
+    err = float((got["logits"].float() - lg).abs().max() / lg.abs().max())
+    same = got["tokens"] == toks
+    ties = []
+    for row, col in (~same).nonzero().tolist():
+        if bool(same[row, :col].all()):     # the first difference in a row
+            s_ = steps[col, row]
+            ties.append(float(s_.max() - s_[got["tokens"][row, col]])
+                        / float(s_.abs().max()))
+    print(f"mesh (b) serve: prefill logits max |mesh - one| / max |one| "
+          f"{err:.3e} (tol {MESH_LOGITS_TOL:g}); greedy tokens equal "
+          f"{int(same.sum())}/{same.numel()}, first differences at "
+          f"{[f'{t:.2e}' for t in ties]} of max |logit| below the top "
+          f"(tol {MESH_TIE_TOL:g})", flush=True)
+    check(err <= MESH_LOGITS_TOL, f"phase 21: logits off by {err:.3e}")
+    check(all(t <= MESH_TIE_TOL for t in ties),
+          f"phase 21: a meshed token is no near-tie of the one-device run")
+    launches = [res[i]["info"]["flash_per_prefill"] for res in ranks]
+    print(f"mesh (b) K3 launches per meshed prefill per rank {launches} "
+          f"(one device: {one[i]['info']['flash_per_prefill']}); cache on "
+          f"rank 0 {ranks[0][i]['info']['cache_layout']['k']}", flush=True)
+    check(all(n == MESH_DEPTH for n in launches),
+          f"phase 21: K3 launched {launches} times per rank, expected "
+          f"{MESH_DEPTH} (one per layer)")
+    return launches
+
+
+def mesh_lm_train(ranks, one, i, cfg, dev):
+    """(b) training: the ranks' results equal; losses and the parameters'
+    update against the one-device run."""
+    for r, res in enumerate(ranks):
+        check(res[i]["digests"] == ranks[0][i]["digests"],
+              f"phase 21: rank {r}'s trained state differs from rank 0's")
+    got, want = ranks[0][i]["tensors"], one[i]["tensors"]
+    loss_err = float((got["loss"] - want["loss"]).abs().max()
+                     / want["loss"].abs().max())
+    base = lm_params.init_params(
+        cfg, torch.Generator(dev).manual_seed(21), device=dev)
+    n = out = 0
+    worst_excess, gaps = -np.inf, {}
+    for key, p0 in mesh_runs._flat(base).items():
+        g = got[f"params.{key}"].to(dev).double()
+        w = want[f"params.{key}"].to(dev).double()
+        excess = (g - w).abs() - (TRAIN_PARAM_ATOL + TRAIN_PARAM_RTOL * w.abs())
+        out += int((excess > 0).sum())
+        n += excess.numel()
+        worst_excess = max(worst_excess, float(excess.max()))
+        gaps[key] = float((g - w).norm() / (w - p0.double()).norm())
+    worst = max(gaps.values())
+    print(f"mesh (b) train {cfg.dtype}: losses {got['loss'].tolist()} vs one "
+          f"device {want['loss'].tolist()} (rel {loss_err:.3e}, tol "
+          f"{TRAIN_CPU_TOL:g}); params: {out} of {n} elements outside rtol "
+          f"{TRAIN_PARAM_RTOL:g} atol {TRAIN_PARAM_ATOL:g} (share tol "
+          f"{TRAIN_FLIP_SHARE:g}), worst excess {worst_excess:.3e}, worst "
+          f"leaf update-norm gap {worst:.3e} (tol {TRAIN_UPDATE_NORM_TOL:g}, "
+          f"by leaf { {k: f'{v:.1e}' for k, v in gaps.items()} }); moments "
+          f"placed as the params: "
+          f"{ranks[0][i]['info']['opt_layout'] == ranks[0][i]['info']['layout']}",
+          flush=True)
+    check(loss_err <= TRAIN_CPU_TOL, f"phase 21: losses off by {loss_err:.3e}")
+    check(out <= TRAIN_FLIP_SHARE * n,
+          f"phase 21: {out} of {n} parameters outside the bound")
+    check(worst_excess <= 2 * MESH_TRAIN_STEPS * TRAIN_LR,
+          f"phase 21: a parameter {worst_excess:.3e} past the bound")
+    check(worst <= TRAIN_UPDATE_NORM_TOL, f"phase 21: update off by {worst:.3e}")
+    check(ranks[0][i]["info"]["opt_layout"] == ranks[0][i]["info"]["layout"],
+          "phase 21: the moments are not placed as the params")
+
+
+def mesh_lm_flash(dev):
+    """K3 at the mesh's local prefill shape against its plain version,
+    timed beside it, its bound and SDPA."""
+    b, s, h, kv, d = (MESH_SERVE_B // MESH_SHAPE[0], MESH_SERVE_S,
+                      16 // MESH_SHAPE[1], 8 // MESH_SHAPE[1], 128)
+    q, k, v = flash_operands(b, s, s, h, kv, d, torch.bfloat16, dev, seed=21)
+    r = flash_readings(q, k, v, True, 512, 512)
+    failed = flash_failures(r, "bf16")
+    check(not failed, f"phase 21 K3 at the local shape: {'; '.join(failed)}")
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), 20)
+    pms = cuda_ms(lambda: fa._flash_plain(q, k, v, causal=True, block_q=512,
+                                          block_k=512), 3, warmup=1)
+    timed = {n: t for n, t in sdpa_backends(q, k, v).items()
+             if t[0] is not None}
+    lname = min(timed, key=lambda n: timed[n][0])
+    bms, by = flash_bound_ms(b, s, h, kv, d, torch.bfloat16)
+    print(f"mesh K3 bf16 local shape B={b} S={s} H={h} KV={kv} D={d} causal: "
+          f"kernel {ms:.4f} ms  plain {pms:.4f} ms  sdpa {timed[lname][0]:.4f}"
+          f" ms ({lname})  bound {bms:.4f} ms ({by})  bound/kernel "
+          f"{bms / ms:.3f}; max normalised err {r['norm_err']:.3e}, "
+          f"{r['elem']:.3f} of the element-wise limit, tile share "
+          f"{100 * r['tile_share']:.4f}%", flush=True)
+    return dict(shape=dict(b=b, s=s, h=h, kv=kv, d=d), causal=True, ms=ms,
+                plain_ms=pms, bound_ms=bms, bound_by=by,
+                library_ms=timed[lname][0], library=f"sdpa {lname}",
+                abs_err=r["abs_err"], norm_err=r["norm_err"], elem=r["elem"],
+                tile_share=r["tile_share"])
+
+
+def mesh_lm_phase(dev, all_kernels):
+    """Phase 21: the dense LM over a device mesh (``MeshRules`` on a
+    ``DeviceMesh``): (a) the collectives DTensor issues, on four gloo ranks
+    on the card; (b) qwen3-0.6b served and trained on the (2, 2) mesh
+    against the same jobs on one device, K3 at the local shape; (c) the
+    mesh's checkpoint restored on one nccl rank (this process), bit for
+    bit; (d) times."""
+    t0 = time.perf_counter()
+    torch.cuda.init()  # run alone, nothing has touched the card yet
+    torch.cuda.empty_cache()  # the ranks hold their own memory
+    out = {"flash": mesh_lm_flash(dev)}
+    with tempfile.TemporaryDirectory(prefix="mesh_ckpt_") as ckpt:
+        jobs = mesh_lm_jobs(ckpt)
+        ranks, spawn_s = mesh_lm_spawn(
+            4, "gloo", [dict(j, mesh=MESH_SHAPE) for j in jobs])
+        probe = ranks[0][0]["info"]
+        print(f"mesh (a) collectives over gloo on cuda:0 (four ranks): "
+              f"{probe}", flush=True)
+        check(all(r[0]["info"] == probe for r in ranks),
+              "phase 21 (a): the ranks' probes differ")
+        one = mesh_runs.in_process_lm(dev, [dict(jobs[1], step_logits=True),
+                                            dict(jobs[2], ckpt_dir=None)])
+        out["launches"] = mesh_lm_serve(ranks, [None] + one, 1)
+        mesh_lm_train(ranks, [None, None] + one[1:], 2, jobs[2]["cfg"], dev)
+        restore = dict(kind="restore", cfg=jobs[2]["cfg"], mesh=(1, 1),
+                       ckpt_dir=ckpt, opt=jobs[2]["opt"], keep=())
+        t1 = time.perf_counter()
+        with process_mesh.single_rank_group("nccl", dev):
+            back = mesh_runs.run_lm_job(restore, dev, {})
+        back_s = time.perf_counter() - t1
+        saved = ranks[0][2]["digests"]
+        got = back["digests"]
+        same = all(got[k] == d for k, d in saved.items()
+                   if k.startswith(("params.", "m.")))
+        print(f"mesh (c) checkpoint of the (2, 2) mesh restored in this "
+              f"process as one nccl rank (mesh (1, 1)), step "
+              f"{back['info']['step']} in {back_s:.1f} s"
+              f": params and moments bit for bit: {same} "
+              f"({sum(k.startswith(('params.', 'm.')) for k in saved)} "
+              f"leaves)", flush=True)
+        check(same, "phase 21 (c): the restored checkpoint differs")
+    t = {k: [r[i]["times"] for r in ranks] for i, k in ((1, "serve"),
+                                                          (2, "train"))}
+    out["times"] = {
+        "prefill_ms": [1e3 * x["prefill_s"] for x in t["serve"]],
+        "decode_step_ms": [1e3 * x["decode_step_s"] for x in t["serve"]],
+        "train_step_ms": [[1e3 * s_ for s_ in x["step_s"]]
+                          for x in t["train"]],
+        "one_prefill_ms": 1e3 * one[0]["times"]["prefill_s"],
+        "one_decode_step_ms": 1e3 * one[0]["times"]["decode_step_s"],
+        "one_train_step_ms": [1e3 * s_ for s_ in one[1]["times"]["step_s"]]}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"mesh (d) per rank: prefill {out['times']['prefill_ms']} ms, "
+          f"decode step {out['times']['decode_step_ms']} ms, train steps "
+          f"{out['times']['train_step_ms']} ms; one device in-process: "
+          f"prefill {out['times']['one_prefill_ms']:.3f} ms, decode step "
+          f"{out['times']['one_decode_step_ms']:.3f} ms, train steps "
+          f"{out['times']['one_train_step_ms']} ms", flush=True)
+    print(f"phase 21 took {out['seconds']:.1f} s (spawn {spawn_s:.1f} s; "
+          f"rank 0's jobs probe, serve, train and save "
+          f"{[round(r['times']['job_s'], 3) for r in ranks[0]]} s; restore "
+          f"{back_s:.1f} s)", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no card, "
@@ -5108,6 +5358,9 @@ def main() -> int:
     phase("20. the strategies over a process mesh")
     pm = process_mesh_phase(dev, all_kernels)
 
+    phase("21. the dense LM over a device mesh")
+    mesh_lm = mesh_lm_phase(dev, all_kernels)
+
     rows = []
     for name in kernels:
         ms, pms, bms, by = timings[(name, "fp32", N_MAIN)]
@@ -5246,6 +5499,8 @@ def main() -> int:
                 "library_ms", "library", "abs_err", "norm_err", "elem",
                 "tile_share")}
             for label, r in ssm_r["flash"].items()},
+        "launches_mesh_prefill_per_rank": mesh_lm["launches"],
+        "mesh_local_shape": mesh_lm["flash"],
     })
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

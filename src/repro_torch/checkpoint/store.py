@@ -14,6 +14,14 @@ only after every leaf and the manifest are written, so a crash mid-save
 never corrupts the latest checkpoint.  :func:`restore_latest` takes the
 newest complete step.  A restore places each leaf on the device of its
 template leaf and never casts: a dtype or shape that differs raises.
+
+On a device mesh (leaves that are ``DTensor``s) a save is collective:
+each leaf is gathered whole on rank 0 (``shardings.gather_to_first``),
+rank 0 writes, and a barrier follows; the files are the single-device
+ones.  A restore places each leaf per ``shardings`` (a matching tree of
+``distributed.shardings.NamedSharding``s, the *current* mesh's), or as
+its template DTensor is placed: a checkpoint written on one device count
+restores onto another, as the reference's ``store.py:78`` does.
 """
 
 from __future__ import annotations
@@ -26,12 +34,18 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.shardings import NamedSharding, gather_to_first
 
 
 def _children(node):
     """``[(name, child), ...]`` of an inner node, or None for a leaf."""
     if node is None:
         return []
+    if isinstance(node, NamedSharding):
+        return None
     if isinstance(node, dict):
         return [(str(k), node[k]) for k in sorted(node)]
     if isinstance(node, tuple) and hasattr(node, "_fields"):
@@ -87,7 +101,22 @@ def _np_dtype(leaf) -> np.dtype:
 
 
 def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3) -> str:
-    """Atomic checkpoint write; prunes to the newest ``keep`` steps."""
+    """Atomic checkpoint write; prunes to the newest ``keep`` steps.  With
+    DTensor leaves every rank must call it: each leaf is gathered whole on
+    rank 0, which writes, and every rank returns after the write."""
+    flat = _flatten(tree)
+    if any(isinstance(x, DTensor) for x in flat.values()):
+        arrays = {key: gather_to_first(leaf) if isinstance(leaf, DTensor)
+                  else _to_numpy(leaf) for key, leaf in flat.items()}
+        final = os.path.join(ckpt_dir, f"step_{step:08d}")
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, step, arrays, keep)
+        dist.barrier()
+        return final
+    return _write(ckpt_dir, step, flat, keep)
+
+
+def _write(ckpt_dir: str, step: int, flat: dict, keep: int) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = os.path.join(ckpt_dir, f".tmp-step_{step:08d}")
@@ -96,7 +125,7 @@ def save(ckpt_dir: str, step: int, tree: Any, *, keep: int = 3) -> str:
     os.makedirs(tmp)
 
     manifest = {"step": step, "leaves": {}}
-    for key, leaf in _flatten(tree).items():
+    for key, leaf in flat.items():
         arr = _to_numpy(leaf)
         fname = key.replace("/", "__") + ".npy"
         np.save(os.path.join(tmp, fname), arr)
@@ -127,14 +156,19 @@ def available_steps(ckpt_dir: str) -> list:
     return sorted(out)
 
 
-def restore(ckpt_dir: str, step: int, like: Any) -> Any:
+def restore(ckpt_dir: str, step: int, like: Any, *,
+            shardings: Any = None) -> Any:
     """Restore into the structure of ``like``: every leaf on its template
     leaf's device (a tensor; a numpy template restores as numpy), shape and
-    dtype equal to the template's or ``ValueError``."""
+    dtype equal to the template's or ``ValueError``.  ``shardings``, a
+    tree matching ``like`` (or a part of it, None where a leaf has none),
+    places a leaf on the current mesh; a template DTensor without one is
+    placed as the template is.  Every rank reads the files itself."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
 
+    flat_sh = _flatten(shardings) if shardings is not None else {}
     loaded = {}
     for key, ref in _flatten(like).items():
         meta = manifest["leaves"].get(key)
@@ -154,15 +188,21 @@ def restore(ckpt_dir: str, step: int, like: Any) -> Any:
                 f"leaf {key!r}: checkpoint dtype {arr.dtype} != template "
                 f"dtype {ref_dtype} (restore never casts; fix the template "
                 "or re-save)")
-        loaded[key] = (torch.from_numpy(arr).to(ref.device)
-                       if isinstance(ref, torch.Tensor) else arr)
+        if not isinstance(ref, torch.Tensor):
+            loaded[key] = arr
+            continue
+        x = torch.from_numpy(arr).to(ref.device)
+        sh = flat_sh.get(key)
+        if sh is None and isinstance(ref, DTensor):
+            sh = NamedSharding(ref.device_mesh, ref.placements)
+        loaded[key] = x if sh is None else sh.place(x)
     return _rebuild(like, loaded)
 
 
-def restore_latest(ckpt_dir: str, like: Any):
+def restore_latest(ckpt_dir: str, like: Any, *, shardings: Any = None):
     """``(step, tree)`` from the newest complete checkpoint, or
     ``(None, None)``."""
     steps = available_steps(ckpt_dir)
     if not steps:
         return None, None
-    return steps[-1], restore(ckpt_dir, steps[-1], like)
+    return steps[-1], restore(ckpt_dir, steps[-1], like, shardings=shardings)

@@ -23,6 +23,13 @@ defaults), ``seed`` (0), ``steps`` (2), ``dt`` (1e-3).
 ``process_mesh.spawn``: it writes each rank's results to ``out_dir`` as
 ``rank{r}.pt``, with a SHA-256 digest per tensor, and the tensors
 themselves when ``keep`` (a full-size run keeps digests only).
+
+The LM's counterpart is :func:`lm_rank`: serve, train, gradient, restore,
+placement, flash and collective-probe jobs (``run_lm_job``) on one rank of a real device
+mesh (``launch.mesh.make_device_mesh`` over the job's ``mesh`` shape,
+axes ("data", "model"), the reference's ``DEFAULT_RULES``); the same jobs
+run in one process with ``mesh=None`` (:func:`in_process_lm`), the
+single-device rules, which gives the comparison baseline.
 """
 
 from __future__ import annotations
@@ -33,10 +40,15 @@ import time
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch import tree as tree_util
 from repro_torch.core import hermite, nbody, strategies
+from repro_torch.distributed import process_mesh
 from repro_torch.distributed.compression import compressed_psum
 from repro_torch.distributed.process_mesh import ProcessMesh
+from repro_torch.distributed.shardings import MeshRules, full
+from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import nbody_force
 from repro_torch.obs import metrics as obs_metrics
 
@@ -154,3 +166,292 @@ def load_ranks(out_dir: str, world: int) -> list:
     """The results :func:`strategy_rank` wrote, by rank."""
     return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
                        weights_only=False) for r in range(world)]
+
+
+# --------------------------------------------------------------------------
+# the LM stack over a device mesh
+# --------------------------------------------------------------------------
+#: the axes of an LM job's mesh, as the reference's (data, model) mesh
+LM_AXES = ("data", "model")
+
+
+def probe_collectives(mesh) -> dict:
+    """The four collectives DTensor issues, each on a known 8 x 8 value on
+    the rank's device: all-gather (Shard -> Replicate), reduce-scatter
+    (Partial -> Shard), all-reduce (Partial -> Replicate) and all-to-all
+    (Shard(0) -> Shard(1)).  Raises where a result is wrong; a collective
+    the backend refuses raises or ends the rank.  Returns {name: True}."""
+    dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device("cpu")
+    x = torch.arange(64, dtype=torch.float32, device=dev).reshape(8, 8)
+    n = mesh.size()
+    checks = {
+        "all_gather": (DTensor.from_local(
+            x.chunk(mesh.size(0))[mesh.get_coordinate()[0]].contiguous(),
+            mesh, [Shard(0), Replicate()]), [Replicate(), Replicate()], x),
+        "reduce_scatter": (DTensor.from_local(x, mesh, [Partial(), Partial()]),
+                           [Shard(0), Shard(1)], n * x),
+        "all_reduce": (DTensor.from_local(x, mesh, [Replicate(), Partial()]),
+                       [Replicate(), Replicate()], mesh.size(1) * x),
+        "all_to_all": (DTensor.from_local(
+            x.chunk(mesh.size(1))[mesh.get_coordinate()[1]].contiguous(),
+            mesh, [Replicate(), Shard(0)]), [Replicate(), Shard(1)], x),
+    }
+    out = {}
+    for name, (d, placements, want) in checks.items():
+        got = d.redistribute(mesh, placements).full_tensor()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"{name} over {mesh}: wrong result")
+        out[name] = True
+    return out
+
+
+def _lm_rules(job, meshes, device) -> MeshRules:
+    shape = job.get("mesh")
+    if shape is None:
+        return MeshRules.single_device()
+    shape = tuple(shape)
+    if shape not in meshes:
+        from repro_torch.launch.mesh import make_device_mesh
+        meshes[shape] = make_device_mesh(shape, LM_AXES,
+                                         torch.device(device).type)
+    return MeshRules.for_mesh(meshes[shape])
+
+
+def _lm_params(job, rules, device):
+    from repro_torch.models import params as P
+    cfg = job["cfg"]
+    if "params" in job:
+        return P.params_from_jax(job["params"], device, rules, cfg=cfg)
+    gen = torch.Generator(device).manual_seed(job.get("seed", 0))
+    return P.init_params(cfg, gen, device=device, rules=rules)
+
+
+def _layout(tree) -> dict:
+    """Each leaf's placements and local shape ({path: (str, tuple)});
+    a plain tensor's placements are empty."""
+    flat = {}
+
+    def walk(node, prefix):
+        for k in sorted(node):
+            x, path = node[k], f"{prefix}/{k}" if prefix else k
+            if isinstance(x, dict):
+                walk(x, path)
+            elif isinstance(x, DTensor):
+                flat[path] = (tuple(str(p) for p in x.placements),
+                              tuple(x.to_local().shape))
+            else:
+                flat[path] = ((), tuple(x.shape))
+    walk(tree, "")
+    return flat
+
+
+def _full_tree(tree) -> dict:
+    return tree_util.map(lambda x: full(x).detach().cpu(), tree)
+
+
+def _sync_dev(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _serve(job, rules, device):
+    from repro_torch.models import model
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = job["cfg"]
+    eng = Engine(cfg, _lm_params(job, rules, device),
+                 ServeConfig(max_len=job["max_len"]), rules=rules)
+    batch = {"tokens": torch.as_tensor(job["tokens"], device=device)}
+    toks, stats = eng.generate(batch, job["gen"])
+    flash.flash_attention.launches = 0
+    _sync_dev(device)
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(cfg, eng.params, batch,
+                                  max_len=job["max_len"], rules=rules)
+    logits = full(logits)
+    _sync_dev(device)
+    t_prefill = time.perf_counter() - t0
+    launches = flash.flash_attention.launches
+    out = {"logits": logits, "tokens": toks}
+    if job.get("step_logits"):
+        out["step_logits"] = _step_logits(cfg, eng.params, batch, toks, job,
+                                          rules)
+    return out, {"prefill_s": t_prefill,
+                 "decode_step_s": stats["decode_s"] / max(job["gen"], 1)}, {
+        "flash_per_prefill": launches,
+        "cache_layout": _layout(cache["layers"])}
+
+
+def _step_logits(cfg, params, batch, toks, job, rules):
+    """The logits each greedy token of ``toks`` was picked from: the prefill
+    and then each decode step fed the tokens before it, (n, B, V)."""
+    from repro_torch.models import model
+    logits, cache = model.prefill(cfg, params, batch, max_len=job["max_len"],
+                                  rules=rules)
+    out = [full(logits)]
+    for j in range(toks.shape[1] - 1):
+        logits, cache = model.decode_step(cfg, params, cache,
+                                          toks[:, j:j + 1], rules=rules)
+        out.append(full(logits))
+    return torch.stack(out)
+
+
+def _trainer(job, rules, device, data=None, batch_shardings=None):
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    tcfg = TrainerConfig(steps=job.get("steps", 0), ckpt_every=10 ** 9,
+                         ckpt_dir=job.get("ckpt_dir"), log_every=1,
+                         seed=job.get("seed", 0))
+    return Trainer(job["cfg"], AdamW(**job.get("opt", {})), data, tcfg,
+                   device=device, rules=rules, log=lambda _m: None,
+                   batch_shardings=batch_shardings)
+
+
+def _train(job, rules, device):
+    """``job["steps"]`` Trainer steps over ``job["data"]``, each batch
+    placed on ("batch", "seq"), from the job's parameters."""
+    batches = job["data"]
+    shardings = {k: rules.sharding(v.shape, ("batch", "seq"))
+                 for k, v in batches[0].items()}
+    tr = _trainer(job, rules, device, data=lambda step: batches[step],
+                  batch_shardings=shardings)
+    params = _lm_params(job, rules, device)
+    params, opt_state, hist = tr.run(start_params=params,
+                                     start_opt=tr.opt.init(params))
+    out = {f"params.{k}": v for k, v in _flat(_full_tree(params)).items()}
+    if job.get("moments"):
+        out.update({f"m.{k}": v
+                    for k, v in _flat(_full_tree(opt_state.m)).items()})
+    out["loss"] = torch.tensor([h["loss"] for h in hist], dtype=torch.float64)
+    times = {"step_s": [h["step_time"] for h in hist]}
+    return out, times, {"layout": _layout(params),
+                        "opt_layout": _layout(opt_state.m)}
+
+
+def _grads(job, rules, device):
+    """``train.step._value_and_grad`` once: the loss and every gradient
+    whole, and the gradients' layout."""
+    from repro_torch.train.step import _value_and_grad
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in job["data"][0].items()}
+    loss, _, grads = _value_and_grad(job["cfg"], _lm_params(job, rules,
+                                                            device),
+                                     batch, rules=rules)
+    out = {f"grad.{k}": v for k, v in _flat(_full_tree(grads)).items()}
+    out["loss"] = loss
+    return out, {}, {"layout": _layout(grads)}
+
+
+def _restore(job, rules, device):
+    tr = _trainer(job, rules, device)
+    step, params, opt_state = tr.restore_or_init()
+    out = {f"params.{k}": v for k, v in _flat(_full_tree(params)).items()}
+    out.update({f"m.{k}": v for k, v in _flat(_full_tree(opt_state.m)).items()})
+    return out, {}, {"step": step, "layout": _layout(params),
+                     "opt_layout": _layout(opt_state.m)}
+
+
+def _placements(job, rules, device):
+    """Every leaf's placements and local shape, with what the rules say
+    they must be, and ``param_specs`` for each of ``job["spec_cfgs"]``."""
+    from repro_torch.models import params as P
+    cfg = job["cfg"]
+    params = _lm_params(job, rules, device)
+    defs = _flat(P.param_defs(cfg))
+    want = {k: (tuple(str(p) for p in rules.placements(d.shape, d.logical))
+                if rules.is_real else (), rules.local_shape(d.shape, d.logical))
+            for k, d in defs.items()}
+    specs = {c.name: _flat(P.param_specs(c, rules))
+             for c in job.get("spec_cfgs", ())}
+    return {}, {}, {"layout": _layout(params), "want": want, "specs": specs}
+
+
+def _flash(job, rules, device):
+    """The flash wrapper on DTensors: q, k, v (numpy, whole) placed on
+    ("batch", None, "heads" / "kv_heads", None); gives the output whole,
+    and ``layers._attn_dispatch``'s for ``job["cfg"]`` where given."""
+    from repro_torch.models import layers
+    place = {"q": "heads", "k": "kv_heads", "v": "kv_heads"}
+    x = {n: rules.put(torch.as_tensor(job[n], device=device), "batch", None,
+                      ax, None) for n, ax in place.items()}
+    flash.flash_attention.launches = 0
+    out = flash.flash_attention(x["q"], x["k"], x["v"], causal=job["causal"],
+                                block_q=job["block"], block_k=job["block"])
+    res = {"out": full(out)}
+    if "cfg" in job:
+        res["dispatch"] = full(layers._attn_dispatch(
+            job["cfg"], x["q"], x["k"], x["v"], causal=job["causal"],
+            rules=rules))
+    return res, {}, {
+        "launches": flash.flash_attention.launches,
+        "placements": tuple(str(p) for p in getattr(out, "placements", ()))}
+
+
+def _flat(tree, prefix="") -> dict:
+    out = {}
+    for k in sorted(tree):
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(tree[k], dict):
+            out.update(_flat(tree[k], path))
+        else:
+            out[path] = tree[k]
+    return out
+
+
+LM_KINDS = {"serve": _serve, "train": _train, "grads": _grads,
+            "restore": _restore, "placements": _placements, "flash": _flash}
+
+
+def run_lm_job(job, device, meshes) -> dict:
+    """One LM job with its tensors on ``device``, on the job's mesh (built
+    once per shape in ``meshes``) or, with ``mesh`` None, on one device.
+    Returns {"tensors": {name: CPU tensor}, "digests": {name: digest},
+    "times": {...}, "info": {...}}; a job with ``keep`` (a tuple of name
+    prefixes) keeps only those tensors, and only on rank 0.  A ``probe``
+    job gives the collectives' checks in "info"."""
+    t0 = time.perf_counter()
+    rules = _lm_rules(job, meshes, device)
+    if job["kind"] == "probe":
+        if "stage" in job:   # the staged all-gather on this dispatch key
+            process_mesh.stage_functional_all_gather(job["stage"])
+        staged = process_mesh._all_gather_staged.calls
+        info = probe_collectives(rules.mesh)
+        info["staged_gathers"] = process_mesh._all_gather_staged.calls - staged
+        return {"tensors": {}, "info": info,
+                "times": {"job_s": time.perf_counter() - t0}}
+    if job["kind"] not in LM_KINDS:
+        raise ValueError(f"unknown LM job kind {job['kind']!r}")
+    out, times, info = LM_KINDS[job["kind"]](job, rules, device)
+    _sync_dev(device)
+    times["job_s"] = time.perf_counter() - t0
+    tensors = {k: v.detach().cpu() for k, v in out.items()}
+    res = {"tensors": tensors, "times": times, "info": info,
+           "digests": {k: digest(v) for k, v in tensors.items()}}
+    keep = job.get("keep", True)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if keep is not True:
+        # a full-size run keeps digests, and rank 0 the tensors named
+        res["tensors"] = {k: v for k, v in tensors.items()
+                          if rank == 0 and k.startswith(tuple(keep))}
+    return res
+
+
+def lm_rank(device, jobs, out_dir: str) -> None:
+    """Rank function for ``process_mesh.spawn``: every LM job on this
+    rank, written to ``out_dir/rank{r}.pt``.  Each result's
+    ``times["done_at"]`` is the host clock (``time.time``) at its end, and
+    the first's ``times["rank_start_at"]`` the rank's own start, for a
+    spawn's breakdown."""
+    meshes: dict = {}
+    start = time.time()
+    results = []
+    for job in jobs:
+        results.append(run_lm_job(job, device, meshes))
+        results[-1]["times"]["done_at"] = time.time()
+    results[0]["times"]["rank_start_at"] = start
+    torch.save(results, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
+
+
+def in_process_lm(device, jobs) -> list:
+    """The same jobs on one device (each job's ``mesh`` taken as None)."""
+    return [run_lm_job(dict(job, mesh=None), device, {}) for job in jobs]

@@ -25,7 +25,11 @@ bounds of a block evaluation), where ``DeviceMesh.local`` is the identity.
 * ``gloo`` sends CPU tensors as they are.  CUDA tensors it stages through
   host memory here, in the mesh's own code: each is copied to the host,
   sent, and copied back to its card (gloo's point-to-point calls do not
-  take device memory).  That is how several ranks share one card.
+  take device memory).  That is how several ranks share one card.  The
+  functional all-gather that ``DTensor`` issues crashes its rank on CUDA
+  tensors under gloo (torch 2.11 on the H100 machine, where the plain
+  ``all_gather_into_tensor`` works); :func:`stage_functional_all_gather`
+  replaces its CUDA kernel by the same staging.
 
 :func:`spawn` starts the ranks (``torch.multiprocessing``, a ``file://``
 store in a fresh temporary directory: no port is fixed, so concurrent
@@ -35,6 +39,7 @@ must be importable by name, as every spawned child imports it afresh.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import tempfile
@@ -241,6 +246,38 @@ class ProcessMesh:
             return [tuple(r.to(self.device) for r in recv)]
 
 
+_STAGED: dict = {}
+
+
+def _all_gather_staged(inp, group_size, group_name):
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    group = _resolve_process_group(group_name)
+    host = inp.cpu().contiguous()
+    out = host.new_empty((group_size * host.shape[0],) + host.shape[1:])
+    dist.all_gather_into_tensor(out, host, group=group)
+    _all_gather_staged.calls += 1
+    return out.to(inp.device)
+
+
+_all_gather_staged.calls = 0
+
+
+def stage_functional_all_gather(dispatch_key: str = "CUDA") -> None:
+    """Route ``_c10d_functional.all_gather_into_tensor`` on CUDA tensors
+    (what ``DTensor`` gathers a shard with) through host memory and the
+    plain gloo all-gather, for ranks that share a card under gloo.  The
+    result is complete when the op returns; its ``wait_tensor`` finds no
+    work to wait for.  Process-wide, once per process and key: the CPU
+    tests and ``gloo_cuda_probe.py`` register it for ``"CPU"`` to run the
+    same code on the CPU."""
+    if dispatch_key in _STAGED:
+        return
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl("all_gather_into_tensor", _all_gather_staged, dispatch_key)
+    _STAGED[dispatch_key] = lib   # the kernel lives as long as the library
+
+
 def all_reduce(x: torch.Tensor, op, group=None) -> torch.Tensor:
     """``x`` reduced over ``group`` with ``op``, returned on ``x``'s device
     (through host memory for CUDA tensors under gloo, as the mesh
@@ -269,13 +306,40 @@ def spawn(fn, world: int, backend: str, device, *args) -> None:
     check_backend(backend, world, device)
     with tempfile.TemporaryDirectory(prefix="process_mesh_") as tmp:
         init = "file://" + os.path.join(tmp, "store")
+        # the arguments go through a file: a start's pickle larger than a
+        # pipe's buffer (64 KB) blocks the parent until that child has
+        # imported its main module, so the ranks would start one by one
+        path = os.path.join(tmp, "args.pt")
+        torch.save(args, path)
         torch.multiprocessing.spawn(
             _rank_main, args=(fn, int(world), backend, str(device), init,
-                              args),
+                              path),
             nprocs=int(world), join=True)
 
 
-def _rank_main(rank, fn, world, backend, device, init, args):
+@contextlib.contextmanager
+def single_rank_group(backend: str, device):
+    """A process group of this process alone (world 1, rank 0) over
+    ``backend``, destroyed on exit: a mesh of one device without a spawn.
+    ``device`` is checked as ``spawn`` checks it."""
+    check_backend(backend, 1, device)
+    if dist.is_initialized():
+        raise RuntimeError("a process group exists already in this process")
+    dev = torch.device(device)
+    kw = {"device_id": rank_device(dev, 0)} if backend == "nccl" else {}
+    with tempfile.TemporaryDirectory(prefix="process_mesh_") as tmp:
+        dist.init_process_group(
+            backend, init_method="file://" + os.path.join(tmp, "store"),
+            rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=TIMEOUT_S), **kw)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def _rank_main(rank, fn, world, backend, device, init, args_path):
+    args = torch.load(args_path, weights_only=False)
     dev = rank_device(device, rank)
     if dev.type == "cpu":
         torch.set_num_threads(1)

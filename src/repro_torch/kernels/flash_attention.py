@@ -16,6 +16,13 @@ work to the op counter (``kernels.bounds.meta_launch``) and returns an
 empty result of the kernel's shape, or the plain version run on ``meta``
 when the counter asks for it.
 
+On a device mesh q, k and v are ``DTensor``s: q sharded on B and H, k
+and v on B and KV (or whole on KV where the kv heads do not split as the
+q heads do).  The wrapper runs on each rank's local block through
+``local_map``, the kernel (or its plain version) at the local shape, and
+returns a DTensor with q's placements; the local q heads read their own
+kv heads (``local_kv``), so the group size is the global one.
+
 The reference computes ``grid = Sq // block_q`` and so leaves rows
 unwritten, silently, when block_q does not divide Sq.  This wrapper raises
 on ``Sq % block_q`` or ``Sk % block_k`` instead.
@@ -27,7 +34,9 @@ import ctypes
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.distributed.shardings import block_index
 from repro_torch.kernels import _build, bounds
 
 DEFAULT_BLOCK_Q = 512
@@ -114,6 +123,63 @@ def _check(q, k, v, block_q, block_k):
                          f"block_q={block_q} and block_k={block_k}")
 
 
+def local_kv(k, v, *, h_local: int, h: int, kv: int, block: int):
+    """The kv heads that block ``block`` of q's ``h`` heads reads when q
+    holds ``h_local`` of them and k, v hold every one of the ``kv`` kv
+    heads (the rules keep kv whole where it does not split as q does): the
+    local q heads' own kv heads, contiguous, so each keeps its global
+    group ``h / kv``.  Where q holds every head, or k and v already hold
+    the local q heads' kv heads, they are returned as they are."""
+    kv_local = k.shape[2]
+    if h_local == h or kv_local * h == kv * h_local:
+        return k, v
+    g = h // kv
+    if kv_local != kv or (h_local % g and g % h_local):
+        raise ValueError(f"{h_local} of {h} q heads against {kv_local} of "
+                         f"{kv} kv heads: the local q heads do not map onto "
+                         f"whole kv heads")
+    first, n = block * h_local // g, max(1, h_local // g)
+    return (k[:, :, first:first + n].contiguous(),
+            v[:, :, first:first + n].contiguous())
+
+
+def _check_mesh_placements(q, k, v):
+    """q split only on B (dim 0) and H (dim 2); k and v split on B as q
+    is, and on KV where q is on H or not at all."""
+    if not all(isinstance(x, DTensor) for x in (k, v)):
+        raise TypeError("q is a DTensor: k and v must be DTensors too")
+    for axis, (pq, pk, pv) in enumerate(zip(q.placements, k.placements,
+                                            v.placements)):
+        ok_q = pq == Replicate() or pq in (Shard(0), Shard(2))
+        ok_kv = pk == pv and (pk == pq or (pq == Shard(2)
+                                           and pk == Replicate()))
+        if not (ok_q and ok_kv):
+            raise ValueError(
+                f"mesh axis {axis}: q {pq}, k {pk}, v {pv}; flash attention "
+                f"takes q split on B or H and k, v split as q (or whole on "
+                f"KV where q splits H)")
+
+
+def _flash_mesh(q, k, v, **kw):
+    """The wrapper on each rank's local blocks (``local_map``); a DTensor
+    with q's placements."""
+    from torch.distributed.tensor.experimental import local_map
+
+    _check_mesh_placements(q, k, v)
+    h, kv = q.shape[2], k.shape[2]
+    block = block_index(q, 2)
+
+    def local(ql, kl, vl):
+        kl, vl = local_kv(kl, vl, h_local=ql.shape[2], h=h, kv=kv,
+                          block=block)
+        return flash_attention(ql, kl, vl, **kw)
+
+    return local_map(local, out_placements=list(q.placements),
+                     in_placements=(q.placements, k.placements,
+                                    v.placements),
+                     device_mesh=q.device_mesh)(q, k, v)
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     block_q: int = DEFAULT_BLOCK_Q,
                     block_k: int = DEFAULT_BLOCK_K):
@@ -127,6 +193,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     as the reference trains ``attn_impl="flash"`` through ``_attn_full``
     off the TPU.
     """
+    if isinstance(q, DTensor):
+        return _flash_mesh(q, k, v, causal=causal, block_q=block_q,
+                           block_k=block_k)
     _check(q, k, v, block_q, block_k)
     if q.device.type == "cpu":
         return _flash_plain(q, k, v, causal=causal, block_q=block_q,

@@ -5,9 +5,15 @@ FFN and the top-k MoE FFN.
 
 Port of ``repro/models/layers.py``.  Numerics as in the reference:
 activations in ``cfg.dtype``; softmax, router probabilities, norm
-statistics and the rotary rotation in fp32.  The reference's
-``MeshRules`` argument is dropped: on one card ``rules.shard`` is the
-identity (``shardings.py:108-113``).
+statistics and the rotary rotation in fp32.  The reference's ``MeshRules``
+is the keyword ``rules`` of ``embed``, ``attention``, ``_attn_dispatch``
+and ``ffn``, the single-device rules by default (``rules.shard`` the
+identity).  On a real device mesh the activations are ``DTensor``s, the
+reference's shard points redistribute them, and the attention core
+(qk-norm, RoPE, the decode cache write and ``_attn_full``, or the flash
+kernel) runs on each rank's local heads through ``local_map``.  MLA and
+the MoE FFN take no rules yet: ``models.model`` refuses a family other
+than dense on a real mesh.
 
 The SSM cells are in ``models/ssm.py``.  MLA's prefill has no flash
 route: its q and k heads are wider than its v heads, which the flash
@@ -17,16 +23,21 @@ reference's registered ``attn_impl`` for deepseek-v2 is ``"xla"``).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.distributed.shardings import MeshRules, block_index
+from repro_torch.kernels.flash_attention import flash_attention, local_kv
 from repro_torch.models.config import ArchConfig
 
 NEG_INF = -1e30
+#: the single-device rules: every ``rules`` keyword's default
+SINGLE = MeshRules.single_device()
 
 
 # --------------------------------------------------------------------------
@@ -41,8 +52,20 @@ def rms_norm(x, w, eps: float = 1e-5):
     return (xf * torch.rsqrt(var + eps)).to(dt) * w.to(dt)
 
 
-def embed(tokens, table, dtype):
-    return table[tokens].to(dtype)
+def embed(tokens, table, dtype, *, rules: MeshRules = SINGLE):
+    """The rows of ``table`` for ``tokens``.  On a real mesh the lookup is
+    ``F.embedding``, which DTensor takes on a table split by rows (a masked
+    partial sum over the vocab's shards), on token ids held whole by every
+    rank: ids split on "batch" are gathered first (``rules.shard`` to
+    replicated), since DTensor's vocab mask does not follow a batch split.
+    Under autograd the table is gathered whole over the vocab first too:
+    DTensor has no backward for the masked partial sum."""
+    if not rules.is_real:
+        return table[tokens].to(dtype)
+    tokens = rules.put(tokens, *(None,) * tokens.dim())
+    if torch.is_grad_enabled() and table.requires_grad:
+        table = rules.shard(table, None, "fsdp_d_model")
+    return F.embedding(tokens, table).to(dtype)
 
 
 def unembed(x, table_or_head, *, tied: bool):
@@ -220,14 +243,57 @@ def _attn_streamed(q, k, v, *, causal: bool, q_chunk: int):
     return torch.cat(outs, dim=1)
 
 
-def _attn_dispatch(cfg: ArchConfig, q, k, v, *, causal: bool):
+def _grad_placements(x: DTensor, q: DTensor) -> tuple:
+    """The placements of the gradient of ``x``, an input of a local
+    attention core that splits its work as q is split: ``Partial`` on a
+    mesh axis where x is whole but q is split (each rank's gradient is a
+    part of the sum), x's own placement elsewhere."""
+    return tuple(Partial() if px == Replicate() and pq != Replicate()
+                 else px for px, pq in zip(x.placements, q.placements))
+
+
+def _on_local_heads(rules: MeshRules, fn, q, args: tuple, out_like: tuple):
+    """``fn(*args)`` on each rank's local blocks through ``local_map``:
+    ``args`` are DTensors or other values (None, ints, plain tensors held
+    whole by every rank); ``out_like`` names, per output, the DTensor whose
+    placements it takes (None for an output that is not a tensor)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    def pl(x, grad=False):
+        if not isinstance(x, DTensor):
+            return None
+        return list(_grad_placements(x, q) if grad else x.placements)
+
+    # one output's placements are a list: local_map reads a tuple as one
+    # entry per output
+    outs = tuple(pl(x) for x in out_like)
+    return local_map(
+        fn, out_placements=outs if len(outs) > 1 else outs[0],
+        in_placements=tuple(pl(a) for a in args),
+        in_grad_placements=tuple(pl(a, True) for a in args),
+        device_mesh=rules.mesh)(*args)
+
+
+def _attn_dispatch(cfg: ArchConfig, q, k, v, *, causal: bool,
+                   rules: MeshRules = SINGLE):
     """Route to the configured attention implementation.
 
     ``flash``: the flash kernel on a CUDA tensor, its plain version on a
     CPU tensor, with the reference's blocks ``min(512, S)``.  ``xla``:
     ``_attn_streamed`` with query blocks of ``cfg.attn_chunk`` at S >=
-    ``cfg.attn_chunked_above``, else ``_attn_full``.
+    ``cfg.attn_chunked_above``, else ``_attn_full``.  On a real mesh q, k
+    and v are DTensors split on heads, and the route runs on each rank's
+    local heads (``local_kv`` picks the kv heads of the local q heads).
     """
+    if rules.is_real:
+        h, kv, block = q.shape[2], k.shape[2], block_index(q, 2)
+
+        def local(ql, kl, vl):
+            kl, vl = local_kv(kl, vl, h_local=ql.shape[2], h=h, kv=kv,
+                              block=block)
+            return _attn_dispatch(cfg, ql, kl, vl, causal=causal)
+
+        return _on_local_heads(rules, local, q, (q, k, v), (q,))
     if cfg.attn_impl == "flash":
         bq = min(512, q.shape[1])
         bk = min(512, k.shape[1])
@@ -239,7 +305,7 @@ def _attn_dispatch(cfg: ArchConfig, q, k, v, *, causal: bool):
 
 def attention(cfg: ArchConfig, p: dict, x, *, positions, causal: bool = True,
               memory=None, cache: Optional[dict] = None, prefix: str = "",
-              prefill_len: Optional[int] = None):
+              prefill_len: Optional[int] = None, rules: MeshRules = SINGLE):
     """GQA attention with optional qk-norm, (M-)RoPE, cross-attention and
     KV cache.
 
@@ -253,6 +319,12 @@ def attention(cfg: ArchConfig, p: dict, x, *, positions, causal: bool = True,
     ``prefill_len``: plain causal attention, and also return the post-RoPE
     k/v padded to that length (the prefill cache fill).
 
+    On a real mesh (``rules``) q, k and v are constrained to the
+    reference's specs (``layers.py:248-250``) and everything between the
+    projections and the output projection runs on the rank's local heads
+    (``local_map``): the cache is a DTensor placed as k is, and the decode
+    write goes into the rank's own block of it.
+
     Returns (out, new_cache_slice | None).
     """
     b, s, _ = x.shape
@@ -263,37 +335,74 @@ def attention(cfg: ArchConfig, p: dict, x, *, positions, causal: bool = True,
     q = (x @ p[prefix + "q"].to(dt)).reshape(b, s, h, hd)
     k = (src @ p[prefix + "k"].to(dt)).reshape(b, src.shape[1], kv, hd)
     v = (src @ p[prefix + "v"].to(dt)).reshape(b, src.shape[1], kv, hd)
+    q = rules.shard(q, "batch", "seq_q", "heads", None)
+    k = rules.shard(k, "batch", None, "kv_heads", None)
+    v = rules.shard(v, "batch", None, "kv_heads", None)
 
-    if cfg.qk_norm and not prefix:
-        q = rms_norm(q, p["qn"], cfg.norm_eps)
-        k = rms_norm(k, p["kn"], cfg.norm_eps)
-    if memory is None:  # self-attention: rotary embedding
+    norms = (p["qn"], p["kn"]) if cfg.qk_norm and not prefix else (None,
+                                                                    None)
+    decode = cache is not None and memory is None
+    fill = prefill_len is not None and memory is None
+    ck, cv = (cache["k"], cache["v"]) if decode else (None, None)
+    core = functools.partial(
+        _attn_core, cfg, positions=positions, causal=causal,
+        self_attn=memory is None, cur=cache["len"] if decode else None,
+        prefill_len=prefill_len if fill else None,
+        block=block_index(q, 2) if rules.is_real else 0)
+    args = (q, k, v, ck, cv) + norms
+    outs = (q, k, v) if fill else (q,)
+    res = (_on_local_heads(rules, core, q, args, outs) if rules.is_real
+           else core(*args))
+    out, *kv_new = res if fill else (res,)
+    new_cache = ({"k": ck, "v": cv} if decode
+                 else dict(zip("kv", kv_new)) if fill else None)
+
+    out = rules.shard(out, "batch", None, "heads", None)
+    out = out.reshape(b, s, h * hd)
+    out = out @ p[prefix + "o"].to(dt)
+    return rules.shard(out, "batch", "seq", "d_model"), new_cache
+
+
+def _attn_core(cfg: ArchConfig, q, k, v, ck, cv, qn, kn, *, positions,
+               causal: bool, self_attn: bool, cur: Optional[int],
+               prefill_len: Optional[int], block: int):
+    """``attention`` between its projections: qk-norm and (M-)RoPE, then
+    the decode cache write and ``_attn_full`` over the cache (``cur`` the
+    cache's length), or ``_attn_dispatch``, with the padded k/v as well
+    when ``prefill_len``.  On a mesh it runs on one rank's local heads,
+    block ``block`` of q's heads, and the local q heads read their own kv
+    heads (``local_kv``).  Returns out, or (out, k, v) for a prefill
+    fill."""
+    dt = q.dtype
+    if qn is not None:
+        q = rms_norm(q, qn, cfg.norm_eps)
+        k = rms_norm(k, kn, cfg.norm_eps)
+    if self_attn:  # rotary embedding
         if cfg.mrope:
             q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
             k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
         else:
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
+    heads = dict(h_local=q.shape[2], h=cfg.n_heads, kv=cfg.n_kv_heads,
+                 block=block)
 
-    new_cache = None
-    if cache is not None and memory is None:
-        ck, cv, cur = cache["k"], cache["v"], cache["len"]
+    if ck is not None:
+        s = q.shape[1]
         _check_room(cur, s, ck.shape[1])
         ck[:, cur:cur + s] = k.to(ck.dtype)
         cv[:, cur:cur + s] = v.to(cv.dtype)
-        new_cache = {"k": ck, "v": cv}
+        kc, vc = local_kv(ck, cv, **heads)
         # the query is the newest token: the kv_len mask IS the causal mask
-        out = _attn_full(q, ck.to(dt), cv.to(dt), causal=False,
-                         kv_len=cur + s)
-    else:
-        if prefill_len is not None and memory is None:
-            pad = prefill_len - k.shape[1]
-            new_cache = {"k": F.pad(k, (0, 0, 0, 0, 0, pad)),
-                         "v": F.pad(v, (0, 0, 0, 0, 0, pad))}
-        out = _attn_dispatch(cfg, q, k, v, causal=causal)
-
-    out = out.reshape(b, s, h * hd)
-    return out @ p[prefix + "o"].to(dt), new_cache
+        return _attn_full(q, kc.to(dt), vc.to(dt), causal=False,
+                          kv_len=cur + s)
+    ka, va = local_kv(k, v, **heads)
+    out = _attn_dispatch(cfg, q, ka, va, causal=causal)
+    if prefill_len is None:
+        return out
+    pad = prefill_len - k.shape[1]
+    return (out, F.pad(k, (0, 0, 0, 0, 0, pad)),
+            F.pad(v, (0, 0, 0, 0, 0, pad)))
 
 
 def _check_room(cur: int, s: int, max_len: int):
@@ -392,11 +501,13 @@ def silu(x):
 # --------------------------------------------------------------------------
 # FFN
 # --------------------------------------------------------------------------
-def ffn(cfg: ArchConfig, p: dict, x, *, keys=("wg", "wu", "wd")):
+def ffn(cfg: ArchConfig, p: dict, x, *, keys=("wg", "wu", "wd"),
+        rules: MeshRules = SINGLE):
     dt = x.dtype
     g = x @ p[keys[0]].to(dt)
     u = x @ p[keys[1]].to(dt)
-    return (F.silu(g) * u) @ p[keys[2]].to(dt)
+    h = rules.shard(F.silu(g) * u, "batch", "seq", "d_ff")
+    return rules.shard(h @ p[keys[2]].to(dt), "batch", "seq", "d_model")
 
 
 def top_k(probs, k: int):

@@ -1,8 +1,16 @@
 """Model assembly of every LM family: the training forward and its loss,
 prefill and single-token decode.
 
-Port of ``repro/models/model.py``.  The reference's ``MeshRules``
-argument is dropped: on one card ``rules.shard`` is the identity.
+Port of ``repro/models/model.py``.  The reference's ``MeshRules`` is the
+keyword ``rules`` of ``transformer_block``, ``forward``, ``loss_fn``,
+``init_cache``, ``prefill`` and ``decode_step``; its default, the
+single-device rules, keeps every call as it was.  On a real device mesh
+(``MeshRules.for_mesh`` over a ``DeviceMesh``) the parameters are
+``DTensor``s placed by ``params.param_shardings``, the activations are
+constrained at the reference's points (``model.py:224, 258, 276, 484,
+594`` and the layers'), and the cache is placed by its logical axes.  Only
+the dense family runs on a real mesh; any other raises
+``NotImplementedError``.
 ``lax.scan`` over the stacked layers becomes a Python loop over the
 leading ``n_layers`` axis; ``forward`` splits each stacked leaf once
 with ``torch.unbind``, so under autograd the per-layer gradients are
@@ -55,15 +63,31 @@ import functools
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.core.nbody import resolve_device
+from repro_torch.distributed.shardings import MeshRules
 from repro_torch.models import layers, ssm
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import check_ported
 
 
 F32 = torch.float32
+SINGLE = layers.SINGLE
+#: the families that run on a real device mesh
+MESH_FAMILIES = ("dense",)
+
+
+def check_mesh(cfg: ArchConfig, rules: MeshRules):
+    """Refuse a family that has no mesh path yet on a real mesh, rather
+    than run it replicated."""
+    if rules.is_real and cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name} (family {cfg.family}) on a device mesh: only the "
+            f"dense family runs on a real mesh yet; MoE and MLA, the vlm "
+            f"and audio families, then the ssm and hybrid families are "
+            f"queued (ROADMAP item 7c)")
 
 
 def _adt(cfg: ArchConfig):
@@ -82,7 +106,8 @@ def _zero(device):
 # block forward
 # ===========================================================================
 def transformer_block(cfg, p, x, *, positions, causal=True, memory=None,
-                      cache=None, prefill_len=None):
+                      cache=None, prefill_len=None,
+                      rules: MeshRules = SINGLE):
     """Pre-norm attention (+ cross-attention) + FFN/MoE block.
 
     Returns (x, new_kv_cache_or_None, aux_loss)."""
@@ -93,7 +118,7 @@ def transformer_block(cfg, p, x, *, positions, causal=True, memory=None,
     else:
         out, kv = layers.attention(cfg, p, xa, positions=positions,
                                    causal=causal, cache=cache,
-                                   prefill_len=prefill_len)
+                                   prefill_len=prefill_len, rules=rules)
     x = x + out
 
     if "xq" in p:  # encoder-decoder cross-attention
@@ -108,7 +133,7 @@ def transformer_block(cfg, p, x, *, positions, causal=True, memory=None,
     if "router" in p:
         out, aux = layers.moe_ffn(cfg, p, xf)
         return x + out, kv, aux
-    return x + layers.ffn(cfg, p, xf), kv, _zero(x.device)
+    return x + layers.ffn(cfg, p, xf, rules=rules), kv, _zero(x.device)
 
 
 def mamba_block(cfg, p, x, *, state=None, conv_cache=None):
@@ -223,11 +248,12 @@ def _decode_positions(cfg: ArchConfig, cur: int, b: int, offset: int, device):
     return torch.full((1, 1), cur, dtype=torch.int32, device=device)
 
 
-def _logits(cfg, params, x):
+def _logits(cfg, params, x, rules=SINGLE):
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return layers.unembed(
+    logits = layers.unembed(
         x, params["embed"] if cfg.tie_embeddings else params["lm_head"],
         tied=cfg.tie_embeddings)
+    return rules.shard(logits, "batch", "seq", "vocab")
 
 
 def _frames(cfg, batch):
@@ -239,13 +265,13 @@ def _frames(cfg, batch):
     return batch["frames"].to(_adt(cfg))
 
 
-def _embed_inputs(cfg, params, batch):
+def _embed_inputs(cfg, params, batch, rules=SINGLE):
     """Token embeddings, with a vlm batch's patch embeddings prepended."""
     dt = _adt(cfg)
-    x = layers.embed(batch["tokens"], params["embed"], dt)
+    x = layers.embed(batch["tokens"], params["embed"], dt, rules=rules)
     if cfg.family == "vlm" and "patches" in batch:
         x = torch.cat([batch["patches"].to(dt), x], dim=1)
-    return x
+    return rules.shard(x, "batch", "seq", "d_model")
 
 
 # ===========================================================================
@@ -268,9 +294,9 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return policy.MUST_SAVE if op in _DOTS else policy.PREFER_RECOMPUTE
 
 
-def _block_out(cfg, p, x, positions, memory, causal):
+def _block_out(cfg, p, x, positions, memory, causal, rules=SINGLE):
     x, _, aux = transformer_block(cfg, p, x, positions=positions,
-                                  causal=causal, memory=memory)
+                                  causal=causal, memory=memory, rules=rules)
     return x, aux
 
 
@@ -301,13 +327,13 @@ def _maybe_remat(cfg: ArchConfig, fn, *args, train: bool):
 
 
 def _run_blocks(cfg, stacked, x, positions, *, train, memory=None,
-                causal=True):
+                causal=True, rules=SINGLE):
     """Every layer of ``stacked`` in turn; returns (x, the layers' aux
     summed from 0 in layer order, as the reference's scan carry)."""
     aux = _zero(x.device)
     for p in _unstack(stacked):
         x, a = _maybe_remat(cfg, _block_out, cfg, p, x, positions, memory,
-                            causal, train=train)
+                            causal, rules, train=train)
         aux = aux + a
     return x, aux
 
@@ -360,14 +386,16 @@ def _audio_encoder(cfg, params, batch, train):
                        causal=False)[0]
 
 
-def forward(cfg: ArchConfig, params: dict, batch: dict, *, train: bool = False):
+def forward(cfg: ArchConfig, params: dict, batch: dict, *, train: bool = False,
+            rules: MeshRules = SINGLE):
     """Returns (logits (B, S_text, padded_vocab), aux_loss).  ``batch``
     carries ``tokens`` and a stub frontend's ``patches`` (vlm) or
     ``frames`` (audio).  aux sums the MoE layers' load-balancing losses (0
     without a router).  ``train=True`` rematerializes each block as
     ``cfg.remat`` says (the values are the same)."""
     check_ported(cfg)
-    x = _embed_inputs(cfg, params, batch)
+    check_mesh(cfg, rules)
+    x = _embed_inputs(cfg, params, batch, rules)
     b, s = x.shape[:2]
     positions = _positions(cfg, batch, s, b, x.device)
     if cfg.family == "hybrid":
@@ -388,23 +416,30 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, train: bool = False):
                            train=train)
         aux = aux + a
     x, a = _run_blocks(cfg, params[key], x, positions, train=train,
-                       memory=memory)
+                       memory=memory, rules=rules)
     aux = aux + a
     if cfg.family == "vlm" and "patches" in batch:
         x = x[:, batch["patches"].shape[1]:]       # logits over text only
-    return _logits(cfg, params, x), aux
+    return _logits(cfg, params, x, rules), aux
 
 
 # ===========================================================================
 # loss
 # ===========================================================================
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
-            z_coef: float = 1e-4):
+            z_coef: float = 1e-4, rules: MeshRules = SINGLE):
     """Masked CE (fp32) + router aux + z-loss.  labels < 0 are masked out.
-    Returns (loss, {"ce", "aux", "z", "tokens"})."""
-    logits, aux = forward(cfg, params, batch, train=True)
+    Returns (loss, {"ce", "aux", "z", "tokens"}).
+
+    On a real mesh the fp32 logits are gathered whole over the vocab
+    before the log-sum-exp and the label gather (``rules.shard`` to
+    ("batch", "seq", None)), and the loss and its terms come out
+    replicated on every rank."""
+    logits, aux = forward(cfg, params, batch, train=True, rules=rules)
     labels = batch["labels"].long()
-    lg = logits.to(torch.float32)
+    lg = rules.shard(logits.to(torch.float32), "batch", "seq", None)
+    if rules.is_real and not isinstance(labels, DTensor):
+        labels = rules.put(labels, "batch", "seq")
     lse = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
     nll = lse - gold
@@ -412,8 +447,13 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict, *,
     denom = torch.clamp(mask.sum(), min=1.0)
     ce = (nll * mask).sum() / denom
     zl = z_coef * ((lse * mask) ** 2).sum() / denom
-    return ce + zl + aux, {"ce": ce, "aux": aux, "z": zl,
-                           "tokens": mask.sum()}
+    loss, terms = ce + zl + aux, {"ce": ce, "aux": aux, "z": zl,
+                                  "tokens": mask.sum()}
+    if rules.is_real:
+        loss = rules.shard(loss)
+        terms = {k: rules.shard(t) if isinstance(t, DTensor) else t
+                 for k, t in terms.items()}
+    return loss, terms
 
 
 # ===========================================================================
@@ -477,13 +517,18 @@ def _make_cache(lay, leaf):
 
 
 def init_cache(cfg: ArchConfig, b: int, max_len: int, device="cuda",
-               enc_len: int = 0):
+               enc_len: int = 0, rules: MeshRules = SINGLE):
     """A zero cache on ``device`` (default ``cuda``; raises without a
-    card)."""
+    card); on a real mesh each leaf a DTensor placed by its logical axes
+    (``cache_batch``, ``kv_heads``), each rank allocating its block."""
     dev = resolve_device(device)
 
-    def leaf(shape, dt, _logical):
-        return 0 if dt is int else torch.zeros(shape, dtype=dt, device=dev)
+    def leaf(shape, dt, logical):
+        if dt is int:
+            return 0
+        if rules.is_real:
+            return rules.sharding(shape, logical).zeros(shape, dt, dev)
+        return torch.zeros(shape, dtype=dt, device=dev)
 
     return _make_cache(cache_layout(cfg, b, max_len, enc_len), leaf)
 
@@ -506,13 +551,28 @@ def cache_spec(cfg: ArchConfig, b: int, max_len: int, rules=None,
 # ===========================================================================
 # prefill / decode
 # ===========================================================================
-def _fill(cfg, stacked, kvs, x, positions, memory, max_len):
+def _store(stacked, i: int, t):
+    """``stacked[i] = t``.  On a mesh the stacked cache leaf is placed as
+    ``t`` is, one dimension to the right, so each rank writes its own
+    block."""
+    if not isinstance(stacked, DTensor):
+        stacked[i] = t
+        return
+    shifted = tuple(Shard(p.dim + 1) if isinstance(p, Shard) else p
+                    for p in t.placements)
+    if shifted != stacked.placements:
+        raise ValueError(f"cache placed {stacked.placements}, its entry "
+                         f"{t.placements}")
+    stacked.to_local()[i] = t.to_local()
+
+
+def _fill(cfg, stacked, kvs, x, positions, memory, max_len, rules=SINGLE):
     for i in range(next(iter(stacked.values())).shape[0]):
         x, kv, _ = transformer_block(cfg, _layer(stacked, i), x,
                                      positions=positions, memory=memory,
-                                     prefill_len=max_len)
+                                     prefill_len=max_len, rules=rules)
         for name, t in kv.items():
-            kvs[name][i] = t
+            _store(kvs[name], i, t)
     return x
 
 
@@ -555,14 +615,16 @@ def _xlstm_fill(cfg, params, cache, x):
 
 
 def prefill(cfg: ArchConfig, params: dict, batch: dict, *,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, rules: MeshRules = SINGLE):
     """Run the full prompt; returns (last-token logits (B, padded_vocab),
     filled cache).  Attention runs through ``_attn_dispatch``, so with
     ``attn_impl="flash"`` each self-attention layer launches the flash
     kernel once, and an audio prefill launches it once more per encoder
-    layer and per cross-attention."""
+    layer and per cross-attention.  On a real mesh each rank launches it
+    on its local heads, and the logits come out split over the vocab."""
     check_ported(cfg)
-    x = _embed_inputs(cfg, params, batch)
+    check_mesh(cfg, rules)
+    x = _embed_inputs(cfg, params, batch, rules)
     b, s = x.shape[:2]
     s_tok = batch["tokens"].shape[1]
     max_len = max_len or s
@@ -574,7 +636,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, *,
     if cfg.family == "audio":
         memory = _audio_encoder(cfg, params, batch, False)
         enc_len = memory.shape[1]
-    cache = init_cache(cfg, b, max_len, x.device, enc_len)
+    cache = init_cache(cfg, b, max_len, x.device, enc_len, rules)
     if memory is not None:
         cache["memory"].copy_(memory)
     if cfg.family == "hybrid":
@@ -587,21 +649,24 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, *,
                       positions, None, max_len)
         key = "dec_blocks" if cfg.family == "audio" else "blocks"
         x = _fill(cfg, params[key], cache["layers"], x, positions, memory,
-                  max_len)
-    logits = _logits(cfg, params, x[:, -1:])
+                  max_len, rules)
+    logits = _logits(cfg, params, x[:, -1:], rules)
     cache["len"] = s
     cache["offset"] = s - s_tok
     return logits[:, 0], cache
 
 
-def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens):
+def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens, *,
+                rules: MeshRules = SINGLE):
     """One new token per sequence.  tokens: (B, 1) integers.
 
     Returns (logits (B, padded_vocab), cache), the cache updated in place
     and its ``len`` advanced by one."""
     check_ported(cfg)
+    check_mesh(cfg, rules)
     cur = cache["len"]
-    x = layers.embed(tokens, params["embed"], _adt(cfg))
+    x = layers.embed(tokens, params["embed"], _adt(cfg), rules=rules)
+    x = rules.shard(x, "batch", None, "d_model")
     positions = _decode_positions(cfg, cur, x.shape[0], cache["offset"],
                                   x.device)
     memory = cache.get("memory")
@@ -612,7 +677,8 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens):
         for i in range(next(iter(stacked.values())).shape[0]):
             x, _, _ = transformer_block(cfg, _layer(stacked, i), x,
                                         positions=positions, memory=memory,
-                                        cache=dict(_layer(kvs, i), len=cur))
+                                        cache=dict(_layer(kvs, i), len=cur),
+                                        rules=rules)
         return x
 
     if cfg.family == "hybrid":
@@ -624,7 +690,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens):
             x = run(params["dense_blocks"], cache["dense_layers"], x)
         key = "dec_blocks" if cfg.family == "audio" else "blocks"
         x = run(params[key], cache["layers"], x)
-    logits = _logits(cfg, params, x)
+    logits = _logits(cfg, params, x, rules)
     cache["len"] = cur + 1
     return logits[:, 0], cache
 

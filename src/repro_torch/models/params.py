@@ -18,8 +18,10 @@ the cross-attention's ``x``-prefixed leaves; the hybrid family has
 ``blocks`` of Mamba2 leaves and ONE ``shared_attn`` block, the ssm family
 ``blocks`` of mLSTM and ``slstm_blocks`` of sLSTM leaves.  Each
 ``ParamDef`` carries the reference's logical sharding axes, which
-``distributed.shardings.MeshRules`` maps onto a mesh for the dry-run
-(``abstract_params``, ``param_specs``).
+``distributed.shardings.MeshRules`` maps onto a mesh: an abstract one for
+the dry-run (``abstract_params``, ``param_specs``), or a real device mesh,
+where ``param_shardings`` gives each leaf's layout and ``init_params`` /
+``params_from_jax`` with ``rules`` return the leaves as ``DTensor``s.
 """
 
 from __future__ import annotations
@@ -277,8 +279,15 @@ def param_specs(cfg: ArchConfig, rules) -> dict:
                          param_defs(cfg))
 
 
+def param_shardings(cfg: ArchConfig, rules) -> dict:
+    """Each leaf's ``NamedSharding`` on the rules' real mesh (None leaves
+    without one), as the reference's ``param_shardings``."""
+    return tree_util.map(lambda p: rules.sharding(p.shape, p.logical),
+                         param_defs(cfg))
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device="cuda") -> dict:
+                device="cuda", rules=None) -> dict:
     """Random parameters in ``cfg.param_dtype`` on ``device``.
 
     The reference's law (``params.py:221-241``): norms and Mamba2's skip
@@ -292,6 +301,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     over with ``params_from_jax``.  Each leaf is drawn in fp32 and cast on its own,
     so no fp32 copy of the whole tree exists.  ``device`` defaults to
     ``cuda`` and raises without a card.
+
+    With ``rules`` on a real mesh every rank draws each leaf whole, as
+    above, and keeps its block (``param_shardings``): the values do not
+    depend on the mesh, and only one whole leaf is held at a time.
     """
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.param_dtype)
@@ -308,7 +321,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                         device=generator.device)
         return x.mul_(std).to(device=dev, dtype=dtype)
 
-    return tree_util.map(one, param_defs(cfg))
+    if rules is None or not rules.is_real:
+        return tree_util.map(one, param_defs(cfg))
+    return tree_util.map(
+        lambda p: rules.sharding(p.shape, p.logical).place(one(p)),
+        param_defs(cfg))
 
 
 def _ssm_init(p: ParamDef, dev):
@@ -324,12 +341,22 @@ def _ssm_init(p: ParamDef, dev):
     return base.expand(p.shape).clone()
 
 
-def params_from_jax(tree: Mapping, device="cuda") -> dict:
+def params_from_jax(tree: Mapping, device="cuda", rules=None, *,
+                    cfg: Optional[ArchConfig] = None) -> dict:
     """The reference's ``init_params`` tree, leaves as numpy arrays, as the
     port's parameters on ``device``: the same keys, the same stacked
-    ``(n_layers, ...)`` leaves, the same values bit for bit."""
+    ``(n_layers, ...)`` leaves, the same values bit for bit.  With
+    ``rules`` on a real mesh (and the tree's ``cfg``) each leaf is placed
+    per ``param_shardings``."""
     dev = resolve_device(device)
-    return tree_util.map(lambda x: torch.from_numpy(np.array(x)).to(dev), tree)
+    out = tree_util.map(lambda x: torch.from_numpy(np.array(x)).to(dev), tree)
+    if rules is not None and rules.is_real:
+        if cfg is None:
+            raise ValueError("params_from_jax on a real mesh needs the "
+                             "tree's cfg for its shardings")
+        out = tree_util.map(lambda x, sh: sh.place(x), out,
+                            param_shardings(cfg, rules))
+    return out
 
 
 def cast_params(params: Mapping, dtype: str) -> dict:
@@ -340,7 +367,8 @@ def cast_params(params: Mapping, dtype: str) -> dict:
     (``p["q"].astype(dt)``) or, for the ``FP32_LEAVES``, to fp32; casting
     once at load gives the same bits, since every use of a leaf casts it to
     that one dtype.  (A fp32 leaf rounded to bf16 first would give another
-    function: ``a_log`` rounded to 2**-8 moves every decay.)"""
+    function: ``a_log`` rounded to 2**-8 moves every decay.)  A ``DTensor``
+    leaf keeps its placements: each rank casts its block."""
     dt = getattr(torch, dtype)
 
     def cast(tree):

@@ -13,6 +13,11 @@ norm weights ``blocks.ln1/ln2/qn/kn`` (shape ``(n_layers, d)``) are
 decayed and ``final_norm`` is not.  Keep the optimizer's leaves the
 stacked tensors, as ``models.params`` builds them, to keep that rule.
 
+On a device mesh the parameters are ``DTensor``s: the moments take their
+placements (``init``), the gradients must come with them too
+(``train.step``), and ``global_norm`` is the whole tree's norm on every
+rank, so every rank clips by the same factor.
+
 ``update`` writes the new moments into the state's tensors and
 ``apply_updates`` adds the updates into the parameters, in place and under
 ``torch.no_grad()``: the counterpart of the reference's donated
@@ -29,6 +34,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch import tree as tree_util
+from repro_torch.distributed.shardings import full
 
 F32 = torch.float32
 
@@ -63,9 +69,11 @@ def warmup_cosine(peak_lr: float, *, warmup: int = 100,
 
 def global_norm(tree: dict) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf, in fp32, the leaves'
-    sums added in the reference's (sorted key) order."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(F32)))
-                          for x in tree_util.leaves(tree)))
+    sums added in the reference's (sorted key) order.  Over DTensor leaves
+    each rank adds its blocks' partial sums and one reduction completes
+    them: the result is a plain tensor, the same on every rank."""
+    return full(torch.sqrt(sum(torch.sum(torch.square(x.to(F32)))
+                               for x in tree_util.leaves(tree))))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,9 +86,10 @@ class AdamW:
     clip_norm: Optional[float] = 1.0
 
     def init(self, params: dict) -> AdamWState:
+        """Zero moments in fp32, each placed as its parameter."""
         def zeros():
-            return tree_util.map(lambda p: torch.zeros(p.shape, dtype=F32,
-                                                       device=p.device), params)
+            return tree_util.map(lambda p: torch.zeros_like(
+                p, dtype=F32, memory_format=torch.contiguous_format), params)
         dev = next(tree_util.leaves(params)).device
         return AdamWState(count=torch.zeros((), dtype=torch.int32, device=dev),
                           m=zeros(), v=zeros())

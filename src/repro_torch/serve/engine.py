@@ -10,6 +10,12 @@ use casts to fp32 (``params.FP32_LEAVES``: the ssm and hybrid families'
 recurrent weights); the reference casts them at every use, which gives
 the same bits.  The cache (KV, or the recurrent state) is updated in
 place, as the reference's donated cache is.
+
+``rules`` (keyword; the single-device rules by default) serves on a real
+device mesh: the parameters are DTensors placed by
+``params.param_shardings``, every rank runs the engine on the same
+prompts, and sampling reads the logits gathered whole on every rank, so
+every rank emits the same tokens.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import time
 
 import torch
 
+from repro_torch.distributed.shardings import MeshRules, full
 from repro_torch.models import model
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.params import cast_params
@@ -33,8 +40,10 @@ class ServeConfig:
 
 class Engine:
     def __init__(self, cfg: ArchConfig, params: dict,
-                 scfg: ServeConfig = ServeConfig()):
-        self.cfg, self.scfg = cfg, scfg
+                 scfg: ServeConfig = ServeConfig(), *,
+                 rules: MeshRules = model.SINGLE):
+        model.check_mesh(cfg, rules)
+        self.cfg, self.scfg, self.rules = cfg, scfg, rules
         self.params = cast_params(params, cfg.dtype)
         self.device = self.params["embed"].device
 
@@ -69,7 +78,9 @@ class Engine:
                  for k, v in batch.items()}
         t0 = time.perf_counter()
         logits, cache = model.prefill(self.cfg, self.params, batch,
-                                      max_len=self.scfg.max_len)
+                                      max_len=self.scfg.max_len,
+                                      rules=self.rules)
+        logits = full(logits)
         self._sync()
         t_prefill = time.perf_counter() - t0
 
@@ -80,8 +91,8 @@ class Engine:
         for _ in range(n_tokens):
             toks.append(nxt)
             logits, cache = model.decode_step(self.cfg, self.params, cache,
-                                              nxt[:, None])
-            nxt = self._sample(logits, gen)
+                                              nxt[:, None], rules=self.rules)
+            nxt = self._sample(full(logits), gen)
         self._sync()
         t_decode = time.perf_counter() - t0
         out = torch.stack(toks, dim=1)
@@ -93,21 +104,21 @@ class Engine:
         }
 
 
-def prefill_step(cfg: ArchConfig):
+def prefill_step(cfg: ArchConfig, *, rules: MeshRules = model.SINGLE):
     """Bare prefill ``fn(params, batch) -> (logits, cache)``, the
     reference's dry-run target; the tensors' device picks the route."""
 
     def step(params, batch):
-        return model.prefill(cfg, params, batch)
+        return model.prefill(cfg, params, batch, rules=rules)
 
     return step
 
 
-def decode_step(cfg: ArchConfig):
+def decode_step(cfg: ArchConfig, *, rules: MeshRules = model.SINGLE):
     """Bare decode ``fn(params, cache, tokens) -> (logits, cache)``: one new
     token per sequence against the cache."""
 
     def step(params, cache, tokens):
-        return model.decode_step(cfg, params, cache, tokens)
+        return model.decode_step(cfg, params, cache, tokens, rules=rules)
 
     return step

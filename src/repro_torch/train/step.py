@@ -15,14 +15,24 @@ counterpart).  Gradients come from ``torch.autograd.grad`` on detached
 aliases of the parameters, so the caller's tensors need not require a
 gradient; the optimizer then updates those tensors in place, the
 counterpart of the reference's donated ``(params, opt_state)``.
+
+``rules`` (keyword; the single-device rules by default) trains on a real
+device mesh: the parameters are DTensors, ``model.loss_fn`` runs under the
+rules, and each gradient is redistributed to its parameter's placements
+(a reduce-scatter or all-reduce of the partial sums over the batch's
+shards) before the optimizer reads it.  Gradient accumulation and int8
+compression are single-device only yet, and raise on a real mesh.
 """
 
 from __future__ import annotations
 
 import torch
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch import tree as tree_util
 from repro_torch.distributed import compression
+from repro_torch.distributed.shardings import MeshRules, full
 from repro_torch.models import model
 from repro_torch.models.config import ArchConfig
 from repro_torch.optim.adamw import AdamW, apply_updates
@@ -30,22 +40,35 @@ from repro_torch.optim.adamw import AdamW, apply_updates
 F32 = torch.float32
 
 
-def _value_and_grad(cfg: ArchConfig, params: dict, batch: dict):
+def _placed_as(g, p):
+    """The gradient ``g`` with its parameter's placements (a DTensor's
+    gradient may come out partial or otherwise placed)."""
+    if isinstance(p, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _value_and_grad(cfg: ArchConfig, params: dict, batch: dict, *,
+                    rules: MeshRules = model.SINGLE):
     """(loss, metrics, grads) of ``model.loss_fn`` at ``params``.  A leaf
     the loss does not read (a stack of zero layers, as deepseek-v2's MoE
     blocks at ``n_layers = first_k_dense``) gets a zero gradient, as
-    ``jax.grad`` gives it."""
+    ``jax.grad`` gives it.  On a real mesh the gradients take the
+    parameters' placements, and the loss and metrics are plain tensors,
+    the same on every rank."""
     live = tree_util.map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
-        loss, metrics = model.loss_fn(cfg, live, batch)
+        loss, metrics = model.loss_fn(cfg, live, batch, rules=rules)
         grads = torch.autograd.grad(loss, list(tree_util.leaves(live)),
                                     allow_unused=True, materialize_grads=True)
     it = iter(grads)
-    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-            tree_util.map(lambda _: next(it), live))
+    grads = tree_util.map(lambda p: _placed_as(next(it), p), live)
+    return (full(loss.detach()),
+            {k: full(v.detach()) for k, v in metrics.items()}, grads)
 
 
-def make_train_step(cfg: ArchConfig, opt: AdamW, *, accum: int = 1,
+def make_train_step(cfg: ArchConfig, opt: AdamW, *,
+                    rules: MeshRules = model.SINGLE, accum: int = 1,
                     grad_compression: str = "none", accum_dtype=F32):
     """Returns train_step(params, opt_state, batch[, err]) -> (params,
     opt_state, metrics[, err]); ``params`` and the state's moments are
@@ -58,10 +81,15 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, *, accum: int = 1,
     if grad_compression not in ("none", "int8"):
         raise ValueError(f"grad_compression {grad_compression!r}: expected "
                          f"'none' or 'int8'")
+    model.check_mesh(cfg, rules)
+    if rules.is_real and (accum != 1 or grad_compression != "none"):
+        raise NotImplementedError(
+            "gradient accumulation and int8 compression run on one device "
+            "only yet; on a device mesh use accum=1, grad_compression='none'")
 
     def compute_grads(params, batch):
         if accum == 1:
-            return _value_and_grad(cfg, params, batch)
+            return _value_and_grad(cfg, params, batch, rules=rules)
         b = next(iter(batch.values())).shape[0]
         if b % accum:
             raise ValueError(f"batch {b} does not split into {accum} "

@@ -20,6 +20,16 @@ parameters with the port's ``init_params`` from
 ``torch.Generator(device).manual_seed(tcfg.seed)``: the reference's law,
 not its bits; to start from the reference's parameters, pass them to
 ``run(start_params=..., start_opt=...)``.
+
+``rules`` (keyword; the single-device rules by default) trains on a real
+device mesh, one process per device (``distributed.process_mesh.spawn``):
+the parameters are drawn whole and placed per ``params.param_shardings``,
+the AdamW moments take their placements, and a restore places every leaf
+per the *current* mesh (the reference's ``trainer.py:91-108``), so a run
+saved on one device count resumes on another.  Every rank builds each
+step's batch whole from the seed and places it per ``batch_shardings``
+(``{name: NamedSharding}``; a name without one is placed on "batch" by
+the model), as ``jax.device_put`` does.  Only rank 0 logs.
 """
 
 from __future__ import annotations
@@ -29,13 +39,15 @@ import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import store
 from repro_torch.core.nbody import resolve_device
 from repro_torch.data.pipeline import to_device
+from repro_torch.distributed.shardings import MeshRules
 from repro_torch.models import params as P
 from repro_torch.models.config import ArchConfig
-from repro_torch.optim.adamw import AdamW
+from repro_torch.optim.adamw import AdamW, AdamWState
 from repro_torch.train.step import make_train_step
 
 
@@ -82,24 +94,41 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, cfg: ArchConfig, opt: AdamW,
                  data: Callable[[int], dict], tcfg: TrainerConfig,
-                 *, device="cuda", log: Callable[[str], None] = print):
+                 *, device="cuda", log: Callable[[str], None] = print,
+                 rules: Optional[MeshRules] = None,
+                 batch_shardings: Optional[dict] = None):
         self.cfg, self.opt = cfg, opt
-        self.data, self.tcfg, self.log = data, tcfg, log
+        self.data, self.tcfg = data, tcfg
+        self.rules = rules or MeshRules.single_device()
+        self.batch_shardings = batch_shardings or {}
         self.device = resolve_device(device)
         self.monitor = StragglerMonitor()
-        self._step_fn = make_train_step(cfg, opt, accum=tcfg.accum)
+        self._step_fn = make_train_step(cfg, opt, rules=self.rules,
+                                        accum=tcfg.accum)
+        lead = not self.rules.is_real or dist.get_rank() == 0
+        self.log = log if lead else (lambda _msg: None)
 
     # ---------------- state ----------------
     def init_state(self):
         gen = torch.Generator(self.device).manual_seed(self.tcfg.seed)
-        params = P.init_params(self.cfg, gen, device=self.device)
+        params = P.init_params(self.cfg, gen, device=self.device,
+                               rules=self.rules)
         return params, self.opt.init(params)
+
+    def _shardings(self):
+        """The current mesh's layout of ``{"params", "opt"}``: each moment
+        placed as its parameter; None without a real mesh."""
+        if not self.rules.is_real:
+            return None
+        sh = P.param_shardings(self.cfg, self.rules)
+        return {"params": sh, "opt": AdamWState(count=None, m=sh, v=sh)}
 
     def restore_or_init(self):
         params, opt_state = self.init_state()
         if self.tcfg.ckpt_dir:
             step, tree = store.restore_latest(
-                self.tcfg.ckpt_dir, {"params": params, "opt": opt_state})
+                self.tcfg.ckpt_dir, {"params": params, "opt": opt_state},
+                shardings=self._shardings())
             if step is not None:
                 self.log(f"[trainer] restored checkpoint at step {step}")
                 return step, tree["params"], tree["opt"]
@@ -126,6 +155,8 @@ class Trainer:
         history = []
         for step in range(start_step, self.tcfg.steps):
             batch = to_device(self.data(step), self.device)
+            batch = {k: sh.place(v) if (sh := self.batch_shardings.get(k))
+                     else v for k, v in batch.items()}
             self._sync()
             t0 = time.perf_counter()
             params, opt_state, metrics = self._step_fn(

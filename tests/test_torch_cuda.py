@@ -334,7 +334,8 @@ FLASH_SHAPES = [  # b, sq, sk, h, kv, d, block_q, block_k, causal
     (2, 200, 200, 6, 2, 112, 200, 40, True),        # d=112, ragged, g=3
     (1, 2048, 2048, 32, 32, 112, 512, 512, True),   # zamba2-7b: d=112,
     (1, 8192, 8192, 32, 32, 112, 512, 512, True),   # and its long prompt
-]
+    (2, 2048, 2048, 8, 4, 128, 512, 512, True),     # qwen3 on a (2, 2)
+]                                                   # mesh: one rank's heads
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
