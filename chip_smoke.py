@@ -43,22 +43,22 @@ Phases, in order; any failure raises and the script exits nonzero:
 8. block ensembles (``repro_torch.sim``): K1 and K2 held against their
    plain versions at the block path's shapes (gathered targets, caps
    below 128 and off it, B = 3 and 4, against 16384 sources);
-   binary_plummer N = 16384 fp32 through the block stepper to t = 1/16,
+   binary_plummer N = 16384 fp32 through the block stepper to t = 1/64,
    once with ``compaction="none"`` and once with ``"gather"``: equal
    events and pairs, bitwise equal final states, fewer tiles, |dE/E| in
    its tier, one K1 and one K2 launch per event, the host reads per
    event, the blocks of each K1 launch as its launcher reports them, and
-   a profiled window over the first 128 events of each; the same
+   a profiled window over the first 64 events of each; the same
    bitwise check in mixed mode at N = 4096; a padded batch king:4096
    merger:8192 plummer:16384 in member bucket groups, each member bitwise
    equal to its own B = 1 run, padding rows frozen, one launch per pass
    per group; fixed-dt and adaptive ensembles of four Plummer N = 16384
    members, one launch per pass for the batch, |dE/E| per member; and
    ``benchmarks/bench_ci.py``'s block_compaction recipe at N = 256 with
-   gather compaction, recorded beside the reference's row;
+   gather compaction over its --quick span, recorded;
 9. the simulation API and CLI (``repro_torch.launch.sim_run``,
    ``repro_torch.sim.api``) at the main path's width: the single runner
-   on Plummer N = 16384 to t = 1/16 (CLI, and build/step/collect on the
+   on Plummer N = 16384 to t = 1/64 (CLI, and build/step/collect on the
    same config) bit for bit against ``hermite.evolve`` on the same state;
    the block runner on phase 8's binary_plummer gather run (events, tiles
    and final bits equal to phase 8's, one engine build at most, the tile
@@ -67,8 +67,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    events, tiles and bits equal to phase 8's); the card's energy counter
    (NVML) read around the single and block CLI runs beside the report's
    modeled energy;
-10. the distribution strategies: Table 1's recipe at N = 409600 under
-   each strategy over four slots of the card, phase 8's block run under
+10. the distribution strategies: Table 1's recipe at N = 409600 (a
+   bootstrap and one step) under each strategy over four slots of the card, phase 8's block run under
    each over two, and ``sim_run`` under a strategy;
 11. the Ahmad-Cohen neighbor scheme at the reference's acceptance point
    (``benchmarks/bench_ci.py``'s neighbor A/B, Plummer N = 16384): full
@@ -81,7 +81,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    same at the next bucket up; the overflow run (every window the full
    extent) against full sources at N = 4096; the peak allocated memory;
 12. the simulation server (``repro_torch.serve.sim_engine``) at n_max =
-   16384: a deterministic Poisson trace of 12 requests (plummer, king,
+   16384: a deterministic Poisson trace of 6 requests (plummer, king,
    binary_plummer, merger at 2048-16384 bodies, adaptive and block) through
    a server with full-source block pods and its block requests through one
    with neighbor pods, after ``warmup`` with no engine build and no kernel
@@ -127,12 +127,13 @@ Phases, in order; any failure raises and the script exits nonzero:
 16. the ssm and hybrid families served (``ssm_phase``): K3 at D = 112
    (zamba2's heads; B = 4, S = 2048 and B = 1, S = 8192, H = KV = 32, bf16
    and fp32) against its plain version, timed beside it, its bound and
-   SDPA; xlstm-1.3b (48 layers) and zamba2-7b (81 layers) whole, as
-   registered (fp32 masters; the engine keeps the fp32 leaves), B = 4,
+   SDPA; xlstm-1.3b (16 of 48 layers) and zamba2-7b (27 of 81 layers) at
+   their published widths, as registered (fp32 masters; the engine keeps
+   the fp32 leaves), B = 4,
    prompts of 2048, 32 generated, zamba2 under the flash route; zamba2 at
    B = 1, a prompt of 8192, 16 generated, under the xla route, which runs
    ``_attn_streamed``; launch counts zeroed before each run and read
-   after (K3: 13 per zamba2 flash prefill, none in decode), prefill and
+   after (K3: 4 per zamba2 flash prefill, none in decode), prefill and
    decode ms beside their limits, a profiled decode step (and zamba2's
    prefill), every cache leaf finite; zamba2's routes against each other
    (bf16 read, fp32 held at B = 1); each config cut in depth (8 and 9
@@ -147,16 +148,17 @@ Phases, in order; any failure raises and the script exits nonzero:
    kernel formulas times the launches, within 0.1%; (b) its peak bytes
    within 0.8 to 1.25 of max_memory_allocated over the step; (c) the
    step's median ms at least 0.95 of the dry-run's roofline;
-18. training the other families (``train_families_phase``): qwen2-vl-2b,
-   seamless-m4t-medium and xlstm-1.3b (S = 128) whole, phi3.5-moe-42b-a6.6b
-   (1 of 32 layers), deepseek-v2-236b (1 of 60, and its first MoE layer's
-   loss and gradients at depth 2) and zamba2-7b (30 of 81) at their
-   published widths, each cut the deepest that the dry-run puts at 72 GB
-   or less:
+18. training the other families (``train_families_phase``): qwen2-vl-2b
+   and seamless-m4t-medium whole, phi3.5-moe-42b-a6.6b (1 of 32 layers),
+   deepseek-v2-236b (1 of 60, and its first MoE layer's loss and
+   gradients at depth 2), zamba2-7b (9 of 81) and xlstm-1.3b (8 of 48,
+   S = 128) at their published widths, each cut to what the dry-run puts
+   at 72 GB or less, zamba2 and xlstm further for time:
    ``Trainer`` over one warm-up and three timed steps of one repeated
    batch (finite, falling losses, step ms, tokens/s, TFLOP/s, peak memory,
    a profiled step), each step held against the dry-run as phase 17 holds
-   qwen3's; each family at depth 2 (xlstm 8, zamba2 9) in fp32 on the card
+   qwen3's; each family at depth 2 (the MoE configs 1, xlstm 8, zamba2 9)
+   in fp32 on the card
    against the CPU (the loss and every gradient leaf; the scans' families
    at the tolerance ``ssm_grad_witness.py`` sets), two gradient calls bit
    for bit; then
@@ -164,7 +166,7 @@ Phases, in order; any failure raises and the script exits nonzero:
 19. the examples (``examples_phase``): ``launch/cluster_simulation.py`` at
    the example's defaults single and replicated over four slots of the
    card (bit for bit, the Fig. 4 overlap against the reference example's)
-   and at N = 16384; ``launch/ensemble_scenarios.py`` at the example's
+   and at N = 16384 to t = 1/64; ``launch/ensemble_scenarios.py`` at the example's
    defaults against the port's steps and |dE/E| there on the CPU (the
    reference example's printed beside), and on the card against the CPU
    in this process at a smaller size;
@@ -177,10 +179,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    and final state bit for bit each other's and the in-process ``[cuda:0]
    * 4`` run's, K1/K2 launches per rank (1 per evaluation resident, p
    ring) and shift rounds per rank; (b) one block event of phase 8's
-   binary_plummer N = 16384 through each strategy's block evaluator on two
-   ranks, gather == none bit for bit and the tiles per shard the
-   in-process run's; (c) nccl at one rank on ``cuda:0`` bit for bit the
-   one-slot in-process mesh; (d) nccl refusing two ranks on one card
+   binary_plummer N = 16384 through each strategy's block evaluator on the
+   same four ranks, gather == none bit for bit and the tiles per shard the
+   in-process run's; (c) nccl at one rank on ``cuda:0`` (the rank function
+   in a group of this process alone) bit for bit the one-slot in-process
+   mesh; (d) nccl refusing two ranks on one card
    before any group exists; (e) ``compressed_psum`` on four ranks against
    the int32 sum of the levels times the shared scale computed in this
    process; the wall per step of each run beside the in-process run's,
@@ -201,6 +204,29 @@ Phases, in order; any failure raises and the script exits nonzero:
    process group of this process alone), every parameter and moment bit
    for bit; (d) per rank ms per prefill, decode
    step and train step beside the one-device run's;
+22. the moe, vlm and audio families over the device mesh
+   (``mesh_family_phase``): K3 at the mesh's new local shapes (g = 4 and
+   6 at D = 128, non-causal D = 64 with Sq != Sk, Sq = 1) against its
+   plain version, timed beside its bound and SDPA; then one spawn of four
+   gloo ranks on ``cuda:0`` as the (2, 2) mesh runs phi3.5-moe-42b-a6.6b
+   (1 of 32 layers), deepseek-v2-236b (2 of 60: the dense layer and one
+   MoE layer; MLA through ``_attn_full``), qwen2-vl-2b (2 layers, 256
+   patches + 256 tokens) and seamless-m4t-medium (2 encoder + 2 decoder
+   layers, 512 frames, prompts of 128) at their published widths: (a)
+   bf16 ``Engine.generate`` of 4 prompts and 2 greedy decode steps, the
+   prefill logits against the one-device run of the same code, tokens
+   equal or near-ties; (b) K3's launches per rank per prefill; (c) MoE:
+   each rank's routing and dropped entries against one device's on its
+   sequences (the router's disagreement and the tokens routed otherwise
+   below limits that a router fed with unreduced partial sums, read in
+   the same run, exceeds), two meshed prefills bit for bit; (d) two fp32
+   ``Trainer``
+   steps of 4 x 128 with the registered remat (deepseek-v2: one gradient
+   call at depth 1) held by
+   rank 0 against the one-device run (phase 14 (b)'s rule; each gradient
+   leaf), the moments placed as the parameters; (f) per rank ms per
+   prefill, decode step and train step beside the one-device run's (in
+   the whole run its jobs go to phase 21's ranks, after phase 21's own);
 then one ``kernels`` JSON line and ``{"ok": true, "device": {...}}`` as the
 last line.
 
@@ -343,23 +369,26 @@ ROWS_TOL = {"fp32": 1e-5, "bf16": 2.0 ** -7}
 SERVE_TOL = 5e-2
 
 #: the block path (phase 8): binary_plummer at the main path's width, one
-#: macro-step of dt_max split into 2**(n_levels-1) ticks.  10 levels, not
-#: 8: at 8 the finest step (dt_max/128) is far coarser than the one the
-#: core's closest pairs want, and |dE/E| leaves the fp32 tier (PERF.md
-#: gives the readings at 8, 9 and 11 levels)
+#: macro-step of dt_max split into 2**(n_levels-1) ticks.  The finest step
+#: must be 2**-13: at a macro-step of 1/16, 8 levels (finest 2**-11) left
+#: the fp32 tier and 10 held it (PERF.md gives the readings at 8, 9 and 11
+#: levels).  A macro-step of 1/64 at 8 levels keeps that finest step in 128
+#: events instead of 512 (phase 13's FUSED_KW); cut for time
 BLOCK_SCENARIO = "binary_plummer"
-BLOCK_KW = dict(t_end=0.0625, dt_max=0.0625, n_levels=10, eta=0.02)
-#: events in the profiled window of each block mode
-BLOCK_PROFILE_EVENTS = 128
+BLOCK_KW = dict(t_end=2.0 ** -6, dt_max=2.0 ** -6, n_levels=8, eta=0.02)
+#: events in the profiled window of each block mode (the first half)
+BLOCK_PROFILE_EVENTS = 64
 N_BLOCK_MIXED = 4096
 #: the padded mixed batch (B = 3, n_max 16384)
 PADDED_MIX = (("king", 4096), ("merger", 8192), ("plummer", 16384))
 #: fixed and adaptive ensembles: B members of Plummer N_MAIN
 ENSEMBLE_B, FIXED_STEPS, FIXED_DT = 4, 16, 2.0 ** -16
 ADAPTIVE_T_END, ADAPTIVE_STEPS = 2.0 ** -11, 64
-#: benchmarks/bench_ci.py's block_compaction recipe and the reference's
-#: row for seed 0 (BENCH_ci.json): events, tiles none, tiles gather
-BENCH_CI_KW = dict(t_end=0.25, eta=0.01, dt_max=0.0625, n_levels=12,
+#: benchmarks/bench_ci.py's block_compaction recipe at its --quick span
+#: (T_END / 2, bench_ci.py:185; the full span's 4685 events took 27 to 38
+#: s of host-bound events, cut for time), and the reference's row for seed
+#: 0 at the full span (BENCH_ci.json): events, tiles none, tiles gather
+BENCH_CI_KW = dict(t_end=0.125, eta=0.01, dt_max=0.0625, n_levels=12,
                    block_i=32, block_j=256)
 BENCH_CI_N, BENCH_CI_REF = 256, (4685, 74960, 13466)
 #: K1 and K2 at the block path's shapes against N_s = N_MAIN sources:
@@ -373,12 +402,14 @@ BLOCK_SHAPES = [("cap 32", 0, 32, 32), ("cap 224", 0, 224, 32),
 
 
 #: phase 9: the CLI's flags for the single, block and mixed runners, at the
-#: main path's width and on phase 4's and phase 8's configurations.
+#: main path's width and on phase 4's and phase 8's configurations; the
+#: single runner to API_T_END, a quarter of phase 4's span (cut for time).
 #: ``--no-validate`` skips the construction-time diagnostics (a numpy
 #: O(N^2) potential on the host), which check the initial state and leave
 #: it as it is; phase 8 skips them too
+API_T_END = 2.0 ** -6
 API_SINGLE_ARGS = ["--scenario", "plummer", "--n", str(N_MAIN), "--t-end",
-                   str(T_END), "--dtype", "fp32", "--no-validate"]
+                   str(API_T_END), "--dtype", "fp32", "--no-validate"]
 API_BLOCK_ARGS = ["--scenario", BLOCK_SCENARIO, "--n", str(N_MAIN),
                   "--stepper", "block",
                   "--levels", str(BLOCK_KW["n_levels"]),
@@ -393,9 +424,10 @@ IDLE_READINGS, IDLE_INTERVAL_S = 50, 0.1
 
 #: phase 10 (a): the paper's Table 1 recipe at full scale
 #: (benchmarks/table1_strategies.py:17-19): Plummer N = 409600, seed 0,
-#: fixed dt, the bootstrap and three Hermite steps, each strategy over
-#: TABLE1_P slots of the one card (two_level as 2 cards x 2 chips)
-TABLE1_N, TABLE1_STEPS, TABLE1_DT, TABLE1_P = 409600, 3, 1e-3, 4
+#: fixed dt, the bootstrap and one Hermite step (the recipe's three cut
+#: for time, as phase 20's PM_STEPS), each strategy over TABLE1_P slots
+#: of the one card (two_level as 2 cards x 2 chips)
+TABLE1_N, TABLE1_STEPS, TABLE1_DT, TABLE1_P = 409600, 1, 1e-3, 4
 #: each run: (strategy, dtype, ring mode); "single" is the one-card path
 TABLE1_RUNS = [("single", "fp32", None), ("replicated", "fp32", None),
                ("two_level", "fp32", None), ("mesh_sharded", "fp32", None),
@@ -438,6 +470,55 @@ MESH_LOGITS_TOL = 3e-2
 #: near-tie there: within this share of the step's largest |logit| of the
 #: one-device run's largest logit (the same bf16 roundings)
 MESH_TIE_TOL = 3e-2
+#: phase 22: the moe, vlm and audio families over the same (2, 2) mesh,
+#: each at its published width cut in depth (``cut``), with seeded random
+#: weights.  Serving: bf16 weights and activations, MESH_FAM_B prompts of
+#: ``prompt`` tokens after ``patches`` patch or ``frames`` frame
+#: embeddings, MESH_FAM_GEN greedy decode steps; ``k3``: K3's launches per
+#: rank per prefill.  Training (``train``): two fp32 Trainer steps of
+#: MESH_FAM_B x MESH_FAM_TRAIN_S (the xla route) or, for deepseek-v2, one
+#: fp32 gradient call at ``grads_cut``: at depth 2 its fp32 parameters,
+#: gradients and Adam moments (5.35 G parameters x 16 bytes, 86 GB) do not
+#: fit the card, before four ranks' gathers
+MESH_FAMILY_RUNS = (
+    dict(arch="phi3.5-moe-42b-a6.6b", cut=dict(n_layers=1), attn="flash",
+         prompt=512, k3=1, train="steps"),
+    dict(arch="deepseek-v2-236b", cut=dict(n_layers=2), attn="xla",
+         prompt=512, k3=0, train="grads", grads_cut=dict(n_layers=1)),
+    dict(arch="qwen2-vl-2b", cut=dict(n_layers=2), attn="flash", prompt=256,
+         patches=256, k3=2, train="steps"),
+    dict(arch="seamless-m4t-medium", cut=dict(n_layers=2, encoder_layers=2),
+         attn="flash", prompt=128, frames=512, k3=6, train="steps"),
+)
+MESH_FAM_B, MESH_FAM_GEN, MESH_FAM_TRAIN_S = 4, 2, 128
+#: K3 at the local shapes of MESH_FAMILY_RUNS on the (2, 2) mesh: a rank's
+#: half of the batch and of the heads (b, sq, sk, h, kv, d), causal, and
+#: ``_attn_dispatch``'s blocks min(512, S)
+MESH_FAM_FLASH = (
+    ("mesh phi3.5 prefill g=4", (2, 512, 512, 16, 4, 128), True, (512, 512)),
+    ("mesh qwen2-vl prefill g=6", (2, 512, 512, 6, 1, 128), True,
+     (512, 512)),
+    ("mesh seamless encoder", (2, 512, 512, 8, 8, 64), False, (512, 512)),
+    ("mesh seamless decoder", (2, 128, 128, 8, 8, 64), True, (128, 128)),
+    ("mesh seamless cross", (2, 128, 512, 8, 8, 64), False, (128, 512)),
+    ("mesh seamless cross decode", (2, 1, 512, 8, 8, 64), False, (1, 512)),
+)
+#: MoE in bf16, mesh against one device: the router's inputs differ by
+#: the mesh's bf16 partial sums (``MESH_LOGITS_TOL``).  Its disagreement,
+#: |log p_mesh - log p_one| over each token's top k + 1 experts on either
+#: side, may be at most MESH_ROUTER_TOL, and the share of a MoE layer's
+#: tokens that take another set of experts at most MESH_FLIP_SHARE.  The
+#: sound mesh reads 3.260e-2 and 0.0063 (phi3.5-moe), 3.278e-2 and 0.0518
+#: (deepseek-v2), the same bits in every run on one H100; each limit lies
+#: about twice above them.  Each run also reads the fault the limits must
+#: catch, on one device: a router fed with the partial sums of one "data"
+#: rank's part of d, never reduced (``partial_router_fault``); its
+#: readings, at every MoE layer, must lie above both limits.  A sequence whose last token takes
+#: or drops other experts at a MoE layer, or any of whose tokens does
+#: before the last MoE layer, is held apart from the logits and tokens (at
+#: most MESH_APART of them; none in any run so far); a sequence with no
+#: token routed otherwise must drop one device's entries
+MESH_ROUTER_TOL, MESH_FLIP_SHARE, MESH_APART = 2.0 ** -4, 2.0 ** -3, 1
 #: phase 10 (c): the CLI under a strategy on one card
 API_STRATEGY_SINGLE_ARGS = ["--scenario", "plummer", "--n", str(N_MAIN),
                             "--t-end", "0.0078125", "--dtype", "fp32",
@@ -476,9 +557,10 @@ SERVE_SHAPES = (("plummer", 16384, "block"), ("king", 2048, "adaptive"),
                 ("merger", 8192, "adaptive"),
                 ("plummer", 2048, "adaptive"),
                 ("binary_plummer", 8192, "block"))
-SERVE_REQUESTS, SERVE_MEAN_GAP_S, SERVE_T_END = 12, 0.05, 0.04
+#: six requests, each shape once (twelve until cut for time)
+SERVE_REQUESTS, SERVE_MEAN_GAP_S, SERVE_T_END = 6, 0.05, 0.04
 #: phase 12: the profiled window of the suspended run, in scheduler ticks
-SERVE_PROFILE_TICKS = 4
+SERVE_PROFILE_TICKS = 2
 #: phase 13: the batch layouts, every run fp32 with eps = 4/N.  (a) phase
 #: 8's ensemble (ENSEMBLE_B Plummer N_MAIN) over LAYOUT_SLOTS slots of the
 #: card beside one slot, its block runs one chunk of LAYOUT_EVENTS events;
@@ -1108,12 +1190,13 @@ def block_phase(dev, kernels, plains, block_ops, all_kernels):
         n_sources=-(-BENCH_CI_N // bj_ci) * bj_ci, block_i=bi_ci,
         block_j=bj_ci).dense_tiles
     ref_e, ref_tn, ref_tg = BENCH_CI_REF
-    print(f"bench_ci block_compaction {BLOCK_SCENARIO} N={BENCH_CI_N} seed 0 "
-          f"{BENCH_CI_KW}: events {eg} (reference {ref_e}), tiles_gather "
-          f"{tg:.0f} (reference {ref_tg}), tiles_none (events x dense tiles "
-          f"per event) {tn} (reference {ref_tn}), tiles ratio {tn / tg:.2f} "
-          f"(reference {ref_tn / ref_tg:.2f}); wall per gather event "
-          f"{1e3 * wg / eg:.4f} ms (recorded, not gated)", flush=True)
+    print(f"bench_ci block_compaction --quick {BLOCK_SCENARIO} N={BENCH_CI_N} "
+          f"seed 0 {BENCH_CI_KW}: events {eg}, tiles_gather {tg:.0f}, "
+          f"tiles_none (events x dense tiles per event) {tn}, tiles ratio "
+          f"{tn / tg:.2f} (the reference's row at t_end 0.25: events {ref_e}, "
+          f"tiles {ref_tn} / {ref_tg}, ratio {ref_tn / ref_tg:.2f}); wall per "
+          f"gather event {1e3 * wg / eg:.4f} ms (recorded, not gated)",
+          flush=True)
     out["bench_ci"] = {"events": eg, "tiles_none": tn, "tiles_gather": tg,
                        "ms_per_event_gather": 1e3 * wg / eg}
     return out
@@ -1219,7 +1302,7 @@ def api_phase(dev, all_kernels, block, main_run, nvml):
             rep = json.load(f)
         check(rc == 0, f"api single: sim_run exited {rc}")
         steps = rep["steps"]
-        cfg = api.SimConfig(scenario="plummer", n=N_MAIN, t_end=T_END,
+        cfg = api.SimConfig(scenario="plummer", n=N_MAIN, t_end=API_T_END,
                             dtype="fp32", validate_ic=False)
         (h, rep_b), counts_b, _, _ = counted(lambda: drive(cfg), all_kernels)
         st = scenarios.make("plummer", N_MAIN, seed=0, device=dev,
@@ -1227,14 +1310,14 @@ def api_phase(dev, all_kernels, block, main_run, nvml):
         ev = make_evaluator(order=6, eps=1e-7, dtype="fp32")
         e0 = float(nbody.total_energy(hermite.initialize(st, ev)))
         ref, counts_ev, _, wall_ev = counted(
-            lambda: hermite.evolve(st, ev, t_end=T_END, eta=ETA),
+            lambda: hermite.evolve(st, ev, t_end=API_T_END, eta=ETA),
             all_kernels)
         e1 = float(nbody.total_energy(ref))
         de = abs((e1 - e0) / e0)
         same = bitwise_same(h.state, ref, nbody.FIELDS)
         # phase 4's main path again, in this process state: the control for
         # the step walls above
-        ctrl = nbody_run.run(n=N_MAIN, t_end=T_END, eta=ETA, seed=0,
+        ctrl = nbody_run.run(n=N_MAIN, t_end=API_T_END, eta=ETA, seed=0,
                              dtype="fp32", device=dev)
         ctrl_ms = 1e3 * ctrl["wall_s"] / ctrl["steps"]
         step_ms = 1e3 * rep["step_wall_s"]["median"]
@@ -1265,7 +1348,7 @@ def api_phase(dev, all_kernels, block, main_run, nvml):
               f"hermite.evolve {de}")
         check(rep["de_rel"] <= DE_TIERS["fp32"],
               f"api single: |dE/E| {rep['de_rel']:.3e}")
-        check(abs(rep["t_final"] - T_END) < 1e-12,
+        check(abs(rep["t_final"] - API_T_END) < 1e-12,
               f"api single stopped at t={rep['t_final']}")
         out["single"] = {"steps": steps, "counts": counts, "wall": wall,
                          "report_wall": rep["wall_s"],
@@ -1682,22 +1765,24 @@ def strategy_cli(dev, all_kernels, block):
         out["block"] = {"events": rep["steps"], "tiles": per_shard,
                         "counts": counts, "wall": wall}
 
+        # in this process (a new interpreter takes some 10 s to reach the
+        # card): the error the CLI exits with
         visible = torch.cuda.device_count()
-        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.sim_run",
-             "--scenario", "plummer", "--n", "64", "--t-end", "0.001",
-             "--strategy", "replicated", "--devices", str(visible + 1),
-             "--no-validate", "--out", os.path.join(tmp, "refused.json")],
-            capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+        refused = None
+        try:
+            sim_run.main(
+                ["--scenario", "plummer", "--n", "64", "--t-end", "0.001",
+                 "--strategy", "replicated", "--devices", str(visible + 1),
+                 "--no-validate", "--out", os.path.join(tmp, "refused.json")])
+        except ValueError as e:
+            refused = str(e)
         said = f"only {visible} visible"
         print(f"cli --devices {visible + 1} on {visible} visible card(s): "
-              f"exit {proc.returncode}, names the visible count "
-              f"{said in proc.stderr}", flush=True)
-        check(proc.returncode != 0 and said in proc.stderr,
-              f"cli --devices {visible + 1}: exit {proc.returncode}, "
-              f"stderr {proc.stderr[-300:]!r}")
-        out["refused_rc"] = proc.returncode
+              f"refused {refused is not None}, names the visible count "
+              f"{refused is not None and said in refused}", flush=True)
+        check(refused is not None and said in refused,
+              f"cli --devices {visible + 1}: {refused!r}")
+        out["refused"] = refused
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
@@ -1933,8 +2018,10 @@ def launch_readings(name, x, kw, kern):
     kern.blocks = {}
     ms = cuda_ms(lambda: kern(*x, **kw), 20)
     blocks = next(iter(kern.blocks))
+    # the comparison above ran the plain version on these operands: its
+    # warm-up
     pms = cuda_ms(lambda: nbody_force._plain(plain, x, batch, **kw), 1,
-                  warmup=1)
+                  warmup=0)
     bms, by, pairs = window_bound_ms(name, "fp32", x)
     return {"ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "pairs": pairs, "blocks": blocks, "max_norm_err": norm_err,
@@ -3129,12 +3216,12 @@ def spying(module, name, record):
         setattr(module, name, real)
 
 
-def family_flash_holds(dev):
+def family_flash_holds(dev, shapes=FAMILY_FLASH):
     """K3 at the families' shapes against its plain version (phase 6's
     checks), timed beside its plain version, its bound and SDPA's fastest
     backend."""
     out = {}
-    for label, (b, sq, sk, h, kvh, d), causal, (bq, bk) in FAMILY_FLASH:
+    for label, (b, sq, sk, h, kvh, d), causal, (bq, bk) in shapes:
         q, k, v = flash_operands(b, sq, sk, h, kvh, d, torch.bfloat16, dev,
                                  seed=sq + sk + h)
         r = flash_readings(q, k, v, causal, bq, bk)
@@ -3465,13 +3552,16 @@ def families_phase(dev, all_kernels):
 #: seeded random weights, greedy; (a) xlstm-1.3b (no attention), (b)
 #: zamba2-7b under the flash route, (c) zamba2-7b's long prompt under the
 #: registered xla route, which runs _attn_streamed at S >= 8192
+#: at their published widths, cut for time to a third of their depth:
+#: xlstm-1.3b 16 of 48 layers (two groups of 7 mLSTM + 1 sLSTM), zamba2-7b
+#: 27 of 81 (four shared attention blocks); both zamba2 runs share weights
 SSM_RUNS = (
     dict(label="xlstm-1.3b", arch="xlstm-1.3b", attn="xla", batch=4,
-         prompt=2048, gen=32),
+         prompt=2048, gen=32, cut=dict(n_layers=16)),
     dict(label="zamba2-7b", arch="zamba2-7b", attn="flash", batch=4,
-         prompt=2048, gen=32),
+         prompt=2048, gen=32, cut=dict(n_layers=27)),
     dict(label="zamba2-7b long", arch="zamba2-7b", attn="xla", batch=1,
-         prompt=8192, gen=16),
+         prompt=8192, gen=16, cut=dict(n_layers=27)),
 )
 #: (d) K3 at zamba2's shapes (b, sq, sk, h, kv, d): the shared block's
 #: prefill in (b) and in (c)'s flash comparison, D = 112
@@ -3683,7 +3773,8 @@ def ssm_run(dev, all_kernels, run, engine=None):
     it has few launches), the cache finite, and for zamba2 its two routes
     against each other (``ssm_routes``).  Returns the readings and the
     engine (whose weights (c) reuses)."""
-    cfg = dataclasses.replace(lm_config.get(run["arch"]), attn_impl=run["attn"])
+    cfg = dataclasses.replace(lm_config.get(run["arch"]), attn_impl=run["attn"],
+                              **run["cut"])
     b, prompt, gen = run["batch"], run["prompt"], run["gen"]
     max_len = prompt + gen
     if engine is None:
@@ -4069,19 +4160,24 @@ def dryrun_phase(dev, all_kernels):
 #: builds them (``batch_spec_for``, ``SyntheticLM``, ``AdamW`` with
 #: ``warmup_cosine``, ``Trainer`` over ``make_train_step``), on one
 #: repeated batch of B x S as ``batch_spec_for`` gives it.  Depth is cut
-#: only where one card's 80 GB forces it, each cut the deepest whose
+#: where one card's 80 GB forces it (and, below, for time), each such cut
+#: the deepest whose
 #: dry-run peak (``lower_cell`` at single-device rules, accum 1, this
 #: B x S; read on meta before the first run) is at most
 #: FAMILY_TRAIN_PEAK_MAX: phi3.5-moe 1 of 32 layers (2 layers: 74.41e9
 #: bytes); deepseek-v2 1 of 60, its dense first layer with MLA (depth 2
 #: holds 5.36e9 parameters, 85.7e9 bytes with AdamW's state), so its first
 #: MoE layer's loss and gradients run at depth 2 without the optimizer
-#: (``grads``: 47.52e9 bytes); zamba2-7b 30 of 81, a multiple of
+#: (``grads``: 47.52e9 bytes); zamba2-7b would fit 30 of 81, a multiple of
 #: attn_every (71.00e9 at 4 x 2048; 36 layers: 83.46e9).  The script's
-#: time limit then cuts xlstm's S alone: xlstm-1.3b runs whole at S = 128:
-#: its sLSTM's steps run in turn, some 550 launches per position and step
-#: (at S = 1024 18.9 s a step and 565678 launches, busy 11.7%; at 128 3.1
-#: s; H100 runs).  Each config's card-against-CPU check runs before its
+#: time limit then cuts xlstm's S: xlstm-1.3b runs at S = 128, its
+#: sLSTM's steps in turn, some 550 launches per position and step (at S =
+#: 1024 18.9 s a step and 565678 launches, busy 11.7%; at 128 3.1 s; H100
+#: runs).  Since phase 22 came, it cuts depth too: zamba2-7b to 18 layers
+#: (three attn_every groups) and xlstm-1.3b to 24 of 48 (three groups of
+#: slstm_every), which took 39.2 s and 42.1 s of phase 18 on an H100 at
+#: 30 and 48 (the dry-run holds each step at the depth it runs).  Each
+#: config's card-against-CPU check runs before its
 #: steps, deepseek-v2's first: its CPU work covers the worker processes'
 #: start and their traces of the others' steps
 FAMILY_TRAIN_RUNS = (
@@ -4091,8 +4187,8 @@ FAMILY_TRAIN_RUNS = (
          seq=2048),
     dict(arch="qwen2-vl-2b", cut={}, batch=4, seq=2048),
     dict(arch="seamless-m4t-medium", cut={}, batch=4, seq=2048),
-    dict(arch="zamba2-7b", cut=dict(n_layers=30), batch=4, seq=2048),
-    dict(arch="xlstm-1.3b", cut={}, batch=4, seq=128),
+    dict(arch="zamba2-7b", cut=dict(n_layers=9), batch=4, seq=2048),
+    dict(arch="xlstm-1.3b", cut=dict(n_layers=8), batch=4, seq=128),
 )
 FAMILY_TRAIN_PEAK_MAX = 72e9
 #: (a) one warm-up step, then FAMILY_TRAIN_TIMED timed steps; the lr is
@@ -4103,14 +4199,17 @@ FAMILY_TRAIN_OPS = 6
 #: positions (a vlm's 128 patches and 128 tokens), so that MoE routing is
 #: the same on both; depth 2 (seamless: 2 encoder and 2 decoder layers),
 #: xlstm and zamba2 phase 16's 8 and 9 (an sLSTM block, a shared attention
-#: block).  The tolerance is tests/test_torch_train_families.py's and
+#: block); cut for time, the MoE configs to depth 1: phi3.5-moe's one MoE
+#: layer, deepseek-v2's dense layer with MLA (its MoE layer's gradients
+#: are held on the card, twice, at depth 2; phi3.5-moe holds MoE's
+#: against the CPU).  The tolerance is tests/test_torch_train_families.py's and
 #: test_torch_train_ssm.py's fp32 one: the loss within 1e-6 relative, each
 #: gradient leaf within 1e-5 of its largest element (the CPU's)
 FAMILY_GRAD_CUT = {
     "qwen2-vl-2b": dict(n_layers=2),
     "seamless-m4t-medium": dict(n_layers=2, encoder_layers=2),
-    "phi3.5-moe-42b-a6.6b": dict(n_layers=2),
-    "deepseek-v2-236b": dict(n_layers=2),
+    "phi3.5-moe-42b-a6.6b": dict(n_layers=1),
+    "deepseek-v2-236b": dict(n_layers=1),
     "xlstm-1.3b": dict(n_layers=8),
     "zamba2-7b": dict(n_layers=9),
 }
@@ -4435,9 +4534,9 @@ def train_families_phase(dev, all_kernels):
 CLUSTER_SLOTS = 4
 CLUSTER_REF_OVERLAP = 1.000
 CLUSTER_OVERLAP_TOL = 0.02
-#: one single run at N = 16384 to t = 1/16 (16 steps), with the FP64
-#: oracle's seconds
-CLUSTER_LARGE = dict(n=16384, t_end=1.0 / 16)
+#: one single run at N = 16384 to t = 1/64 (1/16 until cut for time), with
+#: the FP64 oracle's seconds
+CLUSTER_LARGE = dict(n=16384, t_end=1.0 / 64)
 
 #: launch/ensemble_scenarios.py at the example's defaults (n = 128, an
 #: ensemble of 4, t_end 0.125, every scenario) on the card.  (steps, max
@@ -4636,16 +4735,22 @@ def pm_hold(tag, ranks, ref, jobs, per_rank):
     return launches
 
 
-def pm_table1(dev, p):
+def pm_table1(dev, p, extra_jobs=()):
     """Phase 20 (a) and (e): Table 1's size under every strategy on ``p``
-    gloo ranks of the one card, and compressed_psum on the same ranks."""
+    gloo ranks of the one card, and compressed_psum on the same ranks.
+    ``extra_jobs`` ((b)'s) run on the same ranks after these, so that the
+    ranks' start is paid once; returns the readings and their results,
+    per rank."""
     jobs = [dict(kind="lockstep", strategy=s_, ring_mode=m_, n=TABLE1_N,
                  seed=0, steps=PM_STEPS, dt=TABLE1_DT, dtype="fp32",
                  chips_per_card=2) for s_, m_ in PM_RUNS]
     rng = np.random.default_rng(0)
     x = torch.tensor(rng.standard_normal((p, PM_PSUM_LEN)).astype(np.float32))
     x[1, 7] = 40.0  # one rank's entry sets the shared scale
-    ranks, spawn_s = pm_spawn(p, "gloo", dev, jobs + [dict(kind="psum", x=x)])
+    ranks, spawn_s = pm_spawn(p, "gloo", dev, jobs + [dict(kind="psum", x=x)]
+                              + list(extra_jobs))
+    extra = [r[len(jobs) + 1:] for r in ranks]
+    ranks = [r[:len(jobs) + 1] for r in ranks]
     torch.cuda.synchronize()
     ref = mesh_runs.in_process([dev] * p, jobs)
     evals = PM_STEPS + 1
@@ -4695,7 +4800,7 @@ def pm_table1(dev, p):
           "int32 sum at the shared scale")
     check(err <= p * float(scale) / 2 * (1 + 1e-6),
           f"process mesh (e): compressed_psum off by {err:.3e}")
-    return {"launches": launches, "steps": steps, "spawn_s": spawn_s}
+    return {"launches": launches, "steps": steps, "spawn_s": spawn_s}, extra
 
 
 def pm_block_inputs(dev):
@@ -4717,18 +4822,23 @@ def pm_block_inputs(dev):
     return tuple(t.cpu() for t in (pos, vel, acc, st.mass, mask))
 
 
-def pm_block(dev, p):
-    """Phase 20 (b): one block event through each strategy's block
-    evaluator on ``p`` gloo ranks of the one card.  gather == none is
-    ``torch.equal`` on every row, as the block runs hold it (a masked row
-    is a zero of either sign); the bytes are compared and printed too."""
-    inputs = pm_block_inputs(dev)
+def pm_block_jobs(inputs):
+    """Phase 20 (b)'s jobs on ``pm_block_inputs``, each keeping its
+    tensors, the first once more in front: its times carry the first
+    launch at the event's shapes."""
     jobs = [dict(kind="block", strategy=s_, ring_mode=m_, compaction=c_,
-                 inputs=inputs, dtype="fp32", chips_per_card=2)
+                 inputs=inputs, dtype="fp32", chips_per_card=2, keep=True)
             for s_, m_ in PM_RUNS for c_ in strategies.COMPACTIONS]
-    # the first job once more in front: its times carry each rank's first
-    # collective and launch
-    ranks, spawn_s = pm_spawn(p, "gloo", dev, jobs[:1] + jobs, keep=True)
+    return jobs[:1] + jobs
+
+
+def pm_block(dev, p, inputs, jobs, ranks):
+    """Phase 20 (b): one block event through each strategy's block
+    evaluator on ``p`` gloo ranks of the one card (``ranks``, the results
+    of ``pm_block_jobs`` there).  gather == none is ``torch.equal`` on every
+    row, as the block runs hold it (a masked row is a zero of either sign);
+    the bytes are compared and printed too."""
+    jobs = jobs[1:]
     ranks = [r[1:] for r in ranks]
     torch.cuda.synchronize()
     ref = mesh_runs.in_process([dev] * p, jobs)
@@ -4771,7 +4881,7 @@ def pm_block(dev, p):
               f"process mesh (b) {label}: gather and none differ")
         check(all(a <= b for a, b in zip(tg, tn)) and tg != tn,
               f"process mesh (b) {label}: gather tiles {tg} vs none {tn}")
-    return {"launches": launches, "tiles": tiles, "spawn_s": spawn_s}
+    return {"launches": launches, "tiles": tiles}
 
 
 def pm_nccl(dev):
@@ -4779,10 +4889,15 @@ def pm_nccl(dev):
     than cards."""
     jobs = [dict(kind="lockstep", strategy="replicated", n=N_MAIN, seed=0,
                  steps=PM_STEPS, dt=TABLE1_DT, dtype="fp32")]
-    # the job twice, the first to load the rank's kernels and set up the
+    # the rank function in a group of this process alone (a spawned rank
+    # takes 12 to 17 s to start); the job twice, the first to set up the
     # communicator: the second's step is timed
-    ranks, spawn_s = pm_spawn(1, "nccl", "cuda", jobs * 2)
-    ranks = [r[1:] for r in ranks]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="pm_") as tmp:
+        with process_mesh.single_rank_group("nccl", dev):
+            mesh_runs.strategy_rank(dev, jobs * 2, tmp, False)
+        ranks = [r[1:] for r in mesh_runs.load_ranks(tmp, 1)]
+    group_s = time.perf_counter() - t0
     ref = mesh_runs.in_process([dev], jobs)
     launches = pm_hold("process mesh (c) nccl", ranks, ref, jobs,
                        lambda j: PM_STEPS + 1)
@@ -4806,7 +4921,7 @@ def pm_nccl(dev):
           and not torch.distributed.is_initialized(),
           f"process mesh (d): nccl at {world} ranks was not refused")
     return {"launches": launches, "step_ms": pm_ms, "in_process_ms": ip_ms,
-            "spawn_s": spawn_s}
+            "group_s": group_s}
 
 
 def process_mesh_phase(dev, all_kernels):
@@ -4814,13 +4929,16 @@ def process_mesh_phase(dev, all_kernels):
     t0 = time.perf_counter()
     torch.cuda.init()  # run alone, nothing has touched the card yet
     torch.cuda.empty_cache()  # the ranks hold their own memory
-    out = {"table1": pm_table1(dev, TABLE1_P)}
-    out["block"] = pm_block(dev, BLOCK_P)
+    inputs = pm_block_inputs(dev)
+    jobs = pm_block_jobs(inputs)
+    out = {}
+    out["table1"], ranks = pm_table1(dev, TABLE1_P, jobs)
+    out["block"] = pm_block(dev, TABLE1_P, inputs, jobs, ranks)
     out["nccl"] = pm_nccl(dev)
     out["seconds"] = time.perf_counter() - t0
-    print(f"phase 20 took {out['seconds']:.1f} s (spawns "
-          f"{out['table1']['spawn_s']:.1f} + {out['block']['spawn_s']:.1f} + "
-          f"{out['nccl']['spawn_s']:.1f} s)", flush=True)
+    print(f"phase 20 took {out['seconds']:.1f} s (spawn "
+          f"{out['table1']['spawn_s']:.1f} s (a, b, e); (c) "
+          f"{out['nccl']['group_s']:.1f} s)", flush=True)
     return out
 
 
@@ -4835,9 +4953,10 @@ def mesh_lm_jobs(tmp):
              for k in ("tokens", "labels")} for _ in range(MESH_TRAIN_STEPS)]
     return [
         dict(kind="probe"),
+        # repeat: a second, warm prefill (its seconds), held bit for bit
         dict(kind="serve", cfg=dataclasses.replace(cfg, attn_impl="flash"),
              seed=21, tokens=tokens, max_len=MESH_SERVE_S + MESH_GEN,
-             gen=MESH_GEN),
+             gen=MESH_GEN, repeat=1),
         dict(kind="train", cfg=dataclasses.replace(cfg, dtype="float32"),
              seed=21, steps=MESH_TRAIN_STEPS,
              data=data, opt={"learning_rate": TRAIN_LR}, ckpt_dir=tmp,
@@ -4865,33 +4984,47 @@ def mesh_lm_spawn(world, backend, jobs, device="cuda"):
     return ranks, wall
 
 
-def mesh_lm_serve(ranks, one, i):
-    """(b) serving: every rank's tokens equal; the prefill logits within
-    MESH_LOGITS_TOL of the one-device run's; a token that differs from it
-    a near-tie there."""
+def mesh_logits_holds(tag, ranks, one, i, apart=()):
+    """Every rank's greedy tokens equal; over the sequences not held
+    ``apart``, the prefill logits within MESH_LOGITS_TOL of the one-device
+    run's and a token that differs from it a near-tie there."""
     want = one[i]["tensors"]
-    lg, toks = want["logits"].float(), want["tokens"]
-    steps = want["step_logits"].float()
     for r, res in enumerate(ranks):
         check(res[i]["digests"]["tokens"] == ranks[0][i]["digests"]["tokens"],
-              f"phase 21: rank {r}'s greedy tokens differ from rank 0's")
+              f"{tag}: rank {r}'s greedy tokens differ from rank 0's")
     got = ranks[0][i]["tensors"]
-    err = float((got["logits"].float() - lg).abs().max() / lg.abs().max())
-    same = got["tokens"] == toks
+    rows = [r for r in range(want["tokens"].shape[0]) if r not in apart]
+    check(2 * len(rows) >= want["tokens"].shape[0],
+          f"{tag}: sequences {sorted(apart)} of "
+          f"{want['tokens'].shape[0]} held apart")
+    lg, toks = want["logits"][rows].float(), want["tokens"][rows]
+    steps = want["step_logits"][:, rows].float()
+    mine = got["tokens"][rows]
+    err = float((got["logits"][rows].float() - lg).abs().max()
+                / lg.abs().max())
+    same = mine == toks
     ties = []
     for row, col in (~same).nonzero().tolist():
         if bool(same[row, :col].all()):     # the first difference in a row
             s_ = steps[col, row]
-            ties.append(float(s_.max() - s_[got["tokens"][row, col]])
+            ties.append(float(s_.max() - s_[mine[row, col]])
                         / float(s_.abs().max()))
-    print(f"mesh (b) serve: prefill logits max |mesh - one| / max |one| "
-          f"{err:.3e} (tol {MESH_LOGITS_TOL:g}); greedy tokens equal "
-          f"{int(same.sum())}/{same.numel()}, first differences at "
-          f"{[f'{t:.2e}' for t in ties]} of max |logit| below the top "
-          f"(tol {MESH_TIE_TOL:g})", flush=True)
-    check(err <= MESH_LOGITS_TOL, f"phase 21: logits off by {err:.3e}")
+    print(f"{tag} serve: prefill logits max |mesh - one| / max |one| "
+          f"{err:.3e} (tol {MESH_LOGITS_TOL:g}) over sequences {rows}; "
+          f"greedy tokens equal {int(same.sum())}/{same.numel()}, first "
+          f"differences at {[f'{t:.2e}' for t in ties]} of max |logit| "
+          f"below the top (tol {MESH_TIE_TOL:g})", flush=True)
+    check(err <= MESH_LOGITS_TOL, f"{tag}: logits off by {err:.3e}")
     check(all(t <= MESH_TIE_TOL for t in ties),
-          f"phase 21: a meshed token is no near-tie of the one-device run")
+          f"{tag}: a meshed token is no near-tie of the one-device run")
+    return err
+
+
+def mesh_lm_serve(ranks, one, i):
+    """(b) serving: every rank's tokens equal; the prefill logits within
+    MESH_LOGITS_TOL of the one-device run's; a token that differs from it
+    a near-tie there."""
+    mesh_logits_holds("phase 21 (b)", ranks, one, i)
     launches = [res[i]["info"]["flash_per_prefill"] for res in ranks]
     print(f"mesh (b) K3 launches per meshed prefill per rank {launches} "
           f"(one device: {one[i]['info']['flash_per_prefill']}); cache on "
@@ -4973,13 +5106,15 @@ def mesh_lm_flash(dev):
                 tile_share=r["tile_share"])
 
 
-def mesh_lm_phase(dev, all_kernels):
+def mesh_lm_phase(dev, all_kernels, extra_jobs=()):
     """Phase 21: the dense LM over a device mesh (``MeshRules`` on a
     ``DeviceMesh``): (a) the collectives DTensor issues, on four gloo ranks
     on the card; (b) qwen3-0.6b served and trained on the (2, 2) mesh
     against the same jobs on one device, K3 at the local shape; (c) the
     mesh's checkpoint restored on one nccl rank (this process), bit for
-    bit; (d) times."""
+    bit; (d) times.  ``extra_jobs`` (phase 22's, in the whole run) run on
+    the same ranks after these, so that the ranks' start (some 15 s) is
+    paid once; their results come back in ``out["extra"]``, per rank."""
     t0 = time.perf_counter()
     torch.cuda.init()  # run alone, nothing has touched the card yet
     torch.cuda.empty_cache()  # the ranks hold their own memory
@@ -4987,7 +5122,10 @@ def mesh_lm_phase(dev, all_kernels):
     with tempfile.TemporaryDirectory(prefix="mesh_ckpt_") as ckpt:
         jobs = mesh_lm_jobs(ckpt)
         ranks, spawn_s = mesh_lm_spawn(
-            4, "gloo", [dict(j, mesh=MESH_SHAPE) for j in jobs])
+            4, "gloo", [dict(j, mesh=MESH_SHAPE)
+                        for j in jobs + list(extra_jobs)])
+        out["extra"] = [r[len(jobs):] for r in ranks]
+        ranks = [r[:len(jobs)] for r in ranks]
         probe = ranks[0][0]["info"]
         print(f"mesh (a) collectives over gloo on cuda:0 (four ranks): "
               f"{probe}", flush=True)
@@ -5035,6 +5173,269 @@ def mesh_lm_phase(dev, all_kernels):
           f"rank 0's jobs probe, serve, train and save "
           f"{[round(r['times']['job_s'], 3) for r in ranks[0]]} s; restore "
           f"{back_s:.1f} s)", flush=True)
+    return out
+
+
+def mesh_family_jobs():
+    """Phase 22's jobs: each family's serve job, then its training job
+    (rank 0 holds those against one device itself: ``against_one``)."""
+    serve, train = [], []
+    for run in MESH_FAMILY_RUNS:
+        base = dataclasses.replace(lm_config.get(run["arch"]), **run["cut"])
+        cfg = dataclasses.replace(base, param_dtype="bfloat16",
+                                  attn_impl=run["attn"])
+        span = run["prompt"] + run.get("patches", 0)
+        serve.append(dict(
+            kind="serve", cfg=cfg, seed=22, max_len=span + MESH_FAM_GEN,
+            gen=MESH_FAM_GEN, repeat=1,
+            **family_batch(cfg, MESH_FAM_B, run["prompt"],
+                           run.get("patches", 0), run.get("frames", 0))))
+        fcfg = dataclasses.replace(base, dtype="float32",
+                                   **run.get("grads_cut", {}))
+        rng = np.random.default_rng(22)
+        data = []
+        for _ in range(MESH_TRAIN_STEPS if run["train"] == "steps" else 1):
+            b = {k: rng.integers(0, fcfg.vocab_size, (
+                MESH_FAM_B, MESH_FAM_TRAIN_S)).astype(np.int32)
+                for k in ("tokens", "labels")}
+            for key in ("patches", "frames"):
+                if run.get(key):
+                    b[key] = rng.standard_normal(
+                        (MESH_FAM_B, run[key], fcfg.d_model)).astype(
+                        np.float32)
+            data.append(b)
+        common = dict(cfg=fcfg, seed=22, data=data, keep=("loss", "term."))
+        if run["train"] == "steps":
+            train.append(dict(common, kind="train", steps=MESH_TRAIN_STEPS,
+                              opt={"learning_rate": TRAIN_LR},
+                              against_one={"rtol": TRAIN_PARAM_RTOL,
+                                           "atol": TRAIN_PARAM_ATOL}))
+        else:
+            train.append(dict(common, kind="grads",
+                              against_one={"rtol": 0.0, "atol": 0.0}))
+    return serve, train
+
+
+def by_expert(top_i, dropped):
+    """A token's experts in ascending order with their dropped flags: the
+    set the dispatch sees (top_k's order among them moves nothing)."""
+    order = top_i.long().argsort(dim=-1)
+    return top_i.gather(-1, order), dropped.gather(-1, order)
+
+
+def router_disagreement(pm, po, k):
+    """Per token, |log p_mesh - log p_one| at most over its top k + 1
+    experts on either side, and one device's (p_k - p_(k+1)) / p_k."""
+    top = torch.zeros(pm.shape, dtype=torch.bool, device=pm.device)
+    for p_ in (pm, po):
+        top.scatter_(-1, p_.topk(k + 1, dim=-1).indices, True)
+    d = (pm.clamp_min(1e-30).log() - po.clamp_min(1e-30).log()).abs()
+    ps = po.sort(dim=-1, descending=True).values
+    return (d * top).amax(dim=-1), (ps[..., k - 1] - ps[..., k]) / ps[..., k - 1]
+
+
+def partial_router_fault(readings):
+    """A ``spying`` record for ``layers.route`` on one device: per call
+    over more than one token, the readings of ``mesh_route_holds`` that a
+    router fed with data rank 0's partial sums (its part of d, never
+    reduced over "data") would give: the largest disagreement with the
+    sound router and the share of tokens taking another set of experts,
+    appended to ``readings[cfg.name]``."""
+    def record(args, out):
+        cfg, p, x = args
+        if x.shape[1] == 1:
+            return
+        part = x.shape[-1] // MESH_SHAPE[0]
+        lg = x[..., :part] @ p["router"][:part].to(x.dtype)
+        pf = torch.softmax(lg.to(torch.float32), dim=-1)
+        dis, _ = router_disagreement(pf, out[0], cfg.top_k)
+        fi = lm_layers.top_k(pf, cfg.top_k)[1]
+        moved = (fi.sort(dim=-1).values != out[2].sort(dim=-1).values)
+        readings.setdefault(cfg.name, []).append(
+            (float(dis.max()), float(moved.any(-1).float().mean())))
+    return record
+
+
+def mesh_route_holds(tag, ranks, one, i, fault):
+    """(c) MoE: each rank's routing against one device's on the same
+    sequences (``routes``: per MoE layer each token's experts, the entries
+    dropped and the router's probabilities), by MESH_ROUTER_TOL's rule;
+    ``fault``: ``partial_router_fault``'s readings for this model, the
+    least of which must lie above the limits.  Returns the sequences held apart and the
+    readings."""
+    ref = one[i]["info"]["routes"]
+    half = MESH_FAM_B // MESH_SHAPE[0]
+    n_layers, s = len(ref), ref[0][0].shape[1]
+    flips, apart, worst_d = [0] * n_layers, set(), 0.0
+    shares, clean_same = [], True
+    for res in ranks:
+        d, m = res[i]["info"]["coord"]
+        rows = slice(d * half, (d + 1) * half)
+        routes = res[i]["info"]["routes"]
+        flipped = torch.zeros(half, dtype=torch.bool)
+        same_drops = []
+        for layer, (mine, theirs) in enumerate(zip(routes, ref)):
+            e, dr = by_expert(*mine[:2])
+            re_, rdr = by_expert(theirs[0][rows], theirs[1][rows])
+            flip = (e != re_).any(-1)                        # (half, S)
+            moved = flip | (dr != rdr).any(-1)
+            flipped |= flip.any(-1)
+            same_drops.append(~(dr != rdr).any(-1).any(-1))
+            dis, _ = router_disagreement(mine[2], theirs[2][rows],
+                                         mine[0].shape[-1])
+            worst_d = max(worst_d, float(dis.max()))
+            if m == 0:
+                flips[layer] += int(flip.sum())
+            for j in range(half):
+                if moved[j, -1] or (layer < n_layers - 1 and moved[j].any()):
+                    apart.add(d * half + j)
+        clean_same &= bool(all((sd | flipped).all() for sd in same_drops))
+        entries = sum(r[1].numel() for r in routes)
+        shares.append((sum(int(r[1].sum()) for r in routes) / entries,
+                       sum(int(r[1][rows].sum()) for r in ref) / entries))
+    flip_share = max(flips) / (MESH_FAM_B * s)
+    fault_d, fault_share = (min(r[k] for r in fault) for k in (0, 1))
+    print(f"{tag} (c) routing: the router's disagreement max |log p_mesh - "
+          f"log p_one| {worst_d:.3e} (tol {MESH_ROUTER_TOL:g}; the partial "
+          f"router fault {fault_d:.3e}); tokens taking another set of "
+          f"experts than on one device, per MoE layer, {flips} of "
+          f"{MESH_FAM_B * s}, share {flip_share:.4f} (tol "
+          f"{MESH_FLIP_SHARE:g}; the fault {fault_share:.4f}); sequences "
+          f"held apart {sorted(apart)} (at most {MESH_APART}); dropped "
+          f"share per rank (mesh, one device on its sequences) "
+          f"{[(f'{a:.5f}', f'{b:.5f}') for a, b in shares]}; sequences "
+          f"routed alike drop alike: {clean_same}", flush=True)
+    check(fault_d > MESH_ROUTER_TOL and fault_share > MESH_FLIP_SHARE,
+          f"{tag}: the limits do not catch the partial router fault")
+    check(worst_d <= MESH_ROUTER_TOL,
+          f"{tag}: the router disagrees by {worst_d:.3e}")
+    check(flip_share <= MESH_FLIP_SHARE,
+          f"{tag}: {flip_share:.4f} of a layer's tokens routed otherwise")
+    check(len(apart) <= MESH_APART,
+          f"{tag}: sequences {sorted(apart)} routed otherwise")
+    check(clean_same, f"{tag}: a sequence routed alike drops otherwise")
+    check(all(a == b for a, b in shares) or any(flips),
+          f"{tag}: the dropped shares differ with no token routed otherwise")
+    return apart, {"flips": flips, "dropped_share": shares,
+                   "router_disagreement": worst_d,
+                   "fault": {"router_disagreement": fault_d,
+                             "flip_share": fault_share}}
+
+
+def mesh_family_serve(run, cfg, ranks, one, i, fault):
+    """(a) to (c) for one family's serve job."""
+    tag = f"phase 22 {run['arch']}"
+    apart, out = set(), {}
+    if cfg.family == "moe":
+        apart, out = mesh_route_holds(tag, ranks, one, i, fault[cfg.name])
+    same = [res[i]["info"]["prefills_equal"] for res in ranks]
+    print(f"{tag} (c) two meshed prefills bit for bit per rank {same}",
+          flush=True)
+    check(all(same), f"{tag}: two meshed prefills differ")
+    out["logits_err"] = mesh_logits_holds(tag, ranks, one, i, apart)
+    out["apart"] = sorted(apart)
+    launches = [res[i]["info"]["flash_per_prefill"] for res in ranks]
+    print(f"{tag} (b) K3 launches per meshed prefill per rank {launches} "
+          f"(one device: {one[i]['info']['flash_per_prefill']}); cache on "
+          f"rank 0 {ranks[0][i]['info']['cache_leaves']}", flush=True)
+    check(all(n == run["k3"] for n in launches),
+          f"{tag}: K3 launched {launches} times per rank, expected "
+          f"{run['k3']}")
+    out["launches"] = launches
+    return out
+
+
+def mesh_family_train(run, ranks, i):
+    """(d) the ranks' fp32 training against one device, as rank 0 held it
+    (``mesh_runs._against_one``): phase 14 (b)'s rule for Trainer steps,
+    each gradient leaf for a gradient call."""
+    tag = f"phase 22 {run['arch']}"
+    for r, res in enumerate(ranks):
+        check(res[i]["digests"] == ranks[0][i]["digests"],
+              f"{tag}: rank {r}'s losses differ from rank 0's")
+    st = ranks[0][i]["info"]["against_one"]
+    worst = max(st["leaf"].values())
+    name = max(st["leaf"], key=st["leaf"].get)
+    if run["train"] == "grads":
+        print(f"{tag} (d) fp32 gradients at depth "
+              f"{run['grads_cut']['n_layers']}: loss rel {st['loss_rel']:.3e}"
+              f" (tol {TRAIN_CPU_TOL:g}); worst leaf max |mesh - one| / max "
+              f"|one| {worst:.3e} ({name}; tol {FAMILY_GRAD_TOL:g}) over "
+              f"{len(st['leaf'])} leaves", flush=True)
+        check(st["loss_rel"] <= TRAIN_CPU_TOL, f"{tag}: loss off")
+        check(worst <= FAMILY_GRAD_TOL, f"{tag}: gradient {name} off by "
+              f"{worst:.3e}")
+        return {"grads": st}
+    info = ranks[0][i]["info"]
+    print(f"{tag} (d) fp32 train: losses rel {st['loss_rel']:.3e} (tol "
+          f"{TRAIN_CPU_TOL:g}); params: {st['n_out']} of {st['n']} elements "
+          f"outside rtol {TRAIN_PARAM_RTOL:g} atol {TRAIN_PARAM_ATOL:g} "
+          f"(share tol {TRAIN_FLIP_SHARE:g}), worst excess "
+          f"{st['worst_excess']:.3e}, worst leaf update-norm gap {worst:.3e} "
+          f"({name}; tol {TRAIN_UPDATE_NORM_TOL:g}); moments placed as the "
+          f"params: {info['opt_layout'] == info['layout']}", flush=True)
+    check(st["loss_rel"] <= TRAIN_CPU_TOL, f"{tag}: losses off")
+    check(st["n_out"] <= TRAIN_FLIP_SHARE * st["n"],
+          f"{tag}: {st['n_out']} of {st['n']} parameters outside the bound")
+    check(st["worst_excess"] <= 2 * MESH_TRAIN_STEPS * TRAIN_LR,
+          f"{tag}: a parameter past the bound")
+    check(worst <= TRAIN_UPDATE_NORM_TOL, f"{tag}: update of {name} off")
+    check(info["opt_layout"] == info["layout"],
+          f"{tag}: the moments are not placed as the params")
+    return {"train": st}
+
+
+def mesh_family_phase(dev, all_kernels, ranks=None):
+    """Phase 22: the moe (phi3.5-moe; deepseek-v2's MLA and MoE), vlm
+    (qwen2-vl-2b) and audio (seamless-m4t-medium) families over the (2, 2)
+    mesh of four gloo ranks on the card, against the one-device run of the
+    same code: (a) the bf16 prefill logits and greedy tokens, (b) K3's
+    launches per rank per prefill, (c) MoE's routing and dropped entries
+    per rank, two meshed prefills bit for bit, (d) the fp32 training, (e)
+    K3 at each new local shape against its plain version, timed, (f) ms
+    per prefill, decode step and train step per rank beside one device.
+    ``ranks``: the ranks' results of ``mesh_family_jobs`` where they have
+    run already (in phase 21's spawn); else the phase spawns its own."""
+    t0 = time.perf_counter()
+    torch.cuda.init()  # run alone, nothing has touched the card yet
+    out = {"flash": family_flash_holds(dev, MESH_FAM_FLASH)}
+    torch.cuda.empty_cache()  # the ranks hold their own memory
+    serve, train = mesh_family_jobs()
+    spawn_s = None
+    if ranks is None:
+        ranks, spawn_s = mesh_lm_spawn(
+            4, "gloo", [dict(j, mesh=MESH_SHAPE) for j in serve + train])
+    t1 = time.perf_counter()
+    fault = {}
+    with spying(lm_layers, "route", partial_router_fault(fault)):
+        one = mesh_runs.in_process_lm(dev, [dict(j, step_logits=True)
+                                            for j in serve])
+    one_s = time.perf_counter() - t1
+    out["runs"] = {}
+    for i, run in enumerate(MESH_FAMILY_RUNS):
+        r = mesh_family_serve(run, serve[i]["cfg"], ranks, one, i, fault)
+        j = len(serve) + i
+        r.update(mesh_family_train(run, ranks, j))
+        st, ot = [x[j]["times"] for x in ranks], ranks[0][j]["times"]["one"]
+        key = "step_s" if run["train"] == "steps" else "grads_s"
+        r["times"] = {
+            "prefill_ms": [1e3 * x[i]["times"]["prefill_s"] for x in ranks],
+            "decode_step_ms": [1e3 * x[i]["times"]["decode_step_s"]
+                               for x in ranks],
+            f"{key[:-2]}_ms": [[1e3 * v for v in np.atleast_1d(x[key])]
+                               for x in st],
+            "one_prefill_ms": 1e3 * one[i]["times"]["prefill_s"],
+            "one_decode_step_ms": 1e3 * one[i]["times"]["decode_step_s"],
+            f"one_{key[:-2]}_ms": [1e3 * v for v in np.atleast_1d(ot[key])]}
+        print(f"phase 22 {run['arch']} (f) per rank / one device: "
+              f"{ {k: v for k, v in r['times'].items()} }", flush=True)
+        out["runs"][run["arch"]] = r
+    out["seconds"] = time.perf_counter() - t0
+    spawned = (f"spawn {spawn_s:.1f} s" if spawn_s is not None
+               else "its jobs ran in phase 21's spawn")
+    print(f"phase 22 took {out['seconds']:.1f} s ({spawned}, rank 0's jobs "
+          f"{[round(x['times']['job_s'], 1) for x in ranks[0]]} s; one "
+          f"device's serve jobs {one_s:.1f} s)", flush=True)
     return out
 
 
@@ -5194,7 +5595,10 @@ def main() -> int:
 
                 kr = 10 if n == N_MAIN else 3
                 ms = cuda_ms(k_call, kr)
-                pms = cuda_ms(p_call, 3 if n == N_MAIN else 1, warmup=1)
+                # at N_LARGE one call, its first (1 to 3.5 s each: a
+                # warm-up doubled that, cut for time)
+                pms = cuda_ms(p_call, 3 if n == N_MAIN else 1,
+                              warmup=1 if n == N_MAIN else 0)
                 bms, by = bound_ms(name, dtype, int((x[0][..., 3] != 0).sum()),
                                    x[0].shape[0], x[1].shape[1])
                 timings[(name, dtype, n)] = (ms, pms, bms, by)
@@ -5359,7 +5763,11 @@ def main() -> int:
     pm = process_mesh_phase(dev, all_kernels)
 
     phase("21. the dense LM over a device mesh")
-    mesh_lm = mesh_lm_phase(dev, all_kernels)
+    mesh_lm = mesh_lm_phase(dev, all_kernels,
+                            extra_jobs=sum(mesh_family_jobs(), []))
+
+    phase("22. the moe, vlm and audio families over a device mesh")
+    mesh_fam = mesh_family_phase(dev, all_kernels, ranks=mesh_lm["extra"])
 
     rows = []
     for name in kernels:
@@ -5501,6 +5909,14 @@ def main() -> int:
             for label, r in ssm_r["flash"].items()},
         "launches_mesh_prefill_per_rank": mesh_lm["launches"],
         "mesh_local_shape": mesh_lm["flash"],
+        "launches_mesh_families_prefill_per_rank": {
+            arch: r["launches"] for arch, r in mesh_fam["runs"].items()},
+        "mesh_family_shapes": {
+            label: {k: r[k] for k in (
+                "shape", "causal", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library", "abs_err", "norm_err", "elem",
+                "tile_share")}
+            for label, r in mesh_fam["flash"].items()},
     })
     print(f"chip_smoke took {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -29,7 +29,15 @@ placement, flash and collective-probe jobs (``run_lm_job``) on one rank of a rea
 mesh (``launch.mesh.make_device_mesh`` over the job's ``mesh`` shape,
 axes ("data", "model"), the reference's ``DEFAULT_RULES``); the same jobs
 run in one process with ``mesh=None`` (:func:`in_process_lm`), the
-single-device rules, which gives the comparison baseline.
+single-device rules, which gives the comparison baseline.  A serve or
+grads job carries a vlm's ``patches`` or an audio batch's ``frames`` with
+its tokens (a train job's batches carry them too); a serve job's
+``repeat`` more prefills are held against the first bit for bit, and
+each MoE layer's experts, dropped entries and router probabilities are
+recorded (``layers.recording_routes``); a train or grads job with
+``against_one`` brings its trees whole to rank 0 only (full-width runs),
+and rank 0 then runs it on one device and holds the two leaf by leaf
+itself (``_against_one``), so that no whole tree leaves the rank.
 """
 
 from __future__ import annotations
@@ -47,7 +55,7 @@ from repro_torch.core import hermite, nbody, strategies
 from repro_torch.distributed import process_mesh
 from repro_torch.distributed.compression import compressed_psum
 from repro_torch.distributed.process_mesh import ProcessMesh
-from repro_torch.distributed.shardings import MeshRules, full
+from repro_torch.distributed.shardings import MeshRules, full, gather_to_first
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import nbody_force
 from repro_torch.obs import metrics as obs_metrics
@@ -150,13 +158,14 @@ def in_process(devices, jobs) -> list:
 
 def strategy_rank(device, jobs, out_dir: str, keep: bool = True) -> None:
     """Rank function for ``process_mesh.spawn``: every job on this rank's
-    slot of a 1-D ``ProcessMesh``, written to ``out_dir/rank{r}.pt``."""
+    slot of a 1-D ``ProcessMesh``, written to ``out_dir/rank{r}.pt``.  A
+    job's own ``keep`` overrides ``keep``."""
     mesh = ProcessMesh(dist.get_backend(), device=device)
     results = []
     for job in jobs:
         r = run_job(mesh, device, job)
         r["digests"] = {k: digest(v) for k, v in r["tensors"].items()}
-        if not keep:
+        if not job.get("keep", keep):
             del r["tensors"]
         results.append(r)
     torch.save(results, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
@@ -250,36 +259,127 @@ def _full_tree(tree) -> dict:
     return tree_util.map(lambda x: full(x).detach().cpu(), tree)
 
 
+def _whole(tree, job, rules) -> dict:
+    """The tree's leaves whole, flat ({path: tensor}): on one device where
+    they are (``run_lm_job`` brings them to the host); on a real mesh on
+    the host of every rank (``full``), or, for a job ``against_one``, of
+    rank 0 only (``gather_to_first``: each rank sends its block once,
+    rather than every rank gathering every leaf), the other ranks getting
+    none."""
+    if not rules.is_real:
+        return _flat(tree_util.map(lambda x: x.detach(), tree))
+    if not job.get("against_one"):
+        return _flat(_full_tree(tree))
+    out = {k: gather_to_first(x) for k, x in _flat(tree).items()}
+    return out if dist.get_rank() == 0 else {}
+
+
 def _sync_dev(device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
 
 
+#: a serve or grads job's frontend inputs, passed with its tokens
+FRONTENDS = ("patches", "frames")
+
+
+def _lm_batch(job, device, data=None) -> dict:
+    """The job's tokens (or ``data``, one training batch) with the vlm's
+    ``patches`` or the audio family's ``frames`` where the job has them, as
+    whole tensors on ``device``."""
+    batch = dict(data) if data is not None else {"tokens": job["tokens"]}
+    if data is None:
+        batch.update({k: job[k] for k in FRONTENDS if k in job})
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _local(x):
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _prefills(job, params, batch, rules, device) -> list:
+    """``1 + job["repeat"]`` prefills of ``batch``, each recorded: its
+    logits and cache, its seconds (synchronised before and after), K3's
+    launches in it, and each MoE layer's routing on the local sequences
+    (``layers.recording_routes``, brought to the host after the clock
+    stops: the experts as int16)."""
+    from repro_torch.models import layers, model
+    runs = []
+    for _ in range(1 + job.get("repeat", 0)):
+        flash.flash_attention.launches = 0
+        _sync_dev(device)
+        t0 = time.perf_counter()
+        with layers.recording_routes() as routes:
+            logits, cache = model.prefill(job["cfg"], params, batch,
+                                          max_len=job["max_len"], rules=rules)
+        _sync_dev(device)
+        runs.append(dict(logits=logits, cache=cache, len=cache["len"],
+                         seconds=time.perf_counter() - t0,
+                         launches=flash.flash_attention.launches,
+                         routes=[(_local(i).to(torch.int16).cpu(),
+                                  _local(d).cpu(), _local(p).cpu())
+                                 for i, d, p in routes]))
+    return runs
+
+
 def _serve(job, rules, device):
-    from repro_torch.models import model
+    """``Engine.generate`` for ``job["gen"]`` tokens, then ``_prefills``
+    of the same batch, warm; the ``repeat`` ones are held against the
+    first bit for bit: the rank's blocks of the logits, of every cache
+    leaf over the prompt's span, and the dropped entries.  The prefill's
+    seconds are the last one's."""
     from repro_torch.serve.engine import Engine, ServeConfig
     cfg = job["cfg"]
     eng = Engine(cfg, _lm_params(job, rules, device),
                  ServeConfig(max_len=job["max_len"]), rules=rules)
-    batch = {"tokens": torch.as_tensor(job["tokens"], device=device)}
+    batch = _lm_batch(job, device)
     toks, stats = eng.generate(batch, job["gen"])
-    flash.flash_attention.launches = 0
-    _sync_dev(device)
-    t0 = time.perf_counter()
-    logits, cache = model.prefill(cfg, eng.params, batch,
-                                  max_len=job["max_len"], rules=rules)
-    logits = full(logits)
-    _sync_dev(device)
-    t_prefill = time.perf_counter() - t0
-    launches = flash.flash_attention.launches
-    out = {"logits": logits, "tokens": toks}
+    runs = _prefills(job, eng.params, batch, rules, device)
+    first, cache, seconds = runs[0], runs[0]["cache"], runs[-1]["seconds"]
+    same = all(
+        torch.equal(_local(r["logits"]), _local(first["logits"]))
+        and all(torch.equal(a, b_) for a, b_ in zip(
+            _prompt_span(r["cache"], r["len"]),
+            _prompt_span(cache, first["len"])))
+        and all(torch.equal(a[1], b_[1])
+                for a, b_ in zip(r["routes"], first["routes"]))
+        for r in runs[1:])
+    tally = first["routes"]
+    out = {"logits": full(first["logits"]), "tokens": toks}
+    del runs
     if job.get("step_logits"):
         out["step_logits"] = _step_logits(cfg, eng.params, batch, toks, job,
                                           rules)
-    return out, {"prefill_s": t_prefill,
-                 "decode_step_s": stats["decode_s"] / max(job["gen"], 1)}, {
-        "flash_per_prefill": launches,
-        "cache_layout": _layout(cache["layers"])}
+    info = {"flash_per_prefill": first["launches"],
+            "cache_layout": _layout(cache["layers"]),
+            "cache_leaves": _layout(_cache_tensors(cache)),
+            # per MoE layer, the entries dropped in each local sequence
+            "dropped": (torch.stack([d.sum(dim=(1, 2)) for _, d, _ in tally])
+                        if tally else None),
+            "routes": tally or None,
+            "coord": (tuple(rules.mesh.get_coordinate()) if rules.is_real
+                      else None),
+            "prefills_equal": same if job.get("repeat") else None}
+    return out, {"prefill_s": seconds,
+                 "decode_step_s": stats["decode_s"] / max(job["gen"], 1)}, info
+
+
+def _prompt_span(cache, n) -> list:
+    """The rank's blocks of the cache's tensors: the stacked (L, B,
+    max_len, ...) kv entries over their first ``n`` positions, any other
+    leaf (the audio memory) whole."""
+    out = []
+    for v in _cache_tensors(cache).values():
+        for t in tree_util.leaves(v) if isinstance(v, dict) else (v,):
+            t = _local(t)
+            out.append(t[:, :, :n] if isinstance(v, dict) else t)
+    return out
+
+
+def _cache_tensors(cache) -> dict:
+    """The cache's tensor leaves (``len`` and ``offset`` are ints)."""
+    return {k: _cache_tensors(v) if isinstance(v, dict) else v
+            for k, v in cache.items() if not isinstance(v, int)}
 
 
 def _step_logits(cfg, params, batch, toks, job, rules):
@@ -309,19 +409,20 @@ def _trainer(job, rules, device, data=None, batch_shardings=None):
 
 def _train(job, rules, device):
     """``job["steps"]`` Trainer steps over ``job["data"]``, each batch
-    placed on ("batch", "seq"), from the job's parameters."""
+    placed per ``trainer.batch_shardings`` (tokens and labels on ("batch",
+    "seq"), patches and frames on ("batch", "seq", "d_model")), from the
+    job's parameters."""
+    from repro_torch.train.trainer import batch_shardings
     batches = job["data"]
-    shardings = {k: rules.sharding(v.shape, ("batch", "seq"))
-                 for k, v in batches[0].items()}
     tr = _trainer(job, rules, device, data=lambda step: batches[step],
-                  batch_shardings=shardings)
+                  batch_shardings=batch_shardings(rules, batches[0]))
     params = _lm_params(job, rules, device)
     params, opt_state, hist = tr.run(start_params=params,
                                      start_opt=tr.opt.init(params))
-    out = {f"params.{k}": v for k, v in _flat(_full_tree(params)).items()}
+    out = {f"params.{k}": v for k, v in _whole(params, job, rules).items()}
     if job.get("moments"):
         out.update({f"m.{k}": v
-                    for k, v in _flat(_full_tree(opt_state.m)).items()})
+                    for k, v in _whole(opt_state.m, job, rules).items()})
     out["loss"] = torch.tensor([h["loss"] for h in hist], dtype=torch.float64)
     times = {"step_s": [h["step_time"] for h in hist]}
     return out, times, {"layout": _layout(params),
@@ -332,14 +433,18 @@ def _grads(job, rules, device):
     """``train.step._value_and_grad`` once: the loss and every gradient
     whole, and the gradients' layout."""
     from repro_torch.train.step import _value_and_grad
-    batch = {k: torch.as_tensor(v, device=device)
-             for k, v in job["data"][0].items()}
-    loss, _, grads = _value_and_grad(job["cfg"], _lm_params(job, rules,
-                                                            device),
-                                     batch, rules=rules)
-    out = {f"grad.{k}": v for k, v in _flat(_full_tree(grads)).items()}
+    batch = _lm_batch(job, device, job["data"][0])
+    params = _lm_params(job, rules, device)
+    _sync_dev(device)
+    t0 = time.perf_counter()
+    loss, terms, grads = _value_and_grad(job["cfg"], params, batch,
+                                         rules=rules)
+    _sync_dev(device)
+    t = time.perf_counter() - t0
+    out = {f"grad.{k}": v for k, v in _whole(grads, job, rules).items()}
     out["loss"] = loss
-    return out, {}, {"layout": _layout(grads)}
+    out.update({f"term.{k}": v for k, v in terms.items()})
+    return out, {"grads_s": t}, {"layout": _layout(grads)}
 
 
 def _restore(job, rules, device):
@@ -398,6 +503,46 @@ def _flat(tree, prefix="") -> dict:
     return out
 
 
+def _against_one(job, device, out) -> tuple:
+    """Rank 0, after a meshed train or grads job whose trees it holds
+    whole: the same job on one device in this
+    process, and the two held leaf by leaf in fp32 on the card (the
+    difference of two fp32 values this close is exact).  Train: per leaf
+    the elements outside ``|mesh - one| <= atol + rtol |one|``
+    (``job["against_one"]``'s bounds), the largest excess over it, and the
+    update-norm gap ``|mesh - one| / |one - start|``; grads: per leaf
+    ``max |mesh - one| / max |one|``; both the losses' largest relative
+    difference.  Returns (stats, the one-device run's times)."""
+    one, times, _ = LM_KINDS[job["kind"]](dict(job, mesh=None),
+                                          MeshRules.single_device(), device)
+    bound = job["against_one"]
+    start = (_flat(_lm_params(job, MeshRules.single_device(), device))
+             if job["kind"] == "train" else {})
+    stats = {"loss_rel": float((out["loss"].double().cpu()
+                                - one["loss"].double().cpu()).abs().max()
+                               / one["loss"].double().abs().max()),
+             "n": 0, "n_out": 0, "worst_excess": float("-inf"), "leaf": {}}
+    for name, w in one.items():
+        if not name.startswith(("params.", "grad.")):
+            continue
+        g = out[name].to(device)
+        if not w.numel():
+            continue
+        if job["kind"] == "grads":
+            stats["leaf"][name] = float((g - w).abs().max()
+                                        / w.abs().max().clamp(min=1e-30))
+            continue
+        excess = (g - w).abs() - (bound["atol"] + bound["rtol"] * w.abs())
+        stats["n"] += excess.numel()
+        stats["n_out"] += int((excess > 0).sum())
+        stats["worst_excess"] = max(stats["worst_excess"],
+                                    float(excess.max()))
+        p0 = start[name[len("params."):]]
+        stats["leaf"][name] = float((g - w).norm()
+                                    / (w - p0).norm().clamp(min=1e-30))
+    return stats, times
+
+
 LM_KINDS = {"serve": _serve, "train": _train, "grads": _grads,
             "restore": _restore, "placements": _placements, "flash": _flash}
 
@@ -424,9 +569,22 @@ def run_lm_job(job, device, meshes) -> dict:
     out, times, info = LM_KINDS[job["kind"]](job, rules, device)
     _sync_dev(device)
     times["job_s"] = time.perf_counter() - t0
+    if job.get("against_one") and rules.is_real and dist.get_rank() == 0:
+        info["against_one"], times["one"] = _against_one(job, device, out)
+        # the trees are held: keep the losses and terms
+        out = {k: v for k, v in out.items()
+               if "." not in k or k.startswith("term.")}
     tensors = {k: v.detach().cpu() for k, v in out.items()}
+    del out
+    if torch.device(device).type == "cuda":
+        # the job's blocks go back to the card: the ranks share it
+        torch.cuda.empty_cache()
+    # the trees an against_one job brings to rank 0 exist there only:
+    # no digest to compare
+    trees = ("params.", "m.", "grad.") if job.get("against_one") else ()
     res = {"tensors": tensors, "times": times, "info": info,
-           "digests": {k: digest(v) for k, v in tensors.items()}}
+           "digests": {k: digest(v) for k, v in tensors.items()
+                       if not k.startswith(trees)}}
     keep = job.get("keep", True)
     rank = dist.get_rank() if dist.is_initialized() else 0
     if keep is not True:

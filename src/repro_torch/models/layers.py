@@ -6,14 +6,17 @@ FFN and the top-k MoE FFN.
 Port of ``repro/models/layers.py``.  Numerics as in the reference:
 activations in ``cfg.dtype``; softmax, router probabilities, norm
 statistics and the rotary rotation in fp32.  The reference's ``MeshRules``
-is the keyword ``rules`` of ``embed``, ``attention``, ``_attn_dispatch``
-and ``ffn``, the single-device rules by default (``rules.shard`` the
-identity).  On a real device mesh the activations are ``DTensor``s, the
-reference's shard points redistribute them, and the attention core
-(qk-norm, RoPE, the decode cache write and ``_attn_full``, or the flash
-kernel) runs on each rank's local heads through ``local_map``.  MLA and
-the MoE FFN take no rules yet: ``models.model`` refuses a family other
-than dense on a real mesh.
+is the keyword ``rules`` of ``embed``, ``attention``, ``_attn_dispatch``,
+``mla_attention``, ``ffn`` and ``moe_ffn``, the single-device rules by
+default (``rules.shard`` the identity).  On a real device mesh the
+activations are ``DTensor``s, the reference's shard points redistribute
+them, and the attention cores (qk-norm, RoPE, the decode cache write and
+``_attn_full`` or the flash kernel; MLA's latent kv and absorbed decode)
+run on each rank's local heads through ``local_map``, self- and
+cross-attention alike.  The MoE FFN routes on each rank's local batch,
+whole over the experts, and runs each rank's own experts (``_moe_mesh``).
+``recording_routes`` collects each MoE layer's routing for a caller that
+holds one run's against another's.
 
 The SSM cells are in ``models/ssm.py``.  MLA's prefill has no flash
 route: its q and k heads are wider than its v heads, which the flash
@@ -23,13 +26,14 @@ reference's registered ``attn_impl`` for deepseek-v2 is ``"xla"``).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.distributed.shardings import MeshRules, block_index
 from repro_torch.kernels.flash_attention import flash_attention, local_kv
@@ -332,9 +336,9 @@ def attention(cfg: ArchConfig, p: dict, x, *, positions, causal: bool = True,
     dt = x.dtype
     src = memory if memory is not None else x
 
-    q = (x @ p[prefix + "q"].to(dt)).reshape(b, s, h, hd)
-    k = (src @ p[prefix + "k"].to(dt)).reshape(b, src.shape[1], kv, hd)
-    v = (src @ p[prefix + "v"].to(dt)).reshape(b, src.shape[1], kv, hd)
+    q = _split_heads(rules, x @ p[prefix + "q"].to(dt), h, hd, "heads")
+    k = _split_heads(rules, src @ p[prefix + "k"].to(dt), kv, hd, "kv_heads")
+    v = _split_heads(rules, src @ p[prefix + "v"].to(dt), kv, hd, "kv_heads")
     q = rules.shard(q, "batch", "seq_q", "heads", None)
     k = rules.shard(k, "batch", None, "kv_heads", None)
     v = rules.shard(v, "batch", None, "kv_heads", None)
@@ -345,11 +349,13 @@ def attention(cfg: ArchConfig, p: dict, x, *, positions, causal: bool = True,
     fill = prefill_len is not None and memory is None
     ck, cv = (cache["k"], cache["v"]) if decode else (None, None)
     core = functools.partial(
-        _attn_core, cfg, positions=positions, causal=causal,
+        _attn_core, cfg, causal=causal,
         self_attn=memory is None, cur=cache["len"] if decode else None,
         prefill_len=prefill_len if fill else None,
         block=block_index(q, 2) if rules.is_real else 0)
-    args = (q, k, v, ck, cv) + norms
+    # M-RoPE's positions are a DTensor split on the batch: an argument, so
+    # that the core sees the rank's block
+    args = (q, k, v, ck, cv) + norms + (positions,)
     outs = (q, k, v) if fill else (q,)
     res = (_on_local_heads(rules, core, q, args, outs) if rules.is_real
            else core(*args))
@@ -363,7 +369,17 @@ def attention(cfg: ArchConfig, p: dict, x, *, positions, causal: bool = True,
     return rules.shard(out, "batch", "seq", "d_model"), new_cache
 
 
-def _attn_core(cfg: ArchConfig, q, k, v, ck, cv, qn, kn, *, positions,
+def _split_heads(rules: MeshRules, x, n: int, d: int, axis: str):
+    """``x`` (B, S, n * d) as (B, S, n, d).  Where the rules leave the n
+    heads whole on a real mesh (``axis`` does not divide n) but split the
+    flat n * d, the split is not one of heads and does not reshape: ``x``
+    is gathered over the flat axis first."""
+    if rules.is_real and rules.spec((n,), (axis,))[0] is None:
+        x = rules.shard(x, "batch", None, None)
+    return x.reshape(x.shape[0], x.shape[1], n, d)
+
+
+def _attn_core(cfg: ArchConfig, q, k, v, ck, cv, qn, kn, positions, *,
                causal: bool, self_attn: bool, cur: Optional[int],
                prefill_len: Optional[int], block: int):
     """``attention`` between its projections: qk-norm and (M-)RoPE, then
@@ -415,7 +431,8 @@ def _check_room(cur: int, s: int, max_len: int):
 # --------------------------------------------------------------------------
 def mla_attention(cfg: ArchConfig, p: dict, x, *, positions,
                   cache: Optional[dict] = None,
-                  prefill_len: Optional[int] = None):
+                  prefill_len: Optional[int] = None,
+                  rules: MeshRules = SINGLE):
     """Multi-head latent attention.  The cache holds only (c_kv, k_rope):
     {"c_kv": (B, max_len, kv_lora_rank), "k_rope": (B, max_len,
     rope_head_dim), "len": int}, written IN PLACE at ``len``; decode uses
@@ -427,12 +444,19 @@ def mla_attention(cfg: ArchConfig, p: dict, x, *, positions,
     ``NotImplementedError`` before any launch; nothing pads the heads or
     falls back to ``_attn_full`` behind the caller's back.
 
+    On a real mesh (``rules``) q is split on "batch" and "heads" (the
+    reference's point on qf and kf, ``layers.py:361-362``) and everything
+    between the projections and ``o`` runs on the rank's local heads
+    (``_mla_core`` under ``local_map``): ``kv_b``'s flat ``h * (hd +
+    vhd)`` axis is split as q's heads and reshaped there, while the latent
+    c_kv and k_rope, which have no head axis, stay whole on "model" and
+    split on the batch, as the cache does.
+
     Returns (out, new_cache_slice | None).
     """
     b, s, _ = x.shape
     h = cfg.n_heads
     hd, vhd, rhd = cfg.head_dim, cfg.v_head_dim, cfg.rope_head_dim
-    kvlr = cfg.kv_lora_rank
     dt = x.dtype
     if cache is None and cfg.attn_impl == "flash":
         raise NotImplementedError(
@@ -441,52 +465,85 @@ def mla_attention(cfg: ArchConfig, p: dict, x, *, positions,
             f"for q, k and v (16 to 128), so MLA has no flash route: use "
             f"attn_impl='xla' (layers._attn_full)")
 
-    # --- queries ---
     cq = rms_norm(x @ p["q_a"].to(dt), p["q_norm"], cfg.norm_eps)
-    q = (cq @ p["q_b"].to(dt)).reshape(b, s, h, hd + rhd)
+    q = _split_heads(rules, cq @ p["q_b"].to(dt), h, hd + rhd, "heads")
+    q = rules.shard(q, "batch", None, "heads", None)
+    ckv_full = x @ p["kv_a"].to(dt)
+    kv_b = p["kv_b"].to(dt)
+    if rules.is_real:
+        ckv_full = rules.shard(ckv_full, "batch", None, None)
+        # kv_b's columns split as q's heads are (whole where they are)
+        kv_b = kv_b.redistribute(rules.mesh, tuple(
+            Shard(1) if pq == Shard(2) else Replicate()
+            for pq in q.placements))
+    decode = cache is not None
+    fill = prefill_len is not None and not decode
+    ck, kr = (cache["c_kv"], cache["k_rope"]) if decode else (None, None)
+    core = functools.partial(
+        _mla_core, cfg, positions=positions,
+        cur=cache["len"] if decode else None,
+        prefill_len=prefill_len if fill else None)
+    args = (q, ckv_full, p["kv_norm"], kv_b, ck, kr)
+    outs = (q, ckv_full, ckv_full) if fill else (q,)
+    res = (_on_local_heads(rules, core, q, args, outs) if rules.is_real
+           else core(*args))
+    out, *lat = res if fill else (res,)
+    new_cache = ({"c_kv": ck, "k_rope": kr} if decode
+                 else dict(zip(("c_kv", "k_rope"), lat)) if fill else None)
+
+    out = out.reshape(b, s, h * vhd)
+    out = out @ p["o"].to(dt)
+    return rules.shard(out, "batch", "seq", "d_model"), new_cache
+
+
+def _mla_core(cfg: ArchConfig, q, ckv_full, kv_norm, kv_b, ckv_c, krope_c,
+              *, positions, cur: Optional[int], prefill_len: Optional[int]):
+    """``mla_attention`` between its projections, on the heads q holds
+    (every head on one device, the rank's local heads on a mesh, with
+    ``kv_b``'s columns for those heads): RoPE, the latent kv, and the
+    absorbed decode form against the cache (``cur`` its length) or the
+    prefill's attention, with the padded latent entries as well when
+    ``prefill_len``.  Returns out (B, S, h_local, vhd), or (out, c_kv,
+    k_rope) for a prefill fill."""
+    b, s, hl = q.shape[:3]
+    hd, vhd = cfg.head_dim, cfg.v_head_dim
+    rhd, kvlr = cfg.rope_head_dim, cfg.kv_lora_rank
+    dt = q.dtype
     q_nope, q_rope = q[..., :hd], q[..., hd:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
-    # --- latent kv ---
-    ckv_full = x @ p["kv_a"].to(dt)
     c_kv, k_rope = ckv_full[..., :kvlr], ckv_full[..., kvlr:]
-    c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+    c_kv = rms_norm(c_kv, kv_norm, cfg.norm_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
 
-    wkv_b = p["kv_b"].to(dt).reshape(kvlr, h, hd + vhd)
+    wkv_b = kv_b.reshape(kvlr, hl, hd + vhd)
     w_uk, w_uv = wkv_b[..., :hd], wkv_b[..., hd:]
     scale = (hd + rhd) ** -0.5
 
-    if cache is not None:
-        ckv_c, krope_c, cur = cache["c_kv"], cache["k_rope"], cache["len"]
+    if ckv_c is not None:
         _check_room(cur, s, ckv_c.shape[1])
         ckv_c[:, cur:cur + s] = c_kv.to(ckv_c.dtype)
         krope_c[:, cur:cur + s] = k_rope[:, :, 0, :].to(krope_c.dtype)
-        new_cache = {"c_kv": ckv_c, "k_rope": krope_c}
         # absorbed form: q_eff = q_nope @ W_uk -> scores in latent space
         q_eff = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)
         s_lat = torch.einsum("bshr,bkr->bhsk", q_eff, ckv_c.to(dt))
         s_rope = torch.einsum("bshd,bkd->bhsk", q_rope, krope_c.to(dt))
         scores = (s_lat + s_rope).to(torch.float32) * scale
-        valid = torch.arange(ckv_c.shape[1], device=x.device) < cur + s
+        valid = torch.arange(ckv_c.shape[1], device=q.device) < cur + s
         scores = torch.where(valid, scores, NEG_INF)
         pr = torch.softmax(scores, dim=-1).to(dt)
         o_lat = torch.einsum("bhsk,bkr->bshr", pr, ckv_c.to(dt))
-        out = torch.einsum("bshr,rhd->bshd", o_lat, w_uv)
-    else:
-        new_cache = None
-        if prefill_len is not None:
-            pad = prefill_len - s
-            new_cache = {"c_kv": F.pad(c_kv, (0, 0, 0, pad)),
-                         "k_rope": F.pad(k_rope[:, :, 0, :], (0, 0, 0, pad))}
-        k_nope = torch.einsum("bkr,rhd->bkhd", c_kv, w_uk)
-        v = torch.einsum("bkr,rhd->bkhd", c_kv, w_uv)
-        qf = torch.cat([q_nope, q_rope], dim=-1)
-        kf = torch.cat([k_nope, k_rope.expand(b, s, h, rhd)], dim=-1)
-        out = _attn_dispatch(cfg, qf, kf, v, causal=True)
-
-    out = out.reshape(b, s, h * vhd)
-    return out @ p["o"].to(dt), new_cache
+        return torch.einsum("bshr,rhd->bshd", o_lat, w_uv)
+    k_nope = torch.einsum("bkr,rhd->bkhd", c_kv, w_uk)
+    v = torch.einsum("bkr,rhd->bkhd", c_kv, w_uv)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope.expand(b, s, hl, rhd)], dim=-1)
+    out = _attn_dispatch(cfg, qf, kf, v, causal=True)
+    if prefill_len is None:
+        return out
+    pad = prefill_len - s
+    return (out, F.pad(c_kv, (0, 0, 0, pad)),
+            F.pad(k_rope[:, :, 0, :], (0, 0, 0, pad)))
 
 
 def silu(x):
@@ -555,7 +612,32 @@ def capacity_slots(top_i, n_experts: int, cap: int):
     return torch.empty_like(slot).scatter_(1, order, slot).reshape(b, s, k)
 
 
-def moe_ffn(cfg: ArchConfig, p: dict, x):
+#: the list ``moe_ffn`` records its routing in, within ``recording_routes``
+_ROUTES: Optional[list] = None
+
+
+@contextlib.contextmanager
+def recording_routes():
+    """Within the block, each ``moe_ffn`` call over more than one token
+    appends its routing on the local sequences (a rank's own on a mesh) to
+    the yielded list, as it lies on the device: the experts (``top_i``,
+    (B, S, k)), the entries dropped over capacity (bool, the same shape)
+    and the router's probabilities (fp32, (B, S, n_experts))."""
+    global _ROUTES
+    outer, _ROUTES = _ROUTES, []
+    try:
+        yield _ROUTES
+    finally:
+        _ROUTES = outer
+
+
+def _record_route(probs, top_i, slots, n_experts: int, cap: int):
+    if _ROUTES is not None and slots is not None:
+        _ROUTES.append((top_i.detach(), slots == n_experts * cap,
+                        probs.detach()))
+
+
+def moe_ffn(cfg: ArchConfig, p: dict, x, *, rules: MeshRules = SINGLE):
     """Top-k MoE with sort-based capacity dispatch; returns (out, aux_loss).
 
     Each sequence is a dispatch group (``capacity_slots``); the experts
@@ -565,7 +647,11 @@ def moe_ffn(cfg: ArchConfig, p: dict, x):
     no atomics, so two runs give the same bits.  Entries over capacity are
     dropped (GShard).  A single-token step (``s == 1``, decode) takes the
     exact dense combine instead: every expert runs on the token.
+
+    On a real mesh (``rules``) see ``_moe_mesh``.
     """
+    if rules.is_real:
+        return _moe_mesh(cfg, p, x, rules)
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     dt = x.dtype
@@ -579,46 +665,200 @@ def moe_ffn(cfg: ArchConfig, p: dict, x):
     aux = e * torch.sum(me * ce) * cfg.router_aux_coef
 
     we_g, we_u, we_d = (p[key].to(dt) for key in ("we_g", "we_u", "we_d"))
-    if s == 1:
-        # exact dense combine for decode (weights of unselected experts 0)
-        w_full = torch.zeros((b * s, e), dtype=torch.float32,
-                             device=x.device).scatter(
-            -1, top_i.reshape(b * s, k), top_p.reshape(b * s, k))
-        xt = x.reshape(b * s, d)
-        hx = torch.matmul(xt, we_g)                        # (e, b*s, f)
-        ux = torch.matmul(xt, we_u)
-        yx = torch.matmul(F.silu(hx) * ux, we_d)           # (e, b*s, d)
-        out = torch.einsum("etd,te->td", yx, w_full.to(dt)).reshape(b, s, d)
-    else:
-        cap = capacity(cfg, s)
-        n_slots = e * cap
-        slots = capacity_slots(top_i, e, cap)              # (b, s, k)
-        # dispatch: each slot's token, s (a zero row) where empty; the
-        # dropped entries all land in one spare column, sliced off
-        tok = torch.arange(s, device=x.device).view(1, s, 1).expand(b, s, k)
-        slot_tok = torch.full((b, n_slots + 1), s, dtype=tok.dtype,
-                              device=x.device)
-        slot_tok.scatter_(1, slots.reshape(b, s * k), tok.reshape(b, s * k))
-        rows = slot_tok[:, :n_slots] + (
-            torch.arange(b, device=x.device) * (s + 1))[:, None]
-        x_pad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
-        xe = x_pad.reshape(b * (s + 1), d)[
-            rows.view(b, e, cap).transpose(0, 1).reshape(e, b * cap)]
-        hh = torch.bmm(xe, we_g)                           # (e, b*cap, f)
-        uu = torch.bmm(xe, we_u)
-        ye = torch.bmm(F.silu(hh) * uu, we_d)              # (e, b*cap, d)
-        # combine: each token's kept slots, in ascending slot order
-        ye = torch.cat([ye.reshape(e * b * cap, d), ye.new_zeros((1, d))])
-        slots, perm = torch.sort(slots, dim=-1)
-        kept = slots < n_slots
-        bi = torch.arange(b, device=x.device).view(b, 1, 1)
-        row = torch.where(kept, (slots // cap) * (b * cap) + bi * cap
-                          + slots % cap, e * b * cap)
-        w = torch.where(kept, torch.gather(top_p, -1, perm), 0.0).to(dt)
-        out = torch.zeros_like(x)
-        for j in range(k):
-            out = out + ye[row[..., j]] * w[..., j, None]
-
+    slots = capacity_slots(top_i, e, capacity(cfg, s)) if s > 1 else None
+    _record_route(probs, top_i, slots, e, capacity(cfg, s))
+    hh, uu = _moe_up(cfg, x, slots, we_g, we_u, first=0)
+    out = _moe_down(cfg, hh, uu, we_d, top_p, top_i, slots, first=0, b=b,
+                    s=s)
     if cfg.n_shared_experts:
         out = out + ffn(cfg, p, x, keys=("ws_g", "ws_u", "ws_d"))
+    return out, aux
+
+
+def _held_slots(slots, first: int, el: int, n_experts: int, cap: int):
+    """``capacity_slots``' slots (every expert's) as the slots of the
+    experts ``first`` to ``first + el``, numbered from 0; any other entry
+    dropped (``el * cap``).  Every expert held (one device): ``slots``."""
+    if first == 0 and el == n_experts:
+        return slots
+    lo, n_slots = first * cap, el * cap
+    return torch.where((slots >= lo) & (slots < lo + n_slots), slots - lo,
+                       n_slots)
+
+
+def _moe_up(cfg: ArchConfig, x, slots, we_g, we_u, *, first: int):
+    """The gate and up products of the experts ``first`` to ``first +
+    we_g.shape[0]`` (every expert on one device, a rank's own on a mesh):
+    on the tokens dispatched to their slots, (el, B * cap, f), or on every
+    token in decode (``slots`` None, S = 1), (el, B, f).  ``x`` (B, S, dx)
+    holds the part of d that ``we_g`` and ``we_u`` hold (all of it on one
+    device)."""
+    b, s, dx = x.shape
+    el = we_g.shape[0]
+    if slots is None:
+        xt = x.reshape(b * s, dx)
+        return torch.matmul(xt, we_g), torch.matmul(xt, we_u)
+    k = slots.shape[-1]
+    cap = capacity(cfg, s)
+    n_slots = el * cap
+    slots = _held_slots(slots, first, el, cfg.n_experts, cap)
+    # dispatch: each slot's token, s (a zero row) where empty; the
+    # dropped entries all land in one spare column, sliced off
+    tok = torch.arange(s, device=x.device).view(1, s, 1).expand(b, s, k)
+    slot_tok = torch.full((b, n_slots + 1), s, dtype=tok.dtype,
+                          device=x.device)
+    slot_tok.scatter_(1, slots.reshape(b, s * k), tok.reshape(b, s * k))
+    rows = slot_tok[:, :n_slots] + (
+        torch.arange(b, device=x.device) * (s + 1))[:, None]
+    x_pad = torch.cat([x, x.new_zeros((b, 1, dx))], dim=1)
+    xe = x_pad.reshape(b * (s + 1), dx)[
+        rows.view(b, el, cap).transpose(0, 1).reshape(el, b * cap)]
+    return torch.bmm(xe, we_g), torch.bmm(xe, we_u)    # (el, b*cap, f)
+
+
+def _moe_down(cfg: ArchConfig, hh, uu, we_d, top_p, top_i, slots, *,
+              first: int, b: int, s: int):
+    """The held experts' down products on ``_moe_up``'s (``hh``, ``uu``)
+    and each token's sum of them, (B, S, dy) for the dy columns ``we_d``
+    holds: in decode the dense combine (weights of unselected experts 0),
+    else each token's kept slots in ascending slot order."""
+    e, k = cfg.n_experts, cfg.top_k
+    el, dy = we_d.shape[0], we_d.shape[-1]
+    dt = hh.dtype
+    if slots is None:
+        w_full = torch.zeros((b * s, e), dtype=torch.float32,
+                             device=hh.device).scatter(
+            -1, top_i.reshape(b * s, k), top_p.reshape(b * s, k))
+        yx = torch.matmul(F.silu(hh) * uu, we_d)           # (el, b*s, dy)
+        return torch.einsum("etd,te->td", yx, w_full[:, first:first + el]
+                            .to(dt)).reshape(b, s, dy)
+    cap = capacity(cfg, s)
+    n_slots = el * cap
+    slots = _held_slots(slots, first, el, cfg.n_experts, cap)
+    ye = torch.bmm(F.silu(hh) * uu, we_d)                  # (el, b*cap, dy)
+    # combine: each token's kept slots, in ascending slot order
+    ye = torch.cat([ye.reshape(el * b * cap, dy), ye.new_zeros((1, dy))])
+    slots, perm = torch.sort(slots, dim=-1)
+    kept = slots < n_slots
+    bi = torch.arange(b, device=hh.device).view(b, 1, 1)
+    row = torch.where(kept, (slots // cap) * (b * cap) + bi * cap
+                      + slots % cap, el * b * cap)
+    w = torch.where(kept, torch.gather(top_p, -1, perm), 0.0).to(dt)
+    out = hh.new_zeros((b, s, dy))
+    for j in range(k):
+        out = out + ye[row[..., j]] * w[..., j, None]
+    return out
+
+
+def _moe_mesh(cfg: ArchConfig, p: dict, x, rules: MeshRules):
+    """``moe_ffn`` on a real mesh, in three ``local_map``s.
+
+    Routing: the router is ("fsdp_d_model", None), so its logits are whole
+    over the experts on every rank, and the top-k, the renormalisation and
+    the capacity slots run on each rank's local batch, whole sequences
+    (the rules must not split "seq": each sequence is its own capacity
+    group).  The aux loss's ``me`` and ``ce`` are the means over the whole
+    batch: each rank's sums over its tokens divided by the global count,
+    summed over the batch's shards (``Partial``), before their product.
+
+    Experts: the expert weights stay where the rules put them, the experts
+    split on "model" and d on "fsdp_d_model"'s axes ("data"), and the
+    tokens, their experts and slots (a few MB) are gathered instead: each
+    rank dispatches every sequence to its own experts, multiplies its part
+    of d into the gate and up products (a partial sum over "data", reduced
+    before the activation), and forms the down product's columns of its
+    part of d, summed over its experts in each token's slot order.  The sum
+    over the experts' ranks (``Partial`` on "model") is reduced, and d
+    reassembled, at the reference's shard point ``("batch", "seq",
+    "d_model")`` (``layers.py:451``).  The additions come in another order
+    than one device's (equal to a tolerance, not to the bits), in a fixed
+    one: two meshed runs give the same bits."""
+    from torch.distributed.tensor.experimental import local_map
+
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    dt, mesh = x.dtype, rules.mesh
+    spec = rules.spec(x.shape, ("batch", "seq", "d_model"))
+    if spec[1] is not None or spec[2] is not None:
+        raise NotImplementedError(
+            f"MoE on a mesh that splits the sequence or d_model ({spec}): "
+            f"each sequence is a capacity group, held whole by one rank")
+    x = rules.shard(x, "batch", "seq", "d_model")
+    logits = rules.shard(x @ p["router"].to(dt), "batch", "seq", None)
+    n = b * s
+
+    def routing(lg):
+        probs = torch.softmax(lg.to(torch.float32), dim=-1)
+        top_p, top_i = top_k(probs, k)
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+        me = probs.sum(dim=(0, 1)) / n
+        ce = torch.zeros((e,), dtype=torch.float32, device=lg.device)
+        ce.index_add_(0, top_i.reshape(-1), torch.full(
+            (top_i.numel(),), 1.0 / (n * k), device=lg.device))
+        slots = capacity_slots(top_i, e, capacity(cfg, s)) if s > 1 else None
+        _record_route(probs, top_i, slots, e, capacity(cfg, s))
+        return top_p, top_i, slots, me, ce
+
+    tok_pl = list(x.placements)
+    stat_pl = [Partial() if isinstance(pl, Shard) else Replicate()
+               for pl in x.placements]
+    top_p, top_i, slots, me, ce = local_map(
+        routing, out_placements=(tok_pl, tok_pl,
+                                 tok_pl if s > 1 else None, stat_pl, stat_pl),
+        in_placements=(tok_pl,), device_mesh=mesh)(logits)
+    whole = [Replicate()] * mesh.ndim
+    me, ce = me.redistribute(mesh, whole), ce.redistribute(mesh, whole)
+    aux = e * torch.sum(me * ce) * cfg.router_aux_coef
+
+    we_g, we_u, we_d = (p[key].to(dt) for key in ("we_g", "we_u", "we_d"))
+    g_pl = we_g.placements
+    d_axes = [a for a, pl in enumerate(g_pl) if pl == Shard(1)]
+    e_axes = [a for a, pl in enumerate(g_pl) if pl == Shard(0)]
+    if (we_u.placements != g_pl or len(d_axes) + len(e_axes)
+            != sum(pl != Replicate() for pl in g_pl)
+            or we_d.placements != tuple(
+                Shard(2) if a in d_axes else pl
+                for a, pl in enumerate(g_pl))):
+        raise NotImplementedError(
+            f"MoE experts placed {g_pl}, {we_u.placements}, "
+            f"{we_d.placements}: expected the experts and d split as "
+            f"('experts', 'fsdp_d_model', None) places them")
+    el = we_g.to_local().shape[0]
+    first = block_index(we_g, 0) * el
+    dl = we_g.to_local().shape[1]
+    d_lo = block_index(we_g, 1) * dl
+    # every sequence, its experts and slots on every rank
+    xa, tpa, tia = (t.redistribute(mesh, whole) for t in (x, top_p, top_i))
+    sla = slots.redistribute(mesh, whole) if s > 1 else None
+
+    def up(xl, sl, g, u):
+        return _moe_up(cfg, xl[..., d_lo:d_lo + dl], sl, g, u, first=first)
+
+    hu_pl = [Partial() if a in d_axes else pl for a, pl in enumerate(g_pl)]
+    hh, uu = local_map(
+        up, out_placements=(hu_pl, hu_pl),
+        in_placements=(whole, whole if s > 1 else None, g_pl, g_pl),
+        in_grad_placements=(list(_grad_placements(xa, we_g)),
+                            whole if s > 1 else None, g_pl, g_pl),
+        device_mesh=mesh)(xa, sla, we_g, we_u)
+    hu_r = [Replicate() if a in d_axes else pl for a, pl in enumerate(g_pl)]
+    hh, uu = hh.redistribute(mesh, hu_r), uu.redistribute(mesh, hu_r)
+
+    def down(h, u, dd, tp, ti, sl):
+        return _moe_down(cfg, h, u, dd, tp, ti, sl, first=first, b=b, s=s)
+
+    args = (hh, uu, we_d, tpa, tia, sla)
+    out = local_map(
+        down, out_placements=[Shard(2) if a in d_axes else
+                              Partial() if a in e_axes else Replicate()
+                              for a in range(mesh.ndim)],
+        in_placements=tuple(list(a.placements) if isinstance(a, DTensor)
+                            else None for a in args),
+        in_grad_placements=tuple(list(_grad_placements(a, we_d))
+                                 if isinstance(a, DTensor) else None
+                                 for a in args),
+        device_mesh=mesh)(*args)
+    out = rules.shard(out, "batch", "seq", "d_model")
+    if cfg.n_shared_experts:
+        out = out + ffn(cfg, p, x, keys=("ws_g", "ws_u", "ws_d"), rules=rules)
     return out, aux

@@ -8,9 +8,12 @@ single-device rules, keeps every call as it was.  On a real device mesh
 (``MeshRules.for_mesh`` over a ``DeviceMesh``) the parameters are
 ``DTensor``s placed by ``params.param_shardings``, the activations are
 constrained at the reference's points (``model.py:224, 258, 276, 484,
-594`` and the layers'), and the cache is placed by its logical axes.  Only
-the dense family runs on a real mesh; any other raises
-``NotImplementedError``.
+594`` and the layers'), and the cache is placed by its logical axes (the
+audio memory on ("cache_batch", "cache_seq", "d_model"), MLA's latent
+entries on "cache_batch"; ``len`` and ``offset`` are Python ints, the same
+on every rank).  M-RoPE's (3, B, S) positions split on their batch axis,
+dim 1.  The dense, moe (MoE and MLA), vlm and audio families run on a
+real mesh; the ssm and hybrid families raise ``NotImplementedError``.
 ``lax.scan`` over the stacked layers becomes a Python loop over the
 leading ``n_layers`` axis; ``forward`` splits each stacked leaf once
 with ``torch.unbind``, so under autograd the per-layer gradients are
@@ -76,7 +79,7 @@ from repro_torch.models.params import check_ported
 F32 = torch.float32
 SINGLE = layers.SINGLE
 #: the families that run on a real device mesh
-MESH_FAMILIES = ("dense",)
+MESH_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def check_mesh(cfg: ArchConfig, rules: MeshRules):
@@ -84,10 +87,9 @@ def check_mesh(cfg: ArchConfig, rules: MeshRules):
     than run it replicated."""
     if rules.is_real and cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family}) on a device mesh: only the "
-            f"dense family runs on a real mesh yet; MoE and MLA, the vlm "
-            f"and audio families, then the ssm and hybrid families are "
-            f"queued (ROADMAP item 7c)")
+            f"{cfg.name} (family {cfg.family}) on a device mesh: the "
+            f"{', '.join(MESH_FAMILIES)} families run on a real mesh; the "
+            f"ssm and hybrid families do not yet (ROADMAP item 7c)")
 
 
 def _adt(cfg: ArchConfig):
@@ -114,7 +116,8 @@ def transformer_block(cfg, p, x, *, positions, causal=True, memory=None,
     xa = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     if cfg.uses_mla:
         out, kv = layers.mla_attention(cfg, p, xa, positions=positions,
-                                       cache=cache, prefill_len=prefill_len)
+                                       cache=cache, prefill_len=prefill_len,
+                                       rules=rules)
     else:
         out, kv = layers.attention(cfg, p, xa, positions=positions,
                                    causal=causal, cache=cache,
@@ -124,14 +127,15 @@ def transformer_block(cfg, p, x, *, positions, causal=True, memory=None,
     if "xq" in p:  # encoder-decoder cross-attention
         xc = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
         out, _ = layers.attention(cfg, p, xc, positions=positions,
-                                  causal=False, memory=memory, prefix="x")
+                                  causal=False, memory=memory, prefix="x",
+                                  rules=rules)
         x = x + out
         xf = layers.rms_norm(x, p["lnx"], cfg.norm_eps)
     else:
         xf = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
 
     if "router" in p:
-        out, aux = layers.moe_ffn(cfg, p, xf)
+        out, aux = layers.moe_ffn(cfg, p, xf, rules=rules)
         return x + out, kv, aux
     return x + layers.ffn(cfg, p, xf, rules=rules), kv, _zero(x.device)
 
@@ -228,23 +232,31 @@ def slstm_block(cfg, p, x, *, carry=None):
 # ===========================================================================
 # positions
 # ===========================================================================
-def _positions(cfg: ArchConfig, batch: dict, s: int, b: int, device):
+def _positions(cfg: ArchConfig, batch: dict, s: int, b: int, device,
+               rules=SINGLE):
+    """The prompt's positions: (S,), or M-RoPE's (3, B, S) streams, whose
+    batch axis (dim 1) a real mesh splits as the activations'."""
     if cfg.mrope:
         if "patches" in batch:
             f = batch["patches"].shape[1]
             grid = max(1, int(round(f ** 0.5)))
-            return layers.vlm_mrope_positions(b, f, s - f, grid, device)
-        return layers.text_mrope_positions(
-            torch.arange(s, device=device).expand(b, s))
+            pos = layers.vlm_mrope_positions(b, f, s - f, grid, device)
+        else:
+            pos = layers.text_mrope_positions(
+                torch.arange(s, device=device).expand(b, s))
+        return rules.put(pos, None, "batch", None)
     return torch.arange(s, device=device)
 
 
-def _decode_positions(cfg: ArchConfig, cur: int, b: int, offset: int, device):
+def _decode_positions(cfg: ArchConfig, cur: int, b: int, offset: int, device,
+                      rules=SINGLE):
     """Positions of the single new token at index ``cur``; ``offset`` is the
-    frontend (patch) span recorded in the cache at prefill time."""
+    frontend (patch) span recorded in the cache at prefill time, a Python
+    int on every rank (the reference's replicated scalar)."""
     if cfg.mrope:
         t = max(cur - offset, 0) + 1
-        return torch.full((3, b, 1), t, dtype=torch.int32, device=device)
+        return rules.put(torch.full((3, b, 1), t, dtype=torch.int32,
+                                    device=device), None, "batch", None)
     return torch.full((1, 1), cur, dtype=torch.int32, device=device)
 
 
@@ -256,21 +268,28 @@ def _logits(cfg, params, x, rules=SINGLE):
     return rules.shard(logits, "batch", "seq", "vocab")
 
 
-def _frames(cfg, batch):
-    """The audio family's stub frontend: precomputed frame embeddings."""
+def _frames(cfg, batch, rules=SINGLE):
+    """The audio family's stub frontend: precomputed frame embeddings,
+    placed on ("batch", "seq", "d_model") on a real mesh (the reference's
+    ``model.py:276``)."""
     if "frames" not in batch:
         raise KeyError(f"{cfg.name} (family audio) needs batch['frames'], "
                        f"the speech frontend's (B, enc_len, d_model) frame "
                        f"embeddings: the encoder runs on them")
-    return batch["frames"].to(_adt(cfg))
+    return rules.put(batch["frames"].to(_adt(cfg)), "batch", "seq", "d_model")
 
 
 def _embed_inputs(cfg, params, batch, rules=SINGLE):
-    """Token embeddings, with a vlm batch's patch embeddings prepended."""
+    """Token embeddings, with a vlm batch's patch embeddings prepended (on
+    a real mesh both placed on ("batch", "seq", "d_model") before the
+    ``cat``)."""
     dt = _adt(cfg)
     x = layers.embed(batch["tokens"], params["embed"], dt, rules=rules)
     if cfg.family == "vlm" and "patches" in batch:
-        x = torch.cat([batch["patches"].to(dt), x], dim=1)
+        x = rules.shard(x, "batch", "seq", "d_model")
+        patches = rules.put(batch["patches"].to(dt), "batch", "seq",
+                            "d_model")
+        x = torch.cat([patches, x], dim=1)
     return rules.shard(x, "batch", "seq", "d_model")
 
 
@@ -379,11 +398,11 @@ def _xlstm_forward(cfg, params, x, train):
     return x
 
 
-def _audio_encoder(cfg, params, batch, train):
-    x = _frames(cfg, batch)
+def _audio_encoder(cfg, params, batch, train, rules=SINGLE):
+    x = _frames(cfg, batch, rules)
     pos = torch.arange(x.shape[1], device=x.device)
     return _run_blocks(cfg, params["enc_blocks"], x, pos, train=train,
-                       causal=False)[0]
+                       causal=False, rules=rules)[0]
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict, *, train: bool = False,
@@ -397,7 +416,7 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, train: bool = False,
     check_mesh(cfg, rules)
     x = _embed_inputs(cfg, params, batch, rules)
     b, s = x.shape[:2]
-    positions = _positions(cfg, batch, s, b, x.device)
+    positions = _positions(cfg, batch, s, b, x.device, rules)
     if cfg.family == "hybrid":
         x = _hybrid_forward(cfg, params, x, positions, train)
         return _logits(cfg, params, x), _zero(x.device)
@@ -407,13 +426,13 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, train: bool = False,
     aux = _zero(x.device)
     memory = None
     if cfg.family == "audio":
-        memory = _audio_encoder(cfg, params, batch, train)
+        memory = _audio_encoder(cfg, params, batch, train, rules)
         key = "dec_blocks"
     else:
         key = "blocks"
     if cfg.family == "moe" and cfg.first_k_dense:
         x, a = _run_blocks(cfg, params["dense_blocks"], x, positions,
-                           train=train)
+                           train=train, rules=rules)
         aux = aux + a
     x, a = _run_blocks(cfg, params[key], x, positions, train=train,
                        memory=memory, rules=rules)
@@ -630,15 +649,16 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, *,
     max_len = max_len or s
     if s > max_len:
         raise ValueError(f"prompt length {s} > max_len {max_len}")
-    positions = _positions(cfg, batch, s, b, x.device)
+    positions = _positions(cfg, batch, s, b, x.device, rules)
     memory = None
     enc_len = 0
     if cfg.family == "audio":
-        memory = _audio_encoder(cfg, params, batch, False)
+        memory = _audio_encoder(cfg, params, batch, False, rules)
         enc_len = memory.shape[1]
     cache = init_cache(cfg, b, max_len, x.device, enc_len, rules)
     if memory is not None:
-        cache["memory"].copy_(memory)
+        cache["memory"] = rules.shard(memory, "cache_batch", "cache_seq",
+                                      "d_model")
     if cfg.family == "hybrid":
         x = _hybrid_fill(cfg, params, cache, x, positions, max_len)
     elif cfg.family == "ssm":
@@ -646,7 +666,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, *,
     else:
         if cfg.family == "moe" and cfg.first_k_dense:
             x = _fill(cfg, params["dense_blocks"], cache["dense_layers"], x,
-                      positions, None, max_len)
+                      positions, None, max_len, rules)
         key = "dec_blocks" if cfg.family == "audio" else "blocks"
         x = _fill(cfg, params[key], cache["layers"], x, positions, memory,
                   max_len, rules)
@@ -668,7 +688,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens, *,
     x = layers.embed(tokens, params["embed"], _adt(cfg), rules=rules)
     x = rules.shard(x, "batch", None, "d_model")
     positions = _decode_positions(cfg, cur, x.shape[0], cache["offset"],
-                                  x.device)
+                                  x.device, rules)
     memory = cache.get("memory")
     if memory is not None:
         memory = memory.to(_adt(cfg))

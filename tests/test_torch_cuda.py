@@ -335,7 +335,14 @@ FLASH_SHAPES = [  # b, sq, sk, h, kv, d, block_q, block_k, causal
     (1, 2048, 2048, 32, 32, 112, 512, 512, True),   # zamba2-7b: d=112,
     (1, 8192, 8192, 32, 32, 112, 512, 512, True),   # and its long prompt
     (2, 2048, 2048, 8, 4, 128, 512, 512, True),     # qwen3 on a (2, 2)
-]                                                   # mesh: one rank's heads
+                                                    # mesh: one rank's heads
+    # the other families on the (2, 2) mesh, one rank's heads and batch:
+    (2, 512, 512, 16, 4, 128, 512, 512, True),      # phi3.5-moe, g = 4
+    (2, 512, 512, 6, 1, 128, 512, 512, True),       # qwen2-vl-2b, g = 6
+    (2, 512, 512, 8, 8, 64, 512, 512, False),       # seamless: encoder,
+    (2, 128, 512, 8, 8, 64, 128, 512, False),       # cross-attention,
+    (2, 1, 512, 8, 8, 64, 1, 512, False),           # its decode step
+]
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),

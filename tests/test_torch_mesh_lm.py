@@ -30,7 +30,7 @@ qk-norm and tied embeddings, as qwen3) and with the flash route.  Held:
   ranks and on one device;
 * the four collectives DTensor issues, with the all-gather staged
   through the host as CUDA ranks under gloo stage it;
-* a family other than dense refused on a real mesh.
+* the ssm and hybrid families refused on a real mesh.
 """
 
 import concurrent.futures
@@ -426,11 +426,11 @@ def one_rank_mesh():
                                                   "cpu"))
 
 
-@pytest.mark.parametrize("arch", ["moe", "vlm", "ssm"])
+@pytest.mark.parametrize("arch", ["ssm", "hybrid"])
 def test_other_families_are_refused_on_a_real_mesh(one_rank_mesh, arch):
-    cfg = _cfg(TINY, family=arch, n_experts=4, top_k=2, moe_d_ff=32)
-    if arch == "ssm":
-        cfg = dataclasses.replace(cfg, slstm_every=2)
+    """The families without a mesh path raise before anything runs (the
+    moe, vlm and audio families run: tests/test_torch_mesh_families.py)."""
+    cfg = _cfg(TINY, family=arch, slstm_every=2, attn_every=2, ssm_state=16)
     for call in (lambda: Engine(cfg, {"embed": torch.zeros(1)},
                                 rules=one_rank_mesh),
                  lambda: make_train_step(cfg, AdamW(), rules=one_rank_mesh),

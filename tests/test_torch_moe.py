@@ -221,3 +221,30 @@ def test_combine_gives_the_same_bits_twice():
     x = torch.from_numpy(_x(2, 40, cfg.d_model))
     a, b = layers.moe_ffn(cfg, tp, x), layers.moe_ffn(cfg, tp, x)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("cf", (0.5, 1.25))
+def test_recorded_routes_are_the_reference_dispatch(cf):
+    """``layers.recording_routes`` gives, per ``moe_ffn`` call over more
+    than one token, the reference's top-k experts, the entries its
+    dispatch drops and the router's probabilities; a single-token call
+    and a call outside the block record nothing."""
+    jcfg, cfg = _configs(capacity_factor=cf)
+    p = _params(cfg, seed=5)
+    b, s = 4, 48
+    x = _x(b, s, cfg.d_model, seed=6)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    xt = torch.from_numpy(x)
+    cap = layers.capacity(cfg, s)
+    with layers.recording_routes() as routes:
+        layers.moe_ffn(cfg, tp, xt)
+        layers.moe_ffn(cfg, tp, xt[:, :1])
+    layers.moe_ffn(cfg, tp, xt)
+    assert len(routes) == 1
+    top_i, dropped, probs = routes[0]
+    ref_i = _ref_top_i(jcfg, p, x)
+    np.testing.assert_array_equal(top_i.numpy(), ref_i)
+    np.testing.assert_array_equal(
+        dropped.numpy(),
+        _gshard_slots(ref_i, cfg.n_experts, cap) == cfg.n_experts * cap)
+    assert torch.equal(probs, layers.route(cfg, tp, xt)[0])
