@@ -24,8 +24,10 @@ defaults), ``seed`` (0), ``steps`` (2), ``dt`` (1e-3).
 ``rank{r}.pt``, with a SHA-256 digest per tensor, and the tensors
 themselves when ``keep`` (a full-size run keeps digests only).
 
-The LM's counterpart is :func:`lm_rank`: serve, train, gradient, restore,
-placement, flash and collective-probe jobs (``run_lm_job``) on one rank of a real device
+The LM's counterpart is :func:`lm_rank`: serve, train (the ``Trainer``,
+with the job's ``accum``), step (``make_train_step`` with ``accum`` and
+``grad_compression``), gradient, restore, placement, flash and
+collective-probe jobs (``run_lm_job``) on one rank of a real device
 mesh (``launch.mesh.make_device_mesh`` over the job's ``mesh`` shape,
 axes ("data", "model"), the reference's ``DEFAULT_RULES``); the same jobs
 run in one process with ``mesh=None`` (:func:`in_process_lm`), the
@@ -34,7 +36,7 @@ grads job carries a vlm's ``patches`` or an audio batch's ``frames`` with
 its tokens (a train job's batches carry them too); a serve job's
 ``repeat`` more prefills are held against the first bit for bit, and
 each MoE layer's experts, dropped entries and router probabilities are
-recorded (``layers.recording_routes``); a train or grads job with
+recorded (``layers.recording_routes``); a train, step or grads job with
 ``against_one`` brings its trees whole to rank 0 only (full-width runs),
 and rank 0 then runs it on one device and holds the two leaf by leaf
 itself (``_against_one``), so that no whole tree leaves the rank.
@@ -158,17 +160,11 @@ def in_process(devices, jobs) -> list:
 
 def strategy_rank(device, jobs, out_dir: str, keep: bool = True) -> None:
     """Rank function for ``process_mesh.spawn``: every job on this rank's
-    slot of a 1-D ``ProcessMesh``, written to ``out_dir/rank{r}.pt``.  A
-    job's own ``keep`` overrides ``keep``."""
-    mesh = ProcessMesh(dist.get_backend(), device=device)
-    results = []
-    for job in jobs:
-        r = run_job(mesh, device, job)
-        r["digests"] = {k: digest(v) for k, v in r["tensors"].items()}
-        if not job.get("keep", keep):
-            del r["tensors"]
-        results.append(r)
-    torch.save(results, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+    slot of a 1-D ``ProcessMesh``, written to ``out_dir/rank{r}.pt``, as
+    :func:`lm_rank` runs a strategy job.  A job's own ``keep`` overrides
+    ``keep``."""
+    lm_rank(device, [dict(j, keep=j.get("keep", keep)) for j in jobs],
+            out_dir)
 
 
 def load_ranks(out_dir: str, world: int) -> list:
@@ -351,7 +347,9 @@ def _serve(job, rules, device):
         out["step_logits"] = _step_logits(cfg, eng.params, batch, toks, job,
                                           rules)
     info = {"flash_per_prefill": first["launches"],
-            "cache_layout": _layout(cache["layers"]),
+            # the engine's cast weights (FP32_LEAVES in fp32) as placed
+            "layout": _layout(eng.params),
+            "cache_layout": _layout(cache.get("layers", cache.get("attn", {}))),
             "cache_leaves": _layout(_cache_tensors(cache)),
             # per MoE layer, the entries dropped in each local sequence
             "dropped": (torch.stack([d.sum(dim=(1, 2)) for _, d, _ in tally])
@@ -366,8 +364,11 @@ def _serve(job, rules, device):
 
 def _prompt_span(cache, n) -> list:
     """The rank's blocks of the cache's tensors: the stacked (L, B,
-    max_len, ...) kv entries over their first ``n`` positions, any other
-    leaf (the audio memory) whole."""
+    max_len, ...) kv entries (a dict's leaves: the KV, MLA's latents, the
+    hybrid family's shared-block KV) over their first ``n`` positions, any
+    other leaf whole: the audio memory, and the recurrent states, carries
+    and conv cache of the hybrid and ssm families, which have no sequence
+    axis."""
     out = []
     for v in _cache_tensors(cache).values():
         for t in tree_util.leaves(v) if isinstance(v, dict) else (v,):
@@ -401,7 +402,7 @@ def _trainer(job, rules, device, data=None, batch_shardings=None):
     from repro_torch.train.trainer import Trainer, TrainerConfig
     tcfg = TrainerConfig(steps=job.get("steps", 0), ckpt_every=10 ** 9,
                          ckpt_dir=job.get("ckpt_dir"), log_every=1,
-                         seed=job.get("seed", 0))
+                         seed=job.get("seed", 0), accum=job.get("accum", 1))
     return Trainer(job["cfg"], AdamW(**job.get("opt", {})), data, tcfg,
                    device=device, rules=rules, log=lambda _m: None,
                    batch_shardings=batch_shardings)
@@ -409,10 +410,10 @@ def _trainer(job, rules, device, data=None, batch_shardings=None):
 
 def _train(job, rules, device):
     """``job["steps"]`` Trainer steps over ``job["data"]``, each batch
-    placed per ``trainer.batch_shardings`` (tokens and labels on ("batch",
+    placed per ``step.batch_shardings`` (tokens and labels on ("batch",
     "seq"), patches and frames on ("batch", "seq", "d_model")), from the
     job's parameters."""
-    from repro_torch.train.trainer import batch_shardings
+    from repro_torch.train.step import batch_shardings
     batches = job["data"]
     tr = _trainer(job, rules, device, data=lambda step: batches[step],
                   batch_shardings=batch_shardings(rules, batches[0]))
@@ -427,6 +428,56 @@ def _train(job, rules, device):
     times = {"step_s": [h["step_time"] for h in hist]}
     return out, times, {"layout": _layout(params),
                         "opt_layout": _layout(opt_state.m)}
+
+
+def _step(job, rules, device):
+    """``job["steps"]`` calls of ``train.step.make_train_step`` with the
+    job's ``accum`` and ``grad_compression`` (int8 with its error buffers
+    from ``compression.zeros_error``) over ``job["data"]``, each batch
+    placed per ``batch_shardings``, from the job's parameters: the
+    parameters (with ``moments``, AdamW's m too), the losses and, under
+    int8, the error buffers whole; with ``ckpt_dir`` the state is saved
+    there as the Trainer saves it."""
+    from repro_torch.distributed.compression import zeros_error
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import batch_shardings, make_train_step
+    comp = job.get("grad_compression", "none")
+    opt = AdamW(**job.get("opt", {}))
+    step = make_train_step(job["cfg"], opt, rules=rules,
+                           accum=job.get("accum", 1), grad_compression=comp)
+    params = _lm_params(job, rules, device)
+    opt_state = opt.init(params)
+    err = zeros_error(params) if comp == "int8" else None
+    sh = batch_shardings(rules, job["data"][0])
+    losses, times = [], []
+    for data in job["data"][:job.get("steps", len(job["data"]))]:
+        batch = {k: sh[k].place(v) if k in sh else v
+                 for k, v in _lm_batch(job, device, data).items()}
+        _sync_dev(device)
+        t0 = time.perf_counter()
+        if err is None:
+            params, opt_state, met = step(params, opt_state, batch)
+        else:
+            params, opt_state, met, err = step(params, opt_state, batch, err)
+        _sync_dev(device)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+    if job.get("ckpt_dir"):
+        from repro_torch.checkpoint import store
+        store.save(job["ckpt_dir"], len(times),
+                   {"params": params, "opt": opt_state})
+    out = {f"params.{k}": v for k, v in _whole(params, job, rules).items()}
+    if job.get("moments"):
+        out.update({f"m.{k}": v
+                    for k, v in _whole(opt_state.m, job, rules).items()})
+    info = {"layout": _layout(params), "opt_layout": _layout(opt_state.m)}
+    if err is not None:
+        info["err_layout"] = _layout(err)
+        if not job.get("against_one"):   # rank 0 holds the parameters only
+            out.update({f"err.{k}": v
+                        for k, v in _whole(err, job, rules).items()})
+    out["loss"] = torch.tensor(losses, dtype=torch.float64)
+    return out, {"step_s": times}, info
 
 
 def _grads(job, rules, device):
@@ -510,18 +561,23 @@ def _against_one(job, device, out) -> tuple:
     difference of two fp32 values this close is exact).  Train: per leaf
     the elements outside ``|mesh - one| <= atol + rtol |one|``
     (``job["against_one"]``'s bounds), the largest excess over it, and the
-    update-norm gap ``|mesh - one| / |one - start|``; grads: per leaf
+    update-norm gap ``|mesh - one| / |one - start|``, over all of the
+    leaf's elements and (``leaf_kept``) over those within the bounds (an
+    int8 step's flips, an element whose gradient lies within noise of a
+    level's midpoint taking the other level, are the elements outside
+    them); grads: per leaf
     ``max |mesh - one| / max |one|``; both the losses' largest relative
     difference.  Returns (stats, the one-device run's times)."""
     one, times, _ = LM_KINDS[job["kind"]](dict(job, mesh=None),
                                           MeshRules.single_device(), device)
     bound = job["against_one"]
     start = (_flat(_lm_params(job, MeshRules.single_device(), device))
-             if job["kind"] == "train" else {})
+             if job["kind"] != "grads" else {})
     stats = {"loss_rel": float((out["loss"].double().cpu()
                                 - one["loss"].double().cpu()).abs().max()
                                / one["loss"].double().abs().max()),
-             "n": 0, "n_out": 0, "worst_excess": float("-inf"), "leaf": {}}
+             "n": 0, "n_out": 0, "worst_excess": float("-inf"), "leaf": {},
+             "leaf_kept": {}, "leaf_out": {}}
     for name, w in one.items():
         if not name.startswith(("params.", "grad.")):
             continue
@@ -535,16 +591,21 @@ def _against_one(job, device, out) -> tuple:
         excess = (g - w).abs() - (bound["atol"] + bound["rtol"] * w.abs())
         stats["n"] += excess.numel()
         stats["n_out"] += int((excess > 0).sum())
+        stats["leaf_out"][name] = int((excess > 0).sum())
         stats["worst_excess"] = max(stats["worst_excess"],
                                     float(excess.max()))
         p0 = start[name[len("params."):]]
         stats["leaf"][name] = float((g - w).norm()
                                     / (w - p0).norm().clamp(min=1e-30))
+        kept = excess <= 0
+        stats["leaf_kept"][name] = float(
+            (g - w)[kept].norm() / (w - p0)[kept].norm().clamp(min=1e-30))
     return stats, times
 
 
-LM_KINDS = {"serve": _serve, "train": _train, "grads": _grads,
-            "restore": _restore, "placements": _placements, "flash": _flash}
+LM_KINDS = {"serve": _serve, "train": _train, "step": _step,
+            "grads": _grads, "restore": _restore, "placements": _placements,
+            "flash": _flash}
 
 
 def run_lm_job(job, device, meshes) -> dict:
@@ -581,7 +642,8 @@ def run_lm_job(job, device, meshes) -> dict:
         torch.cuda.empty_cache()
     # the trees an against_one job brings to rank 0 exist there only:
     # no digest to compare
-    trees = ("params.", "m.", "grad.") if job.get("against_one") else ()
+    trees = (("params.", "m.", "grad.", "err.") if job.get("against_one")
+             else ())
     res = {"tensors": tensors, "times": times, "info": info,
            "digests": {k: digest(v) for k, v in tensors.items()
                        if not k.startswith(trees)}}
@@ -594,18 +656,35 @@ def run_lm_job(job, device, meshes) -> dict:
     return res
 
 
+#: the strategies' job kinds (``run_job``), which ``lm_rank`` runs too
+STRATEGY_KINDS = ("lockstep", "block", "psum")
+
+
 def lm_rank(device, jobs, out_dir: str) -> None:
     """Rank function for ``process_mesh.spawn``: every LM job on this
-    rank, written to ``out_dir/rank{r}.pt``.  Each result's
+    rank, written to ``out_dir/rank{r}.pt``.  A strategy job
+    (``STRATEGY_KINDS``) runs through :func:`run_job` on a ``ProcessMesh``
+    of the same ranks, its digests taken and its tensors kept only with
+    the job's ``keep``, so that one spawn serves both.  Each result's
     ``times["done_at"]`` is the host clock (``time.time``) at its end, and
     the first's ``times["rank_start_at"]`` the rank's own start, for a
     spawn's breakdown."""
     meshes: dict = {}
     start = time.time()
-    results = []
+    results, pm = [], None
     for job in jobs:
-        results.append(run_lm_job(job, device, meshes))
-        results[-1]["times"]["done_at"] = time.time()
+        if job["kind"] in STRATEGY_KINDS:
+            pm = pm or ProcessMesh(dist.get_backend(), device=device)
+            r = run_job(pm, device, job)
+            r["digests"] = {k: digest(v) for k, v in r["tensors"].items()}
+            if not job.get("keep", False):
+                del r["tensors"]
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()   # the ranks share the card
+        else:
+            r = run_lm_job(job, device, meshes)
+        results.append(r)
+        r["times"]["done_at"] = time.time()
     results[0]["times"]["rank_start_at"] = start
     torch.save(results, os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
 

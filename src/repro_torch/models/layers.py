@@ -49,11 +49,30 @@ SINGLE = MeshRules.single_device()
 # --------------------------------------------------------------------------
 def rms_norm(x, w, eps: float = 1e-5):
     """Statistics in fp32, cast to the activation dtype, then times ``w``
-    in that dtype (the reference's cast order)."""
+    in that dtype (the reference's cast order).  On a DTensor whose rows
+    a mesh axis splits (Mamba2's ``gnorm`` and the mLSTM's ``onorm`` over
+    "d_ff"; the sLSTM's ``onorm`` over heads split on "model") the mean
+    is one over the whole row: each rank's sum of squares over its part
+    is reduced across the ranks before the root, never taken per rank."""
     dt = x.dtype
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if _split_rows(xf):
+        # each rank's sum over its part of the row (a Partial sum), reduced
+        sq = torch.sum(xf * xf, dim=-1, keepdim=True)
+        var = sq.redistribute(sq.device_mesh, [
+            Replicate() if isinstance(p, Partial) else p
+            for p in sq.placements]) / xf.shape[-1]
+    else:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(dt) * w.to(dt)
+
+
+def _split_rows(x) -> bool:
+    """Whether a mesh axis of more than one rank splits the last dimension
+    of the DTensor ``x``."""
+    return isinstance(x, DTensor) and any(
+        p == Shard(x.ndim - 1) and x.device_mesh.size(a) > 1
+        for a, p in enumerate(x.placements))
 
 
 def embed(tokens, table, dtype, *, rules: MeshRules = SINGLE):
@@ -260,7 +279,9 @@ def _on_local_heads(rules: MeshRules, fn, q, args: tuple, out_like: tuple):
     """``fn(*args)`` on each rank's local blocks through ``local_map``:
     ``args`` are DTensors or other values (None, ints, plain tensors held
     whole by every rank); ``out_like`` names, per output, the DTensor whose
-    placements it takes (None for an output that is not a tensor)."""
+    placements it takes, or the placements themselves (a tuple), or None
+    for an output that is not a tensor.  ``q`` is the input whose split
+    the work follows (``_grad_placements``)."""
     from torch.distributed.tensor.experimental import local_map
 
     def pl(x, grad=False):
@@ -268,9 +289,12 @@ def _on_local_heads(rules: MeshRules, fn, q, args: tuple, out_like: tuple):
             return None
         return list(_grad_placements(x, q) if grad else x.placements)
 
+    def out_pl(x):
+        return list(x) if isinstance(x, tuple) else pl(x)
+
     # one output's placements are a list: local_map reads a tuple as one
     # entry per output
-    outs = tuple(pl(x) for x in out_like)
+    outs = tuple(out_pl(x) for x in out_like)
     return local_map(
         fn, out_placements=outs if len(outs) > 1 else outs[0],
         in_placements=tuple(pl(a) for a in args),

@@ -7,13 +7,18 @@ keyword ``rules`` of ``transformer_block``, ``forward``, ``loss_fn``,
 single-device rules, keeps every call as it was.  On a real device mesh
 (``MeshRules.for_mesh`` over a ``DeviceMesh``) the parameters are
 ``DTensor``s placed by ``params.param_shardings``, the activations are
-constrained at the reference's points (``model.py:224, 258, 276, 484,
-594`` and the layers'), and the cache is placed by its logical axes (the
-audio memory on ("cache_batch", "cache_seq", "d_model"), MLA's latent
-entries on "cache_batch"; ``len`` and ``offset`` are Python ints, the same
-on every rank).  M-RoPE's (3, B, S) positions split on their batch axis,
-dim 1.  The dense, moe (MoE and MLA), vlm and audio families run on a
-real mesh; the ssm and hybrid families raise ``NotImplementedError``.
+constrained at the reference's points (``model.py:98, 126, 139, 160,
+184, 224, 258, 276, 484, 594`` and the layers'), and the cache is placed
+by its logical axes (the audio memory on ("cache_batch", "cache_seq",
+"d_model"), MLA's latent entries on "cache_batch", the SSM states and
+carries on "cache_batch" and "heads", the conv cache on "cache_batch" and
+"d_ff"; ``len`` and ``offset`` are Python ints, the same on every rank).
+M-RoPE's (3, B, S) positions split on their batch axis, dim 1.  Every
+family runs on a real mesh.  The SSM cells (``models/ssm.py``) run
+unchanged on each rank's local heads (Mamba2's conv on its "d_ff"
+channels), one ``local_map`` per call, so the sLSTM's steps pay DTensor's
+dispatch once per scan; where "heads" does not divide the model axis
+while "d_ff" does, their inputs are gathered whole over the heads first.
 ``lax.scan`` over the stacked layers becomes a Python loop over the
 leading ``n_layers`` axis; ``forward`` splits each stacked leaf once
 with ``torch.unbind``, so under autograd the per-layer gradients are
@@ -78,20 +83,6 @@ from repro_torch.models.params import check_ported
 
 F32 = torch.float32
 SINGLE = layers.SINGLE
-#: the families that run on a real device mesh
-MESH_FAMILIES = ("dense", "moe", "vlm", "audio")
-
-
-def check_mesh(cfg: ArchConfig, rules: MeshRules):
-    """Refuse a family that has no mesh path yet on a real mesh, rather
-    than run it replicated."""
-    if rules.is_real and cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name} (family {cfg.family}) on a device mesh: the "
-            f"{', '.join(MESH_FAMILIES)} families run on a real mesh; the "
-            f"ssm and hybrid families do not yet (ROADMAP item 7c)")
-
-
 def _adt(cfg: ArchConfig):
     return getattr(torch, cfg.dtype)
 
@@ -140,31 +131,38 @@ def transformer_block(cfg, p, x, *, positions, causal=True, memory=None,
     return x + layers.ffn(cfg, p, xf, rules=rules), kv, _zero(x.device)
 
 
-def mamba_block(cfg, p, x, *, state=None, conv_cache=None):
-    """Mamba2 block (SSD mixer).  A single token with a ``state`` takes the
-    step form; otherwise the chunked scan over chunks of ``min(chunk_size,
-    S)``.  With ``conv_cache`` the convolution streams from it.  Returns
-    (x, state, conv_cache)."""
-    b, s, _ = x.shape
-    dt = x.dtype
-    di = cfg.d_inner
-    nh, hp = di // cfg.ssm_head_dim, cfg.ssm_head_dim
+def _local(rules: MeshRules, fn, q, args: tuple, outs: tuple):
+    """``fn(*args)``: on one device as it is, on a real mesh on each rank's
+    local blocks (``layers._on_local_heads``; ``q`` the input whose split
+    the work follows, ``outs`` per output a DTensor or placements)."""
+    if not rules.is_real:
+        return fn(*args)
+    return layers._on_local_heads(rules, fn, q, args, outs)
 
-    xn = layers.rms_norm(x, p["ln"], cfg.norm_eps)
-    xi = xn @ p["wx"].to(dt)
-    if conv_cache is not None:
-        xi, conv_cache = ssm.causal_conv(xi, p["conv"].to(dt),
-                                         cache=conv_cache)
-    else:
-        xi = ssm.causal_conv(xi, p["conv"].to(dt))
-    xi = layers.silu(xi)
 
-    b_mat = (xn @ p["wB"].to(dt)).to(F32)
-    c_mat = (xn @ p["wC"].to(dt)).to(F32)
-    dtv = ssm.softplus((xn @ p["wdt"].to(dt)).to(F32) + p["dt_bias"].to(F32))
-    a_neg = -torch.exp(p["a_log"].to(F32))
-    xh = xi.reshape(b, s, nh, hp).to(F32)
+def _carry_placements(rules: MeshRules, shape, logical):
+    """The placements of a recurrent carry made inside a core (None
+    without a real mesh)."""
+    return rules.placements(shape, logical) if rules.is_real else None
 
+
+def _conv_core(xi, w, cache):
+    """Mamba2's causal conv and silu, on the "d_ff" channels a rank
+    holds; returns xi, or (xi, cache) when streaming from ``cache``."""
+    if cache is not None:
+        xi, cache = ssm.causal_conv(xi, w, cache=cache)
+        return layers.silu(xi), cache
+    return layers.silu(ssm.causal_conv(xi, w))
+
+
+def _ssd_core(cfg, xh, dtv, dt_bias, a_log, d_skip, b_mat, c_mat, state):
+    """Mamba2's SSD on the heads ``xh`` holds (every head on one device, a
+    rank's local heads on a mesh; B and C are shared by every head): the
+    step form for a single token with a ``state``, else the chunked scan.
+    Returns (y (B, S, H, P) fp32 with the skip, state)."""
+    s = xh.shape[1]
+    dtv = ssm.softplus(dtv + dt_bias.to(F32))
+    a_neg = -torch.exp(a_log.to(F32))
     if s == 1 and state is not None:
         y, state = ssm.ssd_step(xh[:, 0], dtv[:, 0], a_neg, b_mat[:, 0],
                                 c_mat[:, 0], state)
@@ -172,16 +170,89 @@ def mamba_block(cfg, p, x, *, state=None, conv_cache=None):
     else:
         y, state = ssm.ssd_chunked(xh, dtv, a_neg, b_mat, c_mat,
                                    chunk=min(cfg.chunk_size, s), state0=state)
-    y = y + p["d_skip"].to(F32)[:, None] * xh
-    y = y.reshape(b, s, di).to(dt)
-    gate = layers.silu(xn @ p["wz"].to(dt))
+    return y + d_skip.to(F32)[:, None] * xh, state
+
+
+def mamba_block(cfg, p, x, *, state=None, conv_cache=None,
+                rules: MeshRules = SINGLE):
+    """Mamba2 block (SSD mixer).  A single token with a ``state`` takes the
+    step form; otherwise the chunked scan over chunks of ``min(chunk_size,
+    S)``.  With ``conv_cache`` the convolution streams from it.  Returns
+    (x, state, conv_cache).
+
+    On a real mesh (``rules``) the conv runs on each rank's "d_ff"
+    channels (the reference's point on xi, ``model.py:98``) and SSD on its
+    local heads, each in one ``local_map``; where "heads" does not divide
+    the model axis, xi is gathered whole over it and SSD runs on every
+    head.  The gated norm over the split d_inner is one RMS over the whole
+    row (``layers.rms_norm``), and the output is constrained at
+    ``model.py:126``."""
+    b, s, _ = x.shape
+    dt = x.dtype
+    di = cfg.d_inner
+    nh, hp = di // cfg.ssm_head_dim, cfg.ssm_head_dim
+
+    xn = layers.rms_norm(x, p["ln"], cfg.norm_eps)
+    xi = rules.shard(xn @ p["wx"].to(dt), "batch", "seq", "d_ff")
+    res = _local(rules, _conv_core, xi, (xi, p["conv"].to(dt), conv_cache),
+                 (xi, xi) if conv_cache is not None else (xi,))
+    xi, conv_cache = res if conv_cache is not None else (res, None)
+
+    b_mat = rules.shard((xn @ p["wB"].to(dt)).to(F32), "batch", "seq", None)
+    c_mat = rules.shard((xn @ p["wC"].to(dt)).to(F32), "batch", "seq", None)
+    dtv = rules.shard((xn @ p["wdt"].to(dt)).to(F32), "batch", "seq",
+                      "heads")
+    xh = layers._split_heads(rules, xi, nh, hp, "heads").to(F32)
+    xh = rules.shard(xh, "batch", "seq", "heads", None)
+    st_pl = (state if state is not None else _carry_placements(
+        rules, (b, nh, cfg.ssm_state, hp), ("batch", "heads", None, None)))
+    y, state = _local(rules, functools.partial(_ssd_core, cfg), xh,
+                      (xh, dtv, p["dt_bias"], p["a_log"], p["d_skip"], b_mat,
+                       c_mat, state), (xh, st_pl))
+    y = rules.shard(y.reshape(b, s, di).to(dt), "batch", "seq", "d_ff")
+    gate = layers.silu(rules.shard(xn @ p["wz"].to(dt), "batch", "seq",
+                                   "d_ff"))
     y = layers.rms_norm(y * gate, p["gnorm"], cfg.norm_eps)
-    return x + y @ p["wo"].to(dt), state, conv_cache
+    out = rules.shard(y @ p["wo"].to(dt), "batch", "seq", "d_model")
+    return x + out, state, conv_cache
 
 
-def mlstm_block(cfg, p, x, *, carry=None):
+def _mlstm_core(q_in, wq, wk, wv, gi, gf, c, n, m, *, chunk: int):
+    """The mLSTM's per-head q/k/v maps (fp32) and cell on the heads
+    ``q_in`` (B, S, H, dk) holds; the step form for a single token with a
+    carry.  Returns (h, C, n, m)."""
+    q, k, v = (torch.einsum("bshk,hkl->bshl", q_in, w.to(F32))
+               for w in (wq, wk, wv))
+    if q.shape[1] == 1 and c is not None:
+        h, carry = ssm.mlstm_step(q[:, 0], k[:, 0], v[:, 0], gi[:, 0],
+                                  gf[:, 0], (c, n, m))
+        h = h[:, None]
+    else:
+        h, carry = ssm.mlstm_chunked(q, k, v, gi, gf, chunk=chunk,
+                                     carry0=None if c is None else (c, n, m))
+    return (h,) + tuple(carry)
+
+
+def _halves(rules: MeshRules, up):
+    """The mLSTM's up-projection (B, S, 2 di) as (xm, zg): on a real mesh
+    gathered whole over "model" first, so each half pairs the whole rows
+    (a split "d_ff" puts all of xm on one rank and all of zg on the
+    other)."""
+    if rules.is_real:
+        up = rules.shard(up, "batch", "seq", None)
+    return torch.chunk(up, 2, dim=-1)
+
+
+def mlstm_block(cfg, p, x, *, carry=None, rules: MeshRules = SINGLE):
     """xLSTM mLSTM block (factor-2 up-projection, per-head cell); the
-    per-head q/k/v maps run in fp32.  Returns (x, (C, n, m))."""
+    per-head q/k/v maps run in fp32.  Returns (x, (C, n, m)).
+
+    On a real mesh (``rules``) the up-projection is constrained on "d_ff"
+    (the reference's ``model.py:139``), its halves taken whole
+    (``_halves``), xm split again on the heads, and the q/k/v maps and the
+    cell run on each rank's local heads in one ``local_map`` (on every
+    head where "heads" does not divide the model axis); ``onorm`` over the
+    split d_inner is one RMS over the whole row."""
     b, s, d = x.shape
     dt = x.dtype
     di = 2 * d
@@ -189,44 +260,78 @@ def mlstm_block(cfg, p, x, *, carry=None):
     dk = di // nh
 
     xn = layers.rms_norm(x, p["ln"], cfg.norm_eps)
-    xm, zg = torch.chunk(xn @ p["w_up"].to(dt), 2, dim=-1)
-    xh = xm.reshape(b, s, nh, dk).to(F32)
-    q, k, v = (torch.einsum("bshk,hkl->bshl", xh, p[name].to(F32))
-               for name in ("wq", "wk", "wv"))
+    up = rules.shard(xn @ p["w_up"].to(dt), "batch", "seq", "d_ff")
+    xm, zg = _halves(rules, up)
+    xh = rules.shard(xm.reshape(b, s, nh, dk).to(F32), "batch", "seq",
+                     "heads", None)
     gates = (xm @ p["w_if"].to(dt)).to(F32)
-    gi, gf = gates[..., :nh], gates[..., nh:]
+    gi = rules.shard(gates[..., :nh], "batch", "seq", "heads")
+    gf = rules.shard(gates[..., nh:], "batch", "seq", "heads")
+    c, n, m = carry if carry is not None else (None, None, None)
+    if c is not None:
+        pls = (c, n, m)
+    else:
+        lay = [((b, nh, dk, dk), ("batch", "heads", None, None)),
+               ((b, nh, dk), ("batch", "heads", None)),
+               ((b, nh), ("batch", "heads"))]
+        pls = tuple(_carry_placements(rules, *e) for e in lay)
+    core = functools.partial(_mlstm_core, chunk=min(cfg.chunk_size, s))
+    h, *carry = _local(rules, core, xh,
+                       (xh, p["wq"], p["wk"], p["wv"], gi, gf, c, n, m),
+                       (xh,) + pls)
+    h = rules.shard(h.reshape(b, s, di).to(dt), "batch", "seq", "d_ff")
+    h = layers.rms_norm(h, p["onorm"], cfg.norm_eps) * layers.silu(zg)
+    out = rules.shard(h @ p["w_down"].to(dt), "batch", "seq", "d_model")
+    return x + out, tuple(carry)
 
-    if s == 1 and carry is not None:
-        h, carry = ssm.mlstm_step(q[:, 0], k[:, 0], v[:, 0], gi[:, 0],
-                                  gf[:, 0], carry)
+
+def _slstm_core(gx, r, c, n, hv, m):
+    """The sLSTM over the heads ``gx`` (B, S, H, 4, hd) holds, R in fp32:
+    the step form for a single token with a carry, else the scan, all of
+    it inside one call (on a mesh one ``local_map``, not one DTensor
+    dispatch per step).  Returns (h, c, n, h, m)."""
+    carry = None if c is None else (c, n, hv, m)
+    if gx.shape[1] == 1 and carry is not None:
+        h, carry = ssm.slstm_step(gx[:, 0], r.to(F32), carry)
         h = h[:, None]
     else:
-        h, carry = ssm.mlstm_chunked(q, k, v, gi, gf,
-                                     chunk=min(cfg.chunk_size, s),
-                                     carry0=carry)
-    h = h.reshape(b, s, di).to(dt)
-    h = layers.rms_norm(h, p["onorm"], cfg.norm_eps) * layers.silu(zg)
-    return x + h @ p["w_down"].to(dt), carry
+        h, carry = ssm.slstm_scan(gx, r.to(F32), n_heads=gx.shape[2],
+                                  carry0=carry)
+    return (h,) + tuple(carry)
 
 
-def slstm_block(cfg, p, x, *, carry=None):
+def slstm_block(cfg, p, x, *, carry=None, rules: MeshRules = SINGLE):
     """xLSTM sLSTM block (a true time recurrence, R in fp32).  Returns (x,
-    (c, n, h, m))."""
+    (c, n, h, m)).
+
+    On a real mesh (``rules``) the gate pre-activations (B, S, 4d) split
+    on "d_ff" line up with the heads, since they reshape heads first to
+    (H, 4, hd); the recurrence runs on each rank's local heads (every head
+    where "heads" does not divide the model axis), and ``onorm`` over d,
+    which the heads split, is one RMS over the whole row.  The output is
+    constrained at the reference's ``model.py:184``."""
     b, s, d = x.shape
     dt = x.dtype
     nh = cfg.n_heads
 
     xn = layers.rms_norm(x, p["ln"], cfg.norm_eps)
-    gx = (xn @ p["w_in"].to(dt) + p["b"].to(dt)).to(F32)
-    gx = gx.reshape(b, s, nh, 4, d // nh)
-    if s == 1 and carry is not None:
-        h, carry = ssm.slstm_step(gx[:, 0], p["r"].to(F32), carry)
-        h = h[:, None]
+    gx = rules.shard(xn @ p["w_in"].to(dt), "batch", "seq", "d_ff")
+    gx = (gx + p["b"].to(dt)).to(F32)
+    gx = layers._split_heads(rules, gx, nh, 4 * (d // nh), "heads")
+    gx = rules.shard(gx.reshape(b, s, nh, 4, d // nh), "batch", "seq",
+                     "heads", None, None)
+    if carry is None:
+        pls = (_carry_placements(rules, (b, nh, d // nh),
+                                 ("batch", "heads", None)),) * 4
+        carry = (None,) * 4
     else:
-        h, carry = ssm.slstm_scan(gx, p["r"].to(F32), n_heads=nh,
-                                  carry0=carry)
+        pls = tuple(carry)
+    # h (B, S, H, hd) is placed as gx (B, S, H, 4, hd)
+    h, *carry = _local(rules, _slstm_core, gx, (gx, p["r"]) + tuple(carry),
+                       (gx,) + pls)
     h = layers.rms_norm(h.reshape(b, s, d).to(dt), p["onorm"], cfg.norm_eps)
-    return x + h @ p["w_down"].to(dt), carry
+    out = rules.shard(h @ p["w_down"].to(dt), "batch", "seq", "d_model")
+    return x + out, tuple(carry)
 
 
 # ===========================================================================
@@ -319,16 +424,16 @@ def _block_out(cfg, p, x, positions, memory, causal, rules=SINGLE):
     return x, aux
 
 
-def _mamba_out(cfg, p, x):
-    return mamba_block(cfg, p, x)[0]
+def _mamba_out(cfg, p, x, rules=SINGLE):
+    return mamba_block(cfg, p, x, rules=rules)[0]
 
 
-def _mlstm_out(cfg, p, x):
-    return mlstm_block(cfg, p, x)[0]
+def _mlstm_out(cfg, p, x, rules=SINGLE):
+    return mlstm_block(cfg, p, x, rules=rules)[0]
 
 
-def _slstm_out(cfg, p, x):
-    return slstm_block(cfg, p, x)[0]
+def _slstm_out(cfg, p, x, rules=SINGLE):
+    return slstm_block(cfg, p, x, rules=rules)[0]
 
 
 def _maybe_remat(cfg: ArchConfig, fn, *args, train: bool):
@@ -376,25 +481,26 @@ def _xlstm_groups(cfg):
     return cfg.n_layers // k, k - 1
 
 
-def _hybrid_forward(cfg, params, x, positions, train):
+def _hybrid_forward(cfg, params, x, positions, train, rules=SINGLE):
     """Groups of ``attn_every`` Mamba2 layers, each followed by the ONE
     shared attention + FFN block, then the tail's Mamba2 layers."""
     for i, p in enumerate(_unstack(params["blocks"])):
-        x = _maybe_remat(cfg, _mamba_out, cfg, p, x, train=train)
+        x = _maybe_remat(cfg, _mamba_out, cfg, p, x, rules, train=train)
         if _application(cfg, i) is not None:
             x, _ = _maybe_remat(cfg, _block_out, cfg, params["shared_attn"], x,
-                                positions, None, True, train=train)
+                                positions, None, True, rules, train=train)
     return x
 
 
-def _xlstm_forward(cfg, params, x, train):
+def _xlstm_forward(cfg, params, x, train, rules=SINGLE):
     """Groups of (slstm_every - 1) mLSTM blocks and one sLSTM block."""
     n_g, m_per = _xlstm_groups(cfg)
     mlstm, slstm = _unstack(params["blocks"]), _unstack(params["slstm_blocks"])
     for gi in range(n_g):
         for p in mlstm[gi * m_per:(gi + 1) * m_per]:
-            x = _maybe_remat(cfg, _mlstm_out, cfg, p, x, train=train)
-        x = _maybe_remat(cfg, _slstm_out, cfg, slstm[gi], x, train=train)
+            x = _maybe_remat(cfg, _mlstm_out, cfg, p, x, rules, train=train)
+        x = _maybe_remat(cfg, _slstm_out, cfg, slstm[gi], x, rules,
+                         train=train)
     return x
 
 
@@ -413,16 +519,15 @@ def forward(cfg: ArchConfig, params: dict, batch: dict, *, train: bool = False,
     without a router).  ``train=True`` rematerializes each block as
     ``cfg.remat`` says (the values are the same)."""
     check_ported(cfg)
-    check_mesh(cfg, rules)
     x = _embed_inputs(cfg, params, batch, rules)
     b, s = x.shape[:2]
     positions = _positions(cfg, batch, s, b, x.device, rules)
     if cfg.family == "hybrid":
-        x = _hybrid_forward(cfg, params, x, positions, train)
-        return _logits(cfg, params, x), _zero(x.device)
+        x = _hybrid_forward(cfg, params, x, positions, train, rules)
+        return _logits(cfg, params, x, rules), _zero(x.device)
     if cfg.family == "ssm":
-        x = _xlstm_forward(cfg, params, x, train)
-        return _logits(cfg, params, x), _zero(x.device)
+        x = _xlstm_forward(cfg, params, x, train, rules)
+        return _logits(cfg, params, x, rules), _zero(x.device)
     aux = _zero(x.device)
     memory = None
     if cfg.family == "audio":
@@ -570,14 +675,16 @@ def cache_spec(cfg: ArchConfig, b: int, max_len: int, rules=None,
 # ===========================================================================
 # prefill / decode
 # ===========================================================================
-def _store(stacked, i: int, t):
-    """``stacked[i] = t``.  On a mesh the stacked cache leaf is placed as
-    ``t`` is, one dimension to the right, so each rank writes its own
+def _store(stacked, i, t):
+    """``stacked[i] = t`` (``i`` an int, or a tuple of leading indices).
+    On a mesh the stacked cache leaf is placed as ``t`` is, as many
+    dimensions to the right as ``i`` indexes, so each rank writes its own
     block."""
     if not isinstance(stacked, DTensor):
         stacked[i] = t
         return
-    shifted = tuple(Shard(p.dim + 1) if isinstance(p, Shard) else p
+    lead = len(i) if isinstance(i, tuple) else 1
+    shifted = tuple(Shard(p.dim + lead) if isinstance(p, Shard) else p
                     for p in t.placements)
     if shifted != stacked.placements:
         raise ValueError(f"cache placed {stacked.placements}, its entry "
@@ -595,41 +702,47 @@ def _fill(cfg, stacked, kvs, x, positions, memory, max_len, rules=SINGLE):
     return x
 
 
-def _hybrid_fill(cfg, params, cache, x, positions, max_len):
+def _hybrid_fill(cfg, params, cache, x, positions, max_len, rules=SINGLE):
     """The hybrid prefill: each Mamba2 layer from a zero state through the
     chunked scan and from a zero conv cache (the reference's prefill,
     ``model.py:513-543``), filling its state and conv cache; the shared
     block's k/v of each application."""
-    conv0 = torch.zeros(cache["conv"].shape[1:], dtype=x.dtype,
-                        device=x.device)
+    b = x.shape[0]
+    shape, logical = ((b, cfg.conv_width - 1, cfg.d_inner),
+                      ("cache_batch", None, "d_ff"))
+    conv0 = (rules.sharding(shape, logical).zeros(shape, x.dtype, x.device)
+             if rules.is_real else torch.zeros(shape, dtype=x.dtype,
+                                               device=x.device))
     for i in range(cfg.n_layers):
         x, st, cc = mamba_block(cfg, _layer(params["blocks"], i), x,
-                                conv_cache=conv0)
-        cache["ssm"][i] = st
-        cache["conv"][i] = cc
+                                conv_cache=conv0, rules=rules)
+        _store(cache["ssm"], i, st)
+        _store(cache["conv"], i, cc)
         app = _application(cfg, i)
         if app is not None:
             x, kv, _ = transformer_block(cfg, params["shared_attn"], x,
                                          positions=positions,
-                                         prefill_len=max_len)
+                                         prefill_len=max_len, rules=rules)
             for name, t in kv.items():
-                cache["attn"][name][app] = t
+                _store(cache["attn"][name], app, t)
     return x
 
 
-def _xlstm_fill(cfg, params, cache, x):
+def _xlstm_fill(cfg, params, cache, x, rules=SINGLE):
     """The xLSTM prefill: every block through its parallel form from a zero
     carry, filling its final carry."""
     n_g, m_per = _xlstm_groups(cfg)
     for gi in range(n_g):
         for j in range(m_per):
             x, carry = mlstm_block(cfg, _layer(params["blocks"],
-                                                gi * m_per + j), x)
+                                                gi * m_per + j), x,
+                                   rules=rules)
             for name, t in zip(("mlstm_C", "mlstm_n", "mlstm_m"), carry):
-                cache[name][gi, j] = t
-        x, carry = slstm_block(cfg, _layer(params["slstm_blocks"], gi), x)
+                _store(cache[name], (gi, j), t)
+        x, carry = slstm_block(cfg, _layer(params["slstm_blocks"], gi), x,
+                               rules=rules)
         for i, t in enumerate(carry):
-            cache["slstm"][gi, i] = t
+            _store(cache["slstm"], (gi, i), t)
     return x
 
 
@@ -642,7 +755,6 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, *,
     layer and per cross-attention.  On a real mesh each rank launches it
     on its local heads, and the logits come out split over the vocab."""
     check_ported(cfg)
-    check_mesh(cfg, rules)
     x = _embed_inputs(cfg, params, batch, rules)
     b, s = x.shape[:2]
     s_tok = batch["tokens"].shape[1]
@@ -660,9 +772,9 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, *,
         cache["memory"] = rules.shard(memory, "cache_batch", "cache_seq",
                                       "d_model")
     if cfg.family == "hybrid":
-        x = _hybrid_fill(cfg, params, cache, x, positions, max_len)
+        x = _hybrid_fill(cfg, params, cache, x, positions, max_len, rules)
     elif cfg.family == "ssm":
-        x = _xlstm_fill(cfg, params, cache, x)
+        x = _xlstm_fill(cfg, params, cache, x, rules)
     else:
         if cfg.family == "moe" and cfg.first_k_dense:
             x = _fill(cfg, params["dense_blocks"], cache["dense_layers"], x,
@@ -683,7 +795,6 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens, *,
     Returns (logits (B, padded_vocab), cache), the cache updated in place
     and its ``len`` advanced by one."""
     check_ported(cfg)
-    check_mesh(cfg, rules)
     cur = cache["len"]
     x = layers.embed(tokens, params["embed"], _adt(cfg), rules=rules)
     x = rules.shard(x, "batch", None, "d_model")
@@ -702,9 +813,9 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens, *,
         return x
 
     if cfg.family == "hybrid":
-        x = _hybrid_step(cfg, params, cache, x, positions, cur)
+        x = _hybrid_step(cfg, params, cache, x, positions, cur, rules)
     elif cfg.family == "ssm":
-        x = _xlstm_step(cfg, params, cache, x)
+        x = _xlstm_step(cfg, params, cache, x, rules)
     else:
         if cfg.family == "moe" and cfg.first_k_dense:
             x = run(params["dense_blocks"], cache["dense_layers"], x)
@@ -715,26 +826,27 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict, tokens, *,
     return logits[:, 0], cache
 
 
-def _hybrid_step(cfg, params, cache, x, positions, cur):
+def _hybrid_step(cfg, params, cache, x, positions, cur, rules=SINGLE):
     """One token through the hybrid stack: each Mamba2 layer's step form
     from its state and conv cache (stored in the activation dtype, cast at
     use), the shared block against its application's KV cache."""
     for i in range(cfg.n_layers):
         x, st, cc = mamba_block(cfg, _layer(params["blocks"], i), x,
                                 state=cache["ssm"][i],
-                                conv_cache=cache["conv"][i].to(x.dtype))
-        cache["ssm"][i] = st
-        cache["conv"][i] = cc
+                                conv_cache=cache["conv"][i].to(x.dtype),
+                                rules=rules)
+        _store(cache["ssm"], i, st)
+        _store(cache["conv"], i, cc)
         app = _application(cfg, i)
         if app is not None:
             kv = {name: t[app] for name, t in cache["attn"].items()}
             x, _, _ = transformer_block(cfg, params["shared_attn"], x,
                                         positions=positions,
-                                        cache=dict(kv, len=cur))
+                                        cache=dict(kv, len=cur), rules=rules)
     return x
 
 
-def _xlstm_step(cfg, params, cache, x):
+def _xlstm_step(cfg, params, cache, x, rules=SINGLE):
     """One token through the xLSTM stack, each block's step form from its
     carry."""
     n_g, m_per = _xlstm_groups(cfg)
@@ -743,11 +855,13 @@ def _xlstm_step(cfg, params, cache, x):
         for j in range(m_per):
             x, carry = mlstm_block(cfg, _layer(params["blocks"],
                                                 gi * m_per + j), x,
-                                   carry=tuple(cache[n][gi, j] for n in names))
+                                   carry=tuple(cache[n][gi, j] for n in names),
+                                   rules=rules)
             for name, t in zip(names, carry):
-                cache[name][gi, j] = t
+                _store(cache[name], (gi, j), t)
         x, carry = slstm_block(cfg, _layer(params["slstm_blocks"], gi), x,
-                               carry=tuple(cache["slstm"][gi].unbind(0)))
+                               carry=tuple(cache["slstm"][gi].unbind(0)),
+                               rules=rules)
         for i, t in enumerate(carry):
-            cache["slstm"][gi, i] = t
+            _store(cache["slstm"], (gi, i), t)
     return x

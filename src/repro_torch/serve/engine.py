@@ -12,10 +12,13 @@ the same bits.  The cache (KV, or the recurrent state) is updated in
 place, as the reference's donated cache is.
 
 ``rules`` (keyword; the single-device rules by default) serves on a real
-device mesh: the parameters are DTensors placed by
-``params.param_shardings``, every rank runs the engine on the same
-prompts, and sampling reads the logits gathered whole on every rank, so
-every rank emits the same tokens.
+device mesh, every family: the parameters are DTensors placed by
+``params.param_shardings`` (the cast keeps each leaf's placements, the
+fp32 leaves' too), the cache (KV, or the hybrid and ssm families'
+recurrent states and conv cache) is placed by its logical axes and
+updated in place, every rank runs the engine on the same prompts, and
+sampling reads the logits gathered whole on every rank, so every rank
+emits the same tokens.
 """
 
 from __future__ import annotations
@@ -42,7 +45,6 @@ class Engine:
     def __init__(self, cfg: ArchConfig, params: dict,
                  scfg: ServeConfig = ServeConfig(), *,
                  rules: MeshRules = model.SINGLE):
-        model.check_mesh(cfg, rules)
         self.cfg, self.scfg, self.rules = cfg, scfg, rules
         self.params = cast_params(params, cfg.dtype)
         self.device = self.params["embed"].device

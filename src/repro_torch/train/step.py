@@ -20,8 +20,15 @@ counterpart of the reference's donated ``(params, opt_state)``.
 device mesh: the parameters are DTensors, ``model.loss_fn`` runs under the
 rules, and each gradient is redistributed to its parameter's placements
 (a reduce-scatter or all-reduce of the partial sums over the batch's
-shards) before the optimizer reads it.  Gradient accumulation and int8
-compression are single-device only yet, and raise on a real mesh.
+shards) before the optimizer reads it.  The microbatches are the
+reference's reshape of the *global* batch into (accum, B / accum): with
+B = 4, accum = 2 and data = 2, microbatch 0 is rows 0 and 1, both on data
+rank 0's shard of the batch, so the batch is gathered whole and each
+microbatch placed on "batch" again (each microbatch's loss is a mean over
+its own unmasked labels: a rank's own rows would be another function).
+The accumulation buffers and the int8 error buffers are placed as their
+parameters, and the int8 scale is the largest |x| over the whole leaf
+(``compression.quantize``).
 """
 
 from __future__ import annotations
@@ -38,6 +45,39 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.optim.adamw import AdamW, apply_updates
 
 F32 = torch.float32
+#: the logical axes of a training batch's entries, by rank: tokens and
+#: labels (B, S), a vlm's patches and an audio batch's frames (B, S, d)
+BATCH_AXES = {2: ("batch", "seq"), 3: ("batch", "seq", "d_model")}
+
+
+def batch_shardings(rules: MeshRules, batch: dict) -> dict:
+    """``{name: NamedSharding}`` for each entry of an example ``batch``
+    (arrays or tensors) under ``rules``: every entry split on "batch"
+    (``BATCH_AXES``); empty without a real mesh."""
+    if not rules.is_real:
+        return {}
+    return {k: rules.sharding(v.shape, BATCH_AXES[len(v.shape)])
+            for k, v in batch.items()}
+
+
+def microbatches(batch: dict, accum: int, rules: MeshRules = model.SINGLE):
+    """The reference's split of the global ``batch``'s leading axis into
+    ``accum`` microbatches of B / accum rows, in order.  On a real mesh
+    the batch's entries (DTensors split on "batch", or whole tensors) are
+    taken whole and each microbatch is placed per ``batch_shardings``
+    again, so that microbatch i holds the global rows i * B / accum on,
+    whichever ranks held them."""
+    b = next(iter(batch.values())).shape[0]
+    if b % accum:
+        raise ValueError(f"batch {b} does not split into {accum} "
+                         f"microbatches")
+    whole = {k: full(v) for k, v in batch.items()}
+    mb = [{k: v[i * (b // accum):(i + 1) * (b // accum)]
+           for k, v in whole.items()} for i in range(accum)]
+    if not rules.is_real:
+        return mb
+    sh = batch_shardings(rules, mb[0])
+    return [{k: sh[k].place(v) for k, v in m.items()} for m in mb]
 
 
 def _placed_as(g, p):
@@ -81,29 +121,17 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, *,
     if grad_compression not in ("none", "int8"):
         raise ValueError(f"grad_compression {grad_compression!r}: expected "
                          f"'none' or 'int8'")
-    model.check_mesh(cfg, rules)
-    if rules.is_real and (accum != 1 or grad_compression != "none"):
-        raise NotImplementedError(
-            "gradient accumulation and int8 compression run on one device "
-            "only yet; on a device mesh use accum=1, grad_compression='none'")
 
     def compute_grads(params, batch):
         if accum == 1:
             return _value_and_grad(cfg, params, batch, rules=rules)
-        b = next(iter(batch.values())).shape[0]
-        if b % accum:
-            raise ValueError(f"batch {b} does not split into {accum} "
-                             f"microbatches")
-        mb = {k: v.reshape((accum, b // accum) + tuple(v.shape[1:]))
-              for k, v in batch.items()}
-        gsum = tree_util.map(
-            lambda p: torch.zeros(p.shape, dtype=accum_dtype, device=p.device),
-            params)
-        lsum = torch.zeros((), dtype=F32, device=mb["tokens"].device)
+        mb = microbatches(batch, accum, rules)
+        gsum = tree_util.map(lambda p: torch.zeros_like(p, dtype=accum_dtype),
+                             params)
+        lsum = torch.zeros((), dtype=F32, device=batch["tokens"].device)
         mets = []
-        for i in range(accum):
-            l, met, g = _value_and_grad(cfg, params,
-                                        {k: v[i] for k, v in mb.items()})
+        for micro in mb:
+            l, met, g = _value_and_grad(cfg, params, micro, rules=rules)
             gsum = tree_util.map(lambda s, x: s + x.to(accum_dtype), gsum, g)
             lsum = lsum + l
             mets.append(met)

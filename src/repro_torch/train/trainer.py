@@ -28,7 +28,7 @@ the AdamW moments take their placements, and a restore places every leaf
 per the *current* mesh (the reference's ``trainer.py:91-108``), so a run
 saved on one device count resumes on another.  Every rank builds each
 step's batch whole from the seed and places it per ``batch_shardings``
-(``{name: NamedSharding}``, as :func:`batch_shardings` gives them; a name
+(``{name: NamedSharding}``, as ``train.step.batch_shardings`` gives them; a name
 without one is placed on "batch" by the model), as ``jax.device_put``
 does.  Only rank 0 logs.
 """
@@ -79,21 +79,6 @@ class StragglerMonitor:
         if slow:
             self.flagged += 1
         return slow
-
-
-#: the logical axes of a training batch's entries, by rank: tokens and
-#: labels (B, S), a vlm's patches and an audio batch's frames (B, S, d)
-BATCH_AXES = {2: ("batch", "seq"), 3: ("batch", "seq", "d_model")}
-
-
-def batch_shardings(rules: MeshRules, batch: dict) -> dict:
-    """``{name: NamedSharding}`` for each entry of an example ``batch``
-    (arrays or tensors) under ``rules``: every entry split on "batch"
-    (``BATCH_AXES``); empty without a real mesh."""
-    if not rules.is_real:
-        return {}
-    return {k: rules.sharding(v.shape, BATCH_AXES[len(v.shape)])
-            for k, v in batch.items()}
 
 
 @dataclasses.dataclass

@@ -4,6 +4,7 @@ the card and the CPU than the attention families' do: rounding, or a
 fault.
 
     python3 ssm_grad_witness.py
+    python3 ssm_grad_witness.py --mlstm-ops [--out PATH]   # op by op only
 
 Needs a card.  At ``chip_smoke.py`` phase 18 (c)'s inputs (full width,
 xlstm-1.3b cut to 8 layers, zamba2-7b to 9, and qwen2-vl-2b at 2 as a
@@ -32,6 +33,18 @@ Then, to find where the gap arises, one forward in fp32 on each side and
 in float64 on the CPU: every block's output, and the sLSTM's hidden state
 h in eight spans of 32 positions, each side against cpu64.  The last line
 is one JSON object with every reading.
+
+``--mlstm-ops`` reads the mLSTM cell op by op (``mlstm_ops``): the inputs
+of ``ssm.mlstm_chunked`` in xlstm-1.3b's mLSTM block ``OPS_BLOCK`` (at
+the inputs above, taken from the float64 forward on the CPU), its forward
+and a backward against a seeded cotangent recorded op by op in float64 on
+the CPU; then each recorded op is run again on its own float64 inputs
+rounded to fp32, on the card and on the CPU, and its output held against
+the float64 one.  That is each op's own rounding, with no error carried
+in from the ops before it: an op whose card reading lies well above the
+CPU's sums in an order of its own.  The whole cell, forward and backward,
+is also run in fp32 on both sides from the rounded inputs and held
+against float64 (how far the cell carries the ops' rounding).
 """
 
 from __future__ import annotations
@@ -62,6 +75,17 @@ from repro_torch.models import ssm  # noqa: E402
 from repro_torch.train.step import _value_and_grad  # noqa: E402
 
 ARCHS = ("xlstm-1.3b", "zamba2-7b", "qwen2-vl-2b")
+#: the mLSTM block whose cell ``mlstm_ops`` reads (0-based): where the
+#: fp32 gradients' distance from float64 peaks through xlstm's stack
+OPS_BLOCK = 5
+#: an op's own error on the card counts as its own order of summation
+#: where it exceeds the CPU's by this factor (and 1e-7 of its output)
+OPS_RATIO = 3.0
+#: the op-by-op table prints the ops whose own error exceeds this on
+#: either side; the whole table goes to ``OPS_OUT`` (or ``--out PATH``)
+OPS_SHOWN = 2e-7
+OPS_OUT = os.path.join(ROOT, "experiments", "ssm_grad_witness",
+                       "mlstm_ops.json")
 #: the block functions whose outputs the forward records
 BLOCKS = ("mlstm_block", "slstm_block", "mamba_block", "transformer_block")
 SPANS = 8
@@ -242,6 +266,128 @@ def witness(dev, arch):
             "float32_ops": f32, "forward": fwd}
 
 
+class Recording(TorchDispatchMode):
+    """Records each op that gives a floating tensor: (op, args, kwargs,
+    output), every tensor a detached copy on the host."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        if outs and all(t.is_floating_point() for t in outs):
+            keep = _tree_map(lambda t: t.detach().cpu().clone())
+            self.ops.append((func, keep(args), keep(kwargs), keep(out)))
+        return out
+
+
+def _tree_map(fn):
+    from torch.utils._pytree import tree_map
+
+    def apply(tree):
+        return tree_map(lambda t: fn(t) if isinstance(t, torch.Tensor)
+                        else t, tree)
+    return apply
+
+
+def _as_fp32(tree, dev):
+    """A recorded op's float64 arguments rounded to fp32 on ``dev``; a
+    float64 dtype or a device among the keywords follows."""
+    from torch.utils._pytree import tree_map
+
+    def one(t):
+        if isinstance(t, torch.Tensor):
+            return t.to(dev, FLOAT32 if t.dtype == torch.float64 else t.dtype)
+        if t is torch.float64:
+            return FLOAT32
+        if isinstance(t, torch.device):
+            return torch.device(dev)
+        return t
+    return tree_map(one, tree)
+
+
+def _cell(ins, kw, cot):
+    """mlstm_chunked's h and the gradients of <h, cot> by its inputs."""
+    ins = [x.detach().requires_grad_(True) for x in ins]
+    h, _ = ssm.mlstm_chunked(*ins, **kw)
+    return [h.detach()] + list(torch.autograd.grad(h, ins, cot))
+
+
+def mlstm_ops(dev):
+    """The op-by-op reading of the mLSTM cell (the module docstring's
+    ``--mlstm-ops``).  Returns its readings."""
+    arch = "xlstm-1.3b"
+    cfg = dataclasses.replace(lm_config.get(arch), dtype="float32",
+                              **cs.FAMILY_GRAD_CUT[arch])
+    params = lm_params.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    spec = batch_spec_for(cfg, cs.FAMILY_GRAD_BATCH, cs.FAMILY_GRAD_SEQ)
+    nb = SyntheticLM(cfg, spec, seed=1)(0)
+    host = {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in nb.items()}
+    cpu = tree_util.map(lambda x: x.cpu().double(), params)
+    del params
+    calls = []
+    with float64_everywhere(), cs.spying(
+            ssm, "mlstm_chunked", lambda a, out: calls.append(a)):
+        lm_model.forward(cfg, cpu, host)
+    del cpu
+    q, k, v, gi, gf = (x.detach() for x in calls[OPS_BLOCK])
+    kw = {"chunk": min(cfg.chunk_size, q.shape[1])}
+    gen = torch.Generator().manual_seed(5)
+    cot = torch.randn(q.shape, generator=gen, dtype=torch.float64)
+    rec = Recording()
+    with float64_everywhere(), rec:
+        ref = _cell((q, k, v, gi, gf), kw, cot)
+    # the whole cell in fp32 from the rounded inputs, each side
+    cell = {}
+    for side in ("card", "cpu"):
+        d = dev if side == "card" else torch.device("cpu")
+        got = _cell([x.to(d, FLOAT32) for x in (q, k, v, gi, gf)], kw,
+                    cot.to(d, FLOAT32))
+        cell[side] = {n: rel(g, r) for n, g, r in zip(
+            ("h", "dq", "dk", "dv", "dgi", "dgf"), got, ref)}
+    # each op on its own rounded inputs, each side
+    rows = []
+    for i, (func, args, kwargs, out) in enumerate(rec.ops):
+        want = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        row = {"i": i, "op": str(func)}
+        for side in ("card", "cpu"):
+            d = dev if side == "card" else torch.device("cpu")
+            got = [t for t in tree_leaves(func(*_as_fp32(args, d),
+                                               **_as_fp32(kwargs, d)))
+                   if isinstance(t, torch.Tensor)]
+            row[side] = max((rel(g, w) for g, w in zip(got, want)),
+                            default=0.0)
+        row["shape"] = tuple(want[0].shape) if want else ()
+        rows.append(row)
+    own = [r for r in rows if r["card"] > OPS_RATIO * max(r["cpu"], 1e-30)
+           and r["card"] > 1e-7]
+    print(f"== mLSTM cell of {cs.family_label(cfg)} block {OPS_BLOCK}, "
+          f"q {tuple(q.shape)}, chunk {kw['chunk']}: {len(rec.ops)} ops "
+          f"(forward and backward) recorded in float64", flush=True)
+    for side, r in cell.items():
+        print(f"  whole cell fp32 {side} vs cpu64: "
+              + ", ".join(f"{n} {e:.3e}" for n, e in r.items()), flush=True)
+    print(f"  each op on its own fp32-rounded inputs vs float64, where either "
+          f"side exceeds {OPS_SHOWN:g} (a rounding of the inputs alone is "
+          f"about 6e-8):", flush=True)
+    print(f"  {'#':>4} {'op':<44}{'card':>12}{'cpu':>12}  shape", flush=True)
+    for r in rows:
+        if max(r["card"], r["cpu"]) > OPS_SHOWN:
+            print(f"  {r['i']:>4} {r['op']:<44}{r['card']:>12.3e}"
+                  f"{r['cpu']:>12.3e}  {r['shape']}", flush=True)
+    print(f"  ops whose own card error exceeds {OPS_RATIO:g}x the CPU's "
+          f"(and 1e-7): " + ("; ".join(
+              f"{r['i']} {r['op']} {r['card']:.2e} vs {r['cpu']:.2e}"
+              for r in own) or "none"), flush=True)
+    return {"block": OPS_BLOCK, "cell": cell, "ops": rows,
+            "card_own_order": [r["i"] for r in own]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("ssm_grad_witness: no card", file=sys.stderr)
@@ -253,6 +399,18 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip(), flush=True)
+    if "--mlstm-ops" in sys.argv[1:]:
+        t0 = time.perf_counter()
+        out = mlstm_ops(dev)
+        print(f"  took {time.perf_counter() - t0:.1f} s", flush=True)
+        args = sys.argv[1:]
+        path = args[args.index("--out") + 1] if "--out" in args else OPS_OUT
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(out, f)
+        print(json.dumps({"mlstm_ops": {k: out[k] for k in (
+            "block", "cell", "card_own_order")}, "table": path}))
+        return 0
     out = {}
     for arch in ARCHS:
         t0 = time.perf_counter()

@@ -129,3 +129,37 @@ def test_stochastic_rounding_is_unbiased_and_seeded():
     a = compression.quantize(x, generator=torch.Generator().manual_seed(3))
     b = compression.quantize(x, generator=torch.Generator().manual_seed(3))
     assert torch.equal(a[0], b[0])
+
+
+def _submesh_rank(device, xs, out_dir):
+    """Four ranks, two meshes of two ([0, 1] and [2, 3]): each rank
+    quantizes its mesh's leaf, split in two over that mesh, and saves its
+    block's levels and the scale."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Shard
+    rank = dist.get_rank()
+    meshes = [DeviceMesh("cpu", [0, 1]), DeviceMesh("cpu", [2, 3])]
+    k = rank // 2
+    x = torch.from_numpy(xs[k]).chunk(2)[rank % 2].contiguous()
+    leaf = DTensor.from_local(x, meshes[k], [Shard(0)], run_check=False)
+    q, scale = compression.quantize(leaf)
+    torch.save({"q": q.to_local(), "scale": scale},
+               f"{out_dir}/rank{rank}.pt")
+
+
+def test_quantize_takes_the_scale_over_the_leafs_own_mesh(tmp_path):
+    """A split leaf's scale is the largest |x| over its own mesh's ranks,
+    not over every rank of the process group: two meshes of two ranks in
+    a world of four, each with a leaf of another magnitude, each give one
+    device's levels and scale for their leaf."""
+    from repro_torch.distributed import process_mesh
+    rng = np.random.default_rng(9)
+    xs = [rng.standard_normal(64).astype(np.float32),
+          (1e-3 * rng.standard_normal(64)).astype(np.float32)]
+    process_mesh.spawn(_submesh_rank, 4, "gloo", "cpu", xs, str(tmp_path))
+    for k, x in enumerate(xs):
+        want_q, want_s = compression.quantize(torch.from_numpy(x))
+        got = [torch.load(tmp_path / f"rank{r}.pt") for r in (2 * k, 2 * k + 1)]
+        assert all(torch.equal(g["scale"], want_s) for g in got)
+        assert torch.equal(torch.cat([g["q"] for g in got]), want_q)

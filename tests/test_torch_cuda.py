@@ -342,6 +342,8 @@ FLASH_SHAPES = [  # b, sq, sk, h, kv, d, block_q, block_k, causal
     (2, 512, 512, 8, 8, 64, 512, 512, False),       # seamless: encoder,
     (2, 128, 512, 8, 8, 64, 128, 512, False),       # cross-attention,
     (2, 1, 512, 8, 8, 64, 1, 512, False),           # its decode step
+    (2, 512, 512, 16, 16, 112, 512, 512, True),     # zamba2-7b's shared
+                                                    # block on the mesh
 ]
 
 

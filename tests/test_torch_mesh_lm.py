@@ -30,7 +30,8 @@ qk-norm and tied embeddings, as qwen3) and with the flash route.  Held:
   ranks and on one device;
 * the four collectives DTensor issues, with the all-gather staged
   through the host as CUDA ranks under gloo stage it;
-* the ssm and hybrid families refused on a real mesh.
+* the ssm and hybrid families on a one-rank (1, 1) mesh: one device's
+  bits.
 """
 
 import concurrent.futures
@@ -426,14 +427,52 @@ def one_rank_mesh():
                                                   "cpu"))
 
 
+def _bits(tree) -> dict:
+    """Every tensor leaf whole on the host, flat."""
+    return {k: mesh_runs.full(v).detach().cpu()
+            for k, v in mesh_runs._flat(tree).items()
+            if isinstance(v, torch.Tensor)}
+
+
 @pytest.mark.parametrize("arch", ["ssm", "hybrid"])
-def test_other_families_are_refused_on_a_real_mesh(one_rank_mesh, arch):
-    """The families without a mesh path raise before anything runs (the
-    moe, vlm and audio families run: tests/test_torch_mesh_families.py)."""
-    cfg = _cfg(TINY, family=arch, slstm_every=2, attn_every=2, ssm_state=16)
-    for call in (lambda: Engine(cfg, {"embed": torch.zeros(1)},
-                                rules=one_rank_mesh),
-                 lambda: make_train_step(cfg, AdamW(), rules=one_rank_mesh),
-                 lambda: model.forward(cfg, {}, {}, rules=one_rank_mesh)):
-        with pytest.raises(NotImplementedError, match="7c"):
-            call()
+def test_ssm_and_hybrid_on_a_one_rank_mesh_give_one_device_bits(
+        one_rank_mesh, arch):
+    """The ssm and hybrid families on a real (1, 1) mesh, every leaf a
+    DTensor, give one device's bits: the prefill logits and cache, the
+    greedy tokens of ``Engine.generate``, and an accumulated int8 train
+    step's parameters, moments and error buffers (tests/test_torch_mesh_
+    ssm.py holds them on (2, 2) against the reference's mesh)."""
+    from repro_torch.distributed.compression import zeros_error
+    from repro_torch.models import params as P
+    from repro_torch.serve.engine import ServeConfig
+    cfg = _cfg(TINY, family=arch, slstm_every=2, attn_every=2, ssm_state=16,
+               chunk_size=8)
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, 256, (B, S)))
+    batch = {"tokens": torch.from_numpy(rng.integers(0, 256, (B, S))),
+             "labels": torch.from_numpy(rng.integers(-1, 256, (B, S)))}
+    runs = []
+    for rules in (model.SINGLE, one_rank_mesh):
+        params = P.init_params(cfg, torch.Generator().manual_seed(3),
+                               device="cpu", rules=rules)
+        logits, cache = model.prefill(cfg, params, {"tokens": tokens},
+                                      max_len=MAX_LEN, rules=rules)
+        toks, _ = Engine(cfg, params, ServeConfig(max_len=MAX_LEN),
+                         rules=rules).generate({"tokens": tokens}, GEN)
+        opt = AdamW(learning_rate=LR)
+        step = make_train_step(cfg, opt, rules=rules, accum=2,
+                               grad_compression="int8")
+        params, state, met, err = step(params, opt.init(params), batch,
+                                       zeros_error(params))
+        runs.append(dict(logits=mesh_runs.full(logits), toks=toks,
+                         loss=met["loss"], cache=_bits(cache),
+                         params=_bits(params), m=_bits(state.m),
+                         err=_bits(err)))
+    one, mesh = runs
+    assert torch.equal(mesh["logits"], one["logits"])
+    assert torch.equal(mesh["toks"], one["toks"])
+    assert torch.equal(mesh["loss"], one["loss"])
+    for key in ("cache", "params", "m", "err"):
+        assert mesh[key].keys() == one[key].keys(), key
+        for leaf, v in one[key].items():
+            assert torch.equal(mesh[key][leaf], v), (key, leaf)
