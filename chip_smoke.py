@@ -178,18 +178,17 @@ Phases, in order; any failure raises and the script exits nonzero:
    with its tensors staged through host memory: every rank's bootstrap
    and final state bit for bit each other's and the in-process ``[cuda:0]
    * 4`` run's, K1/K2 launches per rank (1 per evaluation resident, p
-   ring) and shift rounds per rank; (b) one block event of phase 8's
-   binary_plummer N = 16384 through each strategy's block evaluator on the
-   same four ranks, gather == none bit for bit and the tiles per shard the
-   in-process run's; (c) nccl at one rank on ``cuda:0`` (the rank function
+   ring) and shift rounds per rank; (b) the block evaluator over the same
+   ranks, since PR 30 in phase 24 (a), whose events hold its checks; (c)
+   nccl at one rank on ``cuda:0`` (the rank function
    in a group of this process alone) bit for bit the one-slot in-process
    mesh; (d) nccl refusing two ranks on one card
    before any group exists; (e) ``compressed_psum`` on four ranks against
    the int32 sum of the levels times the shared scale computed in this
    process; the wall per step of each run beside the in-process run's,
    with the transport (the cost of host staging on one card, not a
-   scaling result); phases 21 to 23 run their jobs on the same four
-   ranks after these, one spawn for all four phases;
+   scaling result); phases 24 and 21 to 23 run their jobs on the same
+   four ranks after these, one spawn for all five phases;
 21. the dense LM over a device mesh (``mesh_lm_phase``: ``MeshRules`` on a
    ``DeviceMesh`` of ranks, parameters and activations as ``DTensor``s):
    K3 at the mesh's local prefill shape (B 2, S 2048, H 8, KV 4, D 128,
@@ -250,6 +249,27 @@ Phases, in order; any failure raises and the script exits nonzero:
    gradients held themselves), the recurrent cache, the moments and the
    int8 error buffers placed by their logical axes; (f) per rank ms per
    prefill, decode step and train step beside the one-device run's;
+24. the N-body engines over a process mesh (``process_engines_phase``,
+   on phase 20's four gloo ranks of the card, every rank holding the
+   whole output): (a) phase 10 (b)'s binary_plummer N = 16384 run, one
+   macro-step of 1/64 at 8 levels, through ``evolve_strategy_block`` under
+   every strategy with gather and none, the ring in both schedules: each
+   rank bit for bit the in-process engine over ``[cuda:0] * 4``, gather ==
+   none and overlap == sync on the state's bytes, tiles per shard those
+   of ``CapacityPlan.shard`` at the recorded bounds (gather's at most
+   none's), K1/K2 launches per rank (events + 1, times p for the ring),
+   |dE/E| in the fp32 tier; (b) phase 13 (a)'s ensemble (B = 4 Plummer
+   N = 16384, one chunk of 64 events) over the 1-D layout, block with
+   none, gather per member, gather shared and gather with B = 3 padded,
+   each rank bit for bit one slot's run; (c) phase 13 (b)'s fused run (B =
+   4 Plummer N = 65536 on the (2, 2) grid, 128 events) bit for bit the
+   in-process fused run; (d) ``BlockStrategyRunner`` (the ring) and
+   ``EnsembleRunner`` on the (2, 2) grid through ``sim.api.run`` on each
+   rank, every rank's report the in-process report outside the wall
+   clock; for every run the ms per event per rank beside in-process, the
+   transport, and host reads and collectives per event; K1/K2 at the
+   per-rank shapes (a resident shard, a ring round, a fused slot) against
+   plain, timed beside the bound;
 then one ``kernels`` JSON line and ``{"ok": true, "device": {...}}`` as the
 last line.
 
@@ -461,9 +481,6 @@ TABLE1_RUNS = [("single", "fp32", None), ("replicated", "fp32", None),
 #: per field (max |a - b| / max |b|): fp32 the reference's own limit
 #: (tests/test_strategies.py:39), mixed the mixed tier
 STRATEGY_TOL = {"fp32": 1e-5, "mixed": 1e-3}
-#: phase 10 (b): phase 8's block run under each strategy over this many
-#: slots of the one card
-BLOCK_P = 2
 #: phase 20: the strategies over a process mesh, one rank per shard, at
 #: phase 10 (a)'s Table 1 size and (b)'s block shape; the ring in both
 #: schedules; gloo ranks all on the one card; one step after the
@@ -472,6 +489,31 @@ PM_RUNS = [(s_, "overlap") for s_ in strategies.STRATEGIES] + [("ring", "sync")]
 PM_STEPS = 1
 #: (e): compressed_psum's length per rank (a 4 MB fp32 gradient bucket)
 PM_PSUM_LEN = 1 << 20
+#: phase 24: the N-body engines over a process mesh of PE_P gloo ranks on
+#: the card (phase 20's spawn).  (a) phase 10 (b)'s runs (binary_plummer
+#: N_MAIN, one macro-step of 1/64 at 8 levels: PE_EVENTS ticks, every one
+#: an event) under each strategy; (b) phase 13 (a)'s ensemble over the
+#: 1-D layout, one chunk of LAYOUT_EVENTS events: (compaction, bucket
+#: mode, members); (c) phase 13 (b)'s fused run; (d) the API's block
+#: strategy runner (the ring) and ensemble runner on the (2, 2) grid, at
+#: phase 9's block configuration cut to one macro-step of 2**-9 at 5
+#: levels (16 events: the report's fields are held, not a length); phase
+#: 10 (b) runs (a)'s jobs in-process, the reference (a)'s ranks are held to
+PE_P = 4
+PE_EVENTS = 2 ** (BLOCK_KW["n_levels"] - 1)
+PE_STRATEGY = [(s_, c_, "overlap") for s_ in strategies.STRATEGIES
+               for c_ in ("gather", "none")] + [("ring", "gather", "sync")]
+PE_LAYOUTS = (("none", "member", ENSEMBLE_B), ("gather", "member", ENSEMBLE_B),
+              ("gather", "shared", ENSEMBLE_B), ("gather", "member", 3))
+PE_API = {
+    "block ring": dict(strategy="ring", devices=PE_P),
+    "ensemble 2x2": dict(ensemble=2, devices=PE_P, mesh=(2, 2)),
+}
+PE_API_KW = dict(t_end=2.0 ** -9, dt_max=2.0 ** -9, n_levels=5)
+#: the report's wall-clock fields: the only ones a rank's report may
+#: differ in from the in-process report
+PE_WALL = ("wall_s", "step_wall_s", "steps_per_s", "interactions_per_s",
+           "modeled", "report_path")
 #: phase 21: the dense LM over a (data, model) = (2, 2) mesh of four gloo
 #: ranks on the one card (NCCL refuses two ranks on one card), qwen3-0.6b at
 #: full width cut to MESH_DEPTH layers: a bf16 prefill of MESH_SERVE_B x
@@ -1727,105 +1769,107 @@ def shard_timings(dev):
     return out
 
 
-def strategy_block_runs(dev, all_kernels, block):
-    """Phase 10 (b): phase 8's block run under each strategy over BLOCK_P
-    slots of the one card.  Returns the readings by (strategy, compaction,
-    mode)."""
+def strategy_block_runs(dev, all_kernels, block=None):
+    """Phase 10 (b): phase 8's block run under each strategy over PE_P
+    slots of the one card: phase 24 (a)'s jobs (``mesh_runs``), whose
+    results are the in-process engine that phase 24 holds its ranks to.
+    Held: the events (phase 8's, where ``block`` gives them), tiles per
+    shard those of ``CapacityPlan.shard`` at the recorded bounds,
+    launched <= bound-sized <= dense, K1/K2 launches, |dE/E|, the end
+    time, gather == none on the state's bytes and overlap == sync.
+    Returns the readings by label, the jobs' results in their order and
+    the launch shapes recorded in the dense resident and ring runs (the
+    per-rank shapes)."""
     bi, bj = nbody_force.DEFAULT_BLOCK_I, nbody_force.DEFAULT_BLOCK_J
-    p = BLOCK_P
-    slots = [dev] * p
+    p = PE_P
+    jobs = {label: j for (part, label), j in engine_jobs().items()
+            if part == "a"}
     st = scenarios.make(BLOCK_SCENARIO, N_MAIN, seed=0, device=dev,
                         validate=False)
-    g8 = block["runs"]["gather"]
-    # gather first: none reads nothing per event, so it runs exactly the
-    # gather run's event count in one chunk
-    cases = [(s_, c_, "overlap") for s_ in strategies.STRATEGIES
-             for c_ in ("gather", "none")] + [("ring", "gather", "sync")]
-    out = {}
-    for strategy, compaction, mode in cases:
-        n_ev = 256 if compaction == "gather" else \
-            out[(strategy, "gather", mode)]["events"]
-        # the engine this run uses, with its per-event bounds recorded
-        engine = ens._strategy_block_engine(
-            strategy, tuple(slots), 2, 6, 1e-7, BLOCK_KW["eta"],
-            BLOCK_KW["dt_max"], BLOCK_KW["n_levels"], compaction, bi, bj,
-            "fp32", "full", mode)
-        bounds, bound_of = [], engine._bound
-
-        def record(*args):
-            b = bound_of(*args)
-            if b is not None:
-                bounds.append(b)
-            return b
-
-        engine._bound = record
-        try:
-            (s, carry), counts, reads, wall = counted(
-                lambda: ens.evolve_strategy_block(
-                    st, strategy=strategy, compaction=compaction,
-                    devices=slots, ring_mode=mode, n_events=n_ev,
-                    **BLOCK_KW), all_kernels)
-        finally:
-            del engine._bound
-        events = int(carry.n_events)
-        tiles = carry.n_tiles.tolist()
-        e0 = nbody.total_energy(hermite.initialize(
-            st, strategies.make_strategy_evaluator(strategy, devices=slots,
-                                                   ring_mode=mode)))
-        de = abs(float((nbody.total_energy(s) - e0) / e0))
-        ring = strategy == "ring"
-        shard_plan = ops.CapacityPlan(N_MAIN, N_MAIN, bi, bj).shard(p)
+    out, ref, shapes = {}, [], {}
+    for label, job in jobs.items():
+        ring = job["strategy"] == "ring"
+        rec = {}
+        dense = job["compaction"] == "none" and job["strategy"] in (
+            "mesh_sharded", "ring")
+        with (recording(rec) if dense else contextlib.nullcontext()):
+            (res,) = mesh_runs.in_process([dev] * p, [job])
+        if dense:
+            shapes["ring round" if ring else "resident shard"] = rec
+        ref.append(res)
+        t, counts = res["tensors"], res["counts"]
+        events = int(t["carry.n_events"])
+        tiles = t["carry.n_tiles"].tolist()
+        plan = ops.CapacityPlan(N_MAIN, N_MAIN, bi, bj).shard(p)
         if ring:
-            shard_plan = dataclasses.replace(
-                shard_plan, n_sources=N_MAIN // p, n_passes=2 * p)
-        dense = events * shard_plan.dense_tiles
-        expect = [float(sum(shard_plan.tiles(
-            strategies._shard_bucket(shard_plan, b[i])) for b in bounds))
-            for i in range(p)] if compaction == "gather" else [float(dense)] * p
+            plan = dataclasses.replace(plan, n_sources=N_MAIN // p,
+                                       n_passes=2 * p)
+        dense_tiles = events * plan.dense_tiles
+        expect = ([float(sum(plan.tiles(strategies._shard_bucket(plan, b[k]))
+                             for b in t["bounds"].tolist()))
+                   for k in range(p)] if job["compaction"] == "gather"
+                  else [float(dense_tiles)] * p)
         # the a-priori bound: every event sized from occupancy entry 0
         # (each shard's real particles)
-        sized = [float(events * shard_plan.tiles(strategies._shard_bucket(
-            shard_plan, N_MAIN // p)))] * p
-        out[(strategy, compaction, mode)] = r = {
-            "state": s, "events": events, "tiles": tiles, "counts": counts,
-            "reads": reads, "wall": wall, "de": de}
-        label = f"{strategy} {compaction}" + (" " + mode if ring else "")
-        print(f"block strategy {label:<20} p={p}: events {events} (phase 8 "
-              f"{g8['events']}), wall {wall:.3f} s ({1e3 * wall / events:.4f}"
-              f" ms/event, phase 8 {1e3 * g8['wall'] / g8['events']:.4f}), "
-              f"host reads {reads} ({reads / events:.3f}/event), launches "
-              f"{counts}, tiles per shard {tiles} (CapacityPlan.shard at the "
-              f"recorded bounds {expect}; bound-sized {sized[0]:.0f}, dense "
-              f"{dense}), |dE/E| {de:.3e}", flush=True)
+        sized = float(events * plan.tiles(strategies._shard_bucket(
+            plan, N_MAIN // p)))
+        e0 = nbody.total_energy(hermite.initialize(
+            st, strategies.make_strategy_evaluator(
+                job["strategy"], devices=[dev] * p,
+                ring_mode=job["ring_mode"])))
+        state = _on(dev, pe_state(res))
+        de = abs(float((nbody.total_energy(state) - e0) / e0))
+        wall = res["times"]["wall_s"]
+        out[label] = r = {"events": events, "tiles": tiles,
+                          "counts": {k: counts[k] for k in (
+                              "acc_jerk_pot", "snap")},
+                          "reads": counts["host_syncs"], "wall": wall,
+                          "de": de}
+        g8 = "" if block is None else (
+            f" (phase 8 {block['runs']['gather']['events']})")
+        print(f"block strategy {label:<20} p={p}: events {events}{g8}, wall "
+              f"{wall:.3f} s ({res['times']['ms_per_event']:.4f} ms/event), "
+              f"host reads {r['reads']} ({r['reads'] / events:.3f}/event), "
+              f"launches {r['counts']}, tiles per shard {tiles} "
+              f"(CapacityPlan.shard at the recorded bounds {expect}; "
+              f"bound-sized {sized:.0f}, dense {dense_tiles}), |dE/E| "
+              f"{de:.3e}", flush=True)
+        check(events == PE_EVENTS and (
+            block is None or events == block["runs"]["gather"]["events"]),
+            f"block strategy {label}: {events} events")
         check(tiles == expect, f"block strategy {label}: tiles {tiles} vs "
               f"CapacityPlan.shard {expect}")
-        check(all(t <= b <= dense for t, b in zip(tiles, sized)),
+        check(all(x <= sized <= dense_tiles for x in tiles),
               f"block strategy {label}: launched <= bound-sized <= dense")
         per_shard = p * p if ring else p
-        for name in ("acc_jerk_pot", "snap"):
-            check(counts[name] == (events + 1) * per_shard,
-                  f"block strategy {label}: {name} launched {counts[name]} "
-                  f"times for {events} events and the bootstrap")
+        for name, n in r["counts"].items():
+            check(n == (events + 1) * per_shard,
+                  f"block strategy {label}: {name} launched {n} times for "
+                  f"{events} events and the bootstrap")
         check(de <= DE_TIERS["fp32"], f"block strategy {label}: |dE/E| {de}")
-        check(abs(float(s.time) - BLOCK_KW["t_end"]) < 1e-12,
-              f"block strategy {label} stopped at t={float(s.time)}")
-    for strategy in strategies.STRATEGIES:
-        g, nn = out[(strategy, "gather", "overlap")], \
-            out[(strategy, "none", "overlap")]
-        same = bitwise_same(g["state"], nn["state"]) and \
-            g["events"] == nn["events"]
-        print(f"block strategy {strategy}: gather vs none bitwise equal "
-              f"{same}, tiles {sum(g['tiles']):.0f} vs "
-              f"{sum(nn['tiles']):.0f}", flush=True)
-        check(same, f"block strategy {strategy}: gather and none differ")
-    ov, sy = out[("ring", "gather", "overlap")], out[("ring", "gather", "sync")]
-    same = bitwise_same(ov["state"], sy["state"], nbody.FIELDS)
-    print(f"block strategy ring gather: overlap vs sync bitwise equal {same}",
+        check(abs(float(state.time) - BLOCK_KW["t_end"]) < 1e-12,
+              f"block strategy {label} stopped at t={float(state.time)}")
+    by = dict(zip(jobs, ref))
+    for s_ in strategies.STRATEGIES:
+        m_ = " overlap" if s_ == "ring" else ""
+        g, n = by[f"{s_} gather{m_}"], by[f"{s_} none{m_}"]
+        same = all(mesh_runs.digest(g["tensors"][f"state.{f}"])
+                   == mesh_runs.digest(n["tensors"][f"state.{f}"])
+                   for f in nbody.FIELDS)
+        tg, tn = g["tensors"]["carry.n_tiles"], n["tensors"]["carry.n_tiles"]
+        print(f"block strategy {s_}: gather == none on the state's bytes "
+              f"{same}; tiles per shard gather {tg.tolist()} none "
+              f"{tn.tolist()}", flush=True)
+        check(same, f"block strategy {s_}: gather and none differ")
+        check(bool((tg <= tn).all() and (tg < tn).any()),
+              f"block strategy {s_}: gather tiles {tg.tolist()}")
+    ov, sy = by["ring gather overlap"], by["ring gather sync"]
+    same = all(torch.equal(ov["tensors"][k], sy["tensors"][k])
+               for k in ov["tensors"])
+    print(f"block strategy ring gather: overlap == sync bit for bit {same}",
           flush=True)
     check(same, "block strategy ring: overlap and sync differ")
-    for r in out.values():
-        del r["state"]
-    return out
+    return {"runs": out, "ref": ref, "shapes": shapes}
 
 
 def strategy_cli(dev, all_kernels, block):
@@ -4852,9 +4896,9 @@ def pm_hold(tag, ranks, ref, jobs, per_rank):
 def pm_table1(dev, p, extra_jobs=()):
     """Phase 20 (a) and (e): Table 1's size under every strategy on ``p``
     gloo ranks of the one card, and compressed_psum on the same ranks.
-    ``extra_jobs`` ((b)'s) run on the same ranks after these, so that the
-    ranks' start is paid once; returns the readings and their results,
-    per rank."""
+    ``extra_jobs`` (the later phases') run on the same ranks after these,
+    so that the ranks' start is paid once; returns the readings and their
+    results, per rank."""
     jobs = [dict(kind="lockstep", strategy=s_, ring_mode=m_, n=TABLE1_N,
                  seed=0, steps=PM_STEPS, dt=TABLE1_DT, dtype="fp32",
                  chips_per_card=2) for s_, m_ in PM_RUNS]
@@ -4917,87 +4961,6 @@ def pm_table1(dev, p, extra_jobs=()):
     return {"launches": launches, "steps": steps, "spawn_s": spawn_s}, extra
 
 
-def pm_block_inputs(dev):
-    """Phase 8's binary_plummer N = 16384 at its first block event: the
-    predicted (pos, vel, acc) at the event's time, the mass and the
-    active mask, on the host."""
-    st = scenarios.make(BLOCK_SCENARIO, N_MAIN, seed=0, device=dev,
-                        validate=False)
-    st = hermite.initialize(st, make_evaluator())
-    n_levels, dt_max = BLOCK_KW["n_levels"], BLOCK_KW["dt_max"]
-    levels = hermite.quantize_block_levels(
-        hermite.aarseth_dt_particles(st, eta=BLOCK_KW["eta"], dt_max=dt_max),
-        dt_max=dt_max, n_levels=n_levels)
-    k = 2 ** (n_levels - 1 - int(levels.max()))
-    mask = hermite.block_active_mask(levels, k, n_levels=n_levels)
-    dt = k * dt_max / 2 ** (n_levels - 1)
-    pos, vel = hermite.predict(st, dt)
-    acc = hermite.predict_acc(st, dt)
-    return tuple(t.cpu() for t in (pos, vel, acc, st.mass, mask))
-
-
-def pm_block_jobs(inputs):
-    """Phase 20 (b)'s jobs on ``pm_block_inputs``, each keeping its
-    tensors, the first once more in front: its times carry the first
-    launch at the event's shapes."""
-    jobs = [dict(kind="block", strategy=s_, ring_mode=m_, compaction=c_,
-                 inputs=inputs, dtype="fp32", chips_per_card=2, keep=True)
-            for s_, m_ in PM_RUNS for c_ in strategies.COMPACTIONS]
-    return jobs[:1] + jobs
-
-
-def pm_block(dev, p, inputs, jobs, ranks):
-    """Phase 20 (b): one block event through each strategy's block
-    evaluator on ``p`` gloo ranks of the one card (``ranks``, the results
-    of ``pm_block_jobs`` there).  gather == none is ``torch.equal`` on every
-    row, as the block runs hold it (a masked row is a zero of either sign);
-    the bytes are compared and printed too."""
-    jobs = jobs[1:]
-    ranks = [r[1:] for r in ranks]
-    torch.cuda.synchronize()
-    ref = mesh_runs.in_process([dev] * p, jobs)
-    launches = pm_hold("process mesh (b)", ranks, ref, jobs,
-                       lambda j: p if j["strategy"] == "ring" else 1)
-    mask = inputs[4]
-    active = int(mask.sum())
-    tiles = {}
-    for i in range(0, len(jobs), 2):
-        label = pm_label(jobs[i])[:-len(" none")]
-        tn_, tg_ = ranks[0][i]["tensors"], ranks[0][i + 1]["tensors"]
-        same = all(torch.equal(tn_[f"eval.{f}"], tg_[f"eval.{f}"])
-                   for f in mesh_runs.EVAL_FIELDS)
-        differ = {f: int((tn_[f"eval.{f}"].view(torch.int32)
-                          != tg_[f"eval.{f}"].view(torch.int32)).sum())
-                  for f in mesh_runs.EVAL_FIELDS}
-        signed_zeros = all(
-            bool((tn_[f"eval.{f}"] == 0)[tn_[f"eval.{f}"].view(torch.int32)
-                                         != tg_[f"eval.{f}"].view(
-                                             torch.int32)].all())
-            for f in mesh_runs.EVAL_FIELDS)
-        active_bytes = all(
-            torch.equal(tn_[f"eval.{f}"][mask].view(torch.int32),
-                        tg_[f"eval.{f}"][mask].view(torch.int32))
-            for f in mesh_runs.EVAL_FIELDS)
-        tn = ref[i]["tensors"]["tiles"].tolist()
-        tg = ref[i + 1]["tensors"]["tiles"].tolist()
-        tiles[label] = {"none": tn, "gather": tg}
-        print(f"process mesh (b) {label:<12} binary_plummer N={N_MAIN}, "
-              f"{active} active, p={p}: gather == none (torch.equal) {same}"
-              f"; active rows' bytes equal {active_bytes}; elements whose "
-              f"bytes differ {differ}, all zeros of either sign "
-              f"{signed_zeros}; tiles per shard gather {tg} none {tn} (every rank the "
-              f"in-process run's); eval {1e3 * ranks[0][i + 1]['times']['eval_s']:.3f}"
-              f" ms gather, {1e3 * ranks[0][i]['times']['eval_s']:.3f} ms "
-              f"none over ranks vs {1e3 * ref[i + 1]['times']['eval_s']:.3f}"
-              f" / {1e3 * ref[i]['times']['eval_s']:.3f} ms in-process",
-              flush=True)
-        check(same and active_bytes,
-              f"process mesh (b) {label}: gather and none differ")
-        check(all(a <= b for a, b in zip(tg, tn)) and tg != tn,
-              f"process mesh (b) {label}: gather tiles {tg} vs none {tn}")
-    return {"launches": launches, "tiles": tiles}
-
-
 def pm_nccl(dev):
     """Phase 20 (c) and (d): nccl at one rank, and refused at more ranks
     than cards."""
@@ -5038,26 +5001,22 @@ def pm_nccl(dev):
             "group_s": group_s}
 
 
-def process_mesh_phase(dev, all_kernels, lm_jobs=()):
-    """Phase 20: the strategies over a process mesh.  ``lm_jobs`` (phases
-    21 to 23's, in the whole run) run on the same four ranks after these,
-    so that the ranks' start is paid once; their results come back in
-    ``out["lm_ranks"]``, per rank."""
+def process_mesh_phase(dev, all_kernels, extra_jobs=()):
+    """Phase 20: the strategies over a process mesh.  ``extra_jobs``
+    (phases 24 and 21 to 23's, in the whole run) run on the same four
+    ranks after these, so that the ranks' start is paid once; their
+    results come back in ``out["extra_ranks"]``, per rank."""
     t0 = time.perf_counter()
     torch.cuda.init()  # run alone, nothing has touched the card yet
     torch.cuda.empty_cache()  # the ranks hold their own memory
-    inputs = pm_block_inputs(dev)
-    jobs = pm_block_jobs(inputs)
     out = {}
-    out["table1"], ranks = pm_table1(dev, TABLE1_P, jobs + list(lm_jobs))
-    out["lm_ranks"] = [r[len(jobs):] for r in ranks]
-    ranks = [r[:len(jobs)] for r in ranks]
-    out["block"] = pm_block(dev, TABLE1_P, inputs, jobs, ranks)
+    out["table1"], out["extra_ranks"] = pm_table1(dev, TABLE1_P,
+                                                  list(extra_jobs))
     out["nccl"] = pm_nccl(dev)
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 20 took {out['seconds']:.1f} s (spawn "
-          f"{out['table1']['spawn_s']:.1f} s (a, b, e"
-          f"{' and phases 21 to 23' if lm_jobs else ''}); (c) "
+          f"{out['table1']['spawn_s']:.1f} s (a, e"
+          f"{' and phases 21 to 24' if extra_jobs else ''}); (c) "
           f"{out['nccl']['group_s']:.1f} s)", flush=True)
     return out
 
@@ -5890,6 +5849,217 @@ def mesh_ssm_phase(dev, all_kernels, ranks=None):
     return out
 
 
+def engine_jobs():
+    """Phase 24's jobs by (part, label): (a) the strategy engine, (b) the
+    1-D layout, (c) the fused grid, (d) the API's runners.  A rank keeps
+    its digests only; the in-process runs keep the tensors."""
+    jobs = {}
+    for s_, c_, m_ in PE_STRATEGY:
+        jobs[("a", f"{s_} {c_}" + (f" {m_}" if s_ == "ring" else ""))] = dict(
+            kind="strategy_block", strategy=s_, compaction=c_, ring_mode=m_,
+            scenario=BLOCK_SCENARIO, n=N_MAIN, seed=0, dtype="fp32",
+            chips_per_card=2, run=dict(BLOCK_KW, n_events=PE_EVENTS))
+    block = dict(BLOCK_KW, eps=4.0 / N_MAIN, n_events=LAYOUT_EVENTS,
+                 max_chunks=1)
+    for c_, m_, b_ in PE_LAYOUTS:
+        jobs[("b", f"{c_} {m_} B={b_}")] = dict(
+            kind="layout", stepper="block", mix=[("plummer", N_MAIN)],
+            repeat=b_, run=dict(block, compaction=c_, bucket_mode=m_))
+    jobs[("c", f"fused {FUSED_MESH[0]}x{FUSED_MESH[1]}")] = dict(
+        kind="layout", stepper="block", mix=[("plummer", N_LARGE)],
+        repeat=FUSED_B, mesh=FUSED_MESH, run=dict(
+            FUSED_KW, eps=4.0 / N_LARGE, compaction="gather",
+            n_events=FUSED_EVENTS, max_chunks=1))
+    for label, extra in PE_API.items():
+        jobs[("d", label)] = dict(kind="api", cfg=dict(
+            scenario=BLOCK_SCENARIO, n=N_MAIN, stepper="block",
+            compaction="gather", eta=BLOCK_KW["eta"], validate_ic=False,
+            **PE_API_KW, **extra))
+    return jobs
+
+
+def pe_hold(tag, ranks, ref, i):
+    """Every rank's digests against the in-process run's (``ref``, the
+    same job's result there); returns the per-rank readings."""
+    want = {k: mesh_runs.digest(t) for k, t in ref["tensors"].items()}
+    same = all(r[i]["digests"] == want for r in ranks)
+    check(same, f"{tag}: a rank differs from the in-process run")
+    rows = []
+    for r in ranks:
+        c, t = r[i]["counts"], r[i]["times"]
+        ev = max(t["events"], 1)
+        rows.append({"launches": {k: c[k] for k in ("acc_jerk_pot", "snap")},
+                     "ms_per_event": t["ms_per_event"],
+                     "host_reads_per_event": c["host_syncs"] / ev,
+                     "collectives_per_event": c["collectives"] / ev})
+        for name in ("acc_jerk_pot", "snap"):
+            check(c[name] > 0, f"{tag}: {name} never launched on a rank")
+    ip = ref["counts"]
+    print(f"{tag:<34}: {len(ranks)} ranks bit for bit the in-process run "
+          f"{same} ({len(want)} tensors); ms per event per rank "
+          f"{[round(x['ms_per_event'], 3) for x in rows]} vs "
+          f"{ref['times']['ms_per_event']:.3f} in-process; launches per rank "
+          f"{rows[0]['launches']} (in-process "
+          f"{ {k: ip[k] for k in ('acc_jerk_pot', 'snap')} }); host reads "
+          f"{rows[0]['host_reads_per_event']:.3f} and collectives "
+          f"{rows[0]['collectives_per_event']:.3f} per event per rank "
+          f"(in-process reads {ip['host_syncs'] / max(ref['times']['events'], 1):.3f})",
+          flush=True)
+    return rows
+
+
+def pe_state(res):
+    return nbody.ParticleState(**{f: res["tensors"][f"state.{f}"]
+                                  for f in nbody.FIELDS})
+
+
+def pe_strategy(ranks, ref, jobs, labels):
+    """(a): each strategy run's ranks against the in-process engine over
+    ``[dev] * PE_P`` (``ref``, phase 10 (b)'s results, which hold the
+    run's events, tiles, energy and gather == none), and K1/K2 launches per
+    rank: events + 1, times p for the ring."""
+    out = {}
+    for i, (label, job) in enumerate(zip(labels, jobs)):
+        tag = f"phase 24 (a) {label}"
+        rows = pe_hold(tag, ranks, ref[i], i)
+        events = int(ref[i]["tensors"]["carry.n_events"])
+        per = (events + 1) * (PE_P if job["strategy"] == "ring" else 1)
+        for r in rows:
+            for name, n in r["launches"].items():
+                check(n == per, f"{tag}: {name} launched {n} times on a "
+                      f"rank, expected {per}")
+        out[label] = dict(rows=rows, events=events,
+                          in_process_ms=ref[i]["times"]["ms_per_event"])
+    return out
+
+
+def _on(dev, state):
+    return nbody.ParticleState(**{f: getattr(state, f).to(dev)
+                                  for f in nbody.FIELDS})
+
+
+def pe_api(ranks, ref, labels, first):
+    """(d): every rank's report against the in-process report over
+    ``[dev] * PE_P`` in every field outside the wall clock."""
+    out = {}
+    for k, label in enumerate(labels):
+        i = first + k
+        tag = f"phase 24 (d) {label}"
+        rows = pe_hold(tag, ranks, ref[k], i)
+        want = {f: v for f, v in ref[k]["info"]["report"].items()
+                if f not in PE_WALL}
+        same = [{f: v for f, v in r[i]["info"]["report"].items()
+                 if f not in PE_WALL} == want for r in ranks]
+        rep = ranks[0][i]["info"]["report"]
+        print(f"{tag:<34}: rank reports equal the in-process report outside "
+              f"the wall clock {same}; devices {rep['devices']}, steps "
+              f"{rep['steps']}, |dE/E| {rep['de_rel']:.3e}, wall "
+              f"{rep['wall_s']:.3f} s per rank 0 vs "
+              f"{ref[k]['info']['report']['wall_s']:.3f} s in-process",
+              flush=True)
+        check(all(same) and rep["devices"] == PE_P,
+              f"{tag}: a rank's report differs from the in-process report")
+        check(rep["de_rel"] <= DE_TIERS["fp32"], f"{tag}: |dE/E|")
+        out[label] = dict(rows=rows, steps=rep["steps"])
+    return out
+
+
+def pe_shapes(dev, all_kernels, shapes):
+    """K1 and K2 at each part's most launched per-rank shape (recorded in
+    the in-process runs, whose slots launch what a rank launches), against
+    plain, timed beside the bound."""
+    out = {}
+    for part, rec in shapes.items():
+        for name in ("acc_jerk_pot", "snap"):
+            n_launch, key = max((v[0], k) for k, v in rec.items()
+                                if k[0] == name)
+            x, kw = packed(name, *rec[key][1])
+            # launch_readings takes batched operands: one run is a batch of 1
+            x = tuple(t if t.dim() == 3 else t[None] for t in x)
+            r = launch_readings(name, x, kw, all_kernels[name])
+            tgt, src = key[1], key[2]
+            shape = (tgt[0] if len(tgt) == 3 else 1, tgt[-2], src[-2])
+            out[(name, part)] = dict(r, launches=n_launch, shape=shape)
+            print(f"{name:<13} phase 24 {part:<18} per-rank shape B={shape[0]}"
+                  f" x N_t={shape[1]} x N_s={shape[2]}: kernel {r['ms']:.4f} "
+                  f"ms  plain {r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f}"
+                  f" ms ({r['bound_by']})  blocks {r['blocks']}  vs plain "
+                  f"max normalised err {r['max_norm_err']:.3e}", flush=True)
+            check(r["max_norm_err"] <= TOL["fp32"],
+                  f"{name} phase 24 {part}: {r['max_norm_err']:.3e}")
+    return out
+
+
+def process_engines_phase(dev, all_kernels, ranks=None, strategy_ref=None):
+    """Phase 24: the N-body engines over a process mesh of PE_P gloo ranks
+    on the card, each rank's results bit for bit the in-process run's: (a)
+    the strategy engine, (b) the 1-D batch layout against one slot, (c)
+    the fused grid, (d) the API's runners; K1/K2 at the per-rank shapes.
+    ``ranks``: the ranks' results of ``engine_jobs`` where they have run
+    already (in phase 20's spawn); else the phase spawns its own.
+    ``strategy_ref``: phase 10 (b)'s results, (a)'s in-process engine;
+    else the phase runs phase 10 (b)'s runs itself."""
+    t0 = time.perf_counter()
+    torch.cuda.init()  # run alone, nothing has touched the card yet
+    torch.cuda.empty_cache()  # the ranks hold their own memory
+    named = engine_jobs()
+    jobs = list(named.values())
+    spawn_s = None
+    if ranks is None:
+        ranks, spawn_s = pm_spawn(PE_P, "gloo", dev, jobs)
+    part = {k: [i for i, (p_, _) in enumerate(named) if p_ == k]
+            for k in "abcd"}
+    label = [lb for _, lb in named]
+    secs = {}
+    t1 = time.perf_counter()
+    if strategy_ref is None:
+        strategy_ref = strategy_block_runs(dev, all_kernels)
+    secs["a"] = time.perf_counter() - t1
+    shapes = dict(strategy_ref["shapes"])
+    t1 = time.perf_counter()
+    ref_b = mesh_runs.in_process([dev], [jobs[i] for i in part["b"]])
+    secs["b"] = time.perf_counter() - t1
+    rec = {}
+    t1 = time.perf_counter()
+    with recording(rec):
+        ref_c = mesh_runs.in_process([dev] * PE_P,
+                                     [jobs[i] for i in part["c"]])
+    shapes["fused slot"] = rec
+    secs["c"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    ref_d = mesh_runs.in_process([dev] * PE_P, [jobs[i] for i in part["d"]])
+    secs["d"] = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    out = {"transport": process_mesh.transport("gloo", dev)}
+    print(f"phase 24: {PE_P} gloo ranks, {out['transport']}", flush=True)
+    out["a"] = pe_strategy([[r[i] for i in part["a"]] for r in ranks],
+                           strategy_ref["ref"], [jobs[i] for i in part["a"]],
+                           [label[i] for i in part["a"]])
+    out["b"] = {label[i]: pe_hold(f"phase 24 (b) {label[i]}", ranks, ref_b[k],
+                                  i) for k, i in enumerate(part["b"])}
+    out["c"] = {label[i]: pe_hold(f"phase 24 (c) {label[i]}", ranks, ref_c[k],
+                                  i) for k, i in enumerate(part["c"])}
+    for k, i in enumerate(part["b"] + part["c"]):
+        res = (ref_b + ref_c)[k]["tensors"]
+        check(bool(torch.isfinite(res["state.pos"]).all())
+              and bool((res["carry.n_events"] > 0).all()),
+              f"phase 24 {label[i]}: bad state")
+    out["d"] = pe_api(ranks, ref_d, [label[i] for i in part["d"]],
+                      part["d"][0])
+    t1 = time.perf_counter()
+    out["shapes"] = pe_shapes(dev, all_kernels, shapes)
+    secs["shapes"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    spawned = (f"spawn {spawn_s:.1f} s" if spawn_s is not None
+               else "its jobs ran in phase 20's spawn")
+    per_part = {k: round(sum(ranks[0][i]["times"]["wall_s"]
+                             for i in part[k]), 1) for k in "abcd"}
+    print(f"phase 24 took {out['seconds']:.1f} s ({spawned}; rank 0's jobs "
+          f"by part {per_part} s; the in-process runs and readings by part "
+          f"{ {k: round(v, 1) for k, v in secs.items()} } s"
+          f"{'' if secs['a'] > 1 else ' (a: phase 10 (b))'})", flush=True)
+    return out
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; no card, "
@@ -6211,17 +6381,20 @@ def main() -> int:
     examples_phase(dev, all_kernels)
 
     phase("20. the strategies over a process mesh")
-    # phases 21 to 23 run their jobs on phase 20's four ranks
+    # phases 24 and 21 to 23 run their jobs on phase 20's four ranks
     ckpt = tempfile.mkdtemp(prefix="mesh_ckpt_")
     lm_jobs, fam_jobs = mesh_lm_jobs(ckpt), sum(mesh_family_jobs(), [])
-    pm = process_mesh_phase(dev, all_kernels, lm_jobs=[
+    pe_jobs = list(engine_jobs().values())
+    pm = process_mesh_phase(dev, all_kernels, extra_jobs=[
+        dict(j, keep=False) for j in pe_jobs] + [
         dict(j, mesh=MESH_SHAPE)
         for j in lm_jobs + fam_jobs + sum(mesh_ssm_jobs(), [])])
+    n_pe = len(pe_jobs)
 
     phase("21. the dense LM over a device mesh")
     try:
-        mesh_lm = mesh_lm_phase(dev, all_kernels, ranks=pm["lm_ranks"],
-                                ckpt=ckpt)
+        mesh_lm = mesh_lm_phase(dev, all_kernels, ranks=[
+            r[n_pe:] for r in pm["extra_ranks"]], ckpt=ckpt)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     n_fam = len(fam_jobs)
@@ -6233,6 +6406,10 @@ def main() -> int:
     phase("23. the ssm and hybrid families over a device mesh")
     mesh_ssm = mesh_ssm_phase(dev, all_kernels, ranks=[
         r[n_fam:] for r in mesh_lm["extra"]])
+
+    phase("24. the N-body engines over a process mesh")
+    eng = process_engines_phase(dev, all_kernels, ranks=[
+        r[:n_pe] for r in pm["extra_ranks"]], strategy_ref=strat["block"])
 
     rows = []
     for name in kernels:
@@ -6266,14 +6443,28 @@ def main() -> int:
                 block["runs"]["gather"]["blocks"],
             "launches_process_mesh": {
                 f"{part} {label}": [c[name] for c in per_rank]
-                for part in ("table1", "block", "nccl")
+                for part in ("table1", "nccl")
                 for label, per_rank in pm[part]["launches"].items()},
+            "launches_process_engines": {
+                f"{part} {label}": [r_["launches"][name] for r_ in rows_]
+                for part in "bc" for label, rows_ in eng[part].items()} | {
+                f"a {label}": [r_["launches"][name] for r_ in r["rows"]]
+                for label, r in eng["a"].items()} | {
+                f"d {label}": [r_["launches"][name] for r_ in r["rows"]]
+                for label, r in eng["d"].items()},
+            "process_engine_shapes": {
+                f"{part_} {'x'.join(map(str, r['shape']))}": {
+                    k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "pairs", "blocks",
+                                      "launches", "max_norm_err",
+                                      "max_abs_err")}
+                for (n_, part_), r in eng["shapes"].items() if n_ == name},
             "launches_table1": {
                 f"{s_} {d_}" + (f" {m_}" if m_ else ""): r["counts"][name]
                 for (s_, d_, m_), r in strat["table1"].items()},
             "launches_block_strategies": {
-                f"{s_} {c_} {m_}": r["counts"][name]
-                for (s_, c_, m_), r in strat["block"].items()},
+                label: r["counts"][name]
+                for label, r in strat["block"]["runs"].items()},
             "launches_cli_strategies": {
                 k: strat["cli"][k]["counts"][name]
                 for k in ("single", "block")},

@@ -154,6 +154,12 @@ class DeviceMesh:
     def size(self) -> int:
         return len(self.devices)
 
+    @property
+    def named(self) -> int:
+        """How many shards a per-shard list names: every slot (a
+        :class:`ProcessMesh` rank on the fused view names its row's)."""
+        return len(self.devices)
+
     def reshape(self, shape: tuple, axis_names: tuple) -> "DeviceMesh":
         """The same slots under another view."""
         return DeviceMesh(self.devices, shape, axis_names)
@@ -170,17 +176,18 @@ class DeviceMesh:
                                                self.devices)]
 
     def unshard(self, parts: Sequence, device) -> torch.Tensor:
-        """The slots' blocks concatenated in slot order on ``device``."""
-        return torch.cat([q.to(device) for q in parts])
+        """The slots' blocks concatenated in slot order on ``device`` (per
+        entry, where each slot's block is a tuple of tensors)."""
+        return _cat(parts, device)
 
     @staticmethod
     def _gather_group(parts, devices, dim: int = 0) -> list:
         """``parts`` concatenated in order (along ``dim``) onto each of
-        ``devices``."""
+        ``devices`` (per entry, where the parts are tuples)."""
         whole = {}
         for d in devices:
             if d not in whole:
-                whole[d] = torch.cat([q.to(d) for q in parts], dim=dim)
+                whole[d] = _cat(parts, d, dim)
         return [whole[d] for d in devices]
 
     # -- the ("batch", "dev") grid: slot (i, k) is device i * p + k --------
@@ -197,9 +204,8 @@ class DeviceMesh:
         """The grid's blocks reassembled as one ``(B, N, ...)`` tensor on
         ``device``."""
         bdev, p = self.shape
-        return torch.cat([torch.cat([q.to(device)
-                                     for q in parts[i * p:(i + 1) * p]],
-                                    dim=1) for i in range(bdev)])
+        return _cat([_cat(parts[i * p:(i + 1) * p], device, dim=1)
+                     for i in range(bdev)], device)
 
     def all_gather_dev(self, parts: Sequence) -> list:
         """All-gather along ``dev`` only: every slot of batch row ``i``
@@ -270,26 +276,44 @@ class DeviceMesh:
                     for i in range(p)]
 
 
-def make_batch_mesh(devices: Sequence) -> DeviceMesh:
-    """1-D ``("batch",)`` mesh over ``devices`` for ensembles sharded by
-    member: slot i holds the i-th of ``len(devices)`` equal member chunks
-    (``sim.ensemble`` pads the batch to a multiple)."""
-    return DeviceMesh(devices, axis_names=("batch",))
+def _cat(parts: Sequence, device, dim: int = 0):
+    """``parts`` concatenated (along ``dim``) on ``device``; parts that are
+    tuples of tensors concatenate entry by entry into a tuple (a mesh moves
+    several tensors in one collective)."""
+    if isinstance(parts[0], tuple):
+        return tuple(_cat(ps, device, dim) for ps in zip(*parts))
+    return torch.cat([q.to(device) for q in parts], dim=dim)
 
 
-def make_fused_mesh(devices: Sequence, *, mesh_shape: Sequence[int]
-                    ) -> DeviceMesh:
+def _as_mesh(devices):
+    """A ready mesh as it is, a device list as a :class:`DeviceMesh`."""
+    return devices if isinstance(devices, (DeviceMesh, ProcessMesh)) \
+        else DeviceMesh(devices)
+
+
+def make_batch_mesh(devices):
+    """1-D ``("batch",)`` mesh over ``devices`` (a device list or a ready
+    mesh, viewed anew as the same kind) for ensembles sharded by member:
+    slot i holds the i-th of ``size`` equal member chunks (``sim.ensemble``
+    pads the batch to a multiple)."""
+    mesh = _as_mesh(devices)
+    return mesh.reshape((mesh.size,), ("batch",))
+
+
+def make_fused_mesh(devices, *, mesh_shape: Sequence[int]):
     """2-D ``("batch", "dev")`` mesh fusing ensemble and domain
-    parallelism: ``mesh_shape = (bdev, p)``, device ``i * p + k`` holding
-    member chunk ``i`` and row chunk ``k``.  The device count must equal
-    ``bdev * p`` exactly: a remainder would drop devices silently."""
+    parallelism over ``devices`` (a device list or a ready mesh, viewed
+    anew as the same kind): ``mesh_shape = (bdev, p)``, slot ``i * p + k``
+    holding member chunk ``i`` and row chunk ``k``.  The slot count must
+    equal ``bdev * p`` exactly: a remainder would drop devices silently."""
     bdev, p = (int(x) for x in mesh_shape)
     if bdev < 1 or p < 1:
         raise ValueError(f"mesh_shape extents must be >= 1; got {mesh_shape}")
-    if bdev * p != len(devices):
+    mesh = _as_mesh(devices)
+    if bdev * p != mesh.size:
         raise ValueError(f"mesh_shape {bdev}x{p} needs {bdev * p} devices; "
-                         f"got {len(devices)}")
-    return DeviceMesh(devices, (bdev, p), ("batch", "dev"))
+                         f"got {mesh.size}")
+    return mesh.reshape((bdev, p), ("batch", "dev"))
 
 
 def make_mesh(strategy: str, devices, chips_per_card: int = 2):
@@ -298,8 +322,7 @@ def make_mesh(strategy: str, devices, chips_per_card: int = 2):
     kind): ``("card", "chip")`` for two_level (``ValueError`` when the
     count is not a multiple of ``chips_per_card``), 1-D ``("dev",)``
     otherwise."""
-    mesh = devices if isinstance(devices, (DeviceMesh, ProcessMesh)) \
-        else DeviceMesh(devices)
+    mesh = _as_mesh(devices)
     p = mesh.size
     if strategy == "two_level":
         if p % chips_per_card:
@@ -637,8 +660,8 @@ def _wrap_block(mesh: DeviceMesh, compaction: str, eval_padded):
                     raise ValueError(f"n_bound has {len(bound)} entries for "
                                      f"a {p}-device mesh")
         acc, jerk, snp, pot, tiles = eval_padded(pp, vp, app, mp, mk, bound)
-        ev = Evaluation(*(mesh.unshard(o, pos.device)[:n]
-                          for o in (acc, jerk, snp, pot)))
+        ev = Evaluation(*(o[:n] for o in mesh.unshard(
+            list(zip(acc, jerk, snp, pot)), pos.device)))
         return ev, _tiles_tensor(tuple(int(t) for t in tiles), pos.device)
 
     return evaluate
@@ -719,7 +742,7 @@ def _resident_block(mesh, order, kw, compaction, n_passes, targets, src,
     the gather of the blended acc (the one collective between the passes),
     per-shard snap.  ``targets`` is the per-slot (pos, vel, mask) and
     ``src`` the per-slot (gp, gv, gm); ``bound`` names every shard."""
-    bounds = bound if bound is not None else [None] * mesh.size
+    bounds = bound if bound is not None else [None] * mesh.named
     body = [_shard_block_body(pt, vt, a, mk, b, s, kw=kw, order=order,
                               compaction=compaction, n_passes=n_passes)
             for (pt, vt, mk), a, b, s
@@ -744,7 +767,7 @@ def _gathered_block(mesh, order, kw, compaction, n_passes, gather):
     def eval_padded(pos, vel, ap, mass, mask, bound):
         pos, vel, ap, mass, mask = (mesh.shard(x)
                                     for x in (pos, vel, ap, mass, mask))
-        src = list(zip(gather(pos), gather(vel), gather(mass)))
+        src = gather(list(zip(pos, vel, mass)))
         return _resident_block(mesh, order, kw, compaction, n_passes,
                                list(zip(pos, vel, mask)), src, gather, ap,
                                bound)
@@ -881,16 +904,21 @@ def _wrap_fused_block(mesh: DeviceMesh, compaction: str, eval_padded):
     (the engine's analytic occupancy bound); ``None`` measures the masks in
     one read to the host.  Returns ``(Evaluation, tiles)``, ``tiles`` the
     ``(B, P)`` int64 tiles each member enqueued on each domain shard (both
-    passes; the shard's local members share its launches)."""
+    passes; the shard's local members share its launches).
+
+    On a :class:`ProcessMesh` rank the operands, the bounds, the outputs
+    and the tiles are those of this rank's batch row only: the members it
+    holds."""
     bdev, p = mesh.shape
+    rows = mesh.named // p   # the batch rows the caller holds
 
     def evaluate(pos, vel, acc_pred, mass, mask_t, n_bound=None):
         b, n = pos.shape[0], pos.shape[1]
-        if b % bdev:
+        if b % rows:
             raise ValueError(
                 f"batch size {b} not divisible by the mesh's batch extent "
-                f"{bdev}; pad the batch first (sim.ensemble._pad_batch)")
-        bl = b // bdev
+                f"{rows}; pad the batch first (sim.ensemble._pad_batch)")
+        bl = b // rows
         if bl > nbody_force.MAX_BATCH:
             raise ValueError(
                 f"{bl} members per shard exceed the {nbody_force.MAX_BATCH} "
@@ -904,22 +932,23 @@ def _wrap_fused_block(mesh: DeviceMesh, compaction: str, eval_padded):
         bound = None
         if compaction == "gather":
             if n_bound is None:
-                rows = mk.reshape(b, p, -1).sum(dim=2).tolist()
+                counts = mk.reshape(b, p, -1).sum(dim=2).tolist()
             else:
-                rows = (n_bound.tolist() if isinstance(n_bound, torch.Tensor)
-                        else [list(r) for r in n_bound])
-                if len(rows) != b or any(len(r) != p for r in rows):
+                counts = (n_bound.tolist()
+                          if isinstance(n_bound, torch.Tensor)
+                          else [list(r) for r in n_bound])
+                if len(counts) != b or any(len(r) != p for r in counts):
                     raise ValueError(
                         f"n_bound must be ({b}, {p}) for a {b}-member batch "
                         f"on a {bdev}x{p} mesh")
             # slot (i, k): the bounds of its local members on shard k
-            bound = [[int(rows[m][k]) for m in range(i * bl, (i + 1) * bl)]
-                     for i in range(bdev) for k in range(p)]
+            bound = [[int(counts[m][k]) for m in range(i * bl, (i + 1) * bl)]
+                     for i in range(rows) for k in range(p)]
         acc, jerk, snp, pot, tiles = eval_padded(pp, vp, app, mp, mk, bound)
-        ev = Evaluation(*(mesh.unshard2(o, pos.device)[:, :n]
-                          for o in (acc, jerk, snp, pot)))
+        ev = Evaluation(*(o[:, :n] for o in mesh.unshard2(
+            list(zip(acc, jerk, snp, pot)), pos.device)))
         per_member = tuple(tuple(int(tiles[i * p + k]) for k in range(p))
-                           for i in range(bdev) for _ in range(bl))
+                           for i in range(rows) for _ in range(bl))
         return ev, _tiles_tensor(per_member, pos.device)
 
     return evaluate
@@ -937,7 +966,7 @@ def _fused_block(mesh: DeviceMesh, order, kw, compaction, n_passes):
     def eval_padded(pos, vel, ap, mass, mask, bound):
         pos, vel, ap, mass, mask = (mesh.shard2(x)
                                     for x in (pos, vel, ap, mass, mask))
-        src = list(zip(*(mesh.all_gather_dev(x) for x in (pos, vel, mass))))
+        src = mesh.all_gather_dev(list(zip(pos, vel, mass)))
         return _resident_block(mesh, order, kw, compaction, n_passes,
                                list(zip(pos, vel, mask)), src,
                                mesh.all_gather_dev, ap, bound)
@@ -949,6 +978,7 @@ def make_fused_block_evaluator(
     mesh_shape: Sequence[int],
     *,
     devices: Optional[Sequence] = None,
+    mesh=None,
     eps: float = 1e-7,
     order: int = 6,
     block_i: int = nbody_force.DEFAULT_BLOCK_I,
@@ -963,7 +993,10 @@ def make_fused_block_evaluator(
     batch is sharded ``bdev`` ways and each member's particle domain ``p``
     ways, the 2-D composition of the ensemble's batch layout with the
     ``mesh_sharded`` strategy, which lets a serving pod hold several
-    large-N members on one device group.
+    large-N members on one device group.  ``mesh`` is a ready
+    :class:`DeviceMesh` or this rank's :class:`ProcessMesh` instead
+    (exclusive with ``devices``); on a rank the evaluator takes and gives
+    the members of the rank's batch row.
 
     Signature of the returned callable::
 
@@ -982,8 +1015,11 @@ def make_fused_block_evaluator(
             f"compaction must be one of {COMPACTIONS}; got {compaction!r}")
     kw = _force_kw(block_i, block_j, eps, dtype)
     n_passes = 2 if order >= 6 else 1
-    mesh = make_fused_mesh(mesh_devices() if devices is None
-                           else list(devices), mesh_shape=mesh_shape)
+    if mesh is not None and devices is not None:
+        raise ValueError("name the devices or a ready mesh, not both")
+    if mesh is None:
+        mesh = mesh_devices() if devices is None else list(devices)
+    mesh = make_fused_mesh(mesh, mesh_shape=mesh_shape)
     return _wrap_fused_block(mesh, compaction,
                              _fused_block(mesh, order, kw, compaction,
                                           n_passes))

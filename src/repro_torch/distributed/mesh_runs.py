@@ -13,13 +13,37 @@ A *job* is a plain dict (it crosses into spawned ranks):
 * ``{"kind": "psum", "x": (world, m)}``: ``compressed_psum`` of row
   ``rank`` (process mesh only); gives ``sum``.
 
+The engines' jobs (the block-timestep runs that carry a run across
+events):
+
+* ``{"kind": "strategy_block", "strategy", "compaction", "scenario", "n",
+  "run": {...}}``: ``scenario``(``n``, ``seed``) through
+  ``ensemble.evolve_strategy_block`` with the ``run`` keywords (``t_end``,
+  ``dt_max``, ``n_levels``, ...); gives ``state.*``, ``carry.*`` and
+  ``bounds``, the ``(events, p)`` per-shard gather bounds its engine read
+  (empty without gather);
+* ``{"kind": "layout", "stepper", "mix": [(name, n), ...], "run": {...}}``:
+  the batch ``scenarios.build_padded(make_mix(mix, seed, repeat))``
+  (``validate`` False) through the batch layout over the mesh
+  (``devices=``; a job's ``mesh`` (bdev, p) takes the fused grid):
+  ``fixed``, ``evolve_ensemble``; ``adaptive``, ``ensemble_initialize``
+  then one ``ensemble_run_adaptive``; ``block``, ``evolve_ensemble_block``
+  (``run`` may hold ``n_events`` and ``max_chunks``); gives ``state.*``,
+  ``carry.*`` (``nbr.*`` under neighbor sources) or ``h_prev``/``n_taken``;
+* ``{"kind": "api", "cfg": {...}}``: ``sim.api.run`` of ``SimConfig(**cfg)``
+  on the mesh (the engine caches emptied first, so every run builds its
+  engines); gives the report under ``info["report"]``.
+
 Optional keys: ``dtype`` (``"fp32"``), ``ring_mode`` (``"overlap"``),
 ``chips_per_card`` (2), ``block_i`` and ``block_j`` (the kernels'
-defaults), ``seed`` (0), ``steps`` (2), ``dt`` (1e-3).
+defaults), ``seed`` (0), ``steps`` (2), ``dt`` (1e-3); ``repeat`` (1) for
+a layout job.
 
 :func:`run_job` returns ``{"tensors": {name: CPU tensor}, "counts":
-{"acc_jerk_pot", "snap": launches, "shifts": ring rounds}, "times":
-{...}}``; :func:`strategy_rank` is the rank function for
+{"acc_jerk_pot", "snap": launches, "shifts": ring rounds, "host_syncs":
+the block path's reads, "collectives": the process mesh's}, "times":
+{...}, "info": {...}}``, an engine job's times with ``events`` and
+``ms_per_event``; :func:`strategy_rank` is the rank function for
 ``process_mesh.spawn``: it writes each rank's results to ``out_dir`` as
 ``rank{r}.pt``, with a SHA-256 digest per tensor, and the tensors
 themselves when ``keep`` (a full-size run keeps digests only).
@@ -44,7 +68,9 @@ itself (``_against_one``), so that no whole tree leaves the rank.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import json
 import os
 import time
 
@@ -61,8 +87,12 @@ from repro_torch.distributed.shardings import MeshRules, full, gather_to_first
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import nbody_force
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.sim import ensemble as ens
+from repro_torch.sim import scenarios
 
 EVAL_FIELDS = ("acc", "jerk", "snap", "pot")
+CARRY_FIELDS = ("t_last", "levels", "dt_macro", "n_pairs", "n_events",
+                "n_tiles", "bucket_hits")
 KERNELS = {"acc_jerk_pot": nbody_force.acc_jerk_pot_packed,
            "snap": nbody_force.snap_packed}
 
@@ -127,12 +157,133 @@ def _block(mesh, device, job):
     return out, {"eval_s": time.perf_counter() - t0}
 
 
+def _slots(mesh):
+    """The engines' keyword for ``mesh``: a rank's ``ProcessMesh`` as it
+    is, an in-process mesh as its device list (one slot: None)."""
+    if isinstance(mesh, ProcessMesh):
+        return mesh
+    return list(mesh.devices) if mesh.size > 1 else None
+
+
+@contextlib.contextmanager
+def _recording_bounds():
+    """Every per-shard gather bound the strategy engine reads, event by
+    event, appended to the yielded list."""
+    seen, read = [], ens._StrategyBlockEngine._bound
+
+    def record(self, *args):
+        b = read(self, *args)
+        if b is not None:
+            seen.append(b)
+        return b
+
+    ens._StrategyBlockEngine._bound = record
+    try:
+        yield seen
+    finally:
+        ens._StrategyBlockEngine._bound = read
+
+
+def _timed(device, fn):
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
+def _carry(carry) -> dict:
+    out = {f"carry.{k}": getattr(carry, k) for k in CARRY_FIELDS}
+    if carry.nbr is not None:
+        out.update({f"nbr.{k}": v for k, v in carry.nbr._asdict().items()})
+    return out
+
+
+def _strategy_block(mesh, device, job):
+    st = scenarios.make(job["scenario"], job["n"], seed=job.get("seed", 0),
+                        device=device, validate=False)
+    kw = dict(job["run"], strategy=job["strategy"],
+              compaction=job["compaction"], **_evaluator_kw(job))
+    kw.update({"mesh": mesh} if isinstance(mesh, ProcessMesh)
+              else {"devices": list(mesh.devices)})
+    with _recording_bounds() as bounds:
+        (s, carry), wall = _timed(
+            device, lambda: ens.evolve_strategy_block(st, **kw))
+    out = {f"state.{f}": getattr(s, f) for f in nbody.FIELDS}
+    out.update(_carry(carry))
+    out["bounds"] = torch.tensor(bounds, dtype=torch.int64).reshape(
+        len(bounds), -1 if bounds else 0)
+    events = int(carry.n_events)
+    return out, {"wall_s": wall, "events": events,
+                 "ms_per_event": 1e3 * wall / max(events, 1)}
+
+
+def _layout(mesh, device, job):
+    batched, na = scenarios.build_padded(
+        scenarios.make_mix([tuple(m) for m in job["mix"]],
+                           seed=job.get("seed", 0),
+                           repeat=job.get("repeat", 1)),
+        validate=False, device=device)
+    run = dict(job["run"])
+    kw = dict(n_active=na, devices=_slots(mesh), dtype=job.get("dtype",
+                                                               "fp32"))
+    if job.get("mesh") is not None:
+        kw.update(mesh=tuple(job["mesh"]),
+                  devices=mesh if isinstance(mesh, ProcessMesh)
+                  else list(mesh.devices))
+    stepper = job["stepper"]
+    if stepper == "fixed":
+        s, wall = _timed(device, lambda: ens.evolve_ensemble(
+            batched, **run, **kw))
+        out, events = {}, run["n_steps"]
+    elif stepper == "adaptive":
+        def adaptive():
+            init = ens.ensemble_initialize(batched, **kw)
+            return ens.ensemble_run_adaptive(init, **run, **kw)
+        (s, h_prev, n_taken), wall = _timed(device, adaptive)
+        out = {"h_prev": h_prev, "n_taken": n_taken}
+        events = int(n_taken.max())
+    else:
+        (s, carry), wall = _timed(device, lambda: ens.evolve_ensemble_block(
+            batched, **run, **kw))
+        out = _carry(carry)
+        events = int(carry.n_events.max())
+    out.update({f"state.{f}": getattr(s, f) for f in nbody.FIELDS})
+    return out, {"wall_s": wall, "events": events,
+                 "ms_per_event": 1e3 * wall / max(events, 1)}
+
+
+def _api(mesh, device, job):
+    from repro_torch.sim import api
+    for cache in (ens._engine, ens._adaptive_engine, ens._block_engine,
+                  ens._strategy_block_engine):
+        cache.cache_clear()
+    cfg = api.SimConfig(**dict(job["cfg"], device=str(device)))
+    report, wall = _timed(device, lambda: api.run(
+        cfg, mesh=mesh if mesh.size > 1 or isinstance(mesh, ProcessMesh)
+        else None))
+    events = int(report["steps"])
+    return {}, {"wall_s": wall, "events": events,
+                "ms_per_event": 1e3 * wall / max(events, 1)}, \
+        {"report": json.loads(json.dumps(report, default=float))}
+
+
+#: the engines' job kinds, each ``(mesh, device, job) -> (tensors, times)``
+#: or ``(tensors, times, info)``
+ENGINE_KINDS = {"strategy_block": _strategy_block, "layout": _layout,
+                "api": _api}
+
+
 def run_job(mesh, device, job) -> dict:
     """One job on ``mesh`` (a ``DeviceMesh`` or this rank's
-    ``ProcessMesh``) with its inputs on ``device``; the launch counts are
-    zeroed just before and read just after."""
+    ``ProcessMesh``) with its inputs on ``device``; the launch counts, the
+    block path's host reads and the process mesh's collectives are zeroed
+    just before and read just after."""
     for k in KERNELS.values():
         k.launches = 0
+    ens.ensemble_run_block.host_syncs = 0
+    ProcessMesh.collectives = 0
+    info = {}
     with obs_metrics.use() as reg:
         if job["kind"] == "lockstep":
             out, times = _lockstep(mesh, device, job)
@@ -142,18 +293,24 @@ def run_job(mesh, device, job) -> dict:
             out = {"sum": compressed_psum(job["x"][dist.get_rank()].to(
                 device))}
             times = {}
+        elif job["kind"] in ENGINE_KINDS:
+            out, times, *rest = ENGINE_KINDS[job["kind"]](mesh, device, job)
+            info = rest[0] if rest else {}
         else:
             raise ValueError(f"unknown job kind {job['kind']!r}")
         shifts = reg.counter("ring.shifts_issued").value
     counts = {name: k.launches for name, k in KERNELS.items()}
     counts["shifts"] = int(shifts)
+    counts["host_syncs"] = ens.ensemble_run_block.host_syncs
+    counts["collectives"] = ProcessMesh.collectives
     return {"tensors": {k: v.detach().cpu() for k, v in out.items()},
-            "counts": counts, "times": times}
+            "counts": counts, "times": times, "info": info}
 
 
 def in_process(devices, jobs) -> list:
     """Each job on the in-process ``DeviceMesh`` over ``devices`` (one
-    slot each), inputs on the first slot's device."""
+    slot each; one device is the engines' one-slot run), inputs on the
+    first slot's device."""
     mesh = strategies.DeviceMesh(devices)
     return [run_job(mesh, mesh.devices[0], job) for job in jobs]
 
@@ -656,8 +813,9 @@ def run_lm_job(job, device, meshes) -> dict:
     return res
 
 
-#: the strategies' job kinds (``run_job``), which ``lm_rank`` runs too
-STRATEGY_KINDS = ("lockstep", "block", "psum")
+#: the strategies' and the engines' job kinds (``run_job``), which
+#: ``lm_rank`` runs too
+STRATEGY_KINDS = ("lockstep", "block", "psum") + tuple(ENGINE_KINDS)
 
 
 def lm_rank(device, jobs, out_dir: str) -> None:

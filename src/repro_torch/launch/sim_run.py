@@ -64,6 +64,21 @@ report, as in the reference:
         --ensemble 2 --devices 4 --mesh 2x2 --stepper block \
         --scenario plummer --n 64 --t-end 0.0625
 
+``--backend {nccl,gloo}`` runs the ``--devices k`` shards (of a run under
+a strategy, of an ensemble's batch, or of the ``--mesh`` grid) as k
+processes over ``torch.distributed`` (``distributed.process_mesh``), every
+rank running the whole loop on its slot; rank 0 writes the report and
+prints the lines the in-process run prints.  nccl takes one card per rank
+(more ranks than visible cards are refused before any process group
+exists); gloo runs on the CPU, or stages the card's tensors through host
+memory (every rank on ``cuda:0`` of a one-card host).  Where nothing is
+sharded (``--devices 1``, or one run under ``--strategy single``) it is
+refused:
+
+    PYTHONPATH=src python -m repro_torch.launch.sim_run --device cpu \
+        --backend gloo --devices 4 --strategy ring --stepper block \
+        --scenario plummer --n 64 --t-end 0.0625
+
 Each invocation emits a one-line summary plus a JSON telemetry report
 (wall time, steps/s, interactions/s, modeled energy/EDP, per-run energy
 conservation) under ``experiments/sim/`` (override with ``--out``).
@@ -72,8 +87,10 @@ conservation) under ``experiments/sim/`` (override with ``--out``).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
+from repro_torch.distributed import process_mesh
 from repro_torch.sim import api, scenarios, telemetry
 
 
@@ -167,6 +184,9 @@ def main(argv=None):
                     help="shards of a run under --strategy, or of an "
                          "ensemble's batch: k CPU slots with --device cpu, "
                          "the first k cards on cuda")
+    ap.add_argument("--backend", default=None, choices=process_mesh.BACKENDS,
+                    help="run the --devices shards as processes over "
+                         "torch.distributed with this backend")
     ap.add_argument("--mesh", default=None, metavar="BxP",
                     help="fused 2-D device grid for the block stepper, B "
                          "batch shards x P domain shards (B*P must equal "
@@ -286,19 +306,53 @@ def main(argv=None):
              else len(mix) * args.ensemble,
              "strategy": args.strategy}),
     )
-    report = api.run(cfg)
+    if args.backend is not None:
+        if args.devices < 2 or (args.strategy == "single" and not mixed
+                                and args.ensemble == 1 and mesh is None):
+            ap.error("--backend shards a --strategy, an ensemble or a --mesh "
+                     "over --devices processes (at least 2); this run "
+                     "shards nothing")
+        process_mesh.spawn(_rank_run, args.devices, args.backend,
+                           args.device, args.backend, cfg,
+                           _lines(args, mesh, mix))
+        return 0
+    _print(api.run(cfg), *_lines(args, mesh, mix))
+    return 0
 
-    desc = " ".join(f"{nm}:{n}" for nm, n in mix) if mixed \
-        else f"{scenario_name} n={n_arg}"
+
+def _lines(args, mesh, mix):
+    """What the ``[sim]`` lines say of the command line."""
+    return (dict(strategy=args.strategy, devices=args.devices,
+                 order=args.order, dtype=args.dtype, sources=args.sources,
+                 kernel=args.kernel), mesh, mix)
+
+
+def _rank_run(device, backend, cfg, lines):
+    """One rank of a process-mesh run (``process_mesh.spawn``): the whole
+    run on this rank's slot; rank 0 writes the report and prints."""
+    mesh = process_mesh.ProcessMesh(backend, device=device)
+    first = mesh.rank == 0
+    cfg = dataclasses.replace(cfg, device=str(device),
+                              out=cfg.out if first else None,
+                              trace=cfg.trace if first else None)
+    report = api.run(cfg, mesh=mesh)
+    if first:
+        _print(report, *lines)
+
+
+def _print(report, args, mesh, mix):
+    desc = " ".join(f"{nm}:{n}" for nm, n in mix) if mix \
+        else f"{report['scenario']} n={report['n']}"
     print(f"[sim] scenario={desc} "
-          f"ensemble={report['ensemble']} strategy={args.strategy} "
-          f"devices={args.devices} order={args.order} "
+          f"ensemble={report['ensemble']} strategy={args['strategy']} "
+          f"devices={args['devices']} order={args['order']} "
           + (f"mesh={mesh[0]}x{mesh[1]} " if mesh else "")
           + f"stepper={report.get('stepper', 'fixed')} "
-          f"dtype={args.dtype}"
-          + (f" sources={args.sources}" if args.sources != "full" else "")
-          + (f" kernel={args.kernel}" if args.kernel else ""))
-    if mixed:
+          f"dtype={args['dtype']}"
+          + (f" sources={args['sources']}" if args['sources'] != "full"
+             else "")
+          + (f" kernel={args['kernel']}" if args['kernel'] else ""))
+    if mix:
         print(f"[sim] padded N_max={report['n_bodies']} "
               f"n_active={report['n_active']}")
     print(f"[sim] t={report['t_final']:.4f} steps={report['steps']} "
@@ -323,8 +377,8 @@ def main(argv=None):
         print(f"[sim] metrics: {bits}")
     if "trace_path" in report:
         print(f"[sim] trace -> {report['trace_path']}")
-    print(f"[sim] report -> {report.get('report_path', '(not written)')}")
-    return 0
+    print(f"[sim] report -> {report.get('report_path', '(not written)')}",
+          flush=True)
 
 
 if __name__ == "__main__":

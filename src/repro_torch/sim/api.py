@@ -37,6 +37,14 @@ report, as in the reference.  A batched run over ``devices`` > 1 shards
 its members over the slots (``sim.ensemble``'s batch layout), and
 ``SimConfig.mesh=(B, P)`` puts a block run on the fused ``(batch, dev)``
 grid of ``B * P`` slots.
+
+**A ready mesh.**  :func:`run` and every ``Runner.build`` take ``mesh``: an
+in-process ``DeviceMesh`` (its slots in place of the first ``devices``
+cards, e.g. four slots of one card) or this rank's ``ProcessMesh`` (one
+process per shard over ``torch.distributed``: every rank calls ``run``
+with the same config and gets the same report, whose ``devices`` is the
+world size).  It is not a :class:`SimConfig` field, so the report's keys
+stay the reference's; its size must equal ``SimConfig.devices``.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from repro_torch.core import hermite, nbody
 from repro_torch.core.evaluate import make_evaluator
 from repro_torch.core.strategies import (STRATEGIES, make_strategy_evaluator,
                                          mesh_devices)
+from repro_torch.distributed.process_mesh import ProcessMesh
 from repro_torch.kernels import nbody_force, ops
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -275,6 +284,28 @@ def _device_list(cfg: SimConfig) -> list:
     return mesh_devices(cfg.devices, cfg.device)
 
 
+def _slots(cfg: SimConfig, mesh) -> Any:
+    """The run's shards: ``mesh``'s (a ``DeviceMesh``'s device list, or
+    this rank's ``ProcessMesh`` as it is), else :func:`_device_list`."""
+    if mesh is None:
+        return _device_list(cfg)
+    if mesh.size != cfg.devices:
+        raise ValueError(f"the mesh has {mesh.size} shards; devices="
+                         f"{cfg.devices} (they must agree)")
+    return mesh if isinstance(mesh, ProcessMesh) else list(mesh.devices)
+
+
+def _sharded(slots) -> bool:
+    return (slots.size if isinstance(slots, ProcessMesh) else len(slots)) > 1
+
+
+def _over(slots) -> Dict[str, Any]:
+    """The strategy entry points' keyword for ``slots``: ``mesh`` for a
+    rank's ``ProcessMesh``, ``devices`` for a device list."""
+    return {"mesh": slots} if isinstance(slots, ProcessMesh) \
+        else {"devices": slots}
+
+
 def _eval_dtype(cfg: SimConfig, impl: Optional[str]) -> str:
     """The engines' precision: ``impl="fp64"`` is the oracle, a precision
     rather than a kernel, as in the reference."""
@@ -385,7 +416,9 @@ class Runner:
     def matches(self, cfg: SimConfig) -> bool:
         raise NotImplementedError
 
-    def build(self, cfg: SimConfig) -> RunHandle:
+    def build(self, cfg: SimConfig, mesh=None) -> RunHandle:
+        """``mesh``: a ready mesh for the run's shards (module
+        docstring)."""
         raise NotImplementedError
 
     def step(self, handle: RunHandle) -> bool:
@@ -439,7 +472,7 @@ class SingleRunner(Runner):
         return cfg.mix is None and cfg.ensemble == 1 \
             and cfg.resolved_stepper() != "block"
 
-    def build(self, cfg: SimConfig) -> RunHandle:
+    def build(self, cfg: SimConfig, mesh=None) -> RunHandle:
         validate_config(cfg)
         h = RunHandle(cfg, self.kind)
         impl = ens.resolve_eval_impl(cfg.impl, cfg.kernel, default=None)
@@ -450,7 +483,10 @@ class SingleRunner(Runner):
                     "strategy='single'")
         elif cfg.strategy != "single":
             raise ValueError(f"unknown strategy {cfg.strategy!r}")
-        devices = _device_list(cfg)
+        elif mesh is not None:
+            raise ValueError("strategy='single' on one run shards nothing; "
+                             "a mesh needs a strategy or a batch")
+        devices = _slots(cfg, mesh)
         dev = nbody.resolve_device(cfg.device)
         ens.check_impl(impl, dev)
         state = _build_states(cfg)[0]
@@ -459,8 +495,8 @@ class SingleRunner(Runner):
                                        dtype=_eval_dtype(cfg, impl))
         else:
             evaluator = make_strategy_evaluator(
-                cfg.strategy, devices=devices, order=cfg.order, eps=cfg.eps,
-                dtype=cfg.dtype)
+                cfg.strategy, order=cfg.order, eps=cfg.eps, dtype=cfg.dtype,
+                **_over(devices))
 
         h.recorder = telemetry.TelemetryRecorder(cfg.meta())
         state = hermite.initialize(state, evaluator)
@@ -536,7 +572,7 @@ class BlockStrategyRunner(Runner):
         return cfg.mix is None and cfg.resolved_stepper() == "block" \
             and cfg.ensemble == 1 and cfg.strategy != "single"
 
-    def build(self, cfg: SimConfig) -> RunHandle:
+    def build(self, cfg: SimConfig, mesh=None) -> RunHandle:
         validate_config(cfg)
         if cfg.strategy not in STRATEGIES:
             raise ValueError(f"unknown strategy {cfg.strategy!r}")
@@ -545,16 +581,16 @@ class BlockStrategyRunner(Runner):
         if impl == "fp64" or cfg.dtype == "fp64":
             raise ValueError(
                 "fp64 (golden reference) only runs under strategy='single'")
-        devices = _device_list(cfg)
+        devices = _slots(cfg, mesh)
         ens.check_impl(impl, nbody.resolve_device(cfg.device))
         state = _build_states(cfg)[0]
         # same tile shape for the bootstrap pass as for the event loop, so a
         # CLI run is bit for bit ens.evolve_strategy_block's
         evaluator = make_strategy_evaluator(
-            cfg.strategy, devices=devices, order=cfg.order, eps=cfg.eps,
-            dtype=cfg.dtype,
+            cfg.strategy, order=cfg.order, eps=cfg.eps, dtype=cfg.dtype,
             block_i=cfg.block_i or nbody_force.DEFAULT_BLOCK_I,
-            block_j=cfg.block_j or nbody_force.DEFAULT_BLOCK_J)
+            block_j=cfg.block_j or nbody_force.DEFAULT_BLOCK_J,
+            **_over(devices))
 
         h.recorder = telemetry.TelemetryRecorder(cfg.meta())
         state = hermite.initialize(state, evaluator)
@@ -591,8 +627,8 @@ class BlockStrategyRunner(Runner):
             dt_max=cfg.dt_max, n_levels=h.n_levels, carry=h.carry,
             eta=cfg.eta, order=cfg.order, eps=cfg.eps,
             strategy=cfg.strategy, compaction=cfg.compaction,
-            block_i=cfg.block_i, block_j=cfg.block_j, devices=h.devices,
-            dtype=cfg.dtype)
+            block_i=cfg.block_i, block_j=cfg.block_j, dtype=cfg.dtype,
+            **_over(h.devices))
         _sync(h.state.pos)
         h.done += 1
         ev_now = float(h.carry.n_events)
@@ -662,11 +698,11 @@ class EnsembleRunner(Runner):
                       "seed": cfg.seed + i} for i in range(cfg.ensemble)]
         return batched, n_active, runs_meta
 
-    def build(self, cfg: SimConfig) -> RunHandle:
+    def build(self, cfg: SimConfig, mesh=None) -> RunHandle:
         validate_config(cfg)
         if cfg.strategy not in ens.STRATEGY_LABELS:
             raise ValueError(f"unknown strategy {cfg.strategy!r}")
-        devices = _device_list(cfg)
+        devices = _slots(cfg, mesh)
         dev = nbody.resolve_device(cfg.device)
         impl = ens.check_impl(ens.resolve_eval_impl(cfg.impl, cfg.kernel),
                               dev)
@@ -692,7 +728,7 @@ class EnsembleRunner(Runner):
         na = torch.as_tensor(n_active, dtype=torch.int32, device=dev)
         h.kw = dict(n_active=na, order=cfg.order, eps=cfg.eps,
                     dtype=_eval_dtype(cfg, impl),
-                    devices=devices if len(devices) > 1 else None)
+                    devices=devices if _sharded(devices) else None)
         if cfg.mesh is not None:
             # validated block-only, so the lockstep entry points (which
             # take no mesh) never see the key
@@ -978,8 +1014,9 @@ register_runner(SingleRunner())
 # --------------------------------------------------------------------------
 # the recomposed one-shot entry
 # --------------------------------------------------------------------------
-def run(cfg: SimConfig) -> RunReport:
+def run(cfg: SimConfig, mesh=None) -> RunReport:
     """Run one configuration end-to-end and return its telemetry report.
+    ``mesh`` is a ready mesh for its shards (module docstring).
 
     The monolithic convenience over the composable surface: resolve the
     runner, ``build``, drive ``step`` to completion, ``collect``.  Each run
@@ -1004,7 +1041,7 @@ def run(cfg: SimConfig) -> RunReport:
                 help="force-source mode (full all-pairs vs Ahmad-Cohen "
                      "neighbor windows)").set(cfg.sources)
             runner = get_runner(resolve_kind(cfg))
-            handle = runner.build(cfg)
+            handle = runner.build(cfg, mesh=mesh)
             while not runner.step(handle):
                 pass
             report = runner.collect(handle)

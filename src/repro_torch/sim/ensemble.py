@@ -70,7 +70,22 @@ with full sources the block engine shards each member's target rows
 ``p`` ways (one launch per slot and pass over the slot's members, a
 capacity bucket per slot), with neighbor sources it splits each member's
 target blocks over its row's slots.  Either way the bits
-are those of the unsharded batch.  The tensors' device picks
+are those of the unsharded batch.
+
+**Over processes.**  ``devices=`` may instead be this rank's
+``distributed.process_mesh.ProcessMesh`` (one process per slot over
+``torch.distributed``), with or without ``mesh=(bdev, p)``; every rank
+calls with the whole batch.  On the 1-D view a rank holds and steps only
+its member chunk, on the fused grid its batch row's members (evaluating
+their ``k``-th of ``p`` row chunks); the outputs come back whole on every
+rank.  What one process decides over the whole batch with one host read
+per event (a bucket group's capacity, whether any member is live, the
+neighbor window bucket) every rank reads from one small collective
+(``ProcessMesh.agree``, the max over ranks) instead, so every rank keeps
+the one schedule and the one capacity a group launches at.
+:func:`strategy_run_block` / :func:`evolve_strategy_block` take the rank's
+mesh as ``mesh=``: each rank holds the whole run, so each reads the same
+bounds.  The tensors' device picks
 the kernels or their plain versions, so the engines take no ``impl``:
 ``dtype="fp64"`` is the oracle.  The reference's ``impl``/``kernel``
 labels are resolved for the API by :func:`resolve_eval_impl` and checked
@@ -94,12 +109,13 @@ from repro_torch.core.evaluate import (COMPACTIONS, make_block_evaluator,
 from repro_torch.core.hermite import Evaluation
 from repro_torch.core.nbody import FIELDS, ParticleState
 from repro_torch.core.strategies import (STRATEGIES, DeviceMesh,
-                                         make_batch_mesh,
+                                         _pad_rows, make_batch_mesh,
                                          make_fused_block_evaluator,
                                          make_fused_mesh,
                                          make_strategy_block_evaluator,
                                          make_strategy_evaluator,
                                          mesh_devices)
+from repro_torch.distributed.process_mesh import ProcessMesh
 from repro_torch.kernels import nbody_force, neighbor, ops
 from repro_torch.obs import metrics as obs_metrics
 
@@ -210,20 +226,23 @@ def _check_labels(*, strategy: str = "single", sources: str = "full"):
 # --------------------------------------------------------------------------
 # batch layouts over devices
 # --------------------------------------------------------------------------
-def _layout(devices, mesh, device) -> Optional[DeviceMesh]:
+def _layout(devices, mesh, device):
     """The batch's layout for tensors on ``device``: None for one slot (the
     batch's own device), the 1-D batch mesh over ``devices`` of more than
     one, or with ``mesh=(bdev, p)`` the fused grid over them.  ``devices``
-    is a device list, an int count or None (``_mesh_list``); on ``cuda`` a
+    is a device list, an int count or None (``_mesh_list``), or this
+    rank's ``ProcessMesh`` (viewed as the batch layout); on ``cuda`` a
     count or a list naming more cards than are visible raises
     ``ValueError``."""
+    ranks = isinstance(devices, ProcessMesh)
     if mesh is not None:
-        return make_fused_mesh(_mesh_list(devices, device),
-                               mesh_shape=tuple(int(e) for e in mesh))
+        return make_fused_mesh(
+            devices if ranks else _mesh_list(devices, device),
+            mesh_shape=tuple(int(e) for e in mesh))
     if devices is None:
         return None
-    devs = _mesh_list(devices, device)
-    return make_batch_mesh(devs) if len(devs) > 1 else None
+    devs = devices if ranks else DeviceMesh(_mesh_list(devices, device))
+    return make_batch_mesh(devs) if devs.size > 1 else None
 
 
 def _batch_extent(layout: Optional[DeviceMesh]) -> int:
@@ -283,17 +302,28 @@ def _is_tree(x) -> bool:
     return isinstance(x, (torch.Tensor, ParticleState, tuple))
 
 
-def _on_rows(layout: Optional[DeviceMesh], fn, *args, members=None,
-             batch: Optional[int] = None):
+def _by_rank(layout, fn, *args):
+    """On a rank's mesh, ``fn`` on this rank's member chunk of ``args``
+    (every tensor, state or carry holds the whole padded batch), its
+    outputs brought back whole; otherwise ``fn`` on everything."""
+    if not isinstance(layout, ProcessMesh):
+        return fn(*args)
+    out = fn(*(_tree_map(layout.local_rows, a) if _is_tree(a) else a
+               for a in args))
+    return _tree_map(layout.gather_rows, out)
+
+
+def _on_rows(layout, fn, *args, members=None, batch: Optional[int] = None):
     """``fn`` on each batch row's share of ``args`` (the leading entries of
     every tensor, state or carry) on the row's device, the outputs
     concatenated back in member order on the arguments' device; other
     arguments pass whole, and a row with nothing to do is skipped.  The
     arguments hold every member of the padded batch (equal chunks per
     row), or ``members``, global indices in order of a ``batch``-member
-    batch.  ``None`` runs ``fn`` once on everything."""
-    if layout is None:
-        return fn(*args)
+    batch.  ``None`` runs ``fn`` once on everything; a rank's mesh runs it
+    on the rank's own row (:func:`_by_rank`)."""
+    if layout is None or isinstance(layout, ProcessMesh):
+        return _by_rank(layout, fn, *args)
     rows = layout.shape[0]
     dev = _first_leaf(next(a for a in args if _is_tree(a))).device
     if members is None:
@@ -855,16 +885,28 @@ class _BlockEngine:
     lives inside the shards), as in the reference's fused engine.  Neighbor
     sources on the grid send each batch row's members to its slots with
     their target blocks split ``p`` ways (:meth:`_near`).
+
+    On a rank's ``ProcessMesh`` (``self.ranks``) the engine runs on the
+    rank's own members (:func:`_by_rank` cuts them out and brings them
+    back): ``batch`` members in all, this rank's ``lo .. lo + bl``.  Its
+    bucket groups are the whole batch's, each restricted to the members
+    the rank holds, and each event's decisions come from one collective
+    over every rank (:meth:`_read`) where one process reads them to the
+    host.
     """
 
     def __init__(self, *, order, eps, eta, dt_max, n_levels, compaction,
                  block_i, block_j, groups, dtype, n, device, sources="full",
                  radius=0.25, refresh_levels=2, layout=None):
         self.layout = layout
+        self.ranks = isinstance(layout, ProcessMesh)
         self.order, self.eta, self.dt_max = order, eta, dt_max
         self.n_levels, self.n_sub = n_levels, 2 ** (n_levels - 1)
         self.compaction, self.sources = compaction, sources
         self.block_i, self.block_j = block_i, block_j
+        self.batch = sum(len(m) for m, _ in groups)
+        self.bl = self.batch // layout.shape[0] if self.ranks else self.batch
+        self.lo = layout.row * self.bl if self.ranks else 0
         n_passes = 2 if order >= 6 else 1
         kw = dict(order=order, eps=eps, block_i=block_i, block_j=block_j,
                   dtype=dtype)
@@ -874,8 +916,12 @@ class _BlockEngine:
         self.fused = None
         if layout is not None and len(layout.shape) == 2:
             self.fused = make_fused_block_evaluator(
-                layout.shape, devices=layout.devices, compaction=compaction,
-                **kw)
+                layout.shape, mesh=layout, compaction=compaction, **kw)
+        # the members of each bucket group this engine holds, in its own
+        # indices (every member in one process)
+        self.members = [[m - self.lo for m in ms
+                         if self.lo <= m < self.lo + self.bl]
+                        for ms, _ in groups]
         if compaction != "gather":
             self.bev = make_block_evaluator(**kw)
             # the masked dense launch covers the full grid, however many
@@ -884,14 +930,14 @@ class _BlockEngine:
         elif self.fused is None:
             # the grid sizes its buckets inside the shards (:meth:`_bound`)
             self.groups = []
-            for members, n_caps in groups:
+            for (_, n_caps), mine in zip(groups, self.members):
                 gplan = plan.restrict(plan.caps[min(n_caps, self.n_caps) - 1])
-                idx = torch.tensor(members, dtype=torch.int64, device=device)
+                idx = torch.tensor(mine, dtype=torch.int64, device=device)
                 self.groups.append((
                     None if len(groups) == 1 else idx, gplan,
                     make_block_evaluator(compaction="gather",
                                          n_caps=n_caps, **kw)))
-            order_ = torch.cat([torch.tensor(m) for m, _ in groups])
+            order_ = torch.tensor(sum(self.members, []), dtype=torch.int64)
             self.inv = torch.argsort(order_).to(device)
             self.tiles_table = torch.tensor(plan.tiles_by_cap,
                                             dtype=torch.float64,
@@ -900,18 +946,32 @@ class _BlockEngine:
         if sources == "neighbor":
             self.near1, self.near2 = make_neighbor_block_evaluator(
                 n=n, eps=eps, block_i=block_i, block_j=block_j, dtype=dtype)
+            self.near_dtype = torch.float64 if dtype == "fp64" \
+                else torch.float32
             self.nplan = dataclasses.replace(plan, sources="neighbor")
             self.refresh_period = max(1, self.n_sub >> refresh_levels)
             self.radius = radius
-        self.members = [m for m, _ in groups]
 
     # -- where the launches go -----------------------------------------------
+    def _read(self, x: torch.Tensor) -> list:
+        """One event's integer decisions on the host: one read of ``x``, or
+        on a rank's mesh their max over every rank, in one collective."""
+        ensemble_run_block.host_syncs += 1
+        return self.layout.agree(x) if self.ranks else x.tolist()
+
+    def _rows(self, fn, *args, **kw):
+        """``fn`` per batch row over the layout (:func:`_on_rows`); on a
+        rank's mesh on the rank's own members, which it holds already."""
+        if self.ranks:
+            return fn(*args)
+        return _on_rows(self.layout, fn, *args, **kw)
+
     def _full(self, xp, vp, ap, mass, mask) -> Evaluation:
         """The masked dense evaluation over the layout: per batch row, or
         domain-sharded on the fused grid."""
         if self.fused is not None:
             return self.fused(xp, vp, ap, mass, mask)[0]
-        return _on_rows(self.layout, self.bev, xp, vp, ap, mass, mask)
+        return self._rows(self.bev, xp, vp, ap, mass, mask)
 
     def _near(self, fn, *args):
         """A near pass (``near1``/``near2``) over the layout: per batch row
@@ -923,11 +983,14 @@ class _BlockEngine:
             return fn(*args)
         b = args[0].shape[0]
         if len(layout.shape) == 1:
-            return _on_rows(layout, fn, *args)
+            return self._rows(fn, *args)
         bdev, p = layout.shape
-        bl, n = b // bdev, args[0].shape[1]
+        n = args[0].shape[1]
         nbt = -(-n // self.block_i)
         step = -(-nbt // p)
+        if self.ranks:
+            return self._near_rank(fn, args, nbt, step)
+        bl = b // bdev
         dev = args[0].device
         rows = []
         for i in range(bdev):
@@ -944,6 +1007,27 @@ class _BlockEngine:
             rows.append(tuple(torch.cat([c[j].to(dev) for c in cols], dim=1)
                               for j in range(len(cols[0]))))
         out = tuple(torch.cat(parts) for parts in zip(*rows))
+        return out if len(out) > 1 else out[0]
+
+    def _near_rank(self, fn, args, nbt: int, step: int):
+        """:meth:`_near` on a rank of the fused grid: this slot's chunk of
+        target blocks (zero rows where its chunk is empty), each output
+        padded to a chunk's ``step * block_i`` rows and gathered along the
+        row's slots, so every slot of the row holds its members whole."""
+        layout = self.layout
+        k = layout.rank % layout.shape[1]
+        b, n = args[0].shape[0], args[0].shape[1]
+        lo, hi = k * step, min(nbt, (k + 1) * step)
+        width = step * self.block_i
+        if lo < hi:
+            out = fn(*args, blocks=(lo, hi))
+            out = out if isinstance(out, tuple) else (out,)
+            out = tuple(_pad_rows(o, width, dim=1) for o in out)
+        else:
+            tails = ((3,), (3,), ()) if fn is self.near1 else ((3,),)
+            out = tuple(torch.zeros((b, width) + t, dtype=self.near_dtype,
+                                    device=args[0].device) for t in tails)
+        out = tuple(o[:, :n] for o in layout.all_gather_dev([out])[0])
         return out if len(out) > 1 else out[0]
 
     def init(self, batched, t_end) -> BlockCarry:
@@ -967,31 +1051,33 @@ class _BlockEngine:
     def _gather_eval(self, xp, vp, ap, mass, act, live):
         """The gathered evaluation of one event, one launch per pass per
         bucket group; returns ``(ev, tiles, hits)``, or None when no
-        member is live.  The one host read of the event is here."""
+        member is live.  The one host read of the event is here: a group's
+        capacity index is that of its members' largest bound, on a rank's
+        mesh over every rank's members of the group."""
         bound = torch.where(live, act.sum(-1), 0)
+        zero = torch.zeros((), dtype=torch.int64, device=xp.device)
         idx = [shared_cap_index(gplan, bound if sel is None else bound[sel])
-               for sel, gplan, _ in self.groups]
-        on_dev = torch.stack(idx + [live.any().to(idx[0].dtype)])
-        host = on_dev.tolist()
-        ensemble_run_block.host_syncs += 1
+               if mine else zero
+               for (sel, gplan, _), mine in zip(self.groups, self.members)]
+        host = self._read(torch.stack(idx + [live.any().to(torch.int64)]))
         if not host[-1]:
             return None
         perm = torch.argsort((~act).to(torch.int32), dim=-1, stable=True)
         evs, caps = [], []
-        b = xp.shape[0]
-        for (sel, _, gbev), ci, ci_dev, members in zip(self.groups, host, idx,
-                                                       self.members):
+        for (sel, _, gbev), ci, mine in zip(self.groups, host, self.members):
+            if not mine:
+                continue
             ops_ = (xp, vp, ap, mass, act, perm)
             if sel is not None:
                 ops_ = tuple(x[sel] for x in ops_)
             # every slot launches its members at the group's one capacity
-            evs.append(_on_rows(
-                self.layout, lambda *a, ci=ci, gbev=gbev: gbev(*a, ci),
-                *ops_, members=members, batch=b))
-            n_members = xp.shape[0] if sel is None else sel.shape[0]
-            caps.append(ci_dev.expand(n_members))
+            evs.append(self._rows(
+                lambda *a, ci=ci, gbev=gbev: gbev(*a, ci), *ops_,
+                members=mine, batch=self.bl))
+            caps.append(torch.full((len(mine),), ci, dtype=torch.int64,
+                                   device=xp.device))
         cap_idx = torch.cat(caps)
-        if len(evs) == 1:
+        if len(self.groups) == 1:
             ev = evs[0]
         else:
             ev = Evaluation(*(torch.cat(parts)[self.inv]
@@ -1006,7 +1092,9 @@ class _BlockEngine:
         chunks at the tick's threshold level, padding rows masked out and
         dead members at 0, as ``(B, p)`` host lists read with the live flag
         in one copy of ``B*p + 1`` counts; None when no member is live (the
-        one host read of the event)."""
+        one host read of the event).  On a rank every rank's row fills its
+        place among the ``B*p`` counts of the one collective, and the rank
+        keeps its own members'."""
         b, n = levels.shape
         p = self.layout.shape[1]
         n_pad = -(-n // p) * p
@@ -1018,13 +1106,13 @@ class _BlockEngine:
             lev.reshape(b, p, -1), n_levels=self.n_levels,
             mask=real.reshape(b, p, -1))
         bound = occ.gather(-1, thr.long()[:, None, None].expand(b, p, 1))
-        bound = torch.where(live[:, None], bound[..., 0], 0)
-        host = torch.cat([bound.reshape(-1),
-                          live.any().to(bound.dtype)[None]]).tolist()
-        ensemble_run_block.host_syncs += 1
+        bound = torch.where(live[:, None], bound[..., 0], 0).reshape(-1)
+        bound = torch.nn.functional.pad(
+            bound, (self.lo * p, (self.batch - self.lo - b) * p))
+        host = self._read(torch.cat([bound, live.any().to(bound.dtype)[None]]))
         if not host[-1]:
             return None
-        return [host[m * p:(m + 1) * p] for m in range(b)]
+        return [host[m * p:(m + 1) * p] for m in range(self.lo, self.lo + b)]
 
     def _near_total(self, pre, nb: NeighborCarry, dt_macro, mass, mask,
                     win_idx, win_cnt, w_idx: int) -> Evaluation:
@@ -1083,15 +1171,15 @@ class _BlockEngine:
         # so it is sized over the blocks that hold active targets
         act_blk = torch.nn.functional.pad(act, (0, nbt * bi - n)).reshape(
             b, nbt, bi).any(dim=2)
-        any_need = need.any()
-        sized = torch.where(any_need, keep, live)
-        wmax = torch.where(sized[:, None] & act_blk, nb.win_cnt, 0).amax()
-        host = torch.stack([any_need.long(), nplan.source_bucket(wmax * bj),
-                            live.any().long()]).tolist()
-        ensemble_run_block.host_syncs += 1
-        refresh, w_old, any_live = host
+        # the widest window over the members that keep their anchor when any
+        # member refreshes, else over every live member
+        refresh, w_keep, w_live, any_live = self._read(torch.stack([
+            need.any().long()] + [
+            torch.where(sized[:, None] & act_blk, nb.win_cnt, 0).amax().long()
+            for sized in (keep, live)] + [live.any().long()]))
         if not any_live:
             return None
+        w_old = int(nplan.source_bucket((w_keep if refresh else w_live) * bj))
         pre = (t_next, xp, vp, ap)
         tiles_old = live.to(torch.float64) * nplan.window_tiles(w_old)
         pairs_old = torch.where(live, _window_pairs(active, nb.win_cnt, bi,
@@ -1109,13 +1197,13 @@ class _BlockEngine:
             # near with the same acc operands in both
             fresh = real & need[:, None]
             ev_f = self._full(xp, vp, ap, s.mass, fresh)
-            win_idx_n, win_cnt_n = _on_rows(
-                self.layout, lambda x, r: neighbor.build_windows(
+            win_idx_n, win_cnt_n = self._rows(
+                lambda x, r: neighbor.build_windows(
                     x, r, block_i=bi, block_j=bj, radius=self.radius),
                 xp, real)
-            wmax_n = torch.where(need[:, None], win_cnt_n, 0).amax()
+            (wmax_n,) = self._read(
+                torch.where(need[:, None], win_cnt_n, 0).amax()[None])
             w_new = int(nplan.source_bucket(wmax_n * bj))
-            ensemble_run_block.host_syncs += 1
             a_nn, j_nn, p_nn = self._near(self.near1, xp, vp, s.mass, fresh,
                                           win_idx_n, win_cnt_n, w_new)
             af, jf, pf = ev_f.acc.to(sd), ev_f.jerk.to(sd), ev_f.pot.to(sd)
@@ -1298,8 +1386,9 @@ def ensemble_run_block(
     (:func:`spatial_sort_batched`; the convenience entry points do it).
     ``sources="full"`` ignores the two knobs.
 
-    ``devices`` (a device list, a count, or None for the batch's own
-    device) shards the batch by member over the 1-D batch mesh;
+    ``devices`` (a device list, a count, None for the batch's own
+    device, or this rank's ``ProcessMesh``) shards the batch by member
+    over the 1-D batch mesh;
     ``mesh=(bdev, p)`` over ``bdev * p`` devices fuses batch and domain
     sharding (full sources: each member's target rows split over its
     row's slots, where ``bucket_mode`` does not apply; neighbor sources:
@@ -1345,7 +1434,9 @@ def ensemble_run_block(
                            layout)
     if carry is None:
         carry = engine.init(batched, t_end_)
-    return _take(engine.run(batched, carry, na, t_end_, n_events), b)
+    return _take(_by_rank(
+        layout, lambda s, c, a, t: engine.run(s, c, a, t, n_events),
+        batched, carry, na, t_end_), b)
 
 
 def block_admit_member(carry: BlockCarry, member: ParticleState, slot: int,
@@ -1466,6 +1557,10 @@ class _StrategyBlockEngine:
     device mesh instead of batched: one run, its domain sharded by one of
     the paper's strategies, each shard compacting its own local active
     targets (``core.strategies.make_strategy_block_evaluator``).
+    ``slots`` is the in-process mesh's device tuple, or this rank's
+    ``ProcessMesh``: every rank then holds the whole run and its levels,
+    so every rank reads the same bounds and leaves the loop at the same
+    event, with no collective of its own.
 
     The event logic is the ensemble engine's own (:func:`_event_init`,
     :func:`_event_pre`, :func:`_event_post` on the run as a B = 1 batch),
@@ -1483,15 +1578,17 @@ class _StrategyBlockEngine:
     per event.
     """
 
-    def __init__(self, *, strategy, devices, chips_per_card, order, eps,
+    def __init__(self, *, strategy, slots, chips_per_card, order, eps,
                  eta, dt_max, n_levels, compaction, block_i, block_j, dtype,
                  sources, ring_mode):
-        self.p = len(devices)
+        ranks = isinstance(slots, ProcessMesh)
+        self.p = slots.size if ranks else len(slots)
         self.order, self.eta, self.dt_max = order, eta, dt_max
         self.n_levels, self.n_sub = n_levels, 2 ** (n_levels - 1)
         self.compaction = compaction
         self.bev = make_strategy_block_evaluator(
-            strategy, devices=devices, chips_per_card=chips_per_card,
+            strategy, devices=None if ranks else slots,
+            mesh=slots if ranks else None, chips_per_card=chips_per_card,
             eps=eps, order=order, block_i=block_i, block_j=block_j,
             compaction=compaction, dtype=dtype, sources=sources,
             ring_mode=ring_mode)
@@ -1561,18 +1658,18 @@ class _StrategyBlockEngine:
 
 
 @functools.lru_cache(maxsize=64)
-def _strategy_block_engine(strategy: str, devices: tuple,
-                           chips_per_card: int, order: int, eps: float,
-                           eta: float, dt_max: float, n_levels: int,
-                           compaction: str, block_i: int, block_j: int,
-                           dtype: str, sources: str = "full",
+def _strategy_block_engine(strategy: str, slots, chips_per_card: int,
+                           order: int, eps: float, eta: float, dt_max: float,
+                           n_levels: int, compaction: str, block_i: int,
+                           block_j: int, dtype: str, sources: str = "full",
                            ring_mode: str = "overlap"
                            ) -> _StrategyBlockEngine:
     """The cached :class:`_StrategyBlockEngine` of one configuration and
-    device list."""
+    device tuple or rank's ``ProcessMesh`` (a mesh keys by identity: an
+    engine is never handed to a mesh of another process group)."""
     _count_engine_build("block_strategy")
     return _StrategyBlockEngine(
-        strategy=strategy, devices=devices, chips_per_card=chips_per_card,
+        strategy=strategy, slots=slots, chips_per_card=chips_per_card,
         order=order, eps=eps, eta=eta, dt_max=dt_max, n_levels=n_levels,
         compaction=compaction, block_i=block_i, block_j=block_j, dtype=dtype,
         sources=sources, ring_mode=ring_mode)
@@ -1598,13 +1695,16 @@ def strategy_run_block(
     sources: str = "full",
     devices=None,
     ring_mode: str = "overlap",
+    mesh=None,
 ):
     """Advance ONE initialized run by up to ``n_events`` block events, the
     force evaluation distributed by ``strategy`` over ``devices`` (a device
     sequence, an int count or None, resolved by
-    ``core.strategies.mesh_devices`` for the state's device).  ``sources``
-    is validated by the strategy evaluator: the sharded strategies evaluate
-    full sources only.
+    ``core.strategies.mesh_devices`` for the state's device), or over
+    ``mesh``, this rank's ``ProcessMesh`` (exclusive with ``devices``;
+    every rank calls with the whole run and gets it back whole).
+    ``sources`` is validated by the strategy evaluator: the sharded
+    strategies evaluate full sources only.
 
     Returns ``(state, carry)`` like :func:`ensemble_run_block`, except that
     the carry's leaves are unbatched and ``carry.n_tiles`` is the ``(P,)``
@@ -1617,7 +1717,7 @@ def strategy_run_block(
         raise ValueError(
             f"compaction must be one of {COMPACTIONS}; got {compaction!r}")
     engine = _strategy_block_engine(
-        strategy, tuple(_mesh_list(devices, state.device)), chips_per_card,
+        strategy, _slots(devices, mesh, state.device), chips_per_card,
         order, eps, eta, dt_max, n_levels, compaction,
         block_i or nbody_force.DEFAULT_BLOCK_I,
         block_j or nbody_force.DEFAULT_BLOCK_J, dtype, sources, ring_mode)
@@ -1625,6 +1725,16 @@ def strategy_run_block(
     if carry is None:
         carry = engine.init(state, t_end_)
     return engine.run(state, carry, t_end_, n_events)
+
+
+def _slots(devices, mesh, device):
+    """A strategy run's shards: this rank's ``ProcessMesh``, or the device
+    tuple of ``devices`` (``_mesh_list``)."""
+    if mesh is not None:
+        if devices is not None:
+            raise ValueError("name the devices or a ready mesh, not both")
+        return mesh
+    return tuple(_mesh_list(devices, device))
 
 
 def evolve_strategy_block(
@@ -1646,14 +1756,17 @@ def evolve_strategy_block(
     ring_mode: str = "overlap",
     n_events: int = 64,
     max_chunks: int = 100_000,
+    mesh=None,
 ):
     """One-shot strategy-distributed block run: initialize with the same
     strategy's lockstep evaluator (at the same tile shape), evolve to
     ``t_end``.  Returns ``(state, carry)`` (see
-    :func:`strategy_run_block`)."""
-    devs = _mesh_list(devices, state.device)
+    :func:`strategy_run_block`; ``mesh`` is this rank's ``ProcessMesh``)."""
+    slots = _slots(devices, mesh, state.device)
+    ranks = isinstance(slots, ProcessMesh)
     ev = make_strategy_evaluator(
-        strategy, devices=devs, chips_per_card=chips_per_card, eps=eps,
+        strategy, devices=None if ranks else list(slots),
+        mesh=slots if ranks else None, chips_per_card=chips_per_card, eps=eps,
         order=order, block_i=block_i or nbody_force.DEFAULT_BLOCK_I,
         block_j=block_j or nbody_force.DEFAULT_BLOCK_J, dtype=dtype,
         ring_mode=ring_mode)
@@ -1665,7 +1778,8 @@ def evolve_strategy_block(
             n_levels=n_levels, carry=carry, eta=eta, order=order, eps=eps,
             dtype=dtype, strategy=strategy, chips_per_card=chips_per_card,
             compaction=compaction, block_i=block_i, block_j=block_j,
-            devices=devs, ring_mode=ring_mode)
+            devices=None if ranks else slots, mesh=slots if ranks else None,
+            ring_mode=ring_mode)
         done = float(state.time) >= t_end
         ensemble_run_block.host_syncs += 1
         if done:
